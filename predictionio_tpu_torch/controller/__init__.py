@@ -1,6 +1,10 @@
 """DASE controller API — what engine templates import."""
 
-from predictionio_tpu_torch.controller.algorithm import TorchAlgorithm, model_to_host
+from predictionio_tpu_torch.controller.algorithm import (
+    LocalAlgorithm,
+    TorchAlgorithm,
+    model_to_host,
+)
 from predictionio_tpu_torch.controller.base import (
     BaseAlgorithm,
     BaseDataSource,
@@ -28,6 +32,7 @@ __all__ = [
     "Engine",
     "EngineParams",
     "FirstServing",
+    "LocalAlgorithm",
     "Params",
     "ParamsError",
     "SanityCheck",

@@ -3,6 +3,7 @@
 ``TorchAlgorithm`` takes the place of ``JaxAlgorithm``: train builds a
 model of tensors on the context's device; the persisted form is host numpy,
 device-agnostic, and deploy lays it out on the serving device again.
+``LocalAlgorithm`` covers host-only algorithms (the reference's LAlgorithm).
 """
 
 from __future__ import annotations
@@ -31,3 +32,8 @@ def model_to_host(model: Any) -> Any:
 class TorchAlgorithm(BaseAlgorithm[PD, M, Q, P], Generic[PD, M, Q, P]):
     def make_persistent_model(self, ctx: WorkflowContext, model: M) -> Any:
         return model_to_host(model)
+
+
+class LocalAlgorithm(BaseAlgorithm[PD, M, Q, P], Generic[PD, M, Q, P]):
+    """Host-only algorithm (ref LAlgorithm): pure Python/NumPy train and
+    predict, no device interaction."""

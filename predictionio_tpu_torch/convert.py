@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
-A model of the JAX package's recommendation template is host numpy: two
-factor tables and two vocabularies. ``als_model_from_numpy`` builds the
-port's ``ALSModel`` from them, and ``ModelUnpickler`` loads a blob that
-``pio train`` of the JAX package wrote by mapping its class path to the
-port's class, without importing the JAX package.
+The models of the JAX package's recommendation and sequential templates are
+host numpy and plain Python containers. ``als_model_from_numpy`` and
+``sequential_model_from_numpy`` build the port's models from them, and
+``ModelUnpickler`` loads a blob that ``pio train`` of the JAX package
+wrote by mapping its class paths to the port's classes, without importing
+the JAX package.
 """
 
 from __future__ import annotations
@@ -19,6 +20,14 @@ CLASS_MAP = {
     ("predictionio_tpu.models.recommendation.engine", "ALSModel"): (
         "predictionio_tpu_torch.models.recommendation.engine",
         "ALSModel",
+    ),
+    ("predictionio_tpu.models.sequential.engine", "SequentialModel"): (
+        "predictionio_tpu_torch.models.sequential.engine",
+        "SequentialModel",
+    ),
+    ("predictionio_tpu.e2.markov_chain", "MarkovChainModel"): (
+        "predictionio_tpu_torch.e2.markov_chain",
+        "MarkovChainModel",
     ),
 }
 
@@ -55,3 +64,48 @@ def als_model_from_numpy(
     if uf.shape[0] != len(user_vocab) or vf.shape[0] != len(item_vocab):
         raise ValueError("factor rows and vocabulary lengths differ")
     return ALSModel(uf, vf, list(user_vocab), list(item_vocab))
+
+
+def sequential_model_from_numpy(
+    item_vocab: Sequence[str],
+    item_in: np.ndarray | None,
+    item_out: np.ndarray | None,
+    pair_counts: dict[tuple[int, int], float],
+    user_last: dict[str, int],
+    top_n: int = 10,
+    context: int = 8,
+):
+    """The port's SequentialModel from the vocabulary, the two attention
+    tables (None for a markov-only model), the summed transition-pair
+    counts and each user's last item; the Markov model is rebuilt from the
+    counts with the e2 math, as the JAX package builds it."""
+    from predictionio_tpu_torch.models.sequential.engine import (
+        SequentialModel,
+        markov_from_counts,
+    )
+
+    n = len(item_vocab)
+    tables = []
+    for name, t in (("item_in", item_in), ("item_out", item_out)):
+        if t is not None:
+            t = np.ascontiguousarray(t, dtype=np.float32)
+            if t.ndim != 2 or t.shape[0] != n:
+                raise ValueError(f"{name} has shape {t.shape}, expected [{n}, f]")
+        tables.append(t)
+    if (tables[0] is None) != (tables[1] is None) or (
+        tables[0] is not None and tables[0].shape != tables[1].shape
+    ):
+        raise ValueError("item_in and item_out must both be given, with one shape")
+    counts = {(int(i), int(j)): float(c) for (i, j), c in pair_counts.items()}
+    if any(not (0 <= i < n and 0 <= j < n) for i, j in counts):
+        raise ValueError("a transition pair indexes outside the vocabulary")
+    return SequentialModel(
+        item_vocab=list(item_vocab),
+        markov=markov_from_counts(counts, n, top_n),
+        pair_counts=counts,
+        user_last={str(u): int(i) for u, i in user_last.items()},
+        top_n=int(top_n),
+        item_in=tables[0],
+        item_out=tables[1],
+        context=int(context),
+    )

@@ -104,6 +104,15 @@ class Event:
         return e
 
 
+def event_seq_key(e: Event) -> tuple[int, str]:
+    """The store's total order for ordered reads: creation time in whole
+    microseconds (when the store accepted the event, not the client's event
+    time), then the event id. Two events accepted in the same microsecond
+    still have one order (own copy of ``event_seq_key`` in
+    ``predictionio_tpu/data/storage/base.py``)."""
+    return (int(e.creation_time.timestamp() * 1_000_000), e.event_id or "")
+
+
 def validate(e: Event) -> None:
     """The event API's validation rules."""
 

@@ -23,7 +23,7 @@ from pathlib import Path
 from typing import Any, Iterable, Iterator, Sequence
 
 from predictionio_tpu_torch.data.columnar import ColumnarEvents, encode
-from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.event import Event, event_seq_key
 
 
 class StoreError(RuntimeError):
@@ -105,6 +105,19 @@ class LocalStore:
             for line in fh:
                 if line.strip():
                     yield Event.from_json_dict(json.loads(line))
+
+    def iter_ordered(
+        self, app_name: str, page: int = 2048, max_events: int = 500_000
+    ) -> Iterator[Event]:
+        """At most ``max_events`` events of the app in ``event_seq_key``
+        order, up to the head taken at entry: events appended after this
+        call returns are not read. ``page`` is the page size of the JAX
+        package's paged reads; this store reads its snapshot whole, so it
+        is only checked."""
+        if page < 1 or max_events < 0:
+            raise ValueError(f"page must be >= 1 and max_events >= 0, got {page}, {max_events}")
+        events = sorted(self.scan(app_name), key=event_seq_key)  # the head, read now
+        return iter(events[:max_events])
 
     def to_columnar(
         self,

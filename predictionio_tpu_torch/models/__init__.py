@@ -1,1 +1,1 @@
-"""Engine templates ported so far: the recommendation template."""
+"""Engine templates ported so far: the recommendation and sequential templates."""

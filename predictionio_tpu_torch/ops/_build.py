@@ -3,8 +3,8 @@
 Each ``csrc/<name>.cu`` compiles on first use into its own shared library
 with a plain C interface (``nvcc -gencode arch=compute_90a,code=sm_90a -O3
 -shared -Xcompiler -fPIC``). Libraries land in ``build/kernels/`` at the
-checkout root, named by a hash of the source and the flags, so an edited
-source never loads a stale build. Nothing here runs at import time: the
+checkout root, named by a hash of the source, the shared ``csrc/*.cuh``
+headers and the flags, so an edited source never loads a stale build. Nothing here runs at import time: the
 CPU-only test environment has no nvcc and still imports every module.
 """
 
@@ -52,6 +52,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):  # a source may include any of them
+        digest.update(header.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}_{digest.hexdigest()[:16]}.so"
 

@@ -1,0 +1,317 @@
+"""Single-device attention: the plain PyTorch versions and the CUDA kernels.
+
+Port of the single-device part of ``predictionio_tpu/ops/attention.py``.
+Two TPU kernels compute one function there, and both have a hand-written
+CUDA counterpart here:
+
+  - B2, ``_fused_attention_pallas`` (:389): one block per batch·head holds
+    the whole [Lq, Lk] score tile. Port: ``fused_attention_block``, which
+    launches ``csrc/attention_block.cu``; plain version
+    ``_fused_attention_plain``.
+  - B3, ``_flash_attention_pallas`` (:285): tiles over (batch·head, Q, K)
+    with an online softmax across the K tiles. Port: ``flash_attention``,
+    which launches ``csrc/flash_attention.cu``; plain version
+    ``_flash_attention_plain``.
+
+Both keep the kernels' numeric contract: q and k are rounded to bf16
+before Q·Kᵀ, p is rounded to bf16 before P·V, every sum runs in f32, the
+divide by the row sum comes after P·V, and the output takes q's dtype.
+The plain versions compute in f32 on bf16-rounded values, which is that
+contract exactly (a product of two bf16 values is exact in f32).
+
+``fused_attention`` routes as the JAX function does (:455-479): B2 when
+the f32 score tile Lq·Lk·4 bytes is under 4 MiB, else B3. On a CPU tensor
+it runs the plain version of the kernel the card would take. Two
+deliberate differences, both chosen by shape and both the same function:
+  - for a long L that is not a multiple of 256 the JAX package takes
+    ``attention_reference`` on a TPU (:474-477); the port takes B3, whose
+    ragged edge is masked by index, so the card never runs a plain version;
+  - a small score tile with Lk > MAX_BLOCK_LK (say Lq = 1, Lk = 10,000)
+    goes to B3, since B2 keeps whole score rows in shared memory.
+
+``ring_attention`` and ``ulysses_attention`` (the mesh code) are not ported
+yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import math
+
+import torch
+
+from predictionio_tpu_torch.ops import _build
+
+# one f32 score tile under this many bytes takes B2 (attention.py:465)
+BLOCK_TILE_BYTES = 4 * 1024 * 1024
+MAX_HEAD_DIM = 128  # pio_attention_max_head_dim() in csrc/attention_common.cuh
+MAX_BLOCK_LK = 2048  # pio_attention_block_max_lk() in attention_block.cu
+# B3's tile sizes on the card (flash_attention.cu); the plain version takes
+# the same K tile so that both round the online softmax at the same places
+FLASH_BLOCK_Q = 32
+FLASH_BLOCK_K = 64
+
+
+def _bf16(x: torch.Tensor) -> torch.Tensor:
+    """Round to bf16 (nearest even) and widen back to f32."""
+    return x.to(torch.bfloat16).to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# Reference and online-softmax block (f32)
+# ---------------------------------------------------------------------------
+
+
+def attention_reference(
+    q: torch.Tensor,  # [B, H, Lq, D]
+    k: torch.Tensor,  # [B, H, Lk, D]
+    v: torch.Tensor,  # [B, H, Lk, D]
+    causal: bool = False,
+    q_offset: int = 0,
+    k_offset: int = 0,
+) -> torch.Tensor:
+    """Dense f32 attention; a row with no visible key gives zeros."""
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if causal:
+        qi = torch.arange(q.shape[2], device=q.device)[:, None] + q_offset
+        ki = torch.arange(k.shape[2], device=q.device)[None, :] + k_offset
+        scores = scores.masked_fill(qi < ki, float("-inf"))
+    weights = torch.nan_to_num(torch.softmax(scores, dim=-1))
+    return torch.einsum("bhqk,bhkd->bhqd", weights, v)
+
+
+def _online_block(q, k, v, acc, row_max, row_sum, mask):
+    """One flash-attention accumulation step (f32).
+
+    q [B,H,Lq,D]; k,v [B,H,Lk,D]; acc [B,H,Lq,D]; row_max/row_sum [B,H,Lq];
+    mask [Lq, Lk] boolean (True = attend) or None.
+    """
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    scores = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    if mask is not None:
+        scores = scores.masked_fill(~mask[None, None], float("-inf"))
+    new_max = torch.maximum(row_max, scores.amax(dim=-1))
+    safe_max = torch.where(torch.isneginf(new_max), 0.0, new_max)
+    correction = torch.where(
+        torch.isneginf(row_max), 0.0, torch.exp(row_max - safe_max)
+    )
+    p = torch.exp(scores - safe_max[..., None])
+    p = torch.where(torch.isneginf(scores), 0.0, p)
+    acc = acc * correction[..., None] + torch.einsum("bhqk,bhkd->bhqd", p, v)
+    row_sum = row_sum * correction + p.sum(dim=-1)
+    return acc, new_max, row_sum
+
+
+# ---------------------------------------------------------------------------
+# Plain versions of B2 and B3
+# ---------------------------------------------------------------------------
+
+
+def _causal_keep(q0: int, nq: int, k0: int, nk: int, device) -> torch.Tensor:
+    """[nq, nk] True where query row q0+i may see key k0+j (qi >= ki, no
+    offset: both index from 0, also when Lq != Lk)."""
+    qi = torch.arange(q0, q0 + nq, device=device)[:, None]
+    ki = torch.arange(k0, k0 + nk, device=device)[None, :]
+    return qi >= ki
+
+
+def _fused_attention_plain(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Plain version of kernel B2: the whole score tile at once, exact row
+    max, no −inf guard (a causal row always sees key 0)."""
+    Lq, Lk = q.shape[2], k.shape[2]
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    s = torch.matmul(_bf16(q), _bf16(k).transpose(-1, -2)) * scale
+    if causal:
+        s = s.masked_fill(~_causal_keep(0, Lq, 0, Lk, q.device), float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    out = torch.matmul(_bf16(p), _bf16(v))
+    return (out / p.sum(dim=-1, keepdim=True)).to(q.dtype)
+
+
+def _flash_attention_plain(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    causal: bool = False,
+    block_q: int = FLASH_BLOCK_Q,
+    block_k: int = FLASH_BLOCK_K,
+) -> torch.Tensor:
+    """Plain version of kernel B3: an explicit loop over Q tiles and, inside,
+    over K tiles with the running max, sum and f32 accumulator, the guards
+    of :339-342 and :363, and the causal skip of K tiles that lie wholly
+    above the diagonal (:354). A ragged last tile is simply shorter."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    qb, kb, vb = _bf16(q), _bf16(k), _bf16(v)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    neg_inf = float("-inf")
+    for q0 in range(0, Lq, block_q):
+        qt = qb[:, :, q0 : q0 + block_q]
+        nq = qt.shape[2]
+        acc = torch.zeros((B, H, nq, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, nq, 1), neg_inf, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, nq, 1), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Lk, block_k):
+            if causal and k0 > q0 + nq - 1:
+                break  # this and every later K tile is fully masked
+            kt = kb[:, :, k0 : k0 + block_k]
+            s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+            if causal:
+                keep = _causal_keep(q0, nq, k0, kt.shape[2], q.device)
+                s = s.masked_fill(~keep, neg_inf)
+            m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+            safe = torch.where(torch.isneginf(m_new), 0.0, m_new)
+            corr = torch.where(torch.isneginf(m), 0.0, torch.exp(m - safe))
+            p = torch.exp(s - safe)
+            p = torch.where(torch.isneginf(s), 0.0, p)
+            acc = acc * corr + torch.matmul(_bf16(p), vb[:, :, k0 : k0 + block_k])
+            l = l * corr + p.sum(dim=-1, keepdim=True)
+            m = m_new
+        denom = torch.where(l == 0.0, 1.0, l)
+        out[:, :, q0 : q0 + nq] = (acc / denom).to(q.dtype)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# CUDA kernels
+# ---------------------------------------------------------------------------
+
+
+def _declare(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
+    getattr(lib, fn).argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p,
+    ]
+    getattr(lib, fn).restype = ctypes.c_int
+    lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
+    lib.pio_cuda_error_string.restype = ctypes.c_char_p
+    lib.pio_attention_max_head_dim.restype = ctypes.c_int
+    if lib.pio_attention_max_head_dim() != MAX_HEAD_DIM:
+        raise RuntimeError("the attention sources and MAX_HEAD_DIM disagree")
+    return lib
+
+
+@functools.cache
+def _block_library() -> ctypes.CDLL:
+    lib = _declare(_build.load("attention_block"), "pio_attention_block")
+    lib.pio_attention_block_max_lk.restype = ctypes.c_int
+    if lib.pio_attention_block_max_lk() != MAX_BLOCK_LK:
+        raise RuntimeError("attention_block.cu and MAX_BLOCK_LK disagree")
+    return lib
+
+
+@functools.cache
+def _flash_library() -> ctypes.CDLL:
+    lib = _declare(_build.load("flash_attention"), "pio_flash_attention")
+    lib.pio_flash_tile.argtypes = [ctypes.c_int]
+    lib.pio_flash_tile.restype = ctypes.c_int
+    if (lib.pio_flash_tile(0), lib.pio_flash_tile(1)) != (FLASH_BLOCK_Q, FLASH_BLOCK_K):
+        raise RuntimeError("flash_attention.cu and FLASH_BLOCK_Q/K disagree")
+    return lib
+
+
+def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    """What both kernels take: q [B,H,Lq,D], k and v [B,H,Lk,D], f32,
+    contiguous, on one CUDA device, 1 <= D <= MAX_HEAD_DIM."""
+    if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
+        raise ValueError(
+            f"{name} needs q, k and v on one CUDA device, got {q.device}, "
+            f"{k.device} and {v.device} (on the CPU use fused_attention)"
+        )
+    if not (q.dtype == k.dtype == v.dtype == torch.float32):
+        raise TypeError(f"{name} takes float32 only, got {q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
+        raise ValueError(
+            f"shapes must be q [B,H,Lq,D] and k, v [B,H,Lk,D], got "
+            f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}"
+        )
+    if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in B, H or D")
+    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {q.shape[3]} outside what {name} takes (1..{MAX_HEAD_DIM})")
+    if k.shape[2] < 1:
+        raise ValueError(f"{name} needs at least one key")
+    if q.shape[0] * q.shape[1] > 65535:
+        raise ValueError(f"{name} takes at most 65535 batch·heads, got {q.shape[0] * q.shape[1]}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError(f"{name}: q, k and v must be contiguous")
+
+
+def _launch(lib: ctypes.CDLL, fn: str, q, k, v, causal: bool) -> torch.Tensor:
+    B, H, Lq, D = q.shape
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    with torch.cuda.device(q.device):
+        rc = getattr(lib, fn)(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B * H, Lq, k.shape[2], D, int(bool(causal)), stream,
+        )
+    if rc != 0:
+        raise RuntimeError(f"{fn} launch failed: {lib.pio_cuda_error_string(rc).decode()} ({rc})")
+    return out
+
+
+def fused_attention_block(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Kernel B2 on CUDA tensors (``csrc/attention_block.cu``). Raises on
+    what it does not take, including Lk > MAX_BLOCK_LK."""
+    _check("fused_attention_block", q, k, v)
+    if k.shape[2] > MAX_BLOCK_LK:
+        raise ValueError(f"fused_attention_block takes Lk <= {MAX_BLOCK_LK}, got {k.shape[2]}")
+    out = _launch(_block_library(), "pio_attention_block", q, k, v, causal)
+    fused_attention_block.launches += 1
+    return out
+
+
+fused_attention_block.launches = 0
+
+
+def flash_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Kernel B3 on CUDA tensors (``csrc/flash_attention.cu``)."""
+    _check("flash_attention", q, k, v)
+    out = _launch(_flash_library(), "pio_flash_attention", q, k, v, causal)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Dispatch
+# ---------------------------------------------------------------------------
+
+
+def route(Lq: int, Lk: int) -> str:
+    """"block" (B2) when the f32 score tile is under 4 MiB (the JAX
+    threshold, strict less-than included) and B2 takes Lk, else "flash"
+    (B3)."""
+    return "block" if Lq * Lk * 4 < BLOCK_TILE_BYTES and Lk <= MAX_BLOCK_LK else "flash"
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Single-device attention: kernel B2 or B3 on a CUDA tensor, the plain
+    version of the same kernel on a CPU tensor."""
+    which = route(q.shape[2], k.shape[2])
+    if q.device.type == "cuda":
+        if which == "block":
+            return fused_attention_block(q, k, v, causal)
+        return flash_attention(q, k, v, causal)
+    if q.device.type != "cpu":
+        raise ValueError(f"fused_attention runs on cuda or cpu, got {q.device}")
+    if which == "block":
+        return _fused_attention_plain(q, k, v, causal)
+    return _flash_attention_plain(q, k, v, causal)

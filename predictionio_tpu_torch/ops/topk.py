@@ -1,11 +1,13 @@
-"""Serving endings shared by engines: the packed [B,2,k] int32 wire and
-thread-local staging buffers (port of the parts of
-``predictionio_tpu/ops/topk.py`` the ALS path uses).
+"""Serving endings shared by engines: the fused score -> mask -> top-k
+ending, the packed [B,2,k] int32 wire, the host ending for host-born
+scores and thread-local staging buffers (port of the parts of
+``predictionio_tpu/ops/topk.py`` that the ALS and sequential paths use).
 
 A result comes back in ONE device-to-host fetch: row 0 carries the float32
-score bits, row 1 the indices. Staging buffers are reused per thread, which
-is sound only because every upload of a staging buffer copies
-(``ops.als.upload``).
+score bits, row 1 the indices. The score product is a plain matrix product
+(``torch.matmul``), as the JAX package leaves it to XLA outside any Pallas
+kernel. Staging buffers are reused per thread, which is sound only because
+every upload of a staging buffer copies (``ops.als.upload``).
 """
 
 from __future__ import annotations
@@ -17,7 +19,17 @@ import torch
 
 from predictionio_tpu_torch.ops.als import ServingIndex, next_pow2, upload
 
-__all__ = ["fetch_topk", "pack_batch", "scratch", "upload", "ScratchBuffers", "next_pow2"]
+__all__ = [
+    "dot_top_k_async",
+    "fetch_topk",
+    "host_top_k",
+    "warmup_pow2_buckets",
+    "pack_batch",
+    "scratch",
+    "upload",
+    "ScratchBuffers",
+    "next_pow2",
+]
 
 
 def pack_batch(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -28,6 +40,20 @@ def pack_batch(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
 
 
+def dot_top_k_async(table: torch.Tensor, vecs, mask, k: int) -> torch.Tensor:
+    """Launch (no fetch) scores = vecs @ table.T, masked to -inf where
+    ``mask`` is False, then top-k: ``table`` [n,f] resident on its device,
+    ``vecs`` [B,f] (a device tensor or a host array), ``mask`` [B,n] bool or
+    None. Host arrays are uploaded by copy. Returns the packed [B,2,k]
+    device tensor; decode with :func:`fetch_topk`."""
+    dev = table.device
+    scores = upload(vecs, np.float32, dev).to(device=dev, dtype=torch.float32) @ table.T
+    if mask is not None:
+        scores = torch.where(upload(mask, np.bool_, dev).to(dev), scores, float("-inf"))
+    s, i = torch.topk(scores, k, dim=1)
+    return pack_batch(s, i)
+
+
 def fetch_topk(handle: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     """The one device-to-host fetch of the serving path: a packed [B,2,k]
     (or [2,k]) int32 result. Returns ([B,k] float32 scores, [B,k] int32
@@ -36,6 +62,38 @@ def fetch_topk(handle: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:
     if packed.ndim == 2:  # single-query [2,k]
         packed = packed[None]
     return ServingIndex.unpack_batch(packed)
+
+
+def warmup_pow2_buckets(max_batch: int, dispatch) -> None:
+    """Shared engine warmup: call ``dispatch(b)`` for b = 1, 2, ...,
+    next_pow2(max_batch), then synchronise every card a returned tensor
+    lives on, so the first burst after deploy finds each shape launched
+    once. ``dispatch`` is the engine's per-bucket serving call."""
+    handles = []
+    b = 1
+    top = next_pow2(max_batch)
+    while b <= top:
+        handles.append(dispatch(b))
+        b *= 2
+    for dev in {h.device for h in handles if isinstance(h, torch.Tensor) and h.is_cuda}:
+        torch.cuda.synchronize(dev)
+
+
+def host_top_k(scores: np.ndarray, mask: np.ndarray | None, k: int) -> tuple[np.ndarray, np.ndarray]:
+    """Host ending for host-born score vectors (transition probabilities,
+    counts: nothing on the device to fuse with). Masked entries and -inf
+    scores never surface. Returns (scores_k, idx_k) sorted descending; may
+    return fewer than k when the finite pool is smaller."""
+    scores = np.asarray(scores, np.float64)
+    if mask is not None:
+        scores = np.where(mask, scores, -np.inf)
+    k = min(int(k), scores.shape[0])
+    if k <= 0:
+        return np.empty(0), np.empty(0, np.int64)
+    idx = np.argpartition(-scores, k - 1)[:k]
+    idx = idx[np.argsort(-scores[idx])]
+    idx = idx[np.isfinite(scores[idx])]
+    return scores[idx], idx
 
 
 class ScratchBuffers:
@@ -66,6 +124,11 @@ class ScratchBuffers:
     def zeros(self, name: str, shape: tuple[int, ...], dtype) -> np.ndarray:
         view = self.get(name, shape, dtype)
         view[...] = 0
+        return view
+
+    def full(self, name: str, shape: tuple[int, ...], dtype, value) -> np.ndarray:
+        view = self.get(name, shape, dtype)
+        view[...] = value
         return view
 
 

@@ -172,7 +172,8 @@ class QueryServer:
             try:
                 queries[i] = self.serving.supplement(self.engine.decode_query(payload))
                 ok.append(i)
-            except (KeyError, TypeError, ValueError) as exc:
+            except (AttributeError, KeyError, TypeError, ValueError) as exc:
+                # a payload of the wrong JSON type (a list, null) fails alone
                 outs[i] = BadQuery(f"bad query: {exc!r}")
         sup = [queries[i] for i in ok]
         fins = [

@@ -3,8 +3,13 @@
 Run on a machine with an NVIDIA H100:
 ``python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest``.
 This file imports no JAX: the kernels are held against their plain PyTorch
-versions on the card (f32 sum order differs over f+4 CG iterations, hence
-atol 1e-4 on well-conditioned systems).
+versions on the card. B1: f32 sum order differs over f+4 CG iterations,
+hence atol 1e-4 on well-conditioned systems. B2 and B3: both sides follow
+one bf16 contract and differ only in the order of f32 sums and in ``exp``
+(measured at most 6e-7 apart on an H100), so atol 1e-5 against the plain
+version, which a kernel that skipped the bf16 rounding of p (5e-4 to 4e-3
+off at these shapes, ``tests/test_torch_attention.py``) would fail; 2e-2
+against the f32 reference.
 """
 
 import numpy as np
@@ -63,3 +68,92 @@ def test_spd_cg_rejects_what_it_does_not_take(cuda):
     big = torch.eye(MAX_RANK + 1, device=cuda).expand(2, -1, -1).contiguous()
     with pytest.raises(ValueError, match="rank"):
         batched_spd_solve_fused(big, torch.ones(2, MAX_RANK + 1, device=cuda))
+
+
+def _qkv(cuda, B, H, L, D, seed=0):
+    gen = np.random.default_rng(seed)
+    return [torch.from_numpy(gen.normal(size=(B, H, L, D)).astype(np.float32)).to(cuda)
+            for _ in range(3)]
+
+
+# the kernel-phase shapes of chip_smoke.py: B2 at D=32 and L in {8, 200,
+# 1023}, at D in {10, 64} and at H=2; B3 at L in {1024, 2048} and ragged 1500
+_BLOCK_SHAPES = [(64, 1, 8, 32), (64, 1, 200, 32), (64, 1, 1023, 32),
+                 (64, 1, 200, 10), (64, 1, 200, 64), (32, 2, 200, 32), (3, 1, 37, 128)]
+_FLASH_SHAPES = [(8, 1, 1024, 32), (4, 1, 2048, 32), (8, 1, 1500, 32), (2, 2, 300, 100)]
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kernel,shape", [("block", s) for s in _BLOCK_SHAPES]
+                         + [("flash", s) for s in _FLASH_SHAPES])
+def test_attention_kernels_match_plain(cuda, kernel, shape, causal):
+    from predictionio_tpu_torch.ops import attention as A
+
+    q, k, v = _qkv(cuda, *shape, seed=shape[2])
+    wrapper, plain = {
+        "block": (A.fused_attention_block, A._fused_attention_plain),
+        "flash": (A.flash_attention, A._flash_attention_plain),
+    }[kernel]
+    before = wrapper.launches
+    out = wrapper(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    want = plain(q, k, v, causal)
+    assert float((out - want).abs().max()) <= 1e-5
+    ref = A.attention_reference(q, k, v, causal=causal)
+    assert float((out - ref).abs().max()) <= 2e-2
+
+
+def test_fused_attention_routes_to_the_kernels(cuda):
+    from predictionio_tpu_torch.ops import attention as A
+
+    for L, wrapper in ((1023, A.fused_attention_block), (1024, A.flash_attention)):
+        q, k, v = _qkv(cuda, 1, 1, L, 8, seed=L)
+        before = (A.fused_attention_block.launches, A.flash_attention.launches)
+        A.fused_attention(q, k, v, causal=True)
+        after = (A.fused_attention_block.launches, A.flash_attention.launches)
+        assert sum(after) - sum(before) == 1
+        assert wrapper.launches == before[0 if wrapper is A.fused_attention_block else 1] + 1
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 2048), (1, 2049), (3, 10000), (511, 2048)])
+def test_fused_attention_takes_every_small_tile(cuda, Lq, Lk):
+    """A small score tile with a key axis past what B2 takes runs on B3."""
+    from predictionio_tpu_torch.ops import attention as A
+
+    q = _qkv(cuda, 2, 1, Lq, 32, seed=Lq)[0]
+    _, k, v = _qkv(cuda, 2, 1, Lk, 32, seed=Lk)
+    wrapper, plain = ((A.fused_attention_block, A._fused_attention_plain)
+                      if A.route(Lq, Lk) == "block" else (A.flash_attention, A._flash_attention_plain))
+    assert (wrapper is A.flash_attention) == (Lk > A.MAX_BLOCK_LK)
+    before = wrapper.launches
+    out = A.fused_attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert float((out - plain(q, k, v, False)).abs().max()) <= 1e-5
+    assert float((out - A.attention_reference(q, k, v)).abs().max()) <= 2e-2
+    with pytest.raises(ValueError, match="Lk"):
+        A.fused_attention_block(q, *_qkv(cuda, 2, 1, A.MAX_BLOCK_LK + 1, 32)[1:])
+
+
+@pytest.mark.parametrize("fn", ["fused_attention_block", "flash_attention"])
+def test_attention_kernels_reject_what_they_do_not_take(cuda, fn):
+    from predictionio_tpu_torch.ops import attention as A
+
+    wrapper = getattr(A, fn)
+    q, k, v = _qkv(cuda, 2, 1, 16, 8)
+    with pytest.raises(ValueError, match="CUDA"):
+        wrapper(q.cpu(), k.cpu(), v.cpu())
+    with pytest.raises(TypeError):
+        wrapper(q.double(), k.double(), v.double())
+    with pytest.raises(TypeError):
+        wrapper(q.bfloat16(), k.bfloat16(), v.bfloat16())
+    big = _qkv(cuda, 1, 1, 8, A.MAX_HEAD_DIM + 1)
+    with pytest.raises(ValueError, match="head dim"):
+        wrapper(*big)
+    with pytest.raises(ValueError, match="contiguous"):
+        wrapper(q.transpose(2, 3).contiguous().transpose(2, 3), k, v)
+    with pytest.raises(ValueError):
+        wrapper(q, k[:, :, :5], v)
