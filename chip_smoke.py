@@ -24,7 +24,8 @@ The sequential template (attention scorer, kernels B1, B2 and B3):
 
 4. kernel phase: B2 (csrc/attention_block.cu) and B3
    (csrc/flash_attention.cu) against their plain versions and the f32
-   reference, causal and not, at the scorer's widths and at ragged lengths;
+   reference, causal and not, at the scorer's widths, at ragged lengths,
+   with Lq != Lk and, for B2, with a 10,000-key axis;
 5. train phase: AttentionAlgorithm.train at the ML-1M shape (6,040 users x
    3,706 items x 1,000,209 synthetic view events from the bench's hop
    generator, rank 32, 10 iterations), B1's launches read around it, and
@@ -34,7 +35,9 @@ The sequential template (attention scorer, kernels B1, B2 and B3):
    launches read around each context, served scores held against a
    torch.topk over the plain-version session vectors, and each kernel
    timed at its serving shape beside its bound, its plain version and
-   torch's scaled_dot_product_attention as a yardstick;
+   torch's scaled_dot_product_attention as a yardstick: eager calls by CUDA
+   events (``ms``, host cost included) and a replayed CUDA graph
+   (``graph_ms``, device time per launch);
 7. CLI phase: app new, import of an ML-100K-shape view file, train and
    deploy of the attention algorithm, then POST /queries.json.
 
@@ -99,21 +102,6 @@ def spd_batch(n: int, f: int, seed: int, reg: float = 0.05):
     G = rng.normal(size=(n, 3 * f, f)).astype(np.float32)
     A = np.einsum("bdf,bdg->bfg", G, G) + reg * (3 * f) * np.eye(f, dtype=np.float32)
     return A.astype(np.float32), rng.normal(size=(n, f)).astype(np.float32)
-
-
-def cuda_ms(torch, fn, reps: int, warmup: int = 2) -> float:
-    """Mean milliseconds per call of ``fn`` by CUDA events, after warmup."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / reps
 
 
 def cg_bound_ms(n: int, f: int) -> tuple[float, str]:
@@ -193,6 +181,7 @@ def real_system_check(torch, td, model, launches: int) -> dict:
     plain version and timed beside it and the library Cholesky."""
     from predictionio_tpu_torch.ops.als import ALSConfig, _normal_system, pack_tables
     from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms
 
     n_users, n_items = len(td.user_vocab), len(td.item_vocab)
     cfg = ALSConfig(rank=32, reg=0.05, chunk=65536)
@@ -214,14 +203,14 @@ def real_system_check(torch, td, model, launches: int) -> dict:
     # row-relative 1e-3: one f32 algorithm, summed in another order over f+4 steps
     if not (torch.isfinite(x).all() and row_rel <= 1e-3):
         raise AssertionError(f"B1 on the ML-20M user side: row-relative error {row_rel}")
-    ms = cuda_ms(torch, lambda: batched_spd_solve_fused(A, b), reps=20)
-    plain_ms = cuda_ms(torch, lambda: _cg_body(A, b, f + 4), reps=5)
+    ms = event_ms(lambda: batched_spd_solve_fused(A, b), reps=20)
+    plain_ms = event_ms(lambda: _cg_body(A, b, f + 4), reps=5)
 
     def library():
         L = torch.linalg.cholesky(A)
         return torch.cholesky_solve(b[..., None], L)
 
-    library_ms = cuda_ms(torch, library, reps=5)
+    library_ms = event_ms(library, reps=5)
     bound_ms, bound_by = cg_bound_ms(n, f)
     emit(
         phase="kernel_real", kernel="spd_cg", n=n, f=f, max_abs_err=abs_err,
@@ -512,9 +501,10 @@ def attention_kernels(A) -> dict:
 
 
 # B2 and B3 against their plain versions: one bf16 contract, f32 sums in
-# another order and the card's exp (6e-7 apart at most in earlier runs); a
-# kernel that kept p in f32 before P·V would be 5e-4 or more off
-# (tests/test_torch_attention.py)
+# another order, and every score whose tensor-core sum could move a row's
+# max or flip bf16(p) summed again in the plain version's order (at most
+# 2e-6 apart in earlier runs); a kernel that kept p in f32 before P·V would
+# be 5e-4 or more off (tests/test_torch_attention.py)
 ATTENTION_ATOL = 1e-5
 
 
@@ -524,14 +514,22 @@ def attention_kernel_phase(torch) -> None:
     the reference (the bf16 bound of tests/test_attention.py:74)."""
     from predictionio_tpu_torch.ops import attention as A
 
-    cases = [("attention_block", (64, 1, L, 32)) for L in (8, 200, 1023)]
-    cases += [("attention_block", (64, 1, 200, D)) for D in (10, 64)]
-    cases += [("attention_block", (64, 2, 200, 32))]
-    cases += [("flash_attention", (64, 1, L, 32)) for L in (1024, 2048, 1500)]
+    # (kernel, q shape [B, H, Lq, D], Lk)
+    cases = [("attention_block", (64, 1, L, 32), L) for L in (8, 200, 1023)]
+    cases += [("attention_block", (64, 1, 200, D), 200) for D in (10, 64)]
+    cases += [("attention_block", (64, 2, 200, 32), 200)]
+    # B2 keeps no score rows: a small tile with a long key axis, and Lq != Lk.
+    # Lq = 3, not 1: at one query row torch's f32 product takes a matrix-vector
+    # path that sums in another order than the plain version's column order
+    cases += [("attention_block", (64, 1, 3, 32), 10_000), ("attention_block", (64, 1, 200, 32), 75)]
+    cases += [("flash_attention", (64, 1, L, 32), L) for L in (1024, 2048, 1500)]
+    cases += [("flash_attention", (16, 1, 700, 32), 2100), ("flash_attention", (16, 1, 2100, 32), 700)]
     kernels = attention_kernels(A)
-    for name, shape in cases:
-        rng = np.random.default_rng(sum(shape))
-        q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda() for _ in range(3))
+    for name, shape, Lk in cases:
+        rng = np.random.default_rng(sum(shape) + Lk)
+        q = torch.from_numpy(rng.normal(size=shape).astype(np.float32)).cuda()
+        k, v = (torch.from_numpy(rng.normal(size=(*shape[:2], Lk, shape[3])).astype(np.float32)).cuda()
+                for _ in range(2))
         wrapper, plain = kernels[name]
         for causal in (False, True):
             out = wrapper(q, k, v, causal)
@@ -543,7 +541,7 @@ def attention_kernel_phase(torch) -> None:
                     f"{name} {shape} causal={causal}: max abs err {err} (plain, limit "
                     f"{ATTENTION_ATOL}), {ref_err} (reference, limit 2e-2)"
                 )
-            emit(phase="kernel_attention", kernel=name, shape=list(shape), causal=causal,
+            emit(phase="kernel_attention", kernel=name, shape=list(shape), Lk=Lk, causal=causal,
                  max_abs_err=err, max_abs_err_reference=ref_err, atol=ATTENTION_ATOL,
                  atol_reference=2e-2)
 
@@ -621,6 +619,7 @@ def sequential_serve_phase(torch, model, sessions) -> list[dict]:
     shape."""
     from predictionio_tpu_torch.models.sequential import engine as seq
     from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms, graph_ms
 
     vocab = model.item_vocab
     table_in, table_out = model.device_in(), model.device_out()
@@ -690,10 +689,14 @@ def sequential_serve_phase(torch, model, sessions) -> list[dict]:
         err = float((wrapper(x, x, x, True) - plain(x, x, x, True)).abs().max())
         xb = x.to(torch.bfloat16)
         sdpa = torch.nn.functional.scaled_dot_product_attention
+        # ms: back-to-back eager calls, host enqueue cost included;
+        # graph_ms: device time per launch from a replayed CUDA graph
         t = {
-            "ms": cuda_ms(torch, lambda: wrapper(x, x, x, True), reps=50),
-            "plain_ms": cuda_ms(torch, lambda: plain(x, x, x, True), reps=5),
-            "library_ms": cuda_ms(torch, lambda: sdpa(xb, xb, xb, is_causal=True), reps=50),
+            "ms": event_ms(lambda: wrapper(x, x, x, True), reps=50),
+            "graph_ms": graph_ms(lambda: wrapper(x, x, x, True)),
+            "plain_ms": event_ms(lambda: plain(x, x, x, True), reps=5),
+            "library_ms": event_ms(lambda: sdpa(xb, xb, xb, is_causal=True), reps=50),
+            "library_graph_ms": graph_ms(lambda: sdpa(xb, xb, xb, is_causal=True)),
         }
         bound_ms, bound_by, bounds = attention_bound_ms(x, x, x, True)
         emit(phase="kernel_attention_real", kernel=name, shape=list(x.shape), causal=True,
@@ -704,9 +707,10 @@ def sequential_serve_phase(torch, model, sessions) -> list[dict]:
         entries.append({
             "name": name, "route": "cuda", "source": source, "replaces": replaces,
             "launches": sum(launches[name].values()), "launches_by_path": launches[name],
-            "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
-            "bound_ms": bound_ms, "bound_by": bound_by, "bounds_ms": bounds,
-            "library_ms": t["library_ms"], "shape": list(x.shape),
+            "max_abs_err": err, "ms": t["ms"], "graph_ms": t["graph_ms"],
+            "plain_ms": t["plain_ms"], "bound_ms": bound_ms, "bound_by": bound_by,
+            "bounds_ms": bounds, "library_ms": t["library_ms"],
+            "library_graph_ms": t["library_graph_ms"], "shape": list(x.shape),
         })
     return entries
 

@@ -21,13 +21,11 @@ contract exactly (a product of two bf16 values is exact in f32).
 
 ``fused_attention`` routes as the JAX function does (:455-479): B2 when
 the f32 score tile Lq·Lk·4 bytes is under 4 MiB, else B3. On a CPU tensor
-it runs the plain version of the kernel the card would take. Two
-deliberate differences, both chosen by shape and both the same function:
-  - for a long L that is not a multiple of 256 the JAX package takes
-    ``attention_reference`` on a TPU (:474-477); the port takes B3, whose
-    ragged edge is masked by index, so the card never runs a plain version;
-  - a small score tile with Lk > MAX_BLOCK_LK (say Lq = 1, Lk = 10,000)
-    goes to B3, since B2 keeps whole score rows in shared memory.
+it runs the plain version of the kernel the card would take. One
+deliberate difference, chosen by shape, the function the same: for a long
+L that is not a multiple of 256 the JAX package takes
+``attention_reference`` on a TPU (:474-477); the port takes B3, whose
+ragged edge is masked by index, so the card never runs a plain version.
 
 ``ring_attention`` and ``ulysses_attention`` (the mesh code) are not ported
 yet.
@@ -46,10 +44,9 @@ from predictionio_tpu_torch.ops import _build
 # one f32 score tile under this many bytes takes B2 (attention.py:465)
 BLOCK_TILE_BYTES = 4 * 1024 * 1024
 MAX_HEAD_DIM = 128  # pio_attention_max_head_dim() in csrc/attention_common.cuh
-MAX_BLOCK_LK = 2048  # pio_attention_block_max_lk() in attention_block.cu
 # B3's tile sizes on the card (flash_attention.cu); the plain version takes
 # the same K tile so that both round the online softmax at the same places
-FLASH_BLOCK_Q = 32
+FLASH_BLOCK_Q = 64
 FLASH_BLOCK_K = 64
 
 
@@ -199,11 +196,7 @@ def _declare(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
 
 @functools.cache
 def _block_library() -> ctypes.CDLL:
-    lib = _declare(_build.load("attention_block"), "pio_attention_block")
-    lib.pio_attention_block_max_lk.restype = ctypes.c_int
-    if lib.pio_attention_block_max_lk() != MAX_BLOCK_LK:
-        raise RuntimeError("attention_block.cu and MAX_BLOCK_LK disagree")
-    return lib
+    return _declare(_build.load("attention_block"), "pio_attention_block")
 
 
 @functools.cache
@@ -262,11 +255,8 @@ def _launch(lib: ctypes.CDLL, fn: str, q, k, v, causal: bool) -> torch.Tensor:
 def fused_attention_block(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
-    """Kernel B2 on CUDA tensors (``csrc/attention_block.cu``). Raises on
-    what it does not take, including Lk > MAX_BLOCK_LK."""
+    """Kernel B2 on CUDA tensors (``csrc/attention_block.cu``)."""
     _check("fused_attention_block", q, k, v)
-    if k.shape[2] > MAX_BLOCK_LK:
-        raise ValueError(f"fused_attention_block takes Lk <= {MAX_BLOCK_LK}, got {k.shape[2]}")
     out = _launch(_block_library(), "pio_attention_block", q, k, v, causal)
     fused_attention_block.launches += 1
     return out
@@ -295,9 +285,8 @@ flash_attention.launches = 0
 
 def route(Lq: int, Lk: int) -> str:
     """"block" (B2) when the f32 score tile is under 4 MiB (the JAX
-    threshold, strict less-than included) and B2 takes Lk, else "flash"
-    (B3)."""
-    return "block" if Lq * Lk * 4 < BLOCK_TILE_BYTES and Lk <= MAX_BLOCK_LK else "flash"
+    threshold, strict less-than included), else "flash" (B3)."""
+    return "block" if Lq * Lk * 4 < BLOCK_TILE_BYTES else "flash"
 
 
 def fused_attention(

@@ -1,4 +1,5 @@
-// Single-block attention (kernel B2): O = softmax(Q Kᵀ / √D) V per batch·head.
+// Single-block attention (kernel B2): O = softmax(Q Kᵀ / √D) V per batch·head
+// with the exact row max, on Hopper's tensor cores.
 //
 // Replaces the TPU kernel `_fused_attention_pallas` in
 // predictionio_tpu/ops/attention.py (:389, pallas_call at :427). It
@@ -7,38 +8,43 @@
 // causal mask (query i sees key j iff i >= j, both from 0, no −inf guard:
 // a causal row always sees key 0), the exact row max subtracted,
 // p = exp(s − max) in f32, p rounded to bf16 before P·V with f32 sums, and
-// the divide by the f32 row sum of p after P·V.
+// the divide by the f32 row sum of the unrounded p after P·V.
 //
 // Design. The Pallas kernel holds K, V and the whole [Lq, Lk] score tile
 // of one batch·head in a TPU core's VMEM. A Hopper block has at most 227 KB
-// of shared memory, and K and V alone take 512 KB in f32 at D = 128 and
-// Lk = 1023. So one block takes 16 query rows (4 warps, 4 rows each) of one
-// batch·head and keeps their whole score rows [16, Lk] in shared memory,
-// which keeps the row max exact as in B2; K and V stream through one
-// shared [64, D] chunk buffer in two passes:
-//   1. scores and row max: each warp owns its rows; lane l scores keys l
-//      and l+32 of the chunk against every row of its warp (the query value
-//      is a broadcast read, the key row stride is odd, so no bank
-//      conflicts);
-//   2. p = exp(s − max) in place and the row sum (warp shuffles), then P·V
-//      with lanes over the head dimension (columns l, l+32, l+64, l+96).
-// Products of bf16-rounded values are exact in f32, so plain FMAs give the
-// tensor-core contract. Causal tiles stop their key loop after the tile's
-// last row: those keys carry p = 0, so the result is the same. Any
-// 1 <= D <= 128 works (padded to an odd stride in shared memory). Lk is at
-// most 2048 (172 KB of shared memory at D = 128); ops/attention.py routes a
-// longer Lk to B3, which computes the same function.
+// of shared memory, so the score tile is never stored: one block per (tile
+// of 64 query rows, batch·head), 4 warps of 16 rows each, and two passes
+// over K in 64-key tiles with the fragments, copies and masks of B3
+// (attention_common.cuh):
+//   1. S = Q·Kᵀ by mma.sync m16n8k16, scale and mask, and the exact row
+//      max in registers, its candidates summed again in the plain
+//      version's column order (see B3 and attention_common.cuh);
+//   2. S again (the same products on the same operands in the same order,
+//      so bit-identical), p = exp(s − max), with a score whose p lies near
+//      a bf16 rounding midpoint summed again in column order, Σp in f32
+//      from the unrounded p, and O += bf16(P)·V by mma.sync with P's
+//      accumulator as the A fragment and V's B fragments by ldmatrix.trans.
+// Recomputing S doubles only the Q·Kᵀ tensor work (0.17 µs of bound at
+// the scorer's shape). With no score buffer B2 takes any Lk, so
+// ops/attention.py routes exactly as the JAX package does (:465). Causal
+// K tiles past a warp's last row are skipped: those keys carry p = 0.
+//
+// Copies and the f32 -> bf16 point are B3's: q rounded into its A
+// fragments once per block; K (pass 1) and K and V (pass 2) tiles by
+// cp.async into f32 staging tiles, converted once per tile into bf16 tiles,
+// the next tile's copy overlapping this tile's products. Why mma.sync and
+// why expf: as in flash_attention.cu. Any 1 <= D <= 128 (padded to
+// DP = 32·ceil(D/32) with zeros).
 //
 // Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 tensor, about
-// 3.9 TFLOP/s of exponentials): the scorer passes one tensor x as q, k
-// and v, so the function reads x once and writes o once, 8·B·H·L·D bytes
-// in f32; it does 4·D tensor operations and one exponential per visible
-// query-key pair. At the scorer's [64, 1, 200, 32] causal that is 3.3 MB →
-// 0.98 µs by bytes, against 0.17 µs of tensor work and 0.33 µs of
-// exponentials: bytes bound it. This simple kernel instead reads x three
-// times, runs its products as f32 FMAs fed from shared memory and is
-// limited by shared-memory loads and launch latency; wgmma, TMA and keeping
-// K/V resident between the two passes are later work.
+// 3.9 T exponentials/s): the scorer passes one tensor x as q, k and v, so
+// the function reads x once and writes o once, 8·B·H·L·D bytes in f32; it
+// does 4·D tensor operations and one exponential per visible query-key
+// pair. At the scorer's [64, 1, 200, 32] causal that is 3.3 MB → 0.98 µs
+// by bytes, against 0.17 µs of tensor work and 0.33 µs of exponentials:
+// bytes bound it. This kernel instead is latency-bound: 13 busy warps per
+// batch·head, each walking its key tiles twice in sequence, with the
+// settling checks on every score of the path.
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream,
 // allocates nothing and does not synchronise.
@@ -50,154 +56,91 @@
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarp * kWarps;
-constexpr int kRows = 4;                 // query rows per warp
-constexpr int kBlockQ = kWarps * kRows;  // query rows per block
-constexpr int kChunk = 64;               // keys per K/V chunk (two per lane)
-constexpr int kMaxLk = 2048;
-
+// at D <= 32 no more than 128 registers, so that four blocks share an SM
 template <int DC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DC == 1 ? 4 : 1)
     attention_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int Lq,
-                           int Lk, int D, int ld, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                        // [kBlockQ, ld] bf16-rounded queries
-  float* KV = Qs + (size_t)kBlockQ * ld;   // [kChunk, ld] one K or V chunk
-  float* S = KV + (size_t)kChunk * ld;     // [kBlockQ, Lk] scores, then p
+                           const float* __restrict__ v, float* __restrict__ o, int n_bh,
+                           int Lq, int Lk, int D, int causal, int vec, float scale) {
+  constexpr int DP = 32 * DC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<DP> tiles(smem);
 
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockQ;
+  const int nq = (Lq - 1) / kBlockQ + 1;
+  const size_t bh = blockIdx.x % n_bh;
+  const int row0 = (nq - 1 - (int)(blockIdx.x / n_bh)) * kBlockQ;  // longest tiles first
+  const int wrow0 = row0 + warp * kWarpRows;
+  const bool active = wrow0 < Lq;
   const float* qg = q + bh * (size_t)Lq * D;
   const float* kg = k + bh * (size_t)Lk * D;
   const float* vg = v + bh * (size_t)Lk * D;
+  // keys that some row of the block, and of the warp, sees
+  const int kend = causal ? min(Lk, min(Lq, row0 + kBlockQ)) : Lk;
+  const int wend = causal ? min(Lk, min(Lq, wrow0 + kWarpRows)) : Lk;
 
-  for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int row = row0 + r;
-    Qs[r * ld + c] = row < Lq ? bf16r(qg[(size_t)row * D + c]) : 0.0f;
+  float* qs = tiles.qs + warp * kWarpRows * DP;
+  const WarpRows w{qs, wrow0, Lk, causal != 0, scale, (D + 16) * 0x1p-24f * scale};
+  uint32_t qa[DP / 16][4];
+  load_q<DP>(qa, qs, qg, wrow0, Lq, D, lane);
+  float s[kKeyTiles][4], e[kKeyTiles][4];
+
+  // pass 1: the exact row max
+  float m[2] = {-INFINITY, -INFINITY};
+  stage_tile<DP>(tiles.stage_k, kg, 0, Lk, D, vec);
+  cp_async_commit();
+  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+    cp_async_wait_all();
+    __syncthreads();  // the staged tile has landed; every warp is done with the bf16 tile
+    convert_tile<DP>(tiles.stage_k, tiles.ks);
+    __syncthreads();  // the bf16 tile is whole and the staging tile free
+    if (k0 + kBlockK < kend) stage_tile<DP>(tiles.stage_k, kg, k0 + kBlockK, Lk, D, vec);
+    cp_async_commit();
+    if (!active || k0 >= wend) continue;  // warp-uniform: every lane skips or none
+    float mx[2];
+    tile_scores<DP>(s, e, qa, tiles.ks, w, k0, lane);
+    settle_max<DP>(s, e, mx, m, tiles.ks, w, lane);
+    m[0] = fmaxf(m[0], mx[0]);
+    m[1] = fmaxf(m[1], mx[1]);
   }
-  const int last_row = min(Lq, row0 + kBlockQ) - 1;
-  const int kend = causal ? min(Lk, last_row + 1) : Lk;
 
-  // pass 1: scores and the exact row max
-  float mx[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) mx[i] = -INFINITY;
-  for (int c0 = 0; c0 < kend; c0 += kChunk) {
-    const int nk = min(kChunk, kend - c0);
-    __syncthreads();  // the previous chunk is fully read
-    for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-      const int j = idx / D, c = idx - j * D;
-      KV[j * ld + c] = bf16r(kg[(size_t)(c0 + j) * D + c]);
-    }
+  // pass 2: p = exp(s - max), its f32 sum, and P·V
+  float acc[DP / 8][4] = {};
+  float sum[2] = {0.0f, 0.0f};
+  stage_tile<DP>(tiles.stage_k, kg, 0, Lk, D, vec);
+  stage_tile<DP>(tiles.stage_v, vg, 0, Lk, D, vec);
+  cp_async_commit();
+  for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+    cp_async_wait_all();
     __syncthreads();
-    float acc[kRows][2];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) acc[i][0] = acc[i][1] = 0.0f;
-    const float* ka = KV + lane * ld;
-    const float* kb = KV + (lane + kWarp) * ld;
-    for (int d = 0; d < D; ++d) {
-      const float x0 = ka[d], x1 = kb[d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float qv = Qs[(warp * kRows + i) * ld + d];
-        acc[i][0] += qv * x0;
-        acc[i][1] += qv * x1;
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int r = warp * kRows + i;
-      const int row = row0 + r;
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int jl = lane + c * kWarp;
-        if (jl < nk) {
-          const int j = c0 + jl;
-          float s = acc[i][c] * scale;
-          if (causal && j > row) s = -INFINITY;
-          S[(size_t)r * Lk + j] = s;
-          mx[i] = fmaxf(mx[i], s);
-        }
-      }
-    }
-  }
-
-  // p = exp(s - max) in place, and the f32 row sum of p
-  float l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const float m = warp_max(mx[i]);
-    float* Sr = S + (size_t)(warp * kRows + i) * Lk;
-    float part = 0.0f;
-    for (int j = lane; j < kend; j += kWarp) {
-      const float p = expf(Sr[j] - m);
-      Sr[j] = p;
-      part += p;
-    }
-    l[i] = warp_sum(part);
-  }
-  __syncwarp();  // every lane reads p values other lanes wrote
-
-  // pass 2: P·V with p rounded to bf16
-  float oacc[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i)
-#pragma unroll
-    for (int c = 0; c < DC; ++c) oacc[i][c] = 0.0f;
-  for (int c0 = 0; c0 < kend; c0 += kChunk) {
-    const int nk = min(kChunk, kend - c0);
-    __syncthreads();  // every warp is done with the previous chunk
-    for (int idx = threadIdx.x; idx < nk * D; idx += kThreads) {
-      const int j = idx / D, c = idx - j * D;
-      KV[j * ld + c] = bf16r(vg[(size_t)(c0 + j) * D + c]);
-    }
+    convert_tile<DP>(tiles.stage_k, tiles.ks);
+    convert_tile<DP>(tiles.stage_v, tiles.vs);
     __syncthreads();
-    for (int jl = 0; jl < nk; ++jl) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + c * kWarp;
-        vv[c] = d < D ? KV[jl * ld + d] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = bf16r(S[(size_t)(warp * kRows + i) * Lk + c0 + jl]);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) oacc[i][c] += p * vv[c];
-      }
+    if (k0 + kBlockK < kend) {
+      stage_tile<DP>(tiles.stage_k, kg, k0 + kBlockK, Lk, D, vec);
+      stage_tile<DP>(tiles.stage_v, vg, k0 + kBlockK, Lk, D, vec);
     }
+    cp_async_commit();
+    if (!active || k0 >= wend) continue;
+    tile_scores<DP>(s, e, qa, tiles.ks, w, k0, lane);  // bit for bit pass 1's
+    tile_p<DP>(s, e, m, sum, tiles.ks, w, lane);
+    pv_tile<DP>(acc, s, tiles.vs, lane);
   }
 
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = row0 + warp * kRows + i;
-    if (row >= Lq) continue;
-    float* og = o + (bh * (size_t)Lq + row) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + c * kWarp;
-      if (d < D) og[d] = oacc[i][c] / l[i];
-    }
-  }
+  const float denom[2] = {quad_sum(sum[0]), quad_sum(sum[1])};
+  if (!active) return;
+  store_rows<DP>(o + bh * (size_t)Lq * D, acc, denom, wrow0, Lq, D, lane);
 }
 
 template <int DC>
 cudaError_t launch(const AttentionArgs& a) {
-  const int ld = a.D | 1;  // odd row stride: lanes reading down a column hit distinct banks
-  const size_t smem =
-      ((size_t)(kBlockQ + kChunk) * ld + (size_t)kBlockQ * a.Lk) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(attention_block_kernel<DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr size_t smem = Tiles<32 * DC>::kBytes;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = allow_smem(attention_block_kernel<DC>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(a.D)));
-  const dim3 grid((unsigned)((a.Lq - 1) / kBlockQ + 1), (unsigned)a.bh);  // Lq >= 1 here
-  attention_block_kernel<DC><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.o, a.Lq, a.Lk, a.D, ld, a.causal, scale);
+  attention_block_kernel<DC><<<a.blocks(), kThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.o, a.bh, a.Lq, a.Lk, a.D, a.causal, a.vec(), a.scale());
   return cudaGetLastError();
 }
 
@@ -205,15 +148,12 @@ cudaError_t launch(const AttentionArgs& a) {
 
 extern "C" {
 
-int pio_attention_block_max_lk() { return kMaxLk; }
-
 // o = attention(q, k, v) for q, o [bh, Lq, D] and k, v [bh, Lk, D], all f32,
-// contiguous, on the current device; Lk <= kMaxLk. Returns a cudaError_t
-// (0 = launched).
+// contiguous, on the current device. Returns a cudaError_t (0 = launched).
 int pio_attention_block(const float* q, const float* k, const float* v, float* o, int bh,
                         int Lq, int Lk, int D, int causal, void* stream) {
   const AttentionArgs a{q, k, v, o, bh, Lq, Lk, D, causal, static_cast<cudaStream_t>(stream)};
-  return attention_entry(a, kMaxLk, [&](auto dc) { return launch<decltype(dc)::value>(a); });
+  return attention_entry(a, [&](auto dc) { return launch<decltype(dc)::value>(a); });
 }
 
 }  // extern "C"

@@ -1,38 +1,486 @@
 // What the two attention kernels (attention_block.cu, B2, and
-// flash_attention.cu, B3) share: the bf16 rounding and warp reductions of
-// their numeric contract, the argument checks and head-width dispatch of
-// their C entries, and the C helpers that ops/attention.py reads. Each
-// kernel source includes this file once and builds into its own library.
+// flash_attention.cu, B3) share: the tile shapes, the cp.async staging of
+// K and V tiles and their f32 -> bf16 conversion, the tensor-core fragments
+// (ldmatrix loads, bf16 packing, mma.sync) and quad reductions, the score
+// masking and the settling of scores in the plain version's summation order,
+// the argument checks and head-width dispatch of their C entries, and the C
+// helpers that ops/attention.py reads. Each kernel source
+// includes this file once and builds into its own library.
+//
+// Fragment layout (PTX ISA, mma.m16n8k16 with bf16 inputs and f32 sums).
+// A warp owns 16 query rows. Lane l is in quad g = l / 4 at position
+// t = l % 4; it holds rows g and g + 8 of every accumulator tile, columns
+// 2t and 2t + 1 of each 8-wide n-tile. So a row's max and sum need only a
+// shuffle across the 4 lanes of its quad, and the score accumulator of
+// Q·Kᵀ, rounded to bf16 and packed in pairs, is the A fragment of P·V
+// without a pass through shared memory (FlashAttention-2's layout).
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
+#include <cmath>
+#include <cstdint>
 #include <type_traits>
 
 namespace {
 
 constexpr int kWarp = 32;
+constexpr int kWarps = 4;                    // warps per block
+constexpr int kThreads = kWarp * kWarps;
+constexpr int kWarpRows = 16;                // query rows per warp: one mma row tile
+constexpr int kBlockQ = kWarps * kWarpRows;  // query rows per block
+constexpr int kBlockK = 64;                  // keys per K/V tile
+constexpr int kKeyTiles = kBlockK / 8;       // 8-key n-tiles of one score tile
+constexpr int kKeyChunks = kBlockK / 16;     // 16-key k-chunks of one P·V step
 constexpr int kMaxHeadDim = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-// round to bf16 (nearest even) and widen back to f32
-__device__ __forceinline__ float bf16r(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
+// ---------------------------------------------------------------------------
+// Shared memory: one f32 staging tile per operand, filled by cp.async while
+// the warps compute on the bf16 tiles, which the block converts from it.
+// DP is the head width padded to a multiple of 32. The bf16 row stride is
+// DP + 8 elements, 16 bytes past a multiple of 64, so the 8 rows that one
+// ldmatrix phase reads land in 8 different 16-byte bank groups.
+// ---------------------------------------------------------------------------
+
+template <int DP>
+struct Tiles {
+  static constexpr int kLd = DP + 8;
+  static constexpr size_t kBytes = (2 * kBlockK + kBlockQ) * DP * sizeof(float) +
+                                   2 * kBlockK * kLd * sizeof(__nv_bfloat16);
+  float* stage_k;      // [kBlockK, DP] f32
+  float* stage_v;      // [kBlockK, DP] f32
+  float* qs;           // [kBlockQ, DP] f32, the block's bf16-rounded q rows for column_score
+  __nv_bfloat16* ks;   // [kBlockK, kLd] bf16
+  __nv_bfloat16* vs;   // [kBlockK, kLd] bf16
+
+  __device__ explicit Tiles(unsigned char* base)
+      : stage_k(reinterpret_cast<float*>(base)),
+        stage_v(stage_k + kBlockK * DP),
+        qs(stage_v + kBlockK * DP),
+        ks(reinterpret_cast<__nv_bfloat16*>(qs + kBlockQ * DP)),
+        vs(ks + kBlockK * kLd) {}
+};
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 16 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
-  return v;
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
+  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
+               "r"(valid ? 4 : 0)
+               : "memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Starts copying keys [k0, k0 + kBlockK) of one batch·head's f32 [Lk, D]
+// rows into a [kBlockK, DP] staging tile. Rows past Lk and columns past D
+// are zero-filled (a copy of source size 0). vec: D % 4 == 0 and the rows
+// 16-byte aligned, so whole float4s move; else one float at a time.
+template <int DP>
+__device__ __forceinline__ void stage_tile(float* stage, const float* g, int k0, int Lk, int D,
+                                           bool vec) {
+  constexpr int kQuads = DP / 4;
+#pragma unroll
+  for (int i = 0; i < kBlockK * kQuads / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kQuads, c = (idx - r * kQuads) * 4;
+    const int row = k0 + r;
+    float* dst = stage + r * DP + c;
+    const float* src = g + (size_t)row * D + c;
+    if (vec) {
+      const bool in = row < Lk && c < D;
+      cp_async16(dst, in ? src : g, in);
+    } else {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool in = row < Lk && c + j < D;
+        cp_async4(dst + j, in ? src + j : g, in);
+      }
+    }
+  }
+}
+
+// two f32 values rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// The one f32 -> bf16 pass of K and V: staging tile -> bf16 tile, rounded
+// to nearest even, four values per thread and step.
+template <int DP>
+__device__ __forceinline__ void convert_tile(const float* stage, __nv_bfloat16* dst) {
+  constexpr int kQuads = DP / 4;
+#pragma unroll
+  for (int i = 0; i < kBlockK * kQuads / kThreads; ++i) {
+    const int idx = threadIdx.x + i * kThreads;
+    const int r = idx / kQuads, c = (idx - r * kQuads) * 4;
+    const float4 f = *reinterpret_cast<const float4*>(stage + r * DP + c);
+    *reinterpret_cast<uint2*>(dst + r * Tiles<DP>::kLd + c) =
+        make_uint2(pack_bf16x2(f.x, f.y), pack_bf16x2(f.z, f.w));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Fragments and tensor-core products
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const __nv_bfloat16* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* smem) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// d += a · b on the tensor cores: a 16x16 bf16, b 16x8 bf16, d 16x8 f32
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(kFull, v, 1));
+  return fmaxf(v, __shfl_xor_sync(kFull, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(kFull, v, 1);
+  return v + __shfl_xor_sync(kFull, v, 2);
+}
+
+__device__ __forceinline__ float load_or_zero(const float* g, int row, int col, int rows, int D) {
+  return row < rows && col < D ? __ldg(g + (size_t)row * D + col) : 0.0f;
+}
+
+// The warp's 16 query rows from row0 as bf16 A fragments of Q·Kᵀ, one per
+// 16 columns of the head dimension: rows past Lq and columns past D are 0.
+// The f32 -> bf16 rounding of q happens here, once per block. The rounded
+// values also go, as f32, to the warp's 16 rows of shared memory at qs (the
+// fragments cover every element once); only this warp reads them.
+template <int DP>
+__device__ __forceinline__ void load_q(uint32_t (&qa)[DP / 16][4], float* qs,
+                                       const float* qg, int row0, int Lq, int D, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int kc = 0; kc < DP / 16; ++kc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {  // rows g, g+8 at columns 2t.., then again at 2t+8..
+      const int r = g + (i & 1) * 8;
+      const int col = kc * 16 + (i >> 1) * 8 + 2 * t;
+      qa[kc][i] = pack_bf16x2(load_or_zero(qg, row0 + r, col, Lq, D),
+                              load_or_zero(qg, row0 + r, col + 1, Lq, D));
+      *reinterpret_cast<float2*>(qs + r * DP + col) =
+          make_float2(__uint_as_float(qa[kc][i] << 16), __uint_as_float(qa[kc][i] & 0xffff0000u));
+    }
+  __syncwarp();
+}
+
+// ---------------------------------------------------------------------------
+// Scores, and the few that the tensor cores cannot settle alone
+//
+// The tensor cores sum a score's exact bf16 products in their own order and
+// rounding; torch's f32 matrix product on the card, which the plain versions
+// use, sums them one column after another with fused multiply-adds. The two
+// sums differ by ulps. That is harmless except where it moves a row's max,
+// which every p of the row is taken against, or where p lies so close to a
+// bf16 rounding midpoint that bf16(p) rounds the other way: one bf16 ulp of
+// p moves an output by up to 1e-3 at the scorer's shapes. So each score gets
+// a bound on how far the two sums can lie apart, tol·Σ|q_d·k_d|, with
+// Σ|q_d·k_d| from a second tensor-core product of the absolute values
+// (sign bits cleared) and tol = (D + 16)·2⁻²⁴·scale: (D − 1)·2⁻²⁴ covers the
+// column-order sum's worst case, the other 17·2⁻²⁴ the tensor cores' own
+// rounding, with room (tests/test_torch_gpu.py). A score within its
+// bound of its row's max over the tile, or whose p lies within its bound of
+// a bf16 rounding midpoint, is summed again in column order
+// (column_score). That is under one score in a hundred at the scorer's
+// shapes, and it keeps kernel and plain version agreeing to f32 rounding.
+// The scale multiply and the max subtraction are rounded one at a time
+// (__fmul_rn, __fsub_rn), as the plain version's separate torch operations
+// round them: nvcc would otherwise fuse them into one multiply-add, and a
+// p near a midpoint could round the other way after all.
+// ---------------------------------------------------------------------------
+
+// What a warp's score code needs beside the fragments and the K tile.
+struct WarpRows {
+  const float* qs;  // the warp's 16 bf16-rounded q rows, f32, in shared memory
+  int row0;         // the warp's first query row
+  int Lk;
+  bool causal;
+  float scale;  // 1/√D in f32
+  float tol;    // (D + 16)·2⁻²⁴·scale
+};
+
+// The plain version's score of a q row (bf16-rounded, f32) against a bf16
+// K tile row, both in shared memory and zero past D: the products summed in
+// f32 one column after another by fused multiply-adds from 0 (the zero
+// columns add exact zeros), then scaled.
+template <int DP>
+__device__ __forceinline__ float column_score(const float* q, const __nv_bfloat16* k,
+                                              float scale) {
+  float s = 0.0f;
+#pragma unroll
+  for (int c = 0; c < DP; c += 8) {
+    const float4 q0 = *reinterpret_cast<const float4*>(q + c);
+    const float4 q1 = *reinterpret_cast<const float4*>(q + c + 4);
+    const uint4 kv = *reinterpret_cast<const uint4*>(k + c);
+    const float qf[8] = {q0.x, q0.y, q0.z, q0.w, q1.x, q1.y, q1.z, q1.w};
+    const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {  // a bf16 pair, the lower column in the low half
+      s = fmaf(qf[2 * j], __uint_as_float(kw[j] << 16), s);
+      s = fmaf(qf[2 * j + 1], __uint_as_float(kw[j] & 0xffff0000u), s);
+    }
+  }
+  return __fmul_rn(s, scale);
+}
+
+// column_score of the thread's score number b = nt·4 + i against the bf16
+// K tile at ks
+template <int DP>
+__device__ __forceinline__ float column_score_at(const WarpRows& w, const __nv_bfloat16* ks, int b,
+                                                 int lane) {
+  const int r = (lane >> 2) + ((b >> 1) & 1) * 8;
+  const int key = (b >> 2) * 8 + 2 * (lane & 3) + (b & 1);
+  return column_score<DP>(w.qs + r * DP, ks + key * Tiles<DP>::kLd, w.scale);
+}
+
+// v[b / 4][b % 4] = x for a b known only at run time, by selects: an index
+// into a register array would move the array to local memory.
+__device__ __forceinline__ void put(float (&v)[kKeyTiles][4], int b, float x) {
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (b == nt * 4 + i) v[nt][i] = x;
+}
+
+// Whether a K tile needs the index mask for a warp whose first row is row0:
+// a ragged last tile, or a causal tile reaching past that row.
+__device__ __forceinline__ bool tile_masked(int k0, int Lk, int row0, bool causal) {
+  return k0 + kBlockK > Lk || (causal && k0 + kBlockK - 1 > row0);
+}
+
+// The warp's 16 rows against the 64 keys of the bf16 K tile at key k0:
+// s = Q·Kᵀ·scale by mma.sync with f32 sums, −inf where key k0 + column is
+// past Lk or, causal, past the row (query i sees key j iff i >= j, both
+// from 0), and e = Σ|q_d·k_d| (the score's bound is tol·e). The
+// thread's rows are row0 + g
+// (s[.][0..1]) and row0 + g + 8 (s[.][2..3]). ldmatrix (no transpose) of
+// K's rows gives the B fragment of Kᵀ: matrix m of an x4 load is keys
+// (m / 2)·8.. at columns (m % 2)·8.., so one load feeds two n-tiles of one
+// 16-column chunk.
+template <int DP>
+__device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
+                                            const uint32_t (&qa)[DP / 16][4],
+                                            const __nv_bfloat16* ks, const WarpRows& w, int k0,
+                                            int lane) {
+  constexpr uint32_t kAbs = 0x7fff7fffu;  // clears the sign bits of two packed bf16
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = e[nt][i] = 0.0f;
+  const int m = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* base = ks + ((m >> 1) * 8 + r) * Tiles<DP>::kLd + (m & 1) * 8;
+#pragma unroll
+  for (int kc = 0; kc < DP / 16; ++kc) {
+    const uint32_t qabs[4] = {qa[kc][0] & kAbs, qa[kc][1] & kAbs, qa[kc][2] & kAbs,
+                              qa[kc][3] & kAbs};
+#pragma unroll
+    for (int np = 0; np < kKeyTiles / 2; ++np) {
+      uint32_t b[4];
+      ldmatrix_x4(b, base + np * 16 * Tiles<DP>::kLd + kc * 16);
+      mma_bf16(s[2 * np], qa[kc], b[0], b[1]);
+      mma_bf16(s[2 * np + 1], qa[kc], b[2], b[3]);
+      mma_bf16(e[2 * np], qabs, b[0] & kAbs, b[1] & kAbs);
+      mma_bf16(e[2 * np + 1], qabs, b[2] & kAbs, b[3] & kAbs);
+    }
+  }
+  const bool masked = tile_masked(k0, w.Lk, w.row0, w.causal);
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      s[nt][i] = __fmul_rn(s[nt][i], w.scale);
+      if (masked) {
+        const int key = k0 + nt * 8 + 2 * t + (i & 1);
+        if (key >= w.Lk || (w.causal && key > w.row0 + g + (i >> 1) * 8)) {
+          s[nt][i] = -INFINITY;
+          e[nt][i] = -INFINITY;  // a NaN bound in tile_p: never flagged
+        }
+      }
+    }
+}
+
+// mx = each row's max over the tile as the plain version has it, where the
+// tile can raise the row's running max (the plain version's so far, −inf at
+// the start); elsewhere the tensor cores' max, which stays below it. The
+// true max lies within 2·etop (the row's largest bound) of the tensor
+// cores' max, so the scores at least that high are summed again in column
+// order, each lane looping only over its own. tile_p may test them once more
+// against a rounding midpoint, which costs a second sum at worst.
+template <int DP>
+__device__ __forceinline__ void settle_max(float (&s)[kKeyTiles][4], const float (&e)[kKeyTiles][4],
+                                           float (&mx)[2], const float (&running)[2],
+                                           const __nv_bfloat16* ks, const WarpRows& w, int lane) {
+  float top[2] = {-INFINITY, -INFINITY}, etop[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      top[i >> 1] = fmaxf(top[i >> 1], s[nt][i]);
+      etop[i >> 1] = fmaxf(etop[i >> 1], e[nt][i]);
+    }
+  float cut[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    top[h] = quad_max(top[h]);
+    etop[h] = 2.0f * w.tol * quad_max(etop[h]);
+    // below the running max: no score of the row is summed again
+    cut[h] = top[h] + etop[h] < running[h] ? INFINITY : top[h] - etop[h];
+  }
+  if (__all_sync(kFull, cut[0] == INFINITY && cut[1] == INFINITY)) {
+    mx[0] = top[0];
+    mx[1] = top[1];
+    return;
+  }
+  uint32_t need = 0;  // bit nt·4 + i
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      if (s[nt][i] != -INFINITY && s[nt][i] >= cut[i >> 1]) need |= 1u << (nt * 4 + i);
+  // the true max is among the candidates, so their column-order scores give it
+  float best[2] = {-INFINITY, -INFINITY};
+  while (need) {
+    const int b = __ffs(static_cast<int>(need)) - 1;
+    need &= need - 1;
+    const float exact = column_score_at<DP>(w, ks, b, lane);
+    put(s, b, exact);
+    best[(b >> 1) & 1] = fmaxf(best[(b >> 1) & 1], exact);
+  }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float m = quad_max(best[h]);
+    mx[h] = cut[h] == INFINITY ? top[h] : m;
+  }
+}
+
+// Whether bf16(p) could round the other way for a p off by up to `ulps` f32
+// ulps: the low 16 bits of p's f32 pattern against the midpoint 0x8000.
+// (bits | 2²³'s exponent) is the float 2²³ + low16, exactly.
+__device__ __forceinline__ bool near_bf16_midpoint(float p, float ulps) {
+  const float low = __uint_as_float((__float_as_uint(p) & 0xffffu) | 0x4b000000u);
+  return fabsf(low - (8388608.0f + 32768.0f)) <= ulps;
+}
+
+// p = exp(s − base) in place (0 where s is −inf, whose bound tile_scores
+// made −inf, so that the midpoint test sees NaN), and the f32 row sums of the
+// unrounded p added to sum; base[0] is row g's, base[1] row g + 8's, as the
+// plain version has them. A p that lies within its bound of a bf16 rounding
+// midpoint is taken from its score summed again in column order. The bound,
+// relative to p, is e, the subtraction's rounding and expf's own (2 ulps
+// each way); an f32 ulp of p is at least 2⁻²⁴ of p.
+template <int DP>
+__device__ __forceinline__ void tile_p(float (&s)[kKeyTiles][4], const float (&e)[kKeyTiles][4],
+                                       const float (&base)[2], float (&sum)[2],
+                                       const __nv_bfloat16* ks, const WarpRows& w, int lane) {
+  const float tol24 = w.tol * 16777216.0f;  // the bound in f32 ulps of p per unit of e
+  uint32_t part[4] = {0, 0, 0, 0};  // bit nt·4 + i, in four words for independent chains
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float x = __fsub_rn(s[nt][i], base[i >> 1]);  // −inf where masked: p = 0
+      const float p = expf(x);
+      if (near_bf16_midpoint(p, fmaf(e[nt][i], tol24, fmaf(fabsf(x), 2.0f, 18.0f))))
+        part[i] |= 1u << (nt * 4 + i);
+      s[nt][i] = p;
+    }
+  uint32_t need = (part[0] | part[1]) | (part[2] | part[3]);
+  while (need) {
+    const int b = __ffs(static_cast<int>(need)) - 1;
+    need &= need - 1;
+    put(s, b, expf(__fsub_rn(column_score_at<DP>(w, ks, b, lane), base[(b >> 1) & 1])));
+  }
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sum[i >> 1] += s[nt][i];
+}
+
+// o += bf16(p) · V for the 64 keys of the tile. The p accumulator layout
+// is the A fragment layout, so p is rounded to bf16 and packed in
+// registers; ldmatrix.trans of V's rows gives the B fragment: matrix m of
+// an x4 load is keys (m % 2)·8.. at columns (m / 2)·8.., so one load feeds
+// two 8-column n-tiles of one 16-key chunk.
+template <int DP>
+__device__ __forceinline__ void pv_tile(float (&acc)[DP / 8][4], const float (&p)[kKeyTiles][4],
+                                        const __nv_bfloat16* vs, int lane) {
+  const int m = lane >> 3, r = lane & 7;
+  const __nv_bfloat16* base = vs + ((m & 1) * 8 + r) * Tiles<DP>::kLd + (m >> 1) * 8;
+#pragma unroll
+  for (int kc = 0; kc < kKeyChunks; ++kc) {
+    const uint32_t a[4] = {pack_bf16x2(p[2 * kc][0], p[2 * kc][1]),
+                           pack_bf16x2(p[2 * kc][2], p[2 * kc][3]),
+                           pack_bf16x2(p[2 * kc + 1][0], p[2 * kc + 1][1]),
+                           pack_bf16x2(p[2 * kc + 1][2], p[2 * kc + 1][3])};
+#pragma unroll
+    for (int dp = 0; dp < DP / 16; ++dp) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, base + kc * 16 * Tiles<DP>::kLd + dp * 16);
+      mma_bf16(acc[2 * dp], a, b[0], b[1]);
+      mma_bf16(acc[2 * dp + 1], a, b[2], b[3]);
+    }
+  }
+}
+
+// o[row, col] = acc / denom for the warp's rows from row0 that are below Lq
+// and the columns below D; denom[0] is row g's, denom[1] row g + 8's.
+template <int DP>
+__device__ __forceinline__ void store_rows(float* og, const float (&acc)[DP / 8][4],
+                                           const float (&denom)[2], int row0, int Lq, int D,
+                                           int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = row0 + g + (i >> 1) * 8;
+      const int col = nt * 8 + 2 * t + (i & 1);
+      if (row < Lq && col < D) og[(size_t)row * D + col] = acc[nt][i] / denom[i >> 1];
+    }
+}
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
 // q, o [bh, Lq, D] and k, v [bh, Lk, D], all f32, contiguous, on the
 // current device
@@ -43,17 +491,46 @@ struct AttentionArgs {
   float* o;
   int bh, Lq, Lk, D, causal;
   cudaStream_t stream;
+
+  // whole float4 copies of K and V rows
+  bool vec() const {
+    return D % 4 == 0 && reinterpret_cast<uintptr_t>(k) % 16 == 0 &&
+           reinterpret_cast<uintptr_t>(v) % 16 == 0;
+  }
+  // the score scale in f32, as torch rounds the Python float 1/√D
+  float scale() const { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))); }
+  // one block per (query tile, batch·head), longest causal tiles first
+  unsigned blocks() const {
+    return static_cast<unsigned>(((Lq - 1) / kBlockQ + 1) * static_cast<long long>(bh));
+  }
 };
 
+// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
+// (needed only above the 48 KB default), so later launches skip the CUDA
+// call; `done` is one bit per device, kept by the caller per kernel
+// instantiation.
+template <class Kernel>
+cudaError_t allow_smem(Kernel* kernel, size_t bytes, std::atomic<unsigned long long>& done) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
 // Checks the arguments and calls launch(std::integral_constant<int, DC>)
-// with DC = ceil(D / 32), the head-dimension columns per lane. Returns a
-// cudaError_t (0 = launched, or nothing to do).
+// with DC = ceil(D / 32): the head width is padded to DP = 32·DC. Returns
+// a cudaError_t (0 = launched, or nothing to do).
 template <class Launch>
-int attention_entry(const AttentionArgs& a, int max_lk, Launch&& launch) {
-  if (a.bh < 0 || a.bh > 65535 || a.Lq < 0 || a.Lk < 1 || a.Lk > max_lk || a.D < 1 ||
-      a.D > kMaxHeadDim)
+int attention_entry(const AttentionArgs& a, Launch&& launch) {
+  if (a.bh < 0 || a.bh > 65535 || a.Lq < 0 || a.Lk < 1 || a.D < 1 || a.D > kMaxHeadDim)
     return cudaErrorInvalidValue;
   if (a.bh == 0 || a.Lq == 0) return cudaSuccess;
+  if (((a.Lq - 1) / kBlockQ + 1) * (long long)a.bh > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch ((a.D + kWarp - 1) / kWarp) {
     case 1: return launch(std::integral_constant<int, 1>{});
     case 2: return launch(std::integral_constant<int, 2>{});

@@ -1,5 +1,5 @@
 // Tiled flash attention (kernel B3): O = softmax(Q Kᵀ / √D) V per batch·head,
-// with an online softmax over K tiles.
+// with an online softmax over K tiles, on Hopper's tensor cores.
 //
 // Replaces the TPU kernel `_flash_attention_pallas` in
 // predictionio_tpu/ops/attention.py (:285, pallas_call at :369). It
@@ -8,180 +8,158 @@
 // optional causal mask (query i sees key j iff i >= j, both from 0); per K
 // tile the running max m, a safe max (0 where m is −inf), corr = 0 when the
 // previous max is −inf, p = 0 where the score is −inf, p rounded to bf16
-// before P·V with f32 sums, acc = acc·corr + P·V and l = l·corr + Σp; at
-// the end O = acc / l with l == 0 → 1.
+// before P·V with f32 sums, acc = acc·corr + P·V and l = l·corr + Σp (p
+// unrounded); at the end O = acc / l with l == 0 → 1.
 //
 // Design. The TPU kernel carries m, l and acc across the sequential K axis
 // of its grid in VMEM scratch (:307-364). On Hopper blocks run in parallel
-// and in no order, so the K loop is inside the block: one block per
-// (batch·head, tile of 32 query rows), 4 warps of 8 rows each. m and l of a
-// row live in registers (warp-uniform), the accumulator in registers with
-// lanes over the head dimension (columns l, l+32, l+64, l+96). Each K tile
-// of 64 keys and its V tile are loaded once into shared memory (bf16-rounded,
-// odd row stride), lane l scores keys l and l+32 against the warp's 8 rows,
-// the warp reduces the tile max and sum by shuffles, writes its p rows to a
-// per-warp shared buffer, and accumulates P·V. Causal K tiles that start
-// after the query tile's last row are skipped, as at :354; keys past Lk and
-// query rows past Lq are masked by index, so any L works, not only
-// multiples of the tile. Tile sizes are this card's choice: `_best_block`'s
-// 1024 is a TPU VMEM choice (:271-282).
+// and in no order, so the K loop is inside the block. One block per (tile
+// of 64 query rows, batch·head), 4 warps of 16 rows each; blocks are
+// numbered so that the last query tiles, which see the most keys under the
+// causal mask, start first. Per K tile of 64 keys (the plain version's
+// FLASH_BLOCK_K: the online softmax rounds p against each tile's running
+// max, so the two agree only when their K tiles do):
+//   1. S = Q·Kᵀ by mma.sync m16n8k16 (bf16 in, f32 sums): Q sits in
+//      registers as A fragments for the whole K loop, K's B fragments come
+//      from shared memory by ldmatrix; beside it |Q|·|K|ᵀ, each score's
+//      bound on how far the tensor cores' sum can lie from the plain
+//      version's column-order sum;
+//   2. scale, the index mask (only on a ragged or diagonal tile), the tile
+//      max and Σp by 4-lane shuffles inside each quad, the rescale of acc
+//      and l, all in registers. A score within its bound of the row's max,
+//      or whose p lies within its bound of a bf16 rounding midpoint, is
+//      summed again in column order first (attention_common.cuh says why:
+//      otherwise bf16(p) can round the other way and move an output by up
+//      to 1e-3). About one score in a hundred at the scorer's shapes;
+//   3. O += bf16(P)·V by mma.sync: the S accumulator, rounded to bf16 and
+//      packed in pairs, is already the A fragment; V's B fragments come by
+//      ldmatrix.trans.
+// Causal K tiles past a warp's last row are skipped, as at :354 (at a
+// warp's 16 rows, not the block's 64: a fully masked tile leaves m, l and
+// acc bit-identical, so the result is the same).
 //
-// Bound on an H100 SXM (3.35 TB/s HBM, 989 TFLOP/s bf16 tensor, about
-// 3.9 TFLOP/s of exponentials): the scorer passes one tensor x as q, k and
-// v, so at its [64, 1, 1024, 32] causal the function reads x once and
-// writes o once, 16.8 MB → 5.0 µs, against 4.3 GFLOP of tensor work →
-// 4.3 µs and 33.6 M exponentials → 8.6 µs: the exponentials bound it. This
-// simple kernel runs its products as f32 FMAs fed from shared memory (about
-// 2.1 G FMAs there), so shared-memory loads and the FMA pipe limit it well
-// above that bound; wgmma with TMA-fed tiles and more rows per block are
-// later work.
+// Copies and the f32 -> bf16 point. Inputs are f32 and the fragments bf16.
+// q is rounded where its fragments are built, once per block, straight
+// from global memory. K and V tiles come by cp.async (16-byte copies when
+// D % 4 == 0, 4-byte otherwise, zero-filled past Lk and D) into one f32
+// staging tile each; after the tile lands the block converts it once into
+// bf16 tiles (round to nearest even, __floats2bfloat162_rn) and then starts
+// the next tile's copy, which overlaps this tile's products. D is padded to
+// DP = 32·ceil(D/32) with zeros; the kernel is instantiated per DP.
+//
+// Why mma.sync and not wgmma. At the scorer's [64, 1, 1024, 32] causal the
+// card's bound (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16, about 3.9 T
+// exponentials/s) is the exponentials, 33.6 M → 8.6 µs, against 4.3 µs of
+// tensor work and 5.0 µs of bytes. With the tensor term half the
+// exponentials' term, wgmma's rate buys nothing here, while its 64-row
+// warpgroup tile and shared-memory descriptors would cost a layout of Q
+// and P in shared memory; mma.sync keeps P in registers. This kernel takes
+// about 13 times that bound on an H100: the instruction stream of expf, the
+// mask and the per-score settling checks (about 40 % of its time) limit it.
+//
+// Why expf. The plain version's torch.exp and CUDA's expf give the same p
+// for the same f32 argument. A faster exp2f of pre-scaled scores or
+// __expf moves p by ulps, and where p lies near a bf16 rounding midpoint
+// it then rounds the other way: one bf16 ulp of a large p moves an output
+// by 1e-5 to 1e-3 at these shapes, past the 1e-5 limit against the plain
+// version. Settling such p as the scores are settled would cost a second
+// exponential wherever the two forms could disagree.
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream,
 // allocates nothing and does not synchronise.
 
 #include <cmath>
 #include <cstddef>
-#include <climits>
 
 #include "attention_common.cuh"
 
 namespace {
 
-constexpr int kWarps = 4;
-constexpr int kThreads = kWarp * kWarps;
-constexpr int kBlockQ = 32;  // query rows per block
-constexpr int kBlockK = 64;  // keys per tile (two per lane)
-constexpr int kRows = kBlockQ / kWarps;  // query rows per warp
-
+// at D <= 32 no more than 128 registers, so that four blocks share an SM
 template <int DC>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, DC == 1 ? 4 : 1)
     flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int Lq,
-                           int Lk, int D, int ld, int causal, float scale) {
-  extern __shared__ float smem[];
-  float* Qs = smem;                          // [kBlockQ, ld]
-  float* Ks = Qs + (size_t)kBlockQ * ld;     // [kBlockK, ld]
-  float* Vs = Ks + (size_t)kBlockK * ld;     // [kBlockK, ld]
-  float* Ps = Vs + (size_t)kBlockK * ld;     // [kBlockQ, kBlockK] p of each row
+                           const float* __restrict__ v, float* __restrict__ o, int n_bh,
+                           int Lq, int Lk, int D, int causal, int vec, float scale) {
+  constexpr int DP = 32 * DC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<DP> tiles(smem);
 
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const size_t bh = blockIdx.y;
-  const int row0 = blockIdx.x * kBlockQ;
+  const int nq = (Lq - 1) / kBlockQ + 1;
+  const size_t bh = blockIdx.x % n_bh;
+  const int row0 = (nq - 1 - (int)(blockIdx.x / n_bh)) * kBlockQ;  // longest tiles first
+  const int wrow0 = row0 + warp * kWarpRows;
+  const bool active = wrow0 < Lq;
   const float* qg = q + bh * (size_t)Lq * D;
   const float* kg = k + bh * (size_t)Lk * D;
   const float* vg = v + bh * (size_t)Lk * D;
+  // keys that some row of the block, and of the warp, sees
+  const int kend = causal ? min(Lk, min(Lq, row0 + kBlockQ)) : Lk;
+  const int wend = causal ? min(Lk, min(Lq, wrow0 + kWarpRows)) : Lk;
 
-  for (int idx = threadIdx.x; idx < kBlockQ * D; idx += kThreads) {
-    const int r = idx / D, c = idx - r * D;
-    const int row = row0 + r;
-    Qs[r * ld + c] = row < Lq ? bf16r(qg[(size_t)row * D + c]) : 0.0f;
-  }
-  const int last_row = min(Lq, row0 + kBlockQ) - 1;
-  // causal: K tiles starting after the last query row are fully masked
-  const int kend = causal ? min(Lk, last_row + 1) : Lk;
+  float* qs = tiles.qs + warp * kWarpRows * DP;
+  const WarpRows w{qs, wrow0, Lk, causal != 0, scale, (D + 16) * 0x1p-24f * scale};
+  uint32_t qa[DP / 16][4];
+  load_q<DP>(qa, qs, qg, wrow0, Lq, D, lane);
+  float acc[DP / 8][4] = {};
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.0f, 0.0f};
 
-  float m[kRows], l[kRows], acc[kRows][DC];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.0f;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) acc[i][c] = 0.0f;
-  }
-
+  stage_tile<DP>(tiles.stage_k, kg, 0, Lk, D, vec);
+  stage_tile<DP>(tiles.stage_v, vg, 0, Lk, D, vec);
+  cp_async_commit();
   for (int k0 = 0; k0 < kend; k0 += kBlockK) {
-    const int nk = min(kBlockK, Lk - k0);  // keys of this tile inside Lk
-    __syncthreads();  // every warp is done with the previous tile
-    for (int idx = threadIdx.x; idx < kBlockK * D; idx += kThreads) {
-      const int j = idx / D, c = idx - j * D;
-      const bool in = j < nk;
-      Ks[j * ld + c] = in ? bf16r(kg[(size_t)(k0 + j) * D + c]) : 0.0f;
-      Vs[j * ld + c] = in ? bf16r(vg[(size_t)(k0 + j) * D + c]) : 0.0f;
+    cp_async_wait_all();
+    __syncthreads();  // the staged tile has landed; every warp is done with the bf16 tiles
+    convert_tile<DP>(tiles.stage_k, tiles.ks);
+    convert_tile<DP>(tiles.stage_v, tiles.vs);
+    __syncthreads();  // the bf16 tiles are whole and the staging tiles free
+    if (k0 + kBlockK < kend) {
+      stage_tile<DP>(tiles.stage_k, kg, k0 + kBlockK, Lk, D, vec);
+      stage_tile<DP>(tiles.stage_v, vg, k0 + kBlockK, Lk, D, vec);
     }
-    __syncthreads();
+    cp_async_commit();
+    if (!active || k0 >= wend) continue;  // warp-uniform: every lane skips or none
 
-    float s[kRows][2];
+    float s[kKeyTiles][4], e[kKeyTiles][4], mx[2];
+    tile_scores<DP>(s, e, qa, tiles.ks, w, k0, lane);
+    settle_max<DP>(s, e, mx, m, tiles.ks, w, lane);
+    float safe[2], corr[2], sum[2] = {0.0f, 0.0f};
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) s[i][0] = s[i][1] = 0.0f;
-    const float* ka = Ks + lane * ld;
-    const float* kb = Ks + (lane + kWarp) * ld;
-    for (int d = 0; d < D; ++d) {
-      const float x0 = ka[d], x1 = kb[d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float qv = Qs[(warp * kRows + i) * ld + d];
-        s[i][0] += qv * x0;
-        s[i][1] += qv * x1;
-      }
+    for (int r = 0; r < 2; ++r) {
+      const float m_new = fmaxf(m[r], mx[r]);
+      safe[r] = m_new == -INFINITY ? 0.0f : m_new;
+      corr[r] = m[r] == -INFINITY ? 0.0f : expf(m[r] - safe[r]);
+      m[r] = m_new;
     }
-
-    float* Pw = Ps + (size_t)warp * kRows * kBlockK;
+    tile_p<DP>(s, e, safe, sum, tiles.ks, w, lane);
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int row = row0 + warp * kRows + i;
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int j = k0 + lane + c * kWarp;
-        s[i][c] *= scale;
-        if (j >= Lk || (causal && j > row)) s[i][c] = -INFINITY;
-      }
-      const float m_new = fmaxf(m[i], warp_max(fmaxf(s[i][0], s[i][1])));
-      const float safe = m_new == -INFINITY ? 0.0f : m_new;
-      const float corr = m[i] == -INFINITY ? 0.0f : expf(m[i] - safe);
-      const float p0 = s[i][0] == -INFINITY ? 0.0f : expf(s[i][0] - safe);
-      const float p1 = s[i][1] == -INFINITY ? 0.0f : expf(s[i][1] - safe);
-      l[i] = l[i] * corr + warp_sum(p0 + p1);
-#pragma unroll
-      for (int c = 0; c < DC; ++c) acc[i][c] *= corr;
-      Pw[i * kBlockK + lane] = p0;
-      Pw[i * kBlockK + lane + kWarp] = p1;
-      m[i] = m_new;
+    for (int nt = 0; nt < DP / 8; ++nt) {
+      acc[nt][0] *= corr[0];
+      acc[nt][1] *= corr[0];
+      acc[nt][2] *= corr[1];
+      acc[nt][3] *= corr[1];
     }
-    __syncwarp();  // every lane reads p values other lanes wrote
-
-    for (int jl = 0; jl < nk; ++jl) {
-      float vv[DC];
-#pragma unroll
-      for (int c = 0; c < DC; ++c) {
-        const int d = lane + c * kWarp;
-        vv[c] = d < D ? Vs[jl * ld + d] : 0.0f;
-      }
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = bf16r(Pw[i * kBlockK + jl]);
-#pragma unroll
-        for (int c = 0; c < DC; ++c) acc[i][c] += p * vv[c];
-      }
-    }
+    pv_tile<DP>(acc, s, tiles.vs, lane);
   }
 
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int row = row0 + warp * kRows + i;
-    if (row >= Lq) continue;
-    const float denom = l[i] == 0.0f ? 1.0f : l[i];
-    float* og = o + (bh * (size_t)Lq + row) * D;
-#pragma unroll
-    for (int c = 0; c < DC; ++c) {
-      const int d = lane + c * kWarp;
-      if (d < D) og[d] = acc[i][c] / denom;
-    }
-  }
+  if (!active) return;
+  const float denom[2] = {l[0] == 0.0f ? 1.0f : l[0], l[1] == 0.0f ? 1.0f : l[1]};
+  store_rows<DP>(o + bh * (size_t)Lq * D, acc, denom, wrow0, Lq, D, lane);
 }
 
 template <int DC>
 cudaError_t launch(const AttentionArgs& a) {
-  const int ld = a.D | 1;  // odd row stride: lanes reading down a column hit distinct banks
-  const size_t smem =
-      ((size_t)(kBlockQ + 2 * kBlockK) * ld + (size_t)kBlockQ * kBlockK) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(flash_attention_kernel<DC>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  constexpr size_t smem = Tiles<32 * DC>::kBytes;
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t err = allow_smem(flash_attention_kernel<DC>, smem, smem_set);
   if (err != cudaSuccess) return err;
-  const float scale = static_cast<float>(1.0 / std::sqrt(static_cast<double>(a.D)));
-  const dim3 grid((unsigned)((a.Lq - 1) / kBlockQ + 1), (unsigned)a.bh);  // Lq >= 1 here
-  flash_attention_kernel<DC><<<grid, kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.o, a.Lq, a.Lk, a.D, ld, a.causal, scale);
+  flash_attention_kernel<DC><<<a.blocks(), kThreads, smem, a.stream>>>(
+      a.q, a.k, a.v, a.o, a.bh, a.Lq, a.Lk, a.D, a.causal, a.vec(), a.scale());
   return cudaGetLastError();
 }
 
@@ -197,7 +175,7 @@ int pio_flash_tile(int which) { return which == 0 ? kBlockQ : kBlockK; }
 int pio_flash_attention(const float* q, const float* k, const float* v, float* o, int bh,
                         int Lq, int Lk, int D, int causal, void* stream) {
   const AttentionArgs a{q, k, v, o, bh, Lq, Lk, D, causal, static_cast<cudaStream_t>(stream)};
-  return attention_entry(a, INT_MAX, [&](auto dc) { return launch<decltype(dc)::value>(a); });
+  return attention_entry(a, [&](auto dc) { return launch<decltype(dc)::value>(a); });
 }
 
 }  // extern "C"

@@ -129,8 +129,8 @@ def test_flash_plain_skips_tiles_above_the_diagonal(monkeypatch):
     "Lq,Lk,which",
     [(1023, 1023, "block"), (1024, 1024, "flash"), (8, 8, "block"), (200, 200, "block"),
      (511, 2048, "block"), (512, 2048, "flash"), (2048, 2048, "flash"),
-     # a small score tile whose Lk is past what B2 takes goes to B3
-     (1, 2049, "flash"), (1, 1048575, "flash"), (1, 1048576, "flash")],
+     # B2 keeps no score rows, so a small score tile takes it at any Lk
+     (1, 2049, "block"), (1, 1048575, "block"), (1, 1048576, "flash")],
 )
 def test_route_keeps_the_jax_thresholds(Lq, Lk, which):
     assert pt_attn.route(Lq, Lk) == which
@@ -147,12 +147,30 @@ def test_fused_attention_on_cpu_runs_the_plain_version_of_the_routed_kernel(L, p
 
 
 def test_fused_attention_on_cpu_takes_the_flash_plain_version_past_max_block_lk():
-    q, _, _ = _qkv(1, 1, 3, 4, seed=9)
-    _, k, v = _qkv(1, 1, pt_attn.MAX_BLOCK_LK + 1, 4, seed=10)
+    """The longest key axis B2 takes at Lq rows is the last one whose f32
+    score tile stays under 4 MiB; one key more takes B3's plain version."""
+    Lq = 64
+    max_block_lk = (pt_attn.BLOCK_TILE_BYTES - 1) // (4 * Lq)
+    assert pt_attn.route(Lq, max_block_lk) == "block"
+    q, _, _ = _qkv(1, 1, Lq, 4, seed=9)
+    _, k, v = _qkv(1, 1, max_block_lk + 1, 4, seed=10)
     q, k, v = _torch(q, k, v)
     got = pt_attn.fused_attention(q, k, v, causal=False)
     assert torch.equal(got, pt_attn._flash_attention_plain(q, k, v, False))
     ref = pt_attn.attention_reference(q, k, v)
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=2e-2)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_fused_attention_on_cpu_takes_the_block_plain_version_for_a_long_key_axis(causal):
+    """A small score tile with a key axis past the 2,048 keys B2 once took:
+    B2's plain version, as the JAX routing has it."""
+    q, _, _ = _qkv(1, 1, 3, 4, seed=11)
+    _, k, v = _qkv(1, 1, 10000, 4, seed=12)
+    q, k, v = _torch(q, k, v)
+    got = pt_attn.fused_attention(q, k, v, causal=causal)
+    assert torch.equal(got, pt_attn._fused_attention_plain(q, k, v, causal))
+    ref = pt_attn.attention_reference(q, k, v, causal=causal)
     np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=2e-2)
 
 
@@ -181,6 +199,27 @@ def test_a_skipped_p_rounding_is_far_outside_the_card_tolerance(shape, causal):
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
     unrounded = torch.matmul(p, pt_attn._bf16(v)) / p.sum(dim=-1, keepdim=True)
     assert float((unrounded - pt_attn._fused_attention_plain(q, k, v, causal)).abs().max()) > 1e-4
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_another_summation_order_of_the_scores_is_far_outside_the_card_tolerance(causal):
+    """The kernels' tensor cores sum Q·Kᵀ in another order than the plain
+    version. Scores an ulp apart flip bf16(p) where p lies near a rounding
+    midpoint: with the scores summed in f64 and rounded once, the output at
+    the scorer's [64, 1, 200, 32] moves by more than 1e-4, ten times the
+    card's limit. That is why the kernels sum such scores again in the plain
+    version's column order (csrc/attention_common.cuh)."""
+    import math
+
+    shape = (64, 1, 200, 32)
+    q, k, v = _torch(*_qkv(*shape, seed=sum(shape)))
+    s = torch.matmul(pt_attn._bf16(q).double(), pt_attn._bf16(k).double().transpose(-1, -2))
+    s = s.float() / math.sqrt(shape[-1])
+    if causal:
+        s = s.masked_fill(~pt_attn._causal_keep(0, shape[2], 0, shape[2], q.device), float("-inf"))
+    p = torch.exp(s - s.amax(dim=-1, keepdim=True))
+    reordered = torch.matmul(pt_attn._bf16(p), pt_attn._bf16(v)) / p.sum(dim=-1, keepdim=True)
+    assert float((reordered - pt_attn._fused_attention_plain(q, k, v, causal)).abs().max()) > 1e-4
 
 
 @pytest.mark.parametrize("fn", ["fused_attention_block", "flash_attention"])

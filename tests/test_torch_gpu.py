@@ -5,11 +5,12 @@ Run on a machine with an NVIDIA H100:
 This file imports no JAX: the kernels are held against their plain PyTorch
 versions on the card. B1: f32 sum order differs over f+4 CG iterations,
 hence atol 1e-4 on well-conditioned systems. B2 and B3: both sides follow
-one bf16 contract and differ only in the order of f32 sums and in ``exp``
-(measured at most 6e-7 apart on an H100), so atol 1e-5 against the plain
-version, which a kernel that skipped the bf16 rounding of p (5e-4 to 4e-3
-off at these shapes, ``tests/test_torch_attention.py``) would fail; 2e-2
-against the f32 reference.
+one bf16 contract and differ only in the order of f32 sums; the kernels
+re-sum in the plain version's order every score whose tensor-core sum could
+move a row's max or flip bf16(p), so atol 1e-5 against the plain version,
+which a kernel that skipped the bf16 rounding of p (5e-4 to 4e-3 off at
+these shapes, ``tests/test_torch_attention.py``) or that re-summed no score
+(4e-4 off at [64, 1, 200, 32]) would fail; 2e-2 against the f32 reference.
 """
 
 import numpy as np
@@ -76,6 +77,28 @@ def _qkv(cuda, B, H, L, D, seed=0):
             for _ in range(3)]
 
 
+def _attention_pair(kernel):
+    from predictionio_tpu_torch.ops import attention as A
+
+    return {"block": (A.fused_attention_block, A._fused_attention_plain),
+            "flash": (A.flash_attention, A._flash_attention_plain)}[kernel]
+
+
+def _check_against_plain(wrapper, plain, q, k, v, causal):
+    """One launch of ``wrapper``: counted, finite, within 1e-5 of the plain
+    version and 2e-2 of the f32 reference."""
+    from predictionio_tpu_torch.ops import attention as A
+
+    before = wrapper.launches
+    out = wrapper(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    assert out.shape == q.shape and out.dtype == torch.float32
+    assert torch.isfinite(out).all()
+    assert float((out - plain(q, k, v, causal)).abs().max()) <= 1e-5
+    assert float((out - A.attention_reference(q, k, v, causal=causal)).abs().max()) <= 2e-2
+
+
 # the kernel-phase shapes of chip_smoke.py: B2 at D=32 and L in {8, 200,
 # 1023}, at D in {10, 64} and at H=2; B3 at L in {1024, 2048} and ragged 1500
 _BLOCK_SHAPES = [(64, 1, 8, 32), (64, 1, 200, 32), (64, 1, 1023, 32),
@@ -87,23 +110,25 @@ _FLASH_SHAPES = [(8, 1, 1024, 32), (4, 1, 2048, 32), (8, 1, 1500, 32), (2, 2, 30
 @pytest.mark.parametrize("kernel,shape", [("block", s) for s in _BLOCK_SHAPES]
                          + [("flash", s) for s in _FLASH_SHAPES])
 def test_attention_kernels_match_plain(cuda, kernel, shape, causal):
-    from predictionio_tpu_torch.ops import attention as A
+    _check_against_plain(*_attention_pair(kernel), *_qkv(cuda, *shape, seed=shape[2]), causal)
 
-    q, k, v = _qkv(cuda, *shape, seed=shape[2])
-    wrapper, plain = {
-        "block": (A.fused_attention_block, A._fused_attention_plain),
-        "flash": (A.flash_attention, A._flash_attention_plain),
-    }[kernel]
-    before = wrapper.launches
-    out = wrapper(q, k, v, causal)
-    torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    assert out.shape == q.shape and out.dtype == torch.float32
-    assert torch.isfinite(out).all()
-    want = plain(q, k, v, causal)
-    assert float((out - want).abs().max()) <= 1e-5
-    ref = A.attention_reference(q, k, v, causal=causal)
-    assert float((out - ref).abs().max()) <= 2e-2
+
+# The edges a tensor-core tile can get wrong: lengths around the 16-row warp
+# tile, the 64-row query tile and the 64-key K tile; head widths off the
+# 16-column mma chunk and the 32-column padding; Lq != Lk both ways (causal
+# indices both from 0).
+_EDGE_SHAPES = ([(3, 1, L, L, 32) for L in (1, 15, 17, 63, 65, 129)]
+                + [(3, 1, 70, 70, D) for D in (1, 10, 16, 17, 100, 128)]
+                + [(2, 2, 33, 130, 24), (2, 2, 130, 33, 24)])
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("kernel", ["block", "flash"])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", _EDGE_SHAPES)
+def test_attention_kernels_match_plain_at_tile_edges(cuda, kernel, B, H, Lq, Lk, D, causal):
+    q = _qkv(cuda, B, H, Lq, D, seed=Lq * D)[0]
+    _, k, v = _qkv(cuda, B, H, Lk, D, seed=Lk * D + 1)
+    _check_against_plain(*_attention_pair(kernel), q, k, v, causal)
 
 
 def test_fused_attention_routes_to_the_kernels(cuda):
@@ -118,24 +143,44 @@ def test_fused_attention_routes_to_the_kernels(cuda):
         assert wrapper.launches == before[0 if wrapper is A.fused_attention_block else 1] + 1
 
 
-@pytest.mark.parametrize("Lq,Lk", [(1, 2048), (1, 2049), (3, 10000), (511, 2048)])
+@pytest.mark.parametrize("B,H,Lq,Lk,D", [(64, 1, 200, 200, 32), (64, 1, 1023, 1023, 32),
+                                         (64, 1, 200, 200, 10), (8, 1, 64, 64, 32),
+                                         (64, 1, 200, 200, 64), (2, 2, 64, 64, 100),
+                                         (2, 1, 511, 2048, 32)])
+def test_torch_sums_scores_in_column_order(cuda, B, H, Lq, Lk, D):
+    """The kernels re-sum a score whose rounding matters one column after
+    another (csrc/attention_common.cuh), because torch's f32 product of
+    bf16-valued tensors on the card sums in that order at the plain
+    versions' shapes: the same bits, with each exact product added and
+    rounded in turn."""
+    from predictionio_tpu_torch.ops import attention as A
+
+    q = A._bf16(_qkv(cuda, B, H, Lq, D, seed=Lq + D)[0])
+    k = A._bf16(_qkv(cuda, B, H, Lk, D, seed=Lk + D + 1)[0])
+    column = torch.zeros(B, H, Lq, Lk, device=cuda)
+    for d in range(D):
+        column = column + q[..., d:d + 1] * k[..., d].unsqueeze(-2)
+    assert torch.equal(torch.matmul(q, k.transpose(-1, -2)), column)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(1, 2048), (1, 2049), (1, 10000), (3, 10000), (511, 2048)])
 def test_fused_attention_takes_every_small_tile(cuda, Lq, Lk):
-    """A small score tile with a key axis past what B2 takes runs on B3."""
+    """A score tile under 4 MiB runs on B2 whatever its key axis: B2 keeps
+    no score rows, so it takes any Lk, as the JAX routing assumes."""
     from predictionio_tpu_torch.ops import attention as A
 
     q = _qkv(cuda, 2, 1, Lq, 32, seed=Lq)[0]
     _, k, v = _qkv(cuda, 2, 1, Lk, 32, seed=Lk)
-    wrapper, plain = ((A.fused_attention_block, A._fused_attention_plain)
-                      if A.route(Lq, Lk) == "block" else (A.flash_attention, A._flash_attention_plain))
-    assert (wrapper is A.flash_attention) == (Lk > A.MAX_BLOCK_LK)
-    before = wrapper.launches
-    out = A.fused_attention(q, k, v, causal=False)
-    torch.cuda.synchronize()
-    assert wrapper.launches == before + 1
-    assert float((out - plain(q, k, v, False)).abs().max()) <= 1e-5
-    assert float((out - A.attention_reference(q, k, v)).abs().max()) <= 2e-2
-    with pytest.raises(ValueError, match="Lk"):
-        A.fused_attention_block(q, *_qkv(cuda, 2, 1, A.MAX_BLOCK_LK + 1, 32)[1:])
+    assert A.route(Lq, Lk) == "block"
+    for causal in (False, True):
+        before = (A.fused_attention_block.launches, A.flash_attention.launches)
+        out = A.fused_attention(q, k, v, causal=causal)
+        torch.cuda.synchronize()
+        assert (A.fused_attention_block.launches, A.flash_attention.launches) == (
+            before[0] + 1, before[1])
+        assert float((out - A._fused_attention_plain(q, k, v, causal)).abs().max()) <= 1e-5
+        ref = A.attention_reference(q, k, v, causal=causal)
+        assert float((out - ref).abs().max()) <= 2e-2
 
 
 @pytest.mark.parametrize("fn", ["fused_attention_block", "flash_attention"])
