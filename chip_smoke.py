@@ -9,12 +9,16 @@ build/kernels/), then drives two main paths.
 The recommendation template (ALS, kernel B1):
 
 1. kernel phase: kernel B1 (csrc/spd_cg.cu) against its plain PyTorch
-   version on the card, on well-conditioned systems at ranks 10/16/32/64;
+   version on the card, on well-conditioned systems at ranks
+   10/16/32/64/100;
 2. train phase: the recommendation template's ALSAlgorithm.train at the
    ML-20M shape (138,000 users x 27,000 items x 20 M synthetic ratings,
    rank 32, 10 iterations), held-out RMSE gated at 0.45, with B1's launch
-   count read around the run; then B1 against the plain version and the
-   library Cholesky on the real user-side systems of that model, timed;
+   count read around the run; then B1 against the plain version on the
+   real user-side and item-side systems of that model and on 138,001
+   rank-10 systems, each timed beside the plain version and a library
+   Cholesky solve, eager (``ms``) and as a replayed CUDA graph
+   (``graph_ms``);
 3. serve phase: the port's CLI in subprocesses (app new, import of an
    ML-100K-shape event file, train, deploy) answering POST /queries.json,
    then the ML-20M model served in-process through ServingIndex.serve_batch
@@ -118,7 +122,7 @@ def cg_bound_ms(n: int, f: int) -> tuple[float, str]:
 def kernel_phase(torch) -> None:
     from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
 
-    for f in (10, 16, 32, 64):
+    for f in (10, 16, 32, 64, 100):
         n = 1000 + 7 * f + 3  # not a multiple of any tile
         A, b = spd_batch(n, f, seed=f)
         A_d, b_d = torch.from_numpy(A).cuda(), torch.from_numpy(b).cuda()
@@ -176,59 +180,97 @@ def train_phase(torch, home: str):
     return td, model, launches
 
 
+def b1_times(torch, A, b) -> dict:
+    """B1 on A [n, f, f], b [n, f], timed beside its plain version and the
+    library Cholesky: ``ms`` by CUDA events over eager calls (host cost
+    included), ``graph_ms`` the device time per launch from a replayed CUDA
+    graph, and the same two for the library."""
+    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms, graph_ms
+
+    n, f = b.shape
+
+    def kernel():
+        return batched_spd_solve_fused(A, b)
+
+    def library():
+        # cholesky_ex checks nothing on the host, and two triangular solves
+        # replace cholesky_solve, whose batched path allocates device memory
+        # on every call and so cannot be captured into a CUDA graph
+        L, _ = torch.linalg.cholesky_ex(A)
+        y = torch.linalg.solve_triangular(L, b[..., None], upper=False)
+        return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+    bound_ms, bound_by = cg_bound_ms(n, f)
+    return {
+        "n": n, "f": f, "ms": event_ms(kernel, reps=20), "graph_ms": graph_ms(kernel),
+        "plain_ms": event_ms(lambda: _cg_body(A, b, f + 4), reps=5),
+        "library_ms": event_ms(library, reps=5),
+        "library_graph_ms": graph_ms(library, launches=3, replays=3),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def b1_errors(torch, A, b) -> tuple[float, float]:
+    """Max abs and max row-relative difference of B1 from the plain version."""
+    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
+
+    x = batched_spd_solve_fused(A, b)
+    ref = _cg_body(A, b, b.shape[1] + 4)
+    torch.cuda.synchronize()
+    if not torch.isfinite(x).all():
+        raise AssertionError(f"B1 gave non-finite values on {tuple(A.shape)}")
+    row_rel = (x - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-30)
+    return float((x - ref).abs().max()), float(row_rel.max())
+
+
 def real_system_check(torch, td, model, launches: int) -> dict:
-    """B1 on the real user-side systems of the trained model, against the
+    """B1 on the real user-side and item-side systems of the trained model,
+    and on 138,001 rank-10 systems (the template default), each against the
     plain version and timed beside it and the library Cholesky."""
     from predictionio_tpu_torch.ops.als import ALSConfig, _normal_system, pack_tables
-    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
-    from predictionio_tpu_torch.utils.cuda_timing import event_ms
 
     n_users, n_items = len(td.user_vocab), len(td.item_vocab)
     cfg = ALSConfig(rank=32, reg=0.05, chunk=65536)
     tables, block_chunk = pack_tables(
         td.user_idx, td.item_idx, td.ratings, n_users, n_items, cfg, "cuda"
     )
-    item_f = torch.zeros(n_items + 1, cfg.rank, device="cuda")
-    item_f[:n_items] = torch.from_numpy(model.item_factors).cuda()
-    A, b = _normal_system(
-        *tables[:4], item_f, n_users + 1, block_chunk, cfg.reg, False, 1.0, True
-    )
+    factors = {}
+    for side, trained, rows in (("item", model.item_factors, n_items),
+                                ("user", model.user_factors, n_users)):
+        factors[side] = torch.zeros(rows + 1, cfg.rank, device="cuda")
+        factors[side][:rows] = torch.from_numpy(trained).cuda()
+    rows = []
+    for side, k, opposite, n_side in (("user", 0, "item", n_users), ("item", 4, "user", n_items)):
+        A, b = _normal_system(*tables[k : k + 4], factors[opposite], n_side + 1, block_chunk,
+                              cfg.reg, False, 1.0, True)
+        abs_err, row_rel = b1_errors(torch, A, b)
+        # row-relative 1e-3: one f32 algorithm, summed in another order over f+4 steps
+        if not row_rel <= 1e-3:
+            raise AssertionError(f"B1 on the ML-20M {side} side: row-relative error {row_rel}")
+        rows.append({"systems": f"ML-20M {side} side", "max_abs_err": abs_err,
+                     "max_row_rel_err": row_rel, **b1_times(torch, A, b)})
+        del A, b
     del tables
-    n, f = b.shape
-    x = batched_spd_solve_fused(A, b)
-    ref = _cg_body(A, b, f + 4)
-    torch.cuda.synchronize()
-    abs_err = float((x - ref).abs().max())
-    row_rel = float(((x - ref).norm(dim=1) / ref.norm(dim=1).clamp(min=1e-30)).max())
-    # row-relative 1e-3: one f32 algorithm, summed in another order over f+4 steps
-    if not (torch.isfinite(x).all() and row_rel <= 1e-3):
-        raise AssertionError(f"B1 on the ML-20M user side: row-relative error {row_rel}")
-    ms = event_ms(lambda: batched_spd_solve_fused(A, b), reps=20)
-    plain_ms = event_ms(lambda: _cg_body(A, b, f + 4), reps=5)
-
-    def library():
-        L = torch.linalg.cholesky(A)
-        return torch.cholesky_solve(b[..., None], L)
-
-    library_ms = event_ms(library, reps=5)
-    bound_ms, bound_by = cg_bound_ms(n, f)
-    emit(
-        phase="kernel_real", kernel="spd_cg", n=n, f=f, max_abs_err=abs_err,
-        max_row_rel_err=row_rel, kernel_ms=ms, plain_ms=plain_ms,
-        library_ms=library_ms, bound_ms=bound_ms, bound_by=bound_by,
-    )
+    A, b = (torch.from_numpy(t).cuda() for t in spd_batch(n_users + 1, 10, seed=10))
+    abs_err, row_rel = b1_errors(torch, A, b)
+    if not abs_err <= 1e-4:  # the kernel phase's limit on these systems
+        raise AssertionError(f"B1 on {n_users + 1} rank-10 systems: max abs err {abs_err}")
+    rows.append({"systems": "spd_batch, template default rank", "max_abs_err": abs_err,
+                 "max_row_rel_err": row_rel, **b1_times(torch, A, b)})
+    for row in rows:
+        emit(phase="kernel_real", kernel="spd_cg", **row)
+    user = rows[0]
     return {
         "name": "spd_cg",
         "route": "cuda",
         "source": SOURCE,
         "replaces": REPLACES,
         "launches": launches,
-        "max_abs_err": abs_err,
-        "ms": ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": library_ms,
+        **{key: user[key] for key in ("max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms", "library_graph_ms")},
+        "shape": [user["n"], user["f"]],
+        "other_shapes": rows[1:],
     }
 
 

@@ -18,16 +18,14 @@
 #pragma once
 
 #include <cuda_bf16.h>
-#include <cuda_runtime.h>
 
-#include <atomic>
 #include <cmath>
-#include <cstdint>
 #include <type_traits>
+
+#include "cuda_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kWarps = 4;                    // warps per block
 constexpr int kThreads = kWarp * kWarps;
 constexpr int kWarpRows = 16;                // query rows per warp: one mma row tile
@@ -36,7 +34,6 @@ constexpr int kBlockK = 64;                  // keys per K/V tile
 constexpr int kKeyTiles = kBlockK / 8;       // 8-key n-tiles of one score tile
 constexpr int kKeyChunks = kBlockK / 16;     // 16-key k-chunks of one P·V step
 constexpr int kMaxHeadDim = 128;
-constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
 // Shared memory: one f32 staging tile per operand, filled by cp.async while
@@ -64,28 +61,6 @@ struct Tiles {
         ks(reinterpret_cast<__nv_bfloat16*>(qs + kBlockQ * DP)),
         vs(ks + kBlockK * kLd) {}
 };
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async4(void* smem, const void* gmem, bool valid) {
-  const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(gmem),
-               "r"(valid ? 4 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
 
 // Starts copying keys [k0, k0 + kBlockK) of one batch·head's f32 [Lk, D]
 // rows into a [kBlockK, DP] staging tile. Rows past Lk and columns past D
@@ -505,23 +480,6 @@ struct AttentionArgs {
   }
 };
 
-// Raises a kernel's dynamic shared-memory limit to `bytes` once per device
-// (needed only above the 48 KB default), so later launches skip the CUDA
-// call; `done` is one bit per device, kept by the caller per kernel
-// instantiation.
-template <class Kernel>
-cudaError_t allow_smem(Kernel* kernel, size_t bytes, std::atomic<unsigned long long>& done) {
-  if (bytes <= 48 * 1024) return cudaSuccess;
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  const unsigned long long bit = dev < 64 ? 1ull << dev : 0;
-  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
-  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
-  return err;
-}
-
 // Checks the arguments and calls launch(std::integral_constant<int, DC>)
 // with DC = ceil(D / 32): the head width is padded to DP = 32·DC. Returns
 // a cudaError_t (0 = launched, or nothing to do).
@@ -544,9 +502,5 @@ int attention_entry(const AttentionArgs& a, Launch&& launch) {
 extern "C" {
 
 int pio_attention_max_head_dim() { return kMaxHeadDim; }
-
-const char* pio_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
 
 }  // extern "C"

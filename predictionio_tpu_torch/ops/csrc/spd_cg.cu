@@ -1,184 +1,514 @@
-// Batched Jacobi-preconditioned CG for n independent f-by-f SPD systems.
+// Kernel B1: batched Jacobi-preconditioned CG for n independent f-by-f SPD
+// systems, written for Hopper (sm_90a).
 //
 // Replaces the TPU kernel `batched_spd_solve_fused` in
-// predictionio_tpu/ops/spd_solve.py (pallas body `_kernel` -> `_cg_body`).
+// predictionio_tpu/ops/spd_solve.py:76 (pallas body `_kernel` -> `_cg_body`).
 // It computes what `_cg_body` computes: dinv = 1/diag(A), x0 = b*dinv,
 // then exactly `iters` (= f+4) CG steps with the same update order and
-// the same 1e-30 clamps on both denominators.
+// the same 1e-30 clamps on both denominators. Only the order of f32 sums
+// differs.
 //
-// Design: one warp owns one system; a block holds `wpb` warps. The warp
-// copies its A into shared memory once with coalesced loads (row stride
-// `ld` = f rounded up to an odd number, so lanes reading down a column of
-// rows hit distinct banks) and keeps x, r, z and its rows of p in
-// registers; lane l owns rows l, l+32, l+64, l+96. The matvec Ap runs with
-// lanes over rows against a shared copy of p, and every dot product is a
-// __shfl_xor_sync butterfly. The ragged edge is masked by index: a warp
-// whose system index is >= n returns at once, so no identity padding is
-// needed. Ranks 1..128 (up to four rows per lane).
-//
-// Bound on an H100 SXM (3.35 TB/s, 67 TFLOP/s f32 outside the tensor
-// cores): the function must read A and b and write x once,
+// What bounds it. The function must read A and b and write x once,
 // n*(f*f + 2f)*4 bytes, and does about (f+5)*2*f*f*n f32 operations plus
-// the vector updates. At n = 138,001 and f = 32 that is 0.60 GB -> 0.18 ms
-// against 12.2 GFLOP -> 0.18 ms: the two bounds meet. This version is
-// limited by shared-memory reads instead (each CG step re-reads A from
-// shared memory, about f*f*4 bytes per system per step, one dependent FMA
-// chain of length f per row), so it sits several times above the bound.
-// Making it fast (wgmma on batches of systems, TMA loads, more systems in
-// flight per SM, split accumulators) is later work.
+// the vector updates. At n = 138,001 and f = 32 on an H100 SXM (3.35 TB/s,
+// 67 TFLOP/s f32 outside the tensor cores) that is 0.60 GB -> 0.18 ms
+// against 12.2 GFLOP -> 0.18 ms: bytes and operations meet. Each system's
+// CG is a chain of matrix-vector products with one right-hand side, so
+// nothing of A is reused the way an MMA tile would reuse it, and TF32 would
+// break the f32 contract: the tensor cores do not help here.
+//
+// What bound the first version: one warp per system with A in shared
+// memory, re-read at every step. Each FMA of the matvec came with two
+// scalar shared loads (a row element and a p element), about 75 shared and
+// shuffle instructions per step and system. It ran at 1.61 ms, about 11 %
+// of the bound, limited by shared-memory load issue.
+//
+// This design (ranks 1..64):
+//   - A is read from device memory once, by cp.async into a per-warp
+//     staging tile (rows at an odd number of 16-byte chunks, so a
+//     quarter-warp reading one chunk of 8 rows hits 8 bank groups), and
+//     from there into registers. A group of G lanes owns a system; lane l
+//     of the group holds rows l, l + G, ... (at f = 32 and G = 8, four
+//     rows and 128 registers of A per lane).
+//   - Warps are persistent: a warp loops over tiles of 32/G systems. It
+//     issues the next tile's copy as soon as the current tile is in
+//     registers, so loads overlap the current tile's CG steps.
+//   - Each step's matvec reads p from a small per-group shared buffer as
+//     16-byte loads that every lane of the group shares (a broadcast), and
+//     reads nothing of A. p is written back once per step (two buffers in
+//     turn, one __syncwarp). The two dot products per step take log2(G)
+//     shuffle levels, and a warp runs 32/G systems' dots and divisions at
+//     once.
+//   - Each row sums in two to four partial sums (at least four
+//     independent FMA chains per lane).
+//   - f = 10 (the template default) and f = 32 (the ALS main paths) are
+//     compiled for their exact width. Other ranks run on widths 8, 16, 32
+//     and 64, with rows and columns past f zero-filled in the copy and
+//     masked by index.
+//   - G = 8 up to f = 32. In the SASS one step is then 224 instructions
+//     for 4 systems, of which 8 LDS.128, 4 STS and 6 SHFL: 4.5 shared and
+//     shuffle instructions per system against about 75 in the first
+//     version. At G = 16 a step is 151 instructions for 2 systems, at
+//     G = 32 114 for one; both ran slower at f = 32 and f = 10.
+// Ranks 65..128 keep A in shared memory as the first version did: one
+// warp's registers cannot hold 65 to 128 rows of up to 128 floats.
+//
+// Measured on an H100 SXM (80GB HBM3) at 700 W: 0.58 ms at n = 138,001,
+// f = 32 (2.8x the first version), about 32 % of the bound. A solve with 0
+// CG steps takes 0.22 ms, which is the loads at about 2.8 TB/s, and the
+// full solve hides them under its steps. Each of the 36 steps costs about
+// 0.015 ms, at about 0.5 issued instructions per cycle per scheduler.
+// 8 warps per SM (this kernel) reach that rate and 12 run no faster; 4
+// run 1.5x slower. A doubled matvec costs 42 % more and an approximate
+// division saves 12 %. About half of the matvec's FFMAs read the A element
+// and the accumulator from registers of one parity, which fits a
+// register-bank limit (PERF.md).
+//
+// ptxas (sm_90a, -O3; chip_smoke.py prints it): registers<32, 8> 184
+// registers, <10, 8> 112, <16, 8> 80 with 8 bytes spilled, <8, 8> 63,
+// <64, 32> 196; shared<3> 56, shared<4> 64; no other spills.
 //
 // Plain C interface for ctypes; the launch goes on the caller's stream,
-// allocates nothing and does not synchronise.
+// allocates nothing, makes no device query after the first launch of an
+// instantiation on a device, and can be captured into a CUDA graph.
 
 #include <cuda_runtime.h>
+
+#include <atomic>
 #include <cstddef>
+#include <cstdint>
+
+#include "cuda_common.cuh"
 
 namespace {
 
-constexpr int kWarp = 32;
 constexpr int kMaxRank = 128;
-constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxRegisterRank = 64;  // ranks whose A a warp holds in registers
+constexpr int kWarpsPerBlock = 2;
+constexpr int kThreads = kWarpsPerBlock * kWarp;
+constexpr int kMaxDevices = 64;
 
-__device__ __forceinline__ float warp_sum(float v) {
+// The register kernel's layout for width F and G lanes per system.
+template <int F, int G>
+struct Layout {
+  static constexpr int kRows = (F + G - 1) / G;  // rows per lane
+  static constexpr int kSys = kWarp / G;         // systems per warp
+  static constexpr int kFP = (F + 3) / 4 * 4;    // row width in whole 16-byte chunks
+  // staging row stride: an odd number of 16-byte chunks
+  static constexpr int kLd = (kFP / 4) % 2 ? kFP : kFP + 4;
+  static constexpr int kStage = kSys * F * kLd;  // A of the warp's systems
+  static constexpr int kB = kSys * kFP;          // b of the warp's systems
+  // per group: p twice (two buffers in turn), groups 8 banks apart
+  static constexpr int kPStride = (2 * kFP + 23) / 32 * 32 + 8;
+  static constexpr int kWarpFloats = kStage + kB + kSys * kPStride;
+  static constexpr size_t kSmem = (size_t)kWarpsPerBlock * kWarpFloats * sizeof(float);
+  // partial sums per row: at least four independent FMA chains per lane
+  static constexpr int kSplit = kRows >= 4 ? 1 : 4 / kRows;
+};
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
+  for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(kFull, v, off);
   return v;
 }
 
-// R = rows per lane = ceil(f / 32)
-template <int R>
-__global__ void spd_cg_kernel(const float* __restrict__ A,
-                              const float* __restrict__ b,
-                              float* __restrict__ x_out, long long n, int f,
-                              int ld, int iters, int wpb) {
-  extern __shared__ float smem[];
-  const int warp = threadIdx.x / kWarp;
-  const int lane = threadIdx.x % kWarp;
-  const long long sys = (long long)blockIdx.x * wpb + warp;
-  if (sys >= n) return;  // warp-uniform: masks the ragged edge
-
-  // per-warp shared region: A [f, ld] then p [f]
-  float* As = smem + (size_t)warp * ((size_t)f * ld + f);
-  float* ps = As + (size_t)f * ld;
-
-  const size_t ff = (size_t)f * f;
-  const float* Ag = A + (size_t)sys * ff;
-  for (int idx = lane; idx < (int)ff; idx += kWarp) {
-    const int row = idx / f;
-    As[row * ld + (idx - row * f)] = Ag[idx];
-  }
-  const float* bg = b + (size_t)sys * f;
-  float xr[R], rr[R], zr[R], pr[R], dinv[R], br[R];
-#pragma unroll
-  for (int t = 0; t < R; ++t) {
-    const int i = lane + t * kWarp;
-    br[t] = i < f ? bg[i] : 0.0f;
-  }
-  __syncwarp();
-
-#pragma unroll
-  for (int t = 0; t < R; ++t) {
-    const int i = lane + t * kWarp;
-    dinv[t] = i < f ? 1.0f / As[i * ld + i] : 0.0f;
-    xr[t] = br[t] * dinv[t];
-    if (i < f) ps[i] = xr[t];  // the matvec reads its operand from ps
-  }
-  __syncwarp();
-
-  // r = b - A x0; z = r * dinv; p = z; rz = <r, z>
-  float part = 0.0f;
-#pragma unroll
-  for (int t = 0; t < R; ++t) {
-    const int i = lane + t * kWarp;
-    float ax = 0.0f;
-    if (i < f) {
-      const float* row = As + i * ld;
-      for (int j = 0; j < f; ++j) ax += row[j] * ps[j];
+// Starts copying the A and b of systems [sys0, sys0 + kSys) into a warp's
+// staging tile: row i of system s at (s*F + i)*kLd, b of s at
+// kStage + s*kFP. Rows and columns past f and systems past n are
+// zero-filled. vec: f == F, F % 4 == 0 and A is 16-byte aligned, so whole
+// rows go in 16-byte copies.
+template <int F, int G>
+__device__ __forceinline__ void stage_tile(float* st, const float* A, const float* b,
+                                           long long sys0, long long n, int f, bool vec,
+                                           int lane) {
+  using L = Layout<F, G>;
+  if (vec) {
+    constexpr int kChunks = F / 4;
+    for (int c = lane; c < L::kSys * F * kChunks; c += kWarp) {
+      const int s = c / (F * kChunks), i = c / kChunks % F, k = c % kChunks;
+      const bool ok = sys0 + s < n;
+      const float* src = A + ((sys0 + s) * F + i) * F + 4 * k;
+      cp_async16(st + (s * F + i) * L::kLd + 4 * k, ok ? src : A, ok);
     }
-    rr[t] = br[t] - ax;
-    zr[t] = rr[t] * dinv[t];
-    pr[t] = zr[t];
-    part += rr[t] * zr[t];
+  } else {
+    for (int e = lane; e < L::kSys * F * L::kFP; e += kWarp) {
+      const int s = e / (F * L::kFP), i = e / L::kFP % F, j = e % L::kFP;
+      const bool ok = sys0 + s < n && i < f && j < f;
+      const float* src = A + ((sys0 + s) * f + i) * f + j;
+      cp_async4(st + (s * F + i) * L::kLd + j, ok ? src : A, ok);
+    }
   }
-  float rz = warp_sum(part);
-  __syncwarp();
+  for (int e = lane; e < L::kB; e += kWarp) {
+    const int s = e / L::kFP, j = e % L::kFP;
+    const bool ok = sys0 + s < n && j < f;
+    cp_async4(st + L::kStage + e, ok ? b + (sys0 + s) * f + j : b, ok);
+  }
+  cp_async_commit();
+}
+
+// out[t] = row (l + t*G) of A times p, for the rows a lane holds.
+template <int F, int G>
+__device__ __forceinline__ void matvec(float (&out)[Layout<F, G>::kRows],
+                                       const float (&a)[Layout<F, G>::kRows][Layout<F, G>::kFP],
+                                       const float* p) {
+  using L = Layout<F, G>;
+  constexpr int R = L::kRows, S = L::kSplit;
+  float acc[R][S];
+#pragma unroll
+  for (int t = 0; t < R; ++t)
+#pragma unroll
+    for (int q = 0; q < S; ++q) acc[t][q] = 0.0f;
+#pragma unroll
+  for (int k = 0; k < L::kFP / 4; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * k);
+    const float pv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+        acc[t][(4 * k + c) % S] = fmaf(a[t][4 * k + c], pv[c], acc[t][(4 * k + c) % S]);
+  }
 #pragma unroll
   for (int t = 0; t < R; ++t) {
-    const int i = lane + t * kWarp;
-    if (i < f) ps[i] = pr[t];
-  }
-  __syncwarp();
-
-  for (int it = 0; it < iters; ++it) {
-    float ap[R];
-    part = 0.0f;
 #pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const int i = lane + t * kWarp;
-      float acc = 0.0f;
-      if (i < f) {
-        const float* row = As + i * ld;
-        for (int j = 0; j < f; ++j) acc += row[j] * ps[j];
-      }
-      ap[t] = acc;
-      part += pr[t] * acc;
-    }
-    const float pap = warp_sum(part);
-    const float alpha = rz / fmaxf(pap, 1e-30f);
-    part = 0.0f;
+    for (int w = 1; w < S; w *= 2)
 #pragma unroll
-    for (int t = 0; t < R; ++t) {
-      xr[t] = xr[t] + alpha * pr[t];
-      rr[t] = rr[t] - alpha * ap[t];
-      zr[t] = rr[t] * dinv[t];
-      part += rr[t] * zr[t];
-    }
-    const float rz2 = warp_sum(part);
-    const float beta = rz2 / fmaxf(rz, 1e-30f);
-    __syncwarp();  // every lane has finished reading ps for this step
-#pragma unroll
-    for (int t = 0; t < R; ++t) {
-      const int i = lane + t * kWarp;
-      pr[t] = zr[t] + beta * pr[t];
-      if (i < f) ps[i] = pr[t];
-    }
-    __syncwarp();
-    rz = rz2;
-  }
-
-  float* xg = x_out + (size_t)sys * f;
-#pragma unroll
-  for (int t = 0; t < R; ++t) {
-    const int i = lane + t * kWarp;
-    if (i < f) xg[i] = xr[t];
+      for (int q = 0; q + w < S; q += 2 * w) acc[t][q] += acc[t][q + w];
+    out[t] = acc[t][0];
   }
 }
 
+// Ranks 1..64: a group of G lanes per system, A in registers, persistent
+// warps over tiles of kSys systems (kExact: f == F).
+template <int F, int G, bool kExact>
+__global__ void __launch_bounds__(kThreads)
+    spd_cg_registers(const float* __restrict__ A, const float* __restrict__ b,
+                     float* __restrict__ x_out, long long n, int f_arg, int iters, bool vec) {
+  using L = Layout<F, G>;
+  constexpr int R = L::kRows, FP = L::kFP;
+  extern __shared__ __align__(16) float smem[];
+  const int f = kExact ? F : f_arg;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const int grp = lane / G, gl = lane % G;
+  float* st = smem + warp * L::kWarpFloats;
+  float* pbuf = st + L::kStage + L::kB + grp * L::kPStride;
+  for (int j = gl; j < 2 * FP; j += G) pbuf[j] = 0.0f;  // columns [F, FP) stay 0
+
+  const long long tiles = (n + L::kSys - 1) / L::kSys;
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+  long long tile = (long long)blockIdx.x * kWarpsPerBlock + warp;
+  if (tile >= tiles) return;  // warp-uniform
+  stage_tile<F, G>(st, A, b, tile * L::kSys, n, f, vec, lane);
+
+  for (; tile < tiles; tile += stride) {
+    const long long sys = tile * L::kSys + grp;
+    const bool live = sys < n;
+    cp_async_wait_all();
+    __syncwarp();
+
+    // A, b and 1/diag(A) of this lane's rows, from the staging tile
+    const float* As = st + grp * F * L::kLd;
+    float a[R][FP], br[R], dinv[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = gl + t * G;
+      const bool row = F % G == 0 || i < F;
+#pragma unroll
+      for (int k = 0; k < FP / 4; ++k) {
+        const float4 v = row ? *reinterpret_cast<const float4*>(As + i * L::kLd + 4 * k)
+                             : make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+        a[t][4 * k] = v.x;
+        a[t][4 * k + 1] = v.y;
+        a[t][4 * k + 2] = v.z;
+        a[t][4 * k + 3] = v.w;
+      }
+      const bool ok = live && i < f;
+      br[t] = ok ? st[L::kStage + grp * FP + i] : 0.0f;
+      dinv[t] = ok ? 1.0f / As[i * L::kLd + i] : 0.0f;
+    }
+    __syncwarp();  // every lane has read the staging tile
+    if (tile + stride < tiles) stage_tile<F, G>(st, A, b, (tile + stride) * L::kSys, n, f, vec, lane);
+
+    // x0 = b*dinv; r = b - A x0; z = r*dinv; p = z; rz = <r, z>
+    float x[R], r[R], p[R], ap[R];
+    float* cur = pbuf;
+    float* nxt = pbuf + FP;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      x[t] = br[t] * dinv[t];
+      if (F % G == 0 || gl + t * G < F) cur[gl + t * G] = x[t];
+    }
+    __syncwarp();
+    matvec<F, G>(ap, a, cur);
+    float part = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      r[t] = br[t] - ap[t];
+      const float z = r[t] * dinv[t];
+      p[t] = z;
+      part += r[t] * z;
+      if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
+    }
+    float rz = group_sum<G>(part);
+    __syncwarp();
+
+    for (int it = 0; it < iters; ++it) {
+      {
+        float* tmp = cur;
+        cur = nxt;
+        nxt = tmp;
+      }
+      matvec<F, G>(ap, a, cur);
+      part = 0.0f;
+#pragma unroll
+      for (int t = 0; t < R; ++t) part += p[t] * ap[t];
+      const float alpha = rz / fmaxf(group_sum<G>(part), 1e-30f);
+      float z[R];
+      part = 0.0f;
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        x[t] = x[t] + alpha * p[t];
+        r[t] = r[t] - alpha * ap[t];
+        z[t] = r[t] * dinv[t];
+        part += r[t] * z[t];
+      }
+      const float rz2 = group_sum<G>(part);
+      const float beta = rz2 / fmaxf(rz, 1e-30f);
+      // nxt was last read in the previous step's matvec, which every lane
+      // finished before that step's __syncwarp
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        p[t] = z[t] + beta * p[t];
+        if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
+      }
+      __syncwarp();
+      rz = rz2;
+    }
+
+    if (live) {
+      float* xg = x_out + sys * f;
+#pragma unroll
+      for (int t = 0; t < R; ++t)
+        if (gl + t * G < f) xg[gl + t * G] = x[t];
+    }
+  }
+}
+
+// Ranks 65..128 (R = ceil(f / 32) rows per lane): one warp per system, A in
+// shared memory at an odd row stride, the matvec reading A and p from
+// shared memory at every step; warps loop over systems.
 template <int R>
-cudaError_t launch(const float* A, const float* b, float* x, long long n,
-                   int f, int iters, cudaStream_t stream) {
-  const int ld = (f % 2 == 0) ? f + 1 : f;
-  const size_t per_warp = ((size_t)f * ld + f) * sizeof(float);
+__global__ void __launch_bounds__(kThreads)
+    spd_cg_shared(const float* __restrict__ A, const float* __restrict__ b,
+                  float* __restrict__ x_out, long long n, int f, int iters) {
+  extern __shared__ __align__(16) float smem[];
+  const int ld = f % 2 ? f : f + 1;
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  float* As = smem + (size_t)warp * ((size_t)f * ld + f);
+  float* ps = As + (size_t)f * ld;
+  const size_t ff = (size_t)f * f;
+  const long long stride = (long long)gridDim.x * kWarpsPerBlock;
+
+  for (long long sys = (long long)blockIdx.x * kWarpsPerBlock + warp; sys < n; sys += stride) {
+    __syncwarp();  // the previous system's reads of As and ps are done
+    const float* Ag = A + (size_t)sys * ff;
+    for (int idx = lane; idx < (int)ff; idx += kWarp) {
+      const int row = idx / f;
+      As[row * ld + (idx - row * f)] = Ag[idx];
+    }
+    const float* bg = b + (size_t)sys * f;
+    float xr[R], rr[R], zr[R], pr[R], dinv[R], br[R];
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = lane + t * kWarp;
+      br[t] = i < f ? bg[i] : 0.0f;
+    }
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = lane + t * kWarp;
+      dinv[t] = i < f ? 1.0f / As[i * ld + i] : 0.0f;
+      xr[t] = br[t] * dinv[t];
+      if (i < f) ps[i] = xr[t];
+    }
+    __syncwarp();
+
+    float part = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = lane + t * kWarp;
+      float ax = 0.0f;
+      if (i < f) {
+        const float* row = As + i * ld;
+        for (int j = 0; j < f; ++j) ax += row[j] * ps[j];
+      }
+      rr[t] = br[t] - ax;
+      zr[t] = rr[t] * dinv[t];
+      pr[t] = zr[t];
+      part += rr[t] * zr[t];
+    }
+    float rz = group_sum<kWarp>(part);
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = lane + t * kWarp;
+      if (i < f) ps[i] = pr[t];
+    }
+    __syncwarp();
+
+    for (int it = 0; it < iters; ++it) {
+      float ap[R];
+      part = 0.0f;
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        const int i = lane + t * kWarp;
+        float acc = 0.0f;
+        if (i < f) {
+          const float* row = As + i * ld;
+          for (int j = 0; j < f; ++j) acc += row[j] * ps[j];
+        }
+        ap[t] = acc;
+        part += pr[t] * acc;
+      }
+      const float alpha = rz / fmaxf(group_sum<kWarp>(part), 1e-30f);
+      part = 0.0f;
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        xr[t] = xr[t] + alpha * pr[t];
+        rr[t] = rr[t] - alpha * ap[t];
+        zr[t] = rr[t] * dinv[t];
+        part += rr[t] * zr[t];
+      }
+      const float rz2 = group_sum<kWarp>(part);
+      const float beta = rz2 / fmaxf(rz, 1e-30f);
+      __syncwarp();  // every lane has finished reading ps for this step
+#pragma unroll
+      for (int t = 0; t < R; ++t) {
+        const int i = lane + t * kWarp;
+        pr[t] = zr[t] + beta * pr[t];
+        if (i < f) ps[i] = pr[t];
+      }
+      __syncwarp();
+      rz = rz2;
+    }
+
+    float* xg = x_out + (size_t)sys * f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      const int i = lane + t * kWarp;
+      if (i < f) xg[i] = xr[t];
+    }
+  }
+}
+
+struct Args {
+  const float* A;
+  const float* b;
+  float* x;
+  long long n;
+  int f;
+  int iters;
+  cudaStream_t stream;
+};
+
+// What pio_spd_cg_plan reports; ops/spd_solve.py:launch_plan computes the
+// same fields but the last two.
+struct Report {
+  int kind;  // 0: A in registers, 1: A in shared memory
+  int width;
+  int exact;
+  int group;  // lanes per system
+  int warps_per_block;
+  int capacity;  // blocks the card keeps resident at once
+  int blocks;    // the grid of this launch
+};
+
+// The grid of a launch: one warp per tile, capped at the blocks the whole
+// card keeps resident (the warps then loop over tiles). The cap, and the
+// kernel's shared-memory attributes, are set once per device and
+// instantiation, so later launches, and launches captured into a CUDA
+// graph, make no query.
+template <class Kernel>
+cudaError_t grid_for(Kernel* kernel, size_t max_smem, long long tiles,
+                     std::atomic<int> (&cache)[kMaxDevices], Report& rep) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
-  int max_optin = 0;
-  err = cudaDeviceGetAttribute(&max_optin,
-                               cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  if (err != cudaSuccess) return err;
-  int wpb = 4;
-  while (wpb > 1 && per_warp * wpb > (size_t)max_optin) wpb /= 2;
-  const size_t smem = per_warp * wpb;
-  if (smem > (size_t)max_optin) return cudaErrorInvalidValue;
-  err = cudaFuncSetAttribute(spd_cg_kernel<R>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (err != cudaSuccess) return err;
-  const long long blocks = (n + wpb - 1) / wpb;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;  // grid.x limit
-  spd_cg_kernel<R><<<(unsigned)blocks, wpb * kWarp, smem, stream>>>(
-      A, b, x, n, f, ld, iters, wpb);
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cap = cache[dev].load(std::memory_order_relaxed);
+  if (cap == 0) {
+    if (max_smem > 48 * 1024) {
+      err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                 (int)max_smem);
+      if (err != cudaSuccess) return err;
+    }
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, max_smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap = per_sm * sms;
+    cache[dev].store(cap, std::memory_order_relaxed);
+  }
+  const long long want = (tiles + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  rep.warps_per_block = kWarpsPerBlock;
+  rep.capacity = cap;
+  rep.blocks = (int)(want < cap ? want : cap);
+  return cudaSuccess;
+}
+
+// Launches (or, with plan_only, only plans) instantiation <F, G, kExact>.
+template <int F, int G, bool kExact>
+cudaError_t run_registers(const Args& a, Report& rep, bool plan_only) {
+  using L = Layout<F, G>;
+  static std::atomic<int> cache[kMaxDevices];
+  rep.kind = 0;
+  rep.width = F;
+  rep.exact = kExact;
+  rep.group = G;
+  const cudaError_t err =
+      grid_for(spd_cg_registers<F, G, kExact>, L::kSmem, (a.n + L::kSys - 1) / L::kSys, cache, rep);
+  if (err != cudaSuccess || plan_only || rep.blocks == 0) return err;
+  const bool vec = kExact && F % 4 == 0 && reinterpret_cast<uintptr_t>(a.A) % 16 == 0;
+  spd_cg_registers<F, G, kExact><<<rep.blocks, kThreads, L::kSmem, a.stream>>>(
+      a.A, a.b, a.x, a.n, a.f, a.iters, vec);
   return cudaGetLastError();
+}
+
+template <int R>
+cudaError_t run_shared(const Args& a, Report& rep, bool plan_only) {
+  constexpr int kMaxF = kWarp * R;
+  constexpr size_t kMaxSmem = (size_t)kWarpsPerBlock * (kMaxF * (kMaxF + 1) + kMaxF) * sizeof(float);
+  static std::atomic<int> cache[kMaxDevices];
+  rep.kind = 1;
+  rep.width = kMaxF;
+  rep.exact = 0;
+  rep.group = kWarp;
+  const cudaError_t err = grid_for(spd_cg_shared<R>, kMaxSmem, a.n, cache, rep);
+  if (err != cudaSuccess || plan_only || rep.blocks == 0) return err;
+  const int ld = a.f % 2 ? a.f : a.f + 1;
+  const size_t smem = (size_t)kWarpsPerBlock * ((size_t)a.f * ld + a.f) * sizeof(float);
+  spd_cg_shared<R><<<rep.blocks, kThreads, smem, a.stream>>>(a.A, a.b, a.x, a.n, a.f, a.iters);
+  return cudaGetLastError();
+}
+
+// The plan by rank; ops/spd_solve.py:launch_plan mirrors it.
+cudaError_t run(const Args& a, Report& rep, bool plan_only) {
+  const int f = a.f;
+  if (f > kMaxRegisterRank) {
+    return f > 3 * kWarp ? run_shared<4>(a, rep, plan_only) : run_shared<3>(a, rep, plan_only);
+  }
+  if (f == 10) return run_registers<10, 8, true>(a, rep, plan_only);
+  if (f == 32) return run_registers<32, 8, true>(a, rep, plan_only);
+  if (f <= 8) return run_registers<8, 8, false>(a, rep, plan_only);
+  if (f <= 16) return run_registers<16, 8, false>(a, rep, plan_only);
+  if (f <= 32) return run_registers<32, 8, false>(a, rep, plan_only);
+  return run_registers<64, 32, false>(a, rep, plan_only);
 }
 
 }  // namespace
@@ -189,21 +519,24 @@ int pio_spd_cg_max_rank() { return kMaxRank; }
 
 // Solve A[s] x[s] = b[s] for s < n; A [n, f, f], b and x [n, f], all f32,
 // contiguous, on the current device. Returns a cudaError_t (0 = launched).
-int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n,
-                     int f, int iters, void* stream) {
+int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n, int f, int iters,
+                     void* stream) {
   if (n < 0 || f < 1 || f > kMaxRank || iters < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch ((f + kWarp - 1) / kWarp) {
-    case 1: return launch<1>(A, b, x, n, f, iters, s);
-    case 2: return launch<2>(A, b, x, n, f, iters, s);
-    case 3: return launch<3>(A, b, x, n, f, iters, s);
-    default: return launch<4>(A, b, x, n, f, iters, s);
-  }
+  Report rep{};
+  return run(Args{A, b, x, n, f, iters, static_cast<cudaStream_t>(stream)}, rep, false);
 }
 
-const char* pio_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// The launch plan for n systems of rank f on the current device, into
+// out[7]: kind, width, exact, group, warps per block, capacity, blocks.
+int pio_spd_cg_plan(long long n, int f, int* out) {
+  if (n < 0 || f < 1 || f > kMaxRank) return cudaErrorInvalidValue;
+  Report rep{};
+  const cudaError_t err = run(Args{nullptr, nullptr, nullptr, n, f, f + 4, nullptr}, rep, true);
+  const int fields[7] = {rep.kind,  rep.width,           rep.exact, rep.group,
+                         rep.warps_per_block, rep.capacity, rep.blocks};
+  for (int k = 0; k < 7; ++k) out[k] = fields[k];
+  return err;
 }
 
 }  // extern "C"

@@ -5,12 +5,15 @@ The ALS half-solve ends with one [f, f] SPD system per entity (f = rank).
 (``predictionio_tpu/ops/spd_solve.py:_cg_body``) in plain PyTorch: the
 same preconditioner, the same f+4 iterations, the same update order and
 clamps. ``batched_spd_solve_fused`` launches ``csrc/spd_cg.cu``, which runs
-that algorithm with one warp per system and A read from device memory once.
+that algorithm with A read from device memory once: for ranks up to 64 a
+group of lanes holds one system's A in registers, for larger ranks a warp
+keeps it in shared memory. ``launch_plan`` says which, as the source does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 
 import torch
@@ -18,6 +21,59 @@ import torch
 from predictionio_tpu_torch.ops import _build
 
 MAX_RANK = 128  # pio_spd_cg_max_rank() in csrc/spd_cg.cu
+MAX_REGISTER_RANK = 64  # ranks whose A one warp holds in registers
+WARPS_PER_BLOCK = 2
+WARP = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How ``csrc/spd_cg.cu`` lays rank-f systems over the card (its
+    ``run``): ``kernel`` "registers" (a group of ``group`` lanes holds one
+    system's A in registers) or "shared" (a warp keeps A in shared memory),
+    compiled for ``width`` >= f, for exactly f when ``exact``. A warp solves
+    tiles of ``systems_per_warp`` consecutive systems and loops over tiles
+    with the stride of the whole grid."""
+
+    kernel: str
+    width: int
+    exact: bool
+    group: int
+
+    @property
+    def systems_per_warp(self) -> int:
+        return WARP // self.group
+
+    def tiles(self, n: int) -> int:
+        return -(-n // self.systems_per_warp)
+
+    def blocks(self, n: int, capacity: int) -> int:
+        """The grid for n systems: one warp per tile, at most ``capacity``
+        blocks (what the card keeps resident at once)."""
+        return min(-(-self.tiles(n) // WARPS_PER_BLOCK), capacity)
+
+    def warp_systems(self, n: int, warp: int, warps: int) -> list[int]:
+        """The systems that warp ``warp`` of a grid of ``warps`` solves."""
+        spw = self.systems_per_warp
+        return [
+            s
+            for tile in range(warp, self.tiles(n), warps)
+            for s in range(tile * spw, min(tile * spw + spw, n))
+        ]
+
+
+def launch_plan(f: int) -> LaunchPlan:
+    """The kernel instantiation for rank f: exact widths for the template
+    default (10) and the ALS main paths (32), padded widths 8, 16, 32 and 64
+    otherwise, A in shared memory past rank 64."""
+    if not 1 <= f <= MAX_RANK:
+        raise ValueError(f"rank {f} outside what the CUDA solve takes (1..{MAX_RANK})")
+    if f > MAX_REGISTER_RANK:
+        return LaunchPlan("shared", -(-f // WARP) * WARP, False, WARP)
+    if f in (10, 32):
+        return LaunchPlan("registers", f, True, 8)
+    width = next(w for w in (8, 16, 32, 64) if f <= w)
+    return LaunchPlan("registers", width, False, 8 if width <= 32 else WARP)
 
 
 def _cg_body(A: torch.Tensor, b: torch.Tensor, iters: int) -> torch.Tensor:
@@ -56,6 +112,8 @@ def _library() -> ctypes.CDLL:
     lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pio_cuda_error_string.restype = ctypes.c_char_p
     lib.pio_spd_cg_max_rank.restype = ctypes.c_int
+    lib.pio_spd_cg_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    lib.pio_spd_cg_plan.restype = ctypes.c_int
     if lib.pio_spd_cg_max_rank() != MAX_RANK:
         raise RuntimeError("spd_cg.cu and spd_solve.MAX_RANK disagree")
     return lib

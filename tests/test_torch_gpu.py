@@ -38,12 +38,33 @@ def _spd_batch(n, f, seed=0, reg=0.05):
     return A.astype(np.float32), b
 
 
-@pytest.mark.parametrize("n,f", [(1, 1), (5, 8), (17, 10), (33, 16), (1001, 32),
-                                 (403, 64), (77, 100), (39, 128)])
-def test_spd_cg_matches_plain(cuda, n, f):
+def _c_plan(n, f):
+    """pio_spd_cg_plan on the current card: (LaunchPlan, capacity, blocks)."""
+    from predictionio_tpu_torch.ops import spd_solve as S
+
+    out = np.zeros(7, np.int32)
+    assert S._library().pio_spd_cg_plan(n, f, out.ctypes.data) == 0
+    kind, width, exact, group, wpb, capacity, blocks = out.tolist()
+    assert wpb == S.WARPS_PER_BLOCK
+    plan = S.LaunchPlan("registers" if kind == 0 else "shared", width, bool(exact), group)
+    return plan, capacity, blocks
+
+
+_SPD_RANKS = [1, 8, 10, 16, 31, 32, 33, 64, 65, 100, 128]
+
+
+@pytest.mark.parametrize("f", _SPD_RANKS)
+@pytest.mark.parametrize("size", ["one", "ragged_group", "wave_plus_one"])
+def test_spd_cg_matches_plain(cuda, size, f):
+    """One system; a count that leaves a group of a warp's tile partly
+    empty; and one system past a full persistent wave, so that one warp
+    loops to a second tile that holds a single system."""
     from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
 
-    A, b = _spd_batch(n, f, seed=f)
+    plan, capacity, _ = _c_plan(1, f)
+    wave = capacity * 2 * plan.systems_per_warp
+    n = {"one": 1, "ragged_group": 4 * wave // 7 * 4 + 3, "wave_plus_one": wave + 1}[size]
+    A, b = _spd_batch(n, f, seed=f + n)
     A_d, b_d = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
     before = batched_spd_solve_fused.launches
     x = batched_spd_solve_fused(A_d, b_d)
@@ -53,6 +74,45 @@ def test_spd_cg_matches_plain(cuda, n, f):
     assert x.shape == (n, f)
     assert torch.isfinite(x).all()
     np.testing.assert_allclose(x.cpu().numpy(), ref.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+def test_spd_cg_plan_is_the_python_plan(cuda):
+    """The instantiation and grid the C entry picks are launch_plan's, for
+    every rank, and that grid solves every system once."""
+    from predictionio_tpu_torch.ops.spd_solve import MAX_RANK, launch_plan
+
+    for f in range(1, MAX_RANK + 1):
+        for n in (0, 1, 27_001, 138_001):
+            plan, capacity, blocks = _c_plan(n, f)
+            assert plan == launch_plan(f), f
+            assert capacity > 0 and blocks == plan.blocks(n, capacity), (f, n)
+        wave = capacity * 2 * plan.systems_per_warp
+        warps = plan.blocks(wave + 1, capacity) * 2
+        solved = [s for w in range(warps) for s in plan.warp_systems(wave + 1, w, warps)]
+        assert sorted(solved) == list(range(wave + 1)), f
+
+
+@pytest.mark.parametrize("f", [10, 32, 100])
+def test_spd_cg_in_a_cuda_graph_matches_eager(cuda, f):
+    """A launch captured into a CUDA graph and replayed gives the eager
+    launch's result bit for bit, and the capture makes no device query."""
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+
+    A, b = _spd_batch(3001, f, seed=f)
+    A_d, b_d = torch.from_numpy(A).to(cuda), torch.from_numpy(b).to(cuda)
+    eager = batched_spd_solve_fused(A_d, b_d)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        batched_spd_solve_fused(A_d, b_d)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = batched_spd_solve_fused(A_d, b_d)
+    captured.fill_(float("nan"))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
 
 
 def test_spd_cg_rejects_what_it_does_not_take(cuda):

@@ -120,3 +120,42 @@ def test_kernel_module_builds_nothing_on_import():
                          env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == "ok"
+
+
+# what the card keeps resident: one block, a few, and 5 per SM on 132 SMs
+_CAPACITIES = (1, 3, 660)
+
+
+@pytest.mark.parametrize("f", range(1, pt_spd.MAX_RANK + 1))
+def test_launch_plan_covers_every_system_once(f):
+    """Every rank maps to one instantiation that holds it, and the persistent
+    grid of that plan solves each of n systems exactly once: n = 0, 1, a
+    ragged group, and one short of, at and one past a full wave."""
+    plan = pt_spd.launch_plan(f)
+    assert plan == pt_spd.launch_plan(f)
+    assert plan.width >= f and (plan.width == f or not plan.exact)
+    if plan.kernel == "registers":
+        assert f <= pt_spd.MAX_REGISTER_RANK and plan.group in (8, 16, 32)
+        assert plan.exact == (f in (10, 32))
+        assert plan.exact or plan.width in (8, 16, 32, 64)
+        # A of one system in registers: rows per lane x width <= 128 floats
+        assert -(-plan.width // plan.group) * plan.width <= 128
+    else:
+        assert plan.kernel == "shared" and f > pt_spd.MAX_REGISTER_RANK
+        assert plan.group == pt_spd.WARP and plan.width in (96, 128)
+    spw = plan.systems_per_warp
+    assert spw * plan.group == pt_spd.WARP
+    for capacity in _CAPACITIES:
+        wave = capacity * pt_spd.WARPS_PER_BLOCK * spw
+        for n in sorted({0, 1, spw + 1, wave - 1, wave, wave + 1, 2 * wave + 3}):
+            blocks = plan.blocks(n, capacity)
+            assert 0 <= blocks <= capacity and (blocks > 0) == (n > 0)
+            warps = blocks * pt_spd.WARPS_PER_BLOCK
+            solved = [s for w in range(warps) for s in plan.warp_systems(n, w, warps)]
+            assert sorted(solved) == list(range(n)), (capacity, n)
+
+
+@pytest.mark.parametrize("f", [0, pt_spd.MAX_RANK + 1])
+def test_launch_plan_refuses_ranks_the_kernel_does_not_take(f):
+    with pytest.raises(ValueError, match="rank"):
+        pt_spd.launch_plan(f)
