@@ -1,11 +1,12 @@
 """Weights carried across from the JAX package.
 
-The models of the JAX package's recommendation and sequential templates are
-host numpy and plain Python containers. ``als_model_from_numpy`` and
-``sequential_model_from_numpy`` build the port's models from them, and
-``ModelUnpickler`` loads a blob that ``pio train`` of the JAX package
-wrote by mapping its class paths to the port's classes, without importing
-the JAX package.
+The models of the JAX package's recommendation, sequential and two-tower
+templates are host numpy and plain Python containers. ``als_model_from_numpy``
+and ``sequential_model_from_numpy`` build the port's models from them,
+``twotower_params_from_numpy`` turns a flax parameter tree into the port's
+``state_dict``, and ``ModelUnpickler`` loads a blob that ``pio train`` of
+the JAX package wrote by mapping its class paths to the port's classes,
+without importing the JAX package or flax.
 """
 
 from __future__ import annotations
@@ -29,6 +30,16 @@ CLASS_MAP = {
         "predictionio_tpu_torch.e2.markov_chain",
         "MarkovChainModel",
     ),
+    ("predictionio_tpu.models.twotower.engine", "TwoTowerModelState"): (
+        "predictionio_tpu_torch.models.twotower.engine",
+        "TwoTowerModelState",
+    ),
+    ("predictionio_tpu.models.twotower.model", "TwoTowerConfig"): (
+        "predictionio_tpu_torch.models.twotower.model",
+        "TwoTowerConfig",
+    ),
+    # an older flax pickles a parameter tree as FrozenDict(dict): a plain dict here
+    ("flax.core.frozen_dict", "FrozenDict"): ("builtins", "dict"),
 }
 
 
@@ -109,3 +120,44 @@ def sequential_model_from_numpy(
         item_out=tables[1],
         context=int(context),
     )
+
+
+def is_flax_tree(params) -> bool:
+    """Whether ``params`` is a flax parameter tree (nested dicts), not the
+    port's flat ``state_dict``."""
+    return isinstance(params, dict) and any(isinstance(v, dict) for v in params.values())
+
+
+def twotower_params_from_numpy(params) -> dict[str, np.ndarray]:
+    """The port's TwoTower ``state_dict`` (numpy) from the JAX package's
+    flax tree in numpy: an Embed's ``embedding`` is the Embedding
+    ``weight``; a Dense ``kernel`` [in, out] becomes the Linear ``weight``
+    [out, in]; ``pos`` and LayerNorm ``scale``/``bias`` carry over."""
+
+    def arr(x) -> np.ndarray:
+        return np.array(x, dtype=np.float32, order="C")  # an owned, writable copy
+
+    def dense(prefix: str, node) -> dict[str, np.ndarray]:
+        return {f"{prefix}.weight": arr(np.asarray(node["kernel"]).T), f"{prefix}.bias": arr(node["bias"])}
+
+    out: dict[str, np.ndarray] = {}
+    for tower in ("user_tower", "item_tower"):
+        node = params[tower]
+        out[f"{tower}.embed.weight"] = arr(node["embed"]["embedding"])
+        i = 0
+        while f"dense_{i}" in node:
+            out.update(dense(f"{tower}.dense.{i}", node[f"dense_{i}"]))
+            i += 1
+        out.update(dense(f"{tower}.out", node["out"]))
+    if "hist_encoder" in params:
+        node = params["hist_encoder"]
+        out["hist_encoder.hist_embed.weight"] = arr(node["hist_embed"]["embedding"])
+        out["hist_encoder.pos"] = arr(node["pos"])
+        out["hist_encoder.ln.weight"] = arr(node["ln"]["scale"])
+        out["hist_encoder.ln.bias"] = arr(node["ln"]["bias"])
+        for name in ("q", "k", "v", "proj"):
+            out.update(dense(f"hist_encoder.{name}", node[name]))
+    known = {"user_tower", "item_tower", "hist_encoder"}
+    if set(params) - known:
+        raise ValueError(f"unknown two-tower parameter groups {sorted(set(params) - known)}")
+    return out

@@ -6,6 +6,8 @@ The DataSource reads "rate" and "buy" events of user -> item (buy maps to
 rating 4.0) from the columnar store; ALSAlgorithm trains with
 ``ops.als.als_train`` on the context's device and serves from a
 device-resident ``ServingIndex``, one batched top-k per micro-batch.
+Variants: the ``custom`` preparator drops the items listed in a file, the
+``filter`` serving drops those listed in a file it re-reads per request.
 """
 
 from __future__ import annotations
@@ -68,14 +70,23 @@ class PredictedResult:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalParams(Params):
+    k_fold: int = 2
+    query_num: int = 10
+
+
+@dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
     """``rating_map`` assigns a fixed rating to each listed event name,
-    overriding any per-event "rating" property."""
+    overriding any per-event "rating" property. ``eval_params`` is kept for
+    the evaluation folds (``read_eval`` is not ported yet); training
+    ignores it."""
 
     app_name: str = ""
     event_names: tuple[str, ...] = ("rate", "buy")
     buy_rating: float = 4.0
     rating_map: dict[str, float] | None = None
+    eval_params: EvalParams | None = None
 
 
 @dataclasses.dataclass
@@ -131,6 +142,36 @@ class Preparator(BasePreparator):
         return td
 
 
+@dataclasses.dataclass(frozen=True)
+class CustomPreparatorParams(Params):
+    filepath: str
+
+
+class CustomPreparator(BasePreparator):
+    """The customize-data-prep variant: drop the ratings of the items listed
+    in a file (one item id per line), and those items from the vocabulary,
+    so that they get no factors and are never served."""
+
+    params_class = CustomPreparatorParams
+    params: CustomPreparatorParams
+
+    def prepare(self, ctx: WorkflowContext, td: TrainingData) -> TrainingData:
+        with open(self.params.filepath) as fh:
+            no_train_items = {line.strip() for line in fh if line.strip()}
+        if not no_train_items:
+            return td
+        excluded = np.asarray([item in no_train_items for item in td.item_vocab], dtype=bool)
+        new_of_old = np.cumsum(~excluded) - 1
+        keep = ~excluded[td.item_idx]
+        return TrainingData(
+            td.user_idx[keep],
+            new_of_old[td.item_idx[keep]].astype(td.item_idx.dtype),
+            td.ratings[keep],
+            td.user_vocab,
+            [it for it, ex in zip(td.item_vocab, excluded) if not ex],
+        )
+
+
 # ---------------------------------------------------------------------------
 # Algorithm
 # ---------------------------------------------------------------------------
@@ -144,6 +185,9 @@ class ALSAlgorithmParams(Params):
     seed: int | None = 3
     implicit_prefs: bool = False
     alpha: float = 1.0
+    # the JAX package's mesh-sharded solver across all devices; on one
+    # device both train the same (the multi-device path is not ported yet)
+    distributed: bool = False
     gather_dtype: str = "f32"  # "f32" | "bf16": dtype of the gathered rows only
     solver: str = "cg"  # "cg" | "cg_fused" (both kernel B1 on CUDA) | "cholesky"
     chunk: int = 16384  # ratings per Gram chunk (ops.als.ALSConfig.chunk)
@@ -320,11 +364,32 @@ class Serving(BaseServing):
         return predictions[0]
 
 
+@dataclasses.dataclass(frozen=True)
+class ServingParams(Params):
+    filepath: str
+
+
+class FilterServing(BaseServing):
+    """The customize-serving variant: re-read the disabled-items file on
+    every request (it can change without a redeploy) and drop those items
+    from the first algorithm's result."""
+
+    params_class = ServingParams
+    params: ServingParams
+
+    def serve(self, query: Query, predictions: Sequence[PredictedResult]) -> PredictedResult:
+        with open(self.params.filepath) as fh:
+            disabled = {line.strip() for line in fh if line.strip()}
+        return PredictedResult(
+            tuple(s for s in predictions[0].item_scores if s.item not in disabled)
+        )
+
+
 def engine_factory() -> Engine:
     return Engine(
         DataSource,
-        {"": Preparator},
+        {"": Preparator, "custom": CustomPreparator},
         {"als": ALSAlgorithm},
-        {"": Serving},
+        {"": Serving, "filter": FilterServing},
         query_class=Query,
     )

@@ -102,6 +102,15 @@ class ActualResult:
 
 
 @dataclasses.dataclass(frozen=True)
+class EvalParams(Params):
+    k_fold: int = 3
+    query_num: int = 10
+    # trailing items of each held-out session that become the actual
+    # continuation (the prefix becomes the query's recentItems)
+    holdout_tail: int = 2
+
+
+@dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
     app_name: str
     channel_name: str | None = None
@@ -111,6 +120,8 @@ class DataSourceParams(Params):
     # page size and total-event bound of one ordered training read
     page: int = 2048
     max_events: int = 500_000
+    # kept for the evaluation folds (read_eval is not ported yet)
+    eval_params: EvalParams | None = None
 
 
 @dataclasses.dataclass

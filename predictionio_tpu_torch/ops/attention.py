@@ -27,6 +27,9 @@ L that is not a multiple of 256 the JAX package takes
 ``attention_reference`` on a TPU (:474-477); the port takes B3, whose
 ragged edge is masked by index, so the card never runs a plain version.
 
+Training goes through ``FusedAttention``: the kernels' forward, and the
+gradient of the f32 reference as explicit matrix products.
+
 ``ring_attention`` and ``ulysses_attention`` (the mesh code) are not ported
 yet.
 """
@@ -43,7 +46,6 @@ from predictionio_tpu_torch.ops import _build
 
 # one f32 score tile under this many bytes takes B2 (attention.py:465)
 BLOCK_TILE_BYTES = 4 * 1024 * 1024
-MAX_HEAD_DIM = 128  # pio_attention_max_head_dim() in csrc/attention_common.cuh
 # B3's tile sizes on the card (flash_attention.cu); the plain version takes
 # the same K tile so that both round the online softmax at the same places
 FLASH_BLOCK_Q = 64
@@ -114,6 +116,22 @@ def _causal_keep(q0: int, nq: int, k0: int, nk: int, device) -> torch.Tensor:
     return qi >= ki
 
 
+def _bf16_scores(qb: torch.Tensor, kb: torch.Tensor) -> torch.Tensor:
+    """Q·Kᵀ of bf16-valued f32 tensors, summed in f32 one column after
+    another: the order in which the kernels settle a score. On the card
+    torch's product sums in that order for heads of at most 128 columns
+    (``tests/test_torch_gpu.py``); past 128 it does not at every shape (a
+    few query rows by 160 columns differed on an H100), so the sum is
+    written out there: each exact bf16 product added and rounded in turn,
+    as a fused multiply-add rounds it."""
+    if qb.shape[-1] <= 128:
+        return torch.matmul(qb, kb.transpose(-1, -2))
+    s = torch.zeros((*qb.shape[:-1], kb.shape[-2]), dtype=torch.float32, device=qb.device)
+    for d in range(qb.shape[-1]):
+        s = s + qb[..., d : d + 1] * kb[..., d].unsqueeze(-2)
+    return s
+
+
 def _fused_attention_plain(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
 ) -> torch.Tensor:
@@ -121,7 +139,7 @@ def _fused_attention_plain(
     max, no −inf guard (a causal row always sees key 0)."""
     Lq, Lk = q.shape[2], k.shape[2]
     scale = 1.0 / math.sqrt(q.shape[-1])
-    s = torch.matmul(_bf16(q), _bf16(k).transpose(-1, -2)) * scale
+    s = _bf16_scores(_bf16(q), _bf16(k)) * scale
     if causal:
         s = s.masked_fill(~_causal_keep(0, Lq, 0, Lk, q.device), float("-inf"))
     p = torch.exp(s - s.amax(dim=-1, keepdim=True))
@@ -157,7 +175,7 @@ def _flash_attention_plain(
             if causal and k0 > q0 + nq - 1:
                 break  # this and every later K tile is fully masked
             kt = kb[:, :, k0 : k0 + block_k]
-            s = torch.matmul(qt, kt.transpose(-1, -2)) * scale
+            s = _bf16_scores(qt, kt) * scale
             if causal:
                 keep = _causal_keep(q0, nq, k0, kt.shape[2], q.device)
                 s = s.masked_fill(~keep, neg_inf)
@@ -182,15 +200,12 @@ def _flash_attention_plain(
 def _declare(lib: ctypes.CDLL, fn: str) -> ctypes.CDLL:
     getattr(lib, fn).argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p,
     ]
     getattr(lib, fn).restype = ctypes.c_int
     lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pio_cuda_error_string.restype = ctypes.c_char_p
-    lib.pio_attention_max_head_dim.restype = ctypes.c_int
-    if lib.pio_attention_max_head_dim() != MAX_HEAD_DIM:
-        raise RuntimeError("the attention sources and MAX_HEAD_DIM disagree")
     return lib
 
 
@@ -211,7 +226,8 @@ def _flash_library() -> ctypes.CDLL:
 
 def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     """What both kernels take: q [B,H,Lq,D], k and v [B,H,Lk,D], f32,
-    contiguous, on one CUDA device, 1 <= D <= MAX_HEAD_DIM."""
+    contiguous, on one CUDA device, D >= 1 (a head past 128 columns runs
+    the kernels' sliced variant)."""
     if q.device.type != "cuda" or k.device != q.device or v.device != q.device:
         raise ValueError(
             f"{name} needs q, k and v on one CUDA device, got {q.device}, "
@@ -226,12 +242,10 @@ def _check(name: str, q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None
         )
     if q.shape[:2] != k.shape[:2] or q.shape[3] != k.shape[3]:
         raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)} differ in B, H or D")
-    if not 1 <= q.shape[3] <= MAX_HEAD_DIM:
-        raise ValueError(f"head dim {q.shape[3]} outside what {name} takes (1..{MAX_HEAD_DIM})")
+    if q.shape[3] < 1:
+        raise ValueError(f"{name} needs a head dim of at least 1, got {q.shape[3]}")
     if k.shape[2] < 1:
         raise ValueError(f"{name} needs at least one key")
-    if q.shape[0] * q.shape[1] > 65535:
-        raise ValueError(f"{name} takes at most 65535 batch·heads, got {q.shape[0] * q.shape[1]}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError(f"{name}: q, k and v must be contiguous")
 
@@ -289,11 +303,9 @@ def route(Lq: int, Lk: int) -> str:
     return "block" if Lq * Lk * 4 < BLOCK_TILE_BYTES else "flash"
 
 
-def fused_attention(
-    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+def _fused_attention_forward(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool
 ) -> torch.Tensor:
-    """Single-device attention: kernel B2 or B3 on a CUDA tensor, the plain
-    version of the same kernel on a CPU tensor."""
     which = route(q.shape[2], k.shape[2])
     if q.device.type == "cuda":
         if which == "block":
@@ -304,3 +316,80 @@ def fused_attention(
     if which == "block":
         return _fused_attention_plain(q, k, v, causal)
     return _flash_attention_plain(q, k, v, causal)
+
+
+# batch·heads per slice of the backward: its f32 [Lq, Lk] tensors stay near
+# this many bytes each
+GRAD_SLICE_BYTES = 256 * 1024 * 1024
+
+
+def attention_reference_grad(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    dout: torch.Tensor,
+    causal: bool = False,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv): the gradient of ``attention_reference`` at q, k, v for
+    the output gradient ``dout``, in f32 explicit matrix products, one slice
+    of batch·heads at a time (the [Lq, Lk] tensors of all of them at once
+    would take gigabytes at the two-tower training shape):
+    P = softmax(S) with S = q·kᵀ/√D (masked), dV = Pᵀ·dO, dP = dO·Vᵀ,
+    dS = P ∘ (dP − rowsum(P ∘ dP)), dQ = dS·K/√D, dK = dSᵀ·Q/√D.
+    rowsum(P ∘ dP) is rowsum(dO ∘ O) of the reference's own O."""
+    B, H, Lq, D = q.shape
+    Lk = k.shape[2]
+    scale = 1.0 / math.sqrt(D)
+    flat = [t.reshape(B * H, t.shape[2], D).float() for t in (q, k, v, dout)]
+    grads = [torch.empty_like(t) for t in flat[:3]]
+    keep = _causal_keep(0, Lq, 0, Lk, q.device) if causal else None
+    step = max(1, GRAD_SLICE_BYTES // (Lq * Lk * 4))
+    for a in range(0, B * H, step):
+        qs, ks, vs, dos = (t[a : a + step] for t in flat)
+        s = torch.matmul(qs, ks.transpose(1, 2)) * scale
+        if keep is not None:
+            s = s.masked_fill(~keep, float("-inf"))
+        p = torch.nan_to_num(torch.softmax(s, dim=-1))
+        del s
+        grads[2][a : a + step] = torch.matmul(p.transpose(1, 2), dos)
+        dp = torch.matmul(dos, vs.transpose(1, 2))
+        ds = p * (dp - (p * dp).sum(dim=-1, keepdim=True))
+        del p, dp
+        grads[0][a : a + step] = torch.matmul(ds, ks) * scale
+        grads[1][a : a + step] = torch.matmul(ds.transpose(1, 2), qs) * scale
+    return tuple(  # type: ignore[return-value]
+        g.reshape(t.shape).to(t.dtype) for g, t in zip(grads, (q, k, v))
+    )
+
+
+class FusedAttention(torch.autograd.Function):
+    """Attention that trains: the forward is ``fused_attention``'s (kernel
+    B2 or B3 by ``route`` on a CUDA tensor, the plain version on a CPU
+    tensor), the backward the gradient of the f32 ``attention_reference``
+    at the saved q, k and v (``attention_reference_grad``). The JAX package
+    trains the same model through the same gradient: a Pallas call has no
+    reverse rule there, so its models train through ``attention_reference``
+    off the TPU. A hand-written backward kernel is later work."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        ctx.save_for_backward(q, k, v)
+        ctx.causal = causal
+        return _fused_attention_forward(q, k, v, causal)
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v = ctx.saved_tensors
+        dq, dk, dv = attention_reference_grad(q, k, v, dout, ctx.causal)
+        return dq, dk, dv, None
+
+
+def fused_attention(
+    q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool = False
+) -> torch.Tensor:
+    """Single-device attention: kernel B2 or B3 on a CUDA tensor, the plain
+    version of the same kernel on a CPU tensor. Through ``FusedAttention``
+    when autograd records and an input requires grad."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FusedAttention.apply(q, k, v, causal)
+    return _fused_attention_forward(q, k, v, causal)

@@ -19,6 +19,7 @@
 
 #include <cuda_bf16.h>
 
+#include <algorithm>
 #include <cmath>
 #include <type_traits>
 
@@ -33,12 +34,13 @@ constexpr int kBlockQ = kWarps * kWarpRows;  // query rows per block
 constexpr int kBlockK = 64;                  // keys per K/V tile
 constexpr int kKeyTiles = kBlockK / 8;       // 8-key n-tiles of one score tile
 constexpr int kKeyChunks = kBlockK / 16;     // 16-key k-chunks of one P·V step
-constexpr int kMaxHeadDim = 128;
+constexpr int kChunk = 128;  // head columns per slice past D = 128
 
 // ---------------------------------------------------------------------------
 // Shared memory: one f32 staging tile per operand, filled by cp.async while
 // the warps compute on the bf16 tiles, which the block converts from it.
-// DP is the head width padded to a multiple of 32. The bf16 row stride is
+// DP is the head width padded to a multiple of 32 (narrow heads, D <= 128),
+// or kChunk, the width of one slice of a wider head. The bf16 row stride is
 // DP + 8 elements, 16 bytes past a multiple of 64, so the 8 rows that one
 // ldmatrix phase reads land in 8 different 16-byte bank groups.
 // ---------------------------------------------------------------------------
@@ -62,13 +64,14 @@ struct Tiles {
         vs(ks + kBlockK * kLd) {}
 };
 
-// Starts copying keys [k0, k0 + kBlockK) of one batch·head's f32 [Lk, D]
-// rows into a [kBlockK, DP] staging tile. Rows past Lk and columns past D
-// are zero-filled (a copy of source size 0). vec: D % 4 == 0 and the rows
-// 16-byte aligned, so whole float4s move; else one float at a time.
+// Starts copying keys [k0, k0 + kBlockK) of one batch·head's f32 rows (row
+// stride ld) into a [kBlockK, DP] staging tile, columns [0, width) of g.
+// Rows past Lk and columns past width are zero-filled (a copy of source
+// size 0). vec: ld % 4 == 0 and the rows 16-byte aligned, so whole float4s
+// move; else one float at a time.
 template <int DP>
-__device__ __forceinline__ void stage_tile(float* stage, const float* g, int k0, int Lk, int D,
-                                           bool vec) {
+__device__ __forceinline__ void stage_tile(float* stage, const float* g, int k0, int Lk, int ld,
+                                           int width, bool vec) {
   constexpr int kQuads = DP / 4;
 #pragma unroll
   for (int i = 0; i < kBlockK * kQuads / kThreads; ++i) {
@@ -76,14 +79,14 @@ __device__ __forceinline__ void stage_tile(float* stage, const float* g, int k0,
     const int r = idx / kQuads, c = (idx - r * kQuads) * 4;
     const int row = k0 + r;
     float* dst = stage + r * DP + c;
-    const float* src = g + (size_t)row * D + c;
+    const float* src = g + (size_t)row * ld + c;
     if (vec) {
-      const bool in = row < Lk && c < D;
+      const bool in = row < Lk && c < width;
       cp_async16(dst, in ? src : g, in);
     } else {
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
-        const bool in = row < Lk && c + j < D;
+        const bool in = row < Lk && c + j < width;
         cp_async4(dst + j, in ? src + j : g, in);
       }
     }
@@ -149,18 +152,20 @@ __device__ __forceinline__ float quad_sum(float v) {
   return v + __shfl_xor_sync(kFull, v, 2);
 }
 
-__device__ __forceinline__ float load_or_zero(const float* g, int row, int col, int rows, int D) {
-  return row < rows && col < D ? __ldg(g + (size_t)row * D + col) : 0.0f;
+__device__ __forceinline__ float load_or_zero(const float* g, int row, int col, int rows,
+                                             int cols, int ld) {
+  return row < rows && col < cols ? __ldg(g + (size_t)row * ld + col) : 0.0f;
 }
 
-// The warp's 16 query rows from row0 as bf16 A fragments of Q·Kᵀ, one per
-// 16 columns of the head dimension: rows past Lq and columns past D are 0.
-// The f32 -> bf16 rounding of q happens here, once per block. The rounded
-// values also go, as f32, to the warp's 16 rows of shared memory at qs (the
-// fragments cover every element once); only this warp reads them.
+// The warp's 16 query rows from row0 (row stride ld) as bf16 A fragments of
+// Q·Kᵀ, one per 16 columns of the head dimension: rows past Lq and columns
+// past width are 0. The f32 -> bf16 rounding of q happens here, once per
+// block and head slice. The rounded values also go, as f32, to the warp's
+// 16 rows of shared memory at qs (the fragments cover every element once);
+// only this warp reads them.
 template <int DP>
-__device__ __forceinline__ void load_q(uint32_t (&qa)[DP / 16][4], float* qs,
-                                       const float* qg, int row0, int Lq, int D, int lane) {
+__device__ __forceinline__ void load_q(uint32_t (&qa)[DP / 16][4], float* qs, const float* qg,
+                                       int row0, int Lq, int ld, int width, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int kc = 0; kc < DP / 16; ++kc)
@@ -168,8 +173,8 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[DP / 16][4], float* qs,
     for (int i = 0; i < 4; ++i) {  // rows g, g+8 at columns 2t.., then again at 2t+8..
       const int r = g + (i & 1) * 8;
       const int col = kc * 16 + (i >> 1) * 8 + 2 * t;
-      qa[kc][i] = pack_bf16x2(load_or_zero(qg, row0 + r, col, Lq, D),
-                              load_or_zero(qg, row0 + r, col + 1, Lq, D));
+      qa[kc][i] = pack_bf16x2(load_or_zero(qg, row0 + r, col, Lq, width, ld),
+                              load_or_zero(qg, row0 + r, col + 1, Lq, width, ld));
       *reinterpret_cast<float2*>(qs + r * DP + col) =
           make_float2(__uint_as_float(qa[kc][i] << 16), __uint_as_float(qa[kc][i] & 0xffff0000u));
     }
@@ -245,6 +250,25 @@ __device__ __forceinline__ float column_score_at(const WarpRows& w, const __nv_b
   return column_score<DP>(w.qs + r * DP, ks + key * Tiles<DP>::kLd, w.scale);
 }
 
+// The same column-order score for a head wider than one slice, straight
+// from device memory: q row and key of the thread's score number b against
+// keys from k0, both rounded to bf16 as the slices round them, over all D
+// columns. A row past Lq has q = 0 and scores 0, as in column_score.
+__device__ __forceinline__ float column_score_global(const float* qg, const float* kg,
+                                                     const WarpRows& w, int k0, int b, int lane,
+                                                     int Lq, int D) {
+  const int row = w.row0 + (lane >> 2) + ((b >> 1) & 1) * 8;
+  const int key = k0 + (b >> 2) * 8 + 2 * (lane & 3) + (b & 1);
+  if (row >= Lq) return 0.0f;
+  const float* qr = qg + (size_t)row * D;
+  const float* kr = kg + (size_t)key * D;
+  float s = 0.0f;
+  for (int c = 0; c < D; ++c)
+    s = fmaf(__bfloat162float(__float2bfloat16_rn(__ldg(qr + c))),
+             __bfloat162float(__float2bfloat16_rn(__ldg(kr + c))), s);
+  return __fmul_rn(s, w.scale);
+}
+
 // v[b / 4][b % 4] = x for a b known only at run time, by selects: an index
 // into a register array would move the array to local memory.
 __device__ __forceinline__ void put(float (&v)[kKeyTiles][4], int b, float x) {
@@ -261,25 +285,18 @@ __device__ __forceinline__ bool tile_masked(int k0, int Lk, int row0, bool causa
   return k0 + kBlockK > Lk || (causal && k0 + kBlockK - 1 > row0);
 }
 
-// The warp's 16 rows against the 64 keys of the bf16 K tile at key k0:
-// s = Q·Kᵀ·scale by mma.sync with f32 sums, −inf where key k0 + column is
-// past Lk or, causal, past the row (query i sees key j iff i >= j, both
-// from 0), and e = Σ|q_d·k_d| (the score's bound is tol·e). The
-// thread's rows are row0 + g
-// (s[.][0..1]) and row0 + g + 8 (s[.][2..3]). ldmatrix (no transpose) of
-// K's rows gives the B fragment of Kᵀ: matrix m of an x4 load is keys
-// (m / 2)·8.. at columns (m % 2)·8.., so one load feeds two n-tiles of one
-// 16-column chunk.
+// The warp's 16 rows against the 64 keys of the bf16 K tile: s += Q·Kᵀ by
+// mma.sync with f32 sums, and e += Σ|q_d·k_d| (the score's bound is tol·e),
+// over the DP columns of the fragments and the tile. The thread's rows are
+// g (s[.][0..1]) and g + 8 (s[.][2..3]) of the warp's. ldmatrix (no
+// transpose) of K's rows gives the B fragment of Kᵀ: matrix m of an x4
+// load is keys (m / 2)·8.. at columns (m % 2)·8.., so one load feeds two
+// n-tiles of one 16-column chunk.
 template <int DP>
-__device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
-                                            const uint32_t (&qa)[DP / 16][4],
-                                            const __nv_bfloat16* ks, const WarpRows& w, int k0,
-                                            int lane) {
+__device__ __forceinline__ void tile_products(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
+                                              const uint32_t (&qa)[DP / 16][4],
+                                              const __nv_bfloat16* ks, int lane) {
   constexpr uint32_t kAbs = 0x7fff7fffu;  // clears the sign bits of two packed bf16
-#pragma unroll
-  for (int nt = 0; nt < kKeyTiles; ++nt)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) s[nt][i] = e[nt][i] = 0.0f;
   const int m = lane >> 3, r = lane & 7;
   const __nv_bfloat16* base = ks + ((m >> 1) * 8 + r) * Tiles<DP>::kLd + (m & 1) * 8;
 #pragma unroll
@@ -296,6 +313,20 @@ __device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4], float (&e)
       mma_bf16(e[2 * np + 1], qabs, b[2] & kAbs, b[3] & kAbs);
     }
   }
+}
+
+__device__ __forceinline__ void zero_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4]) {
+#pragma unroll
+  for (int nt = 0; nt < kKeyTiles; ++nt)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) s[nt][i] = e[nt][i] = 0.0f;
+}
+
+// The summed products of the tile at key k0 become scores: s·scale, and −inf
+// where key k0 + column is past Lk or, causal, past the row (query i sees
+// key j iff i >= j, both from 0); e is −inf there too.
+__device__ __forceinline__ void finish_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
+                                              const WarpRows& w, int k0, int lane) {
   const bool masked = tile_masked(k0, w.Lk, w.row0, w.causal);
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -313,17 +344,64 @@ __device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4], float (&e)
     }
 }
 
+// The warp's 16 rows against the 64 keys of the bf16 K tile at key k0, for
+// a head of at most DP columns: the scores and their bounds.
+template <int DP>
+__device__ __forceinline__ void tile_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
+                                            const uint32_t (&qa)[DP / 16][4],
+                                            const __nv_bfloat16* ks, const WarpRows& w, int k0,
+                                            int lane) {
+  zero_scores(s, e);
+  tile_products<DP>(s, e, qa, ks, lane);
+  finish_scores(s, e, w, k0, lane);
+}
+
+// The same for a head wider than kChunk: the products summed over the head
+// in slices of kChunk columns, each slice of K staged, converted and
+// multiplied in turn (q's slice from device memory into fragments each
+// time). With vg set, V's columns [0, vwidth) of vg go to the block's bf16
+// V tile along with the first slice. Every warp of the block calls it, as
+// it holds the block's barriers; only a busy warp multiplies.
+__device__ __forceinline__ void wide_tile_scores(float (&s)[kKeyTiles][4], float (&e)[kKeyTiles][4],
+                                                 const Tiles<kChunk>& t, float* qs,
+                                                 const float* qg, const float* kg,
+                                                 const float* vg, int vwidth, const WarpRows& w,
+                                                 bool busy, int k0, int Lq, int D, bool vec,
+                                                 int lane) {
+  zero_scores(s, e);
+  for (int c0 = 0; c0 < D; c0 += kChunk) {
+    const int width = min(kChunk, D - c0);
+    const bool with_v = vg != nullptr && c0 == 0;
+    __syncthreads();  // every warp is done with the block's bf16 tiles
+    stage_tile<kChunk>(t.stage_k, kg + c0, k0, w.Lk, D, width, vec);
+    if (with_v) stage_tile<kChunk>(t.stage_v, vg, k0, w.Lk, D, vwidth, vec);
+    cp_async_commit();
+    cp_async_wait_all();
+    __syncthreads();  // the staged tiles have landed
+    convert_tile<kChunk>(t.stage_k, t.ks);
+    if (with_v) convert_tile<kChunk>(t.stage_v, t.vs);
+    __syncthreads();  // the bf16 tiles are whole
+    if (busy) {
+      uint32_t qa[kChunk / 16][4];
+      load_q<kChunk>(qa, qs, qg + c0, w.row0, Lq, D, width, lane);
+      tile_products<kChunk>(s, e, qa, t.ks, lane);
+    }
+  }
+  if (busy) finish_scores(s, e, w, k0, lane);
+}
+
 // mx = each row's max over the tile as the plain version has it, where the
 // tile can raise the row's running max (the plain version's so far, −inf at
 // the start); elsewhere the tensor cores' max, which stays below it. The
 // true max lies within 2·etop (the row's largest bound) of the tensor
 // cores' max, so the scores at least that high are summed again in column
 // order, each lane looping only over its own. tile_p may test them once more
-// against a rounding midpoint, which costs a second sum at worst.
-template <int DP>
+// against a rounding midpoint, which costs a second sum at worst. resum(b)
+// is the column-order score of the thread's score number b.
+template <class Resum>
 __device__ __forceinline__ void settle_max(float (&s)[kKeyTiles][4], const float (&e)[kKeyTiles][4],
                                            float (&mx)[2], const float (&running)[2],
-                                           const __nv_bfloat16* ks, const WarpRows& w, int lane) {
+                                           const WarpRows& w, Resum&& resum) {
   float top[2] = {-INFINITY, -INFINITY}, etop[2] = {0.0f, 0.0f};
 #pragma unroll
   for (int nt = 0; nt < kKeyTiles; ++nt)
@@ -356,7 +434,7 @@ __device__ __forceinline__ void settle_max(float (&s)[kKeyTiles][4], const float
   while (need) {
     const int b = __ffs(static_cast<int>(need)) - 1;
     need &= need - 1;
-    const float exact = column_score_at<DP>(w, ks, b, lane);
+    const float exact = resum(b);
     put(s, b, exact);
     best[(b >> 1) & 1] = fmaxf(best[(b >> 1) & 1], exact);
   }
@@ -381,11 +459,11 @@ __device__ __forceinline__ bool near_bf16_midpoint(float p, float ulps) {
 // plain version has them. A p that lies within its bound of a bf16 rounding
 // midpoint is taken from its score summed again in column order. The bound,
 // relative to p, is e, the subtraction's rounding and expf's own (2 ulps
-// each way); an f32 ulp of p is at least 2⁻²⁴ of p.
-template <int DP>
+// each way); an f32 ulp of p is at least 2⁻²⁴ of p. resum as in settle_max.
+template <class Resum>
 __device__ __forceinline__ void tile_p(float (&s)[kKeyTiles][4], const float (&e)[kKeyTiles][4],
-                                       const float (&base)[2], float (&sum)[2],
-                                       const __nv_bfloat16* ks, const WarpRows& w, int lane) {
+                                       const float (&base)[2], float (&sum)[2], const WarpRows& w,
+                                       Resum&& resum) {
   const float tol24 = w.tol * 16777216.0f;  // the bound in f32 ulps of p per unit of e
   uint32_t part[4] = {0, 0, 0, 0};  // bit nt·4 + i, in four words for independent chains
 #pragma unroll
@@ -402,7 +480,7 @@ __device__ __forceinline__ void tile_p(float (&s)[kKeyTiles][4], const float (&e
   while (need) {
     const int b = __ffs(static_cast<int>(need)) - 1;
     need &= need - 1;
-    put(s, b, expf(__fsub_rn(column_score_at<DP>(w, ks, b, lane), base[(b >> 1) & 1])));
+    put(s, b, expf(__fsub_rn(resum(b), base[(b >> 1) & 1])));
   }
 #pragma unroll
   for (int nt = 0; nt < kKeyTiles; ++nt)
@@ -437,11 +515,12 @@ __device__ __forceinline__ void pv_tile(float (&acc)[DP / 8][4], const float (&p
 }
 
 // o[row, col] = acc / denom for the warp's rows from row0 that are below Lq
-// and the columns below D; denom[0] is row g's, denom[1] row g + 8's.
+// and the columns below width (row stride ld); denom[0] is row g's,
+// denom[1] row g + 8's.
 template <int DP>
 __device__ __forceinline__ void store_rows(float* og, const float (&acc)[DP / 8][4],
-                                           const float (&denom)[2], int row0, int Lq, int D,
-                                           int lane) {
+                                           const float (&denom)[2], int row0, int Lq, int ld,
+                                           int width, int lane) {
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
   for (int nt = 0; nt < DP / 8; ++nt)
@@ -449,7 +528,7 @@ __device__ __forceinline__ void store_rows(float* og, const float (&acc)[DP / 8]
     for (int i = 0; i < 4; ++i) {
       const int row = row0 + g + (i >> 1) * 8;
       const int col = nt * 8 + 2 * t + (i & 1);
-      if (row < Lq && col < D) og[(size_t)row * D + col] = acc[nt][i] / denom[i >> 1];
+      if (row < Lq && col < width) og[(size_t)row * ld + col] = acc[nt][i] / denom[i >> 1];
     }
 }
 
@@ -464,7 +543,8 @@ struct AttentionArgs {
   const float* k;
   const float* v;
   float* o;
-  int bh, Lq, Lk, D, causal;
+  long long bh;
+  int Lq, Lk, D, causal;
   cudaStream_t stream;
 
   // whole float4 copies of K and V rows
@@ -474,33 +554,46 @@ struct AttentionArgs {
   }
   // the score scale in f32, as torch rounds the Python float 1/√D
   float scale() const { return static_cast<float>(1.0 / std::sqrt(static_cast<double>(D))); }
-  // one block per (query tile, batch·head), longest causal tiles first
-  unsigned blocks() const {
-    return static_cast<unsigned>(((Lq - 1) / kBlockQ + 1) * static_cast<long long>(bh));
-  }
+  // output slices of kChunk columns (one for a narrow head)
+  int chunks() const { return D <= kChunk ? 1 : (D + kChunk - 1) / kChunk; }
+  // one unit of work per (query tile, batch·head, output slice)
+  long long tiles() const { return ((Lq - 1) / kBlockQ + 1) * bh * chunks(); }
+  // the grid: one block per unit, or fewer blocks looping over the units
+  // when there are more than a grid holds
+  unsigned grid() const { return static_cast<unsigned>(std::min(tiles(), 0x7fffffffLL)); }
 };
 
-// Checks the arguments and calls launch(std::integral_constant<int, DC>)
-// with DC = ceil(D / 32): the head width is padded to DP = 32·DC. Returns
-// a cudaError_t (0 = launched, or nothing to do).
-template <class Launch>
-int attention_entry(const AttentionArgs& a, Launch&& launch) {
-  if (a.bh < 0 || a.bh > 65535 || a.Lq < 0 || a.Lk < 1 || a.D < 1 || a.D > kMaxHeadDim)
-    return cudaErrorInvalidValue;
+// Unit blk of the grid loop: its batch·head, first query row and output
+// slice. The slice varies fastest, then the batch·head, and the query
+// tiles run from the last (the longest under the causal mask) to the first.
+struct Unit {
+  size_t bh;
+  int row0;
+  int chunk;
+};
+
+__device__ __forceinline__ Unit unit_of(long long blk, long long n_bh, int Lq, int chunks) {
+  const int nq = (Lq - 1) / kBlockQ + 1;
+  const long long rest = blk / chunks;
+  return {static_cast<size_t>(rest % n_bh), (nq - 1 - static_cast<int>(rest / n_bh)) * kBlockQ,
+          static_cast<int>(blk % chunks)};
+}
+
+// Checks the arguments and calls narrow(std::integral_constant<int, DC>)
+// with DC = ceil(D / 32) for a head of at most kChunk columns (padded to
+// DP = 32·DC), else wide(). Returns a cudaError_t (0 = launched, or nothing
+// to do).
+template <class Narrow, class Wide>
+int attention_entry(const AttentionArgs& a, Narrow&& narrow, Wide&& wide) {
+  if (a.bh < 0 || a.Lq < 0 || a.Lk < 1 || a.D < 1) return cudaErrorInvalidValue;
   if (a.bh == 0 || a.Lq == 0) return cudaSuccess;
-  if (((a.Lq - 1) / kBlockQ + 1) * (long long)a.bh > 0x7fffffffLL) return cudaErrorInvalidValue;
   switch ((a.D + kWarp - 1) / kWarp) {
-    case 1: return launch(std::integral_constant<int, 1>{});
-    case 2: return launch(std::integral_constant<int, 2>{});
-    case 3: return launch(std::integral_constant<int, 3>{});
-    default: return launch(std::integral_constant<int, 4>{});
+    case 1: return narrow(std::integral_constant<int, 1>{});
+    case 2: return narrow(std::integral_constant<int, 2>{});
+    case 3: return narrow(std::integral_constant<int, 3>{});
+    case 4: return narrow(std::integral_constant<int, 4>{});
+    default: return wide();
   }
 }
 
 }  // namespace
-
-extern "C" {
-
-int pio_attention_max_head_dim() { return kMaxHeadDim; }
-
-}  // extern "C"

@@ -45,7 +45,11 @@
 // staging tile each; after the tile lands the block converts it once into
 // bf16 tiles (round to nearest even, __floats2bfloat162_rn) and then starts
 // the next tile's copy, which overlaps this tile's products. D is padded to
-// DP = 32·ceil(D/32) with zeros; the kernel is instantiated per DP.
+// DP = 32·ceil(D/32) with zeros; the kernel is instantiated per DP. A head
+// wider than 128 runs flash_attention_wide, as B2's wide kernel does
+// (attention_block.cu): scores summed over 128-column slices, settling from
+// device memory, one unit per 128 output columns. Blocks loop over the
+// units with the stride of the grid, so any number of batch·heads launches.
 //
 // Why mma.sync and not wgmma. At the scorer's [64, 1, 1024, 32] causal the
 // card's bound (H100 SXM: 3.35 TB/s, 989 TFLOP/s bf16, about 3.9 T
@@ -75,40 +79,66 @@
 
 namespace {
 
-// at D <= 32 no more than 128 registers, so that four blocks share an SM
-template <int DC>
-__global__ void __launch_bounds__(kThreads, DC == 1 ? 4 : 1)
-    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                           const float* __restrict__ v, float* __restrict__ o, int n_bh,
-                           int Lq, int Lk, int D, int causal, int vec, float scale) {
-  constexpr int DP = 32 * DC;
-  extern __shared__ __align__(16) unsigned char smem[];
-  const Tiles<DP> tiles(smem);
+// The online-softmax step of one K tile for the thread's two rows: the
+// tile's settled max mx, the rescale of acc and l, p and Σp, and P·V.
+template <int DP, class Resum>
+__device__ __forceinline__ void online_step(float (&s)[kKeyTiles][4], const float (&e)[kKeyTiles][4],
+                                            float (&acc)[DP / 8][4], float (&m)[2], float (&l)[2],
+                                            const __nv_bfloat16* vs, const WarpRows& w, int lane,
+                                            Resum&& resum) {
+  float mx[2];
+  settle_max(s, e, mx, m, w, resum);
+  float safe[2], corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float m_new = fmaxf(m[r], mx[r]);
+    safe[r] = m_new == -INFINITY ? 0.0f : m_new;
+    corr[r] = m[r] == -INFINITY ? 0.0f : expf(m[r] - safe[r]);
+    m[r] = m_new;
+  }
+  tile_p(s, e, safe, sum, w, resum);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
+#pragma unroll
+  for (int nt = 0; nt < DP / 8; ++nt) {
+    acc[nt][0] *= corr[0];
+    acc[nt][1] *= corr[0];
+    acc[nt][2] *= corr[1];
+    acc[nt][3] *= corr[1];
+  }
+  pv_tile<DP>(acc, s, vs, lane);
+}
 
+// One unit: the 64 query rows from row0 of batch·head bh, head of at most
+// DP columns.
+template <int DP>
+__device__ __forceinline__ void attend_flash(const Tiles<DP>& tiles, const float* q,
+                                             const float* k, const float* v, float* o, Unit u,
+                                             int Lq, int Lk, int D, bool causal, bool vec,
+                                             float scale) {
   const int warp = threadIdx.x / kWarp;
   const int lane = threadIdx.x % kWarp;
-  const int nq = (Lq - 1) / kBlockQ + 1;
-  const size_t bh = blockIdx.x % n_bh;
-  const int row0 = (nq - 1 - (int)(blockIdx.x / n_bh)) * kBlockQ;  // longest tiles first
+  const int row0 = u.row0;
   const int wrow0 = row0 + warp * kWarpRows;
   const bool active = wrow0 < Lq;
-  const float* qg = q + bh * (size_t)Lq * D;
-  const float* kg = k + bh * (size_t)Lk * D;
-  const float* vg = v + bh * (size_t)Lk * D;
+  const float* qg = q + u.bh * (size_t)Lq * D;
+  const float* kg = k + u.bh * (size_t)Lk * D;
+  const float* vg = v + u.bh * (size_t)Lk * D;
   // keys that some row of the block, and of the warp, sees
   const int kend = causal ? min(Lk, min(Lq, row0 + kBlockQ)) : Lk;
   const int wend = causal ? min(Lk, min(Lq, wrow0 + kWarpRows)) : Lk;
 
   float* qs = tiles.qs + warp * kWarpRows * DP;
-  const WarpRows w{qs, wrow0, Lk, causal != 0, scale, (D + 16) * 0x1p-24f * scale};
+  const WarpRows w{qs, wrow0, Lk, causal, scale, (D + 16) * 0x1p-24f * scale};
   uint32_t qa[DP / 16][4];
-  load_q<DP>(qa, qs, qg, wrow0, Lq, D, lane);
+  load_q<DP>(qa, qs, qg, wrow0, Lq, D, D, lane);
   float acc[DP / 8][4] = {};
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.0f, 0.0f};
+  auto resum = [&](int b) { return column_score_at<DP>(w, tiles.ks, b, lane); };
 
-  stage_tile<DP>(tiles.stage_k, kg, 0, Lk, D, vec);
-  stage_tile<DP>(tiles.stage_v, vg, 0, Lk, D, vec);
+  stage_tile<DP>(tiles.stage_k, kg, 0, Lk, D, D, vec);
+  stage_tile<DP>(tiles.stage_v, vg, 0, Lk, D, D, vec);
   cp_async_commit();
   for (int k0 = 0; k0 < kend; k0 += kBlockK) {
     cp_async_wait_all();
@@ -117,50 +147,102 @@ __global__ void __launch_bounds__(kThreads, DC == 1 ? 4 : 1)
     convert_tile<DP>(tiles.stage_v, tiles.vs);
     __syncthreads();  // the bf16 tiles are whole and the staging tiles free
     if (k0 + kBlockK < kend) {
-      stage_tile<DP>(tiles.stage_k, kg, k0 + kBlockK, Lk, D, vec);
-      stage_tile<DP>(tiles.stage_v, vg, k0 + kBlockK, Lk, D, vec);
+      stage_tile<DP>(tiles.stage_k, kg, k0 + kBlockK, Lk, D, D, vec);
+      stage_tile<DP>(tiles.stage_v, vg, k0 + kBlockK, Lk, D, D, vec);
     }
     cp_async_commit();
     if (!active || k0 >= wend) continue;  // warp-uniform: every lane skips or none
 
-    float s[kKeyTiles][4], e[kKeyTiles][4], mx[2];
+    float s[kKeyTiles][4], e[kKeyTiles][4];
     tile_scores<DP>(s, e, qa, tiles.ks, w, k0, lane);
-    settle_max<DP>(s, e, mx, m, tiles.ks, w, lane);
-    float safe[2], corr[2], sum[2] = {0.0f, 0.0f};
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const float m_new = fmaxf(m[r], mx[r]);
-      safe[r] = m_new == -INFINITY ? 0.0f : m_new;
-      corr[r] = m[r] == -INFINITY ? 0.0f : expf(m[r] - safe[r]);
-      m[r] = m_new;
-    }
-    tile_p<DP>(s, e, safe, sum, tiles.ks, w, lane);
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * corr[r] + quad_sum(sum[r]);
-#pragma unroll
-    for (int nt = 0; nt < DP / 8; ++nt) {
-      acc[nt][0] *= corr[0];
-      acc[nt][1] *= corr[0];
-      acc[nt][2] *= corr[1];
-      acc[nt][3] *= corr[1];
-    }
-    pv_tile<DP>(acc, s, tiles.vs, lane);
+    online_step<DP>(s, e, acc, m, l, tiles.vs, w, lane, resum);
   }
 
   if (!active) return;
   const float denom[2] = {l[0] == 0.0f ? 1.0f : l[0], l[1] == 0.0f ? 1.0f : l[1]};
-  store_rows<DP>(o + bh * (size_t)Lq * D, acc, denom, wrow0, Lq, D, lane);
+  store_rows<DP>(o + u.bh * (size_t)Lq * D, acc, denom, wrow0, Lq, D, D, lane);
+}
+
+// at D <= 32 no more than 128 registers, so that four blocks share an SM
+template <int DC>
+__global__ void __launch_bounds__(kThreads, DC == 1 ? 4 : 1)
+    flash_attention_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o, long long n_bh,
+                           int Lq, int Lk, int D, int causal, int vec, float scale,
+                           long long units) {
+  constexpr int DP = 32 * DC;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<DP> tiles(smem);
+  for (long long blk = blockIdx.x; blk < units; blk += gridDim.x) {
+    if (blk != blockIdx.x) __syncthreads();  // the last unit's reads of shared memory are done
+    attend_flash<DP>(tiles, q, k, v, o, unit_of(blk, n_bh, Lq, 1), Lq, Lk, D, causal != 0,
+                     vec != 0, scale);
+  }
+}
+
+// Heads wider than kChunk: one unit per (query tile, batch·head, output
+// slice of kChunk columns); each score summed over the head in slices
+// (wide_tile_scores), and every output slice computes the scores anew.
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_attention_wide(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ o, long long n_bh,
+                         int Lq, int Lk, int D, int causal, int vec, float scale,
+                         long long units) {
+  constexpr int DP = kChunk;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const Tiles<DP> tiles(smem);
+  const int warp = threadIdx.x / kWarp;
+  const int lane = threadIdx.x % kWarp;
+  const int chunks = (D + kChunk - 1) / kChunk;
+  float* qs = tiles.qs + warp * kWarpRows * DP;
+  for (long long blk = blockIdx.x; blk < units; blk += gridDim.x) {
+    const Unit u = unit_of(blk, n_bh, Lq, chunks);
+    const int wrow0 = u.row0 + warp * kWarpRows;
+    const bool active = wrow0 < Lq;
+    const float* qg = q + u.bh * (size_t)Lq * D;
+    const float* kg = k + u.bh * (size_t)Lk * D;
+    const int c0 = u.chunk * kChunk;
+    const int width = min(kChunk, D - c0);
+    const float* vg = v + u.bh * (size_t)Lk * D + c0;
+    const int kend = causal ? min(Lk, min(Lq, u.row0 + kBlockQ)) : Lk;
+    const int wend = causal ? min(Lk, min(Lq, wrow0 + kWarpRows)) : Lk;
+    const WarpRows w{qs, wrow0, Lk, causal != 0, scale, (D + 16) * 0x1p-24f * scale};
+    float acc[DP / 8][4] = {};
+    float m[2] = {-INFINITY, -INFINITY};
+    float l[2] = {0.0f, 0.0f};
+    for (int k0 = 0; k0 < kend; k0 += kBlockK) {
+      const bool busy = active && k0 < wend;
+      float s[kKeyTiles][4], e[kKeyTiles][4];
+      wide_tile_scores(s, e, tiles, qs, qg, kg, vg, width, w, busy, k0, Lq, D, vec != 0, lane);
+      if (!busy) continue;
+      online_step<DP>(s, e, acc, m, l, tiles.vs, w, lane,
+                      [&](int b) { return column_score_global(qg, kg, w, k0, b, lane, Lq, D); });
+    }
+    if (!active) continue;
+    const float denom[2] = {l[0] == 0.0f ? 1.0f : l[0], l[1] == 0.0f ? 1.0f : l[1]};
+    store_rows<DP>(o + u.bh * (size_t)Lq * D + c0, acc, denom, wrow0, Lq, D, width, lane);
+  }
+}
+
+template <class Kernel>
+cudaError_t launch_kernel(Kernel* kernel, size_t smem, std::atomic<unsigned long long>& smem_set,
+                          const AttentionArgs& a) {
+  const cudaError_t err = allow_smem(kernel, smem, smem_set);
+  if (err != cudaSuccess) return err;
+  kernel<<<a.grid(), kThreads, smem, a.stream>>>(a.q, a.k, a.v, a.o, a.bh, a.Lq, a.Lk, a.D,
+                                                 a.causal, a.vec(), a.scale(), a.tiles());
+  return cudaGetLastError();
 }
 
 template <int DC>
 cudaError_t launch(const AttentionArgs& a) {
-  constexpr size_t smem = Tiles<32 * DC>::kBytes;
   static std::atomic<unsigned long long> smem_set{0};
-  const cudaError_t err = allow_smem(flash_attention_kernel<DC>, smem, smem_set);
-  if (err != cudaSuccess) return err;
-  flash_attention_kernel<DC><<<a.blocks(), kThreads, smem, a.stream>>>(
-      a.q, a.k, a.v, a.o, a.bh, a.Lq, a.Lk, a.D, a.causal, a.vec(), a.scale());
-  return cudaGetLastError();
+  return launch_kernel(flash_attention_kernel<DC>, Tiles<32 * DC>::kBytes, smem_set, a);
+}
+
+cudaError_t launch_wide(const AttentionArgs& a) {
+  static std::atomic<unsigned long long> smem_set{0};
+  return launch_kernel(flash_attention_wide, Tiles<kChunk>::kBytes, smem_set, a);
 }
 
 }  // namespace
@@ -172,10 +254,11 @@ int pio_flash_tile(int which) { return which == 0 ? kBlockQ : kBlockK; }
 
 // o = attention(q, k, v) for q, o [bh, Lq, D] and k, v [bh, Lk, D], all f32,
 // contiguous, on the current device. Returns a cudaError_t (0 = launched).
-int pio_flash_attention(const float* q, const float* k, const float* v, float* o, int bh,
+int pio_flash_attention(const float* q, const float* k, const float* v, float* o, long long bh,
                         int Lq, int Lk, int D, int causal, void* stream) {
   const AttentionArgs a{q, k, v, o, bh, Lq, Lk, D, causal, static_cast<cudaStream_t>(stream)};
-  return attention_entry(a, [&](auto dc) { return launch<decltype(dc)::value>(a); });
+  return attention_entry(
+      a, [&](auto dc) { return launch<decltype(dc)::value>(a); }, [&] { return launch_wide(a); });
 }
 
 }  // extern "C"

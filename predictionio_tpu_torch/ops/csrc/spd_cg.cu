@@ -52,6 +52,14 @@
 //     G = 32 114 for one; both ran slower at f = 32 and f = 10.
 // Ranks 65..128 keep A in shared memory as the first version did: one
 // warp's registers cannot hold 65 to 128 rows of up to 128 floats.
+// Past rank 128 a whole block of kBlockThreads solves one system (blocks
+// loop over systems), with A in dynamic shared memory while it fits beside
+// the vectors (f <= 238 on an H100's 227 KB), else re-read from device
+// memory (mostly L2) at every step. The simplest layout that is right: each
+// warp takes rows w, w + 8, ... of the matvec with its lanes along the row
+// (coalesced reads, and no bank conflicts at any f), summed by shuffles; the
+// vectors live in shared memory, element i owned by thread i % 256; the two
+// dots per step are block sums in a fixed order. Speed is later work.
 //
 // Measured on an H100 SXM (80GB HBM3) at 700 W: 0.58 ms at n = 138,001,
 // f = 32 (2.8x the first version), about 32 % of the bound. A solve with 0
@@ -82,11 +90,21 @@
 
 namespace {
 
-constexpr int kMaxRank = 128;
 constexpr int kMaxRegisterRank = 64;  // ranks whose A a warp holds in registers
+constexpr int kMaxWarpRank = 128;     // ranks one warp solves (A in shared memory)
 constexpr int kWarpsPerBlock = 2;
 constexpr int kThreads = kWarpsPerBlock * kWarp;
 constexpr int kMaxDevices = 64;
+// past kMaxWarpRank: one block per system
+constexpr int kBlockThreads = 256;
+constexpr int kBlockWarps = kBlockThreads / kWarp;
+constexpr size_t kSmemOptin = 232448;  // a block's dynamic shared memory on sm_90
+
+// Shared memory of the block kernel at rank f: A (when held there), the
+// five vectors x, r, p, Ap and 1/diag(A), and two rows of warp partial sums.
+size_t block_smem(int f, bool shared_a) {
+  return ((shared_a ? (size_t)f * f : 0) + 5 * (size_t)f + 2 * kBlockWarps) * sizeof(float);
+}
 
 // The register kernel's layout for width F and G lanes per system.
 template <int F, int G>
@@ -402,6 +420,104 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+
+// The sum of v over the block's threads, in the same order in every thread;
+// red holds kBlockWarps floats and must not be read again before the next
+// barrier of the caller (two sums in turn use two red rows).
+__device__ __forceinline__ float block_sum(float v, float* red) {
+  v = group_sum<kWarp>(v);
+  if (threadIdx.x % kWarp == 0) red[threadIdx.x / kWarp] = v;
+  __syncthreads();
+  float s = 0.0f;
+#pragma unroll
+  for (int w = 0; w < kBlockWarps; ++w) s += red[w];
+  return s;
+}
+
+// aps[i] = row i of A times ps, rows spread over the block's warps.
+template <bool kSharedA>
+__device__ __forceinline__ void block_matvec(float* aps, const float* Am, const float* ps, int f) {
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  for (int i = warp; i < f; i += kBlockWarps) {
+    const float* row = Am + (size_t)i * f;
+    float acc = 0.0f;
+    for (int j = lane; j < f; j += kWarp) acc = fmaf(kSharedA ? row[j] : __ldg(row + j), ps[j], acc);
+    acc = group_sum<kWarp>(acc);
+    if (lane == 0) aps[i] = acc;
+  }
+}
+
+// Ranks past 128: one block per system, blocks loop over systems; A in
+// shared memory (kSharedA) or read from device memory at every step.
+template <bool kSharedA>
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_block(const float* __restrict__ A, const float* __restrict__ b,
+                 float* __restrict__ x_out, long long n, int f, int iters) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;
+  float* xs = smem + (kSharedA ? (size_t)f * f : 0);
+  float* rs = xs + f;
+  float* ps = rs + f;
+  float* aps = ps + f;
+  float* dinv = aps + f;
+  float* red0 = dinv + f;
+  float* red1 = red0 + kBlockWarps;
+  const int tid = threadIdx.x;
+  const size_t ff = (size_t)f * f;
+
+  for (long long sys = blockIdx.x; sys < n; sys += gridDim.x) {
+    const float* Ag = A + (size_t)sys * ff;
+    const float* bg = b + (size_t)sys * f;
+    const float* Am = kSharedA ? As : Ag;
+    __syncthreads();  // the previous system's reads of shared memory are done
+    if (kSharedA)
+      for (size_t idx = tid; idx < ff; idx += kBlockThreads) As[idx] = Ag[idx];
+    __syncthreads();
+    // x0 = b*dinv; r = b - A x0; z = r*dinv; p = z; rz = <r, z>
+    for (int i = tid; i < f; i += kBlockThreads) {
+      const float d = 1.0f / Am[(size_t)i * f + i];
+      dinv[i] = d;
+      xs[i] = __ldg(bg + i) * d;
+      ps[i] = xs[i];
+    }
+    __syncthreads();
+    block_matvec<kSharedA>(aps, Am, ps, f);
+    __syncthreads();
+    float part = 0.0f;
+    for (int i = tid; i < f; i += kBlockThreads) {
+      const float r = __ldg(bg + i) - aps[i];
+      const float z = r * dinv[i];
+      rs[i] = r;
+      ps[i] = z;
+      part += r * z;
+    }
+    float rz = block_sum(part, red1);  // its barrier also publishes p
+
+    for (int it = 0; it < iters; ++it) {
+      block_matvec<kSharedA>(aps, Am, ps, f);
+      __syncthreads();
+      part = 0.0f;
+      for (int i = tid; i < f; i += kBlockThreads) part += ps[i] * aps[i];
+      const float alpha = rz / fmaxf(block_sum(part, red0), 1e-30f);
+      part = 0.0f;
+      for (int i = tid; i < f; i += kBlockThreads) {
+        xs[i] = xs[i] + alpha * ps[i];
+        const float r = rs[i] - alpha * aps[i];
+        rs[i] = r;
+        part += r * (r * dinv[i]);
+      }
+      const float rz2 = block_sum(part, red1);
+      const float beta = rz2 / fmaxf(rz, 1e-30f);
+      for (int i = tid; i < f; i += kBlockThreads) ps[i] = rs[i] * dinv[i] + beta * ps[i];
+      __syncthreads();  // p is whole before the next matvec
+      rz = rz2;
+    }
+
+    float* xg = x_out + (size_t)sys * f;
+    for (int i = tid; i < f; i += kBlockThreads) xg[i] = xs[i];
+  }
+}
+
 struct Args {
   const float* A;
   const float* b;
@@ -415,10 +531,12 @@ struct Args {
 // What pio_spd_cg_plan reports; ops/spd_solve.py:launch_plan computes the
 // same fields but the last two.
 struct Report {
-  int kind;  // 0: A in registers, 1: A in shared memory
+  // 0: A in registers, 1: A in a warp's shared memory, 2: one block per
+  // system with A in shared memory, 3: the same with A in device memory
+  int kind;
   int width;
   int exact;
-  int group;  // lanes per system
+  int group;  // threads per system
   int warps_per_block;
   int capacity;  // blocks the card keeps resident at once
   int blocks;    // the grid of this launch
@@ -497,9 +615,59 @@ cudaError_t run_shared(const Args& a, Report& rep, bool plan_only) {
   return cudaGetLastError();
 }
 
+// One block per system, at most as many blocks as the card keeps resident
+// (they then loop over systems). The residency depends on f through the
+// shared memory, so the cache keeps the last shared-memory size with its
+// cap: repeated launches at one rank, and launches captured into a CUDA
+// graph after an eager one, make no query.
+template <bool kSharedA>
+cudaError_t run_block(const Args& a, Report& rep, bool plan_only) {
+  static std::atomic<long long> cache[kMaxDevices];  // smem << 32 | cap
+  rep.kind = kSharedA ? 2 : 3;
+  rep.width = a.f;
+  rep.exact = 1;
+  rep.group = kBlockThreads;
+  rep.warps_per_block = kBlockWarps;
+  const size_t smem = block_smem(a.f, kSharedA);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  long long cached = cache[dev].load(std::memory_order_relaxed);
+  if (cached == 0 || (unsigned long long)cached >> 32 != smem) {
+    auto kernel = spd_cg_block<kSharedA>;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmemOptin);
+    if (err != cudaSuccess) return err;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+                               (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return err;
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads, smem);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cached = (long long)(smem << 32) | (long long)(per_sm * sms);
+    cache[dev].store(cached, std::memory_order_relaxed);
+  }
+  rep.capacity = (int)(cached & 0xffffffffLL);
+  rep.blocks = (int)(a.n < rep.capacity ? a.n : rep.capacity);
+  if (plan_only || rep.blocks == 0) return cudaSuccess;
+  spd_cg_block<kSharedA><<<rep.blocks, kBlockThreads, smem, a.stream>>>(a.A, a.b, a.x, a.n, a.f,
+                                                                        a.iters);
+  return cudaGetLastError();
+}
+
 // The plan by rank; ops/spd_solve.py:launch_plan mirrors it.
 cudaError_t run(const Args& a, Report& rep, bool plan_only) {
   const int f = a.f;
+  if (f > kMaxWarpRank) {
+    // past f = 11,619 the five CG vectors of one system outgrow a block's
+    // shared memory (A of one such system is 540 MB)
+    if (block_smem(f, false) > kSmemOptin) return cudaErrorInvalidValue;
+    return block_smem(f, true) <= kSmemOptin ? run_block<true>(a, rep, plan_only)
+                                             : run_block<false>(a, rep, plan_only);
+  }
   if (f > kMaxRegisterRank) {
     return f > 3 * kWarp ? run_shared<4>(a, rep, plan_only) : run_shared<3>(a, rep, plan_only);
   }
@@ -515,13 +683,11 @@ cudaError_t run(const Args& a, Report& rep, bool plan_only) {
 
 extern "C" {
 
-int pio_spd_cg_max_rank() { return kMaxRank; }
-
 // Solve A[s] x[s] = b[s] for s < n; A [n, f, f], b and x [n, f], all f32,
 // contiguous, on the current device. Returns a cudaError_t (0 = launched).
 int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n, int f, int iters,
                      void* stream) {
-  if (n < 0 || f < 1 || f > kMaxRank || iters < 0) return cudaErrorInvalidValue;
+  if (n < 0 || f < 1 || iters < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   Report rep{};
   return run(Args{A, b, x, n, f, iters, static_cast<cudaStream_t>(stream)}, rep, false);
@@ -530,7 +696,7 @@ int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n, int 
 // The launch plan for n systems of rank f on the current device, into
 // out[7]: kind, width, exact, group, warps per block, capacity, blocks.
 int pio_spd_cg_plan(long long n, int f, int* out) {
-  if (n < 0 || f < 1 || f > kMaxRank) return cudaErrorInvalidValue;
+  if (n < 0 || f < 1) return cudaErrorInvalidValue;
   Report rep{};
   const cudaError_t err = run(Args{nullptr, nullptr, nullptr, n, f, f + 4, nullptr}, rep, true);
   const int fields[7] = {rep.kind,  rep.width,           rep.exact, rep.group,

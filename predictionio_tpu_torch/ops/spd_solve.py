@@ -6,8 +6,11 @@ The ALS half-solve ends with one [f, f] SPD system per entity (f = rank).
 same preconditioner, the same f+4 iterations, the same update order and
 clamps. ``batched_spd_solve_fused`` launches ``csrc/spd_cg.cu``, which runs
 that algorithm with A read from device memory once: for ranks up to 64 a
-group of lanes holds one system's A in registers, for larger ranks a warp
-keeps it in shared memory. ``launch_plan`` says which, as the source does.
+group of lanes holds one system's A in registers, for ranks up to 128 a
+warp keeps it in shared memory, and past that a block of 256 threads solves
+one system, with A in shared memory while it fits (f <= 238) and read from
+device memory at every step beyond. ``launch_plan`` says which, as the
+source does.
 """
 
 from __future__ import annotations
@@ -20,20 +23,31 @@ import torch
 
 from predictionio_tpu_torch.ops import _build
 
-MAX_RANK = 128  # pio_spd_cg_max_rank() in csrc/spd_cg.cu
 MAX_REGISTER_RANK = 64  # ranks whose A one warp holds in registers
-WARPS_PER_BLOCK = 2
+MAX_WARP_RANK = 128  # ranks one warp solves; past it one block per system
+WARPS_PER_BLOCK = 2  # of the warp kernels
+BLOCK_THREADS = 256  # of the block kernel
 WARP = 32
+SMEM_OPTIN = 232_448  # a block's dynamic shared memory on sm_90 (csrc/spd_cg.cu)
+
+
+def block_smem(f: int, shared_a: bool) -> int:
+    """Shared-memory bytes of the block kernel at rank f (``block_smem`` in
+    the source): A when held there, five vectors, two rows of warp sums."""
+    return ((f * f if shared_a else 0) + 5 * f + 2 * (BLOCK_THREADS // WARP)) * 4
 
 
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How ``csrc/spd_cg.cu`` lays rank-f systems over the card (its
     ``run``): ``kernel`` "registers" (a group of ``group`` lanes holds one
-    system's A in registers) or "shared" (a warp keeps A in shared memory),
-    compiled for ``width`` >= f, for exactly f when ``exact``. A warp solves
-    tiles of ``systems_per_warp`` consecutive systems and loops over tiles
-    with the stride of the whole grid."""
+    system's A in registers), "shared" (a warp keeps A in shared memory),
+    "block" (a block of ``group`` threads per system, A in shared memory) or
+    "block_global" (the same, A read from device memory at every step),
+    compiled for ``width`` >= f, for exactly f when ``exact``. In the warp
+    kernels a warp solves tiles of ``systems_per_warp`` consecutive systems
+    and loops over tiles with the stride of the whole grid; in the block
+    kernels a block loops over systems with the stride of the grid."""
 
     kernel: str
     width: int
@@ -41,19 +55,32 @@ class LaunchPlan:
     group: int
 
     @property
+    def per_block(self) -> bool:
+        return self.kernel in ("block", "block_global")
+
+    @property
+    def warps_per_block(self) -> int:
+        return BLOCK_THREADS // WARP if self.per_block else WARPS_PER_BLOCK
+
+    @property
     def systems_per_warp(self) -> int:
+        """Of a warp kernel."""
         return WARP // self.group
 
     def tiles(self, n: int) -> int:
-        return -(-n // self.systems_per_warp)
+        """Units of work: a warp's tile of systems, or one system per block."""
+        return n if self.per_block else -(-n // self.systems_per_warp)
 
     def blocks(self, n: int, capacity: int) -> int:
-        """The grid for n systems: one warp per tile, at most ``capacity``
-        blocks (what the card keeps resident at once)."""
+        """The grid for n systems: one warp per tile (one block per system),
+        at most ``capacity`` blocks (what the card keeps resident at once)."""
+        if self.per_block:
+            return min(n, capacity)
         return min(-(-self.tiles(n) // WARPS_PER_BLOCK), capacity)
 
     def warp_systems(self, n: int, warp: int, warps: int) -> list[int]:
-        """The systems that warp ``warp`` of a grid of ``warps`` solves."""
+        """The systems that warp ``warp`` of a grid of ``warps`` solves (a
+        warp kernel)."""
         spw = self.systems_per_warp
         return [
             s
@@ -61,13 +88,33 @@ class LaunchPlan:
             for s in range(tile * spw, min(tile * spw + spw, n))
         ]
 
+    def block_systems(self, n: int, block: int, blocks: int) -> list[int]:
+        """The systems that block ``block`` of a grid of ``blocks`` solves."""
+        if self.per_block:
+            return list(range(block, n, blocks))
+        warps = blocks * WARPS_PER_BLOCK
+        return sorted(
+            s
+            for w in range(block * WARPS_PER_BLOCK, (block + 1) * WARPS_PER_BLOCK)
+            for s in self.warp_systems(n, w, warps)
+        )
+
 
 def launch_plan(f: int) -> LaunchPlan:
     """The kernel instantiation for rank f: exact widths for the template
     default (10) and the ALS main paths (32), padded widths 8, 16, 32 and 64
-    otherwise, A in shared memory past rank 64."""
-    if not 1 <= f <= MAX_RANK:
-        raise ValueError(f"rank {f} outside what the CUDA solve takes (1..{MAX_RANK})")
+    otherwise, A in a warp's shared memory past rank 64, one block per
+    system past rank 128."""
+    if f < 1:
+        raise ValueError(f"rank {f} must be at least 1")
+    if f > MAX_WARP_RANK:
+        if block_smem(f, False) > SMEM_OPTIN:
+            raise ValueError(
+                f"rank {f}: the five CG vectors of one system outgrow a block's "
+                f"{SMEM_OPTIN} bytes of shared memory"
+            )
+        kernel = "block" if block_smem(f, True) <= SMEM_OPTIN else "block_global"
+        return LaunchPlan(kernel, f, True, BLOCK_THREADS)
     if f > MAX_REGISTER_RANK:
         return LaunchPlan("shared", -(-f // WARP) * WARP, False, WARP)
     if f in (10, 32):
@@ -111,17 +158,15 @@ def _library() -> ctypes.CDLL:
     lib.pio_spd_cg_solve.restype = ctypes.c_int
     lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pio_cuda_error_string.restype = ctypes.c_char_p
-    lib.pio_spd_cg_max_rank.restype = ctypes.c_int
     lib.pio_spd_cg_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     lib.pio_spd_cg_plan.restype = ctypes.c_int
-    if lib.pio_spd_cg_max_rank() != MAX_RANK:
-        raise RuntimeError("spd_cg.cu and spd_solve.MAX_RANK disagree")
     return lib
 
 
 def batched_spd_solve_fused(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """Kernel B1 on CUDA tensors: A [n, f, f] f32 SPD, b [n, f] f32, both
-    contiguous on one card, f <= MAX_RANK. Raises on anything else."""
+    contiguous on one card, any rank that ``launch_plan`` takes. Raises on
+    anything else."""
     if A.device.type != "cuda" or b.device != A.device:
         raise ValueError(
             f"batched_spd_solve_fused needs A and b on one CUDA device, got "
@@ -137,8 +182,7 @@ def batched_spd_solve_fused(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("A and b must be contiguous")
     n, f = A.shape[0], A.shape[-1]
-    if not 1 <= f <= MAX_RANK:
-        raise ValueError(f"rank {f} outside what the CUDA solve takes (1..{MAX_RANK})")
+    launch_plan(f)  # raises on a rank the kernel does not take
     x = torch.empty_like(b)
     if n == 0:
         return x

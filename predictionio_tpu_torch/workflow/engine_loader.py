@@ -5,7 +5,10 @@ version check).
 An engine directory holds ``engine.json``: ``{"id", "description",
 "engineFactory": "pkg.module.fn", "datasource": ..., "algorithms": [...],
 "serving": ...}``; the directory joins ``sys.path`` so a template's own
-modules import.
+modules import. An ``engineFactory`` of the JAX package's ported templates
+(``predictionio_tpu.models.twotower.engine_factory`` and the like) loads the
+port's counterpart; any other ``predictionio_tpu`` factory is refused, never
+imported.
 """
 
 from __future__ import annotations
@@ -24,6 +27,15 @@ class EngineLoadError(RuntimeError):
     pass
 
 
+# engineFactory strings of the JAX package's templates that the port has
+_PORT = "predictionio_tpu_torch.models"
+JAX_FACTORIES = {
+    f"predictionio_tpu.models.{name}{sub}": f"{_PORT}.{name}.engine.engine_factory"
+    for name in ("recommendation", "sequential", "twotower")
+    for sub in (".engine_factory", ".engine.engine_factory")
+}
+
+
 @dataclasses.dataclass
 class EngineManifest:
     engine_id: str
@@ -37,6 +49,12 @@ class EngineManifest:
 
 def load_engine_factory(dotted: str) -> Engine:
     """Resolve "pkg.module.attr" to an Engine instance."""
+    dotted = JAX_FACTORIES.get(dotted, dotted)
+    if dotted == "predictionio_tpu" or dotted.startswith("predictionio_tpu."):
+        raise EngineLoadError(
+            f"engineFactory {dotted!r} belongs to the JAX package, whose template "
+            "has no counterpart in predictionio_tpu_torch yet"
+        )
     module_name, _, attr = dotted.rpartition(".")
     if not module_name:
         raise EngineLoadError(f"engineFactory {dotted!r} must be a dotted path")

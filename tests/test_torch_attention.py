@@ -17,6 +17,7 @@ import pytest
 torch = pytest.importorskip("torch")
 torch.set_num_threads(1)  # the suite runs in parallel worker processes
 
+import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from predictionio_tpu.ops import attention as jax_attn  # noqa: E402
@@ -237,3 +238,53 @@ def test_output_keeps_q_dtype_and_shape():
     for out in (pt_attn._fused_attention_plain(q, k, v, True), pt_attn._flash_attention_plain(q, k, v, True)):
         assert out.dtype == torch.float32 and out.shape == q.shape
         assert torch.isfinite(out).all()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 2, 16, 8), (1, 3, 40, 5)])
+def test_fused_attention_backward_matches_jax_grad_of_the_reference(shape, causal):
+    """FusedAttention's gradient is the f32 attention_reference's: against
+    jax.vjp of the JAX reference (the JAX package trains through it; a
+    Pallas call has no reverse rule), atol 1e-5. Its forward is the plain
+    version of the routed kernel, as without autograd."""
+    q, k, v = _qkv(*shape, seed=sum(shape))
+    g = np.random.default_rng(1).normal(size=shape).astype(np.float32)
+    _, vjp = jax.vjp(
+        lambda a, b, c: jax_attn.attention_reference(a, b, c, causal=causal), *_jax(q, k, v))
+    want = [np.asarray(x) for x in vjp(jnp.asarray(g))]
+    tq, tk, tv = (t.requires_grad_() for t in _torch(q, k, v))
+    out = pt_attn.fused_attention(tq, tk, tv, causal=causal)
+    assert out.grad_fn is not None
+    assert torch.equal(out.detach(), pt_attn._fused_attention_plain(*_torch(q, k, v), causal))
+    out.backward(torch.from_numpy(g))
+    for got, w in zip((tq.grad, tk.grad, tv.grad), want):
+        np.testing.assert_allclose(got.numpy(), w, rtol=0, atol=1e-5)
+
+
+def test_attention_reference_grad_slices_batch_heads(monkeypatch):
+    """The backward in slices of batch·heads gives what one slice gives."""
+    q, k, v = _torch(*_qkv(3, 2, 12, 4, seed=21))
+    g = torch.from_numpy(np.random.default_rng(22).normal(size=(3, 2, 12, 4)).astype(np.float32))
+    whole = pt_attn.attention_reference_grad(q, k, v, g, True)
+    monkeypatch.setattr(pt_attn, "GRAD_SLICE_BYTES", 12 * 12 * 4 * 2)  # two batch·heads a slice
+    sliced = pt_attn.attention_reference_grad(q, k, v, g, True)
+    for a, b in zip(whole, sliced):
+        torch.testing.assert_close(a, b, rtol=0, atol=1e-6)
+
+
+def test_fused_attention_without_grad_skips_autograd():
+    q, k, v = (t.requires_grad_() for t in _torch(*_qkv(1, 1, 8, 4)))
+    with torch.no_grad():
+        out = pt_attn.fused_attention(q, k, v, causal=True)
+    assert out.grad_fn is None
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [129, 160])
+def test_block_plain_matches_pallas_interpret_past_head_dim_128(D, causal):
+    """Heads wider than 128 columns, which the card's kernels take in
+    128-column slices: the plain version against the Pallas kernel."""
+    q, k, v = _qkv(1, 2, 16, D, seed=D)
+    want = np.asarray(jax_attn._fused_attention_pallas(*_jax(q, k, v), causal, interpret=True))
+    got = pt_attn._fused_attention_plain(*_torch(q, k, v), causal).numpy()
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-3)

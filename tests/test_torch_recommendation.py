@@ -151,6 +151,87 @@ def test_whole_slice_matches_jax(memory_storage, tmp_path, monkeypatch):
     _assert_same_results(palgo.predict_batch(pmodel, pq), jalgo.predict_batch(jmodel, jq), score_of, 1e-3)
 
 
+@pytest.mark.parametrize(
+    "extra",
+    [{"algorithm": {"distributed": False}}, {"algorithm": {"distributed": True}},
+     {"datasource": {"evalParams": {"kFold": 2, "queryNum": 10}}}],
+    ids=["distributed_false", "distributed_true", "eval_params"],
+)
+def test_jax_engine_json_keys_train_the_same(tmp_path, extra):
+    """A JAX engine.json with ``distributed`` (one device: the same train)
+    or ``evalParams`` (kept for the eval folds) parses in both packages and
+    trains exactly as the same JSON without the key."""
+    events = _write_events(tmp_path / "ev.jsonl", seed=4)
+    ctx, ptd = _port_training_data(tmp_path, events)
+    base = {"datasource": {"params": {"appName": APP}},
+            "algorithms": [{"name": "als", "params": {"rank": 4, "numIterations": 3, "seed": 3}}]}
+    variant = json.loads(json.dumps(base))
+    variant["datasource"]["params"].update(extra.get("datasource", {}))
+    variant["algorithms"][0]["params"].update(extra.get("algorithm", {}))
+    jax_rec.engine_factory().engine_params_from_variant(variant)  # the JAX package takes it
+    engine = pt_rec.engine_factory()
+    with_key, without = (engine.engine_params_from_variant(v) for v in (variant, base))
+    if "datasource" in extra:
+        assert with_key.data_source[1].eval_params == pt_rec.EvalParams(k_fold=2, query_num=10)
+    (m1,), (m2,) = (engine.train(ctx, ep) for ep in (with_key, without))
+    np.testing.assert_array_equal(m1.user_factors, m2.user_factors)
+    np.testing.assert_array_equal(m1.item_factors, m2.item_factors)
+
+
+def test_custom_preparator_matches_jax(tmp_path):
+    rng = np.random.default_rng(5)
+    u = rng.integers(0, 10, 200).astype(np.int32)
+    i = rng.integers(0, 12, 200).astype(np.int32)
+    r = rng.random(200).astype(np.float32)
+    users, items = [f"u{k}" for k in range(10)], [f"i{k}" for k in range(12)]
+    excluded = tmp_path / "exclude.txt"
+    excluded.write_text("i3\n\ni7\nnot-an-item\n")
+    jtd = jax_rec.CustomPreparator(jax_rec.CustomPreparatorParams(filepath=str(excluded))).prepare(
+        None, jax_rec.TrainingData(u, i, r, users, items))
+    ptd = pt_rec.CustomPreparator(pt_rec.CustomPreparatorParams(filepath=str(excluded))).prepare(
+        None, pt_rec.TrainingData(u, i, r, users, items))
+    assert ptd.item_vocab == jtd.item_vocab and "i3" not in ptd.item_vocab
+    for name in ("user_idx", "item_idx", "ratings"):
+        got, want = getattr(ptd, name), getattr(jtd, name)
+        assert got.dtype == want.dtype and np.array_equal(got, want)
+    empty = tmp_path / "empty.txt"
+    empty.write_text("\n")
+    td = pt_rec.TrainingData(u, i, r, users, items)
+    assert pt_rec.CustomPreparator(pt_rec.CustomPreparatorParams(filepath=str(empty))).prepare(None, td) is td
+
+
+def test_filter_serving_matches_jax_and_rereads_its_file(tmp_path):
+    disabled = tmp_path / "disabled.txt"
+    disabled.write_text("i2\n")
+    scores = [("i1", 0.9), ("i2", 0.8), ("i3", 0.5)]
+    jserve = jax_rec.FilterServing(jax_rec.ServingParams(filepath=str(disabled)))
+    pserve = pt_rec.FilterServing(pt_rec.ServingParams(filepath=str(disabled)))
+
+    def run(mod, serve):
+        pred = mod.PredictedResult(tuple(mod.ItemScore(a, b) for a, b in scores))
+        return serve.serve(mod.Query(user="u"), [pred]).to_json_dict()
+
+    assert run(pt_rec, pserve) == run(jax_rec, jserve)
+    assert [s["item"] for s in run(pt_rec, pserve)["itemScores"]] == ["i1", "i3"]
+    disabled.write_text("i1\ni3\n")  # edited live: the next request sees it
+    assert run(pt_rec, pserve) == run(jax_rec, jserve) == {"itemScores": [{"item": "i2", "score": 0.8}]}
+
+
+def test_custom_and_filter_variants_resolve_by_name(tmp_path):
+    excluded = tmp_path / "x.txt"
+    excluded.write_text("i1\n")
+    variant = {"datasource": {"params": {"appName": APP}},
+               "preparator": {"name": "custom", "params": {"filepath": str(excluded)}},
+               "algorithms": [{"name": "als", "params": {"rank": 3}}],
+               "serving": {"name": "filter", "params": {"filepath": str(excluded)}}}
+    engine = pt_rec.engine_factory()
+    ep = engine.engine_params_from_variant(variant)
+    _, prep, _, serving = engine.make_components(ep)
+    assert isinstance(prep, pt_rec.CustomPreparator) and isinstance(serving, pt_rec.FilterServing)
+    jax_ep = jax_rec.engine_factory().engine_params_from_variant(variant)
+    assert jax_ep.preparator[0] == ep.preparator[0] == "custom"
+
+
 @pytest.fixture
 def jax_trained(memory_storage, tmp_path):
     events = _write_events(tmp_path / "ev.jsonl", seed=2)
@@ -420,8 +501,8 @@ def test_query_server_batches_concurrent_queries(tmp_path):
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|predictionio_tpu)\b(?!_torch)"
-    r"|import_module\(\s*['\"](?:jax|predictionio_tpu)\b(?!_torch)",
+    r"^\s*(?:from|import)\s+(?:jax|flax|optax|predictionio_tpu)\b(?!_torch)"
+    r"|import_module\(\s*['\"](?:jax|flax|optax|predictionio_tpu)\b(?!_torch)",
     re.M,
 )
 
@@ -434,8 +515,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     code = (
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
-        "bad = [k for k in sys.modules if k == 'jax' or k.startswith('jax.') "
-        "or k == 'predictionio_tpu' or k.startswith('predictionio_tpu.')]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'predictionio_tpu')]\n"
         "print(len(bad), bad[:5])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -443,7 +524,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                          timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert out.stdout.startswith("0 "), out.stdout
-    assert len(modules) >= 25
+    assert len(modules) >= 29
+    assert {"predictionio_tpu_torch.models.twotower.model",
+            "predictionio_tpu_torch.models.twotower.engine"} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"

@@ -376,6 +376,25 @@ def test_model_state_matches_jax_and_drops_device_tables(jax_attention):
     np.testing.assert_array_equal(back.item_out, jm.item_out)
 
 
+def test_jax_engine_json_with_eval_params_trains_the_same(tmp_path):
+    """``evalParams`` in a JAX engine.json parses in both packages, is kept
+    for the eval folds, and the train reads and learns exactly as without."""
+    store = _port_store(tmp_path, _wire_events(seed=9))
+    base = {"datasource": {"params": {"appName": APP}},
+            "algorithms": [{"name": "markov", "params": {}}]}
+    variant = json.loads(json.dumps(base))
+    variant["datasource"]["params"]["evalParams"] = {"kFold": 2, "queryNum": 5, "holdoutTail": 1}
+    jax_seq.engine_factory().engine_params_from_variant(variant)  # the JAX package takes it
+    engine = pt_seq.engine_factory()
+    with_key, without = (engine.engine_params_from_variant(v) for v in (variant, base))
+    assert with_key.data_source[1].eval_params == pt_seq.EvalParams(
+        k_fold=2, query_num=5, holdout_tail=1)
+    ctx = WorkflowContext(device="cpu", store=store)
+    (m1,), (m2,) = (engine.train(ctx, ep) for ep in (with_key, without))
+    assert m1.pair_counts == m2.pair_counts and m1.user_last == m2.user_last
+    assert m1.item_vocab == m2.item_vocab
+
+
 def test_read_eval_waits_for_the_eval_slice(tmp_path):
     ds = pt_seq.DataSource(pt_seq.DataSourceParams(app_name=APP))
     with pytest.raises(NotImplementedError, match="eval"):

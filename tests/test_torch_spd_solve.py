@@ -126,7 +126,9 @@ def test_kernel_module_builds_nothing_on_import():
 _CAPACITIES = (1, 3, 660)
 
 
-@pytest.mark.parametrize("f", range(1, pt_spd.MAX_RANK + 1))
+@pytest.mark.parametrize(
+    "f", [*range(1, pt_spd.MAX_WARP_RANK + 1), 129, 160, 238, 239, 256, 1000, 11619]
+)
 def test_launch_plan_covers_every_system_once(f):
     """Every rank maps to one instantiation that holds it, and the persistent
     grid of that plan solves each of n systems exactly once: n = 0, 1, a
@@ -140,22 +142,30 @@ def test_launch_plan_covers_every_system_once(f):
         assert plan.exact or plan.width in (8, 16, 32, 64)
         # A of one system in registers: rows per lane x width <= 128 floats
         assert -(-plan.width // plan.group) * plan.width <= 128
-    else:
-        assert plan.kernel == "shared" and f > pt_spd.MAX_REGISTER_RANK
+    elif plan.kernel == "shared":
+        assert pt_spd.MAX_REGISTER_RANK < f <= pt_spd.MAX_WARP_RANK
         assert plan.group == pt_spd.WARP and plan.width in (96, 128)
-    spw = plan.systems_per_warp
-    assert spw * plan.group == pt_spd.WARP
+    else:
+        # one block per system past rank 128; A in shared memory up to
+        # f = 238 (f*f + 5f + 16 floats in 227 KB), read from device memory past it
+        assert f > pt_spd.MAX_WARP_RANK and plan.exact
+        assert plan.group == pt_spd.BLOCK_THREADS and plan.warps_per_block == 8
+        assert plan.kernel == ("block" if f <= 238 else "block_global")
+    per_block = 1 if plan.per_block else pt_spd.WARPS_PER_BLOCK * plan.systems_per_warp
+    if not plan.per_block:
+        assert plan.systems_per_warp * plan.group == pt_spd.WARP
     for capacity in _CAPACITIES:
-        wave = capacity * pt_spd.WARPS_PER_BLOCK * spw
-        for n in sorted({0, 1, spw + 1, wave - 1, wave, wave + 1, 2 * wave + 3}):
+        wave = capacity * per_block
+        for n in sorted({0, 1, per_block + 1, wave - 1, wave, wave + 1, 2 * wave + 3}):
             blocks = plan.blocks(n, capacity)
             assert 0 <= blocks <= capacity and (blocks > 0) == (n > 0)
-            warps = blocks * pt_spd.WARPS_PER_BLOCK
-            solved = [s for w in range(warps) for s in plan.warp_systems(n, w, warps)]
+            solved = [s for blk in range(blocks) for s in plan.block_systems(n, blk, blocks)]
             assert sorted(solved) == list(range(n)), (capacity, n)
 
 
-@pytest.mark.parametrize("f", [0, pt_spd.MAX_RANK + 1])
+@pytest.mark.parametrize("f", [0, 11620])
 def test_launch_plan_refuses_ranks_the_kernel_does_not_take(f):
+    """Ranks below 1, and ranks whose five CG vectors outgrow a block's
+    shared memory (A of one such system is 540 MB)."""
     with pytest.raises(ValueError, match="rank"):
         pt_spd.launch_plan(f)
