@@ -4,13 +4,14 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 ``python3 chip_smoke.py``. It builds the CUDA kernels from the checkout's
 sources (nvcc, one process per source, all started together, into
-build/kernels/), then drives three main paths.
+build/kernels/), then drives the main path of every template.
 
 The recommendation template (ALS, kernel B1):
 
 1. kernel phase: kernel B1 (csrc/spd_cg.cu) against its plain PyTorch
    version on the card, on well-conditioned systems at ranks
-   10/16/32/64/100 and, one block per system, 160 and 256;
+   10/16/32/64/100 and, one block per system, 160 and 256; then one
+   system at f = 11,700, past a block's shared memory (the grid plan);
 2. train phase: the recommendation template's ALSAlgorithm.train at the
    ML-20M shape (138,000 users x 27,000 items x 20 M synthetic ratings,
    rank 32, 10 iterations), held-out RMSE gated at 0.45, with B1's launch
@@ -66,6 +67,26 @@ training and serving):
    engine.json naming the JAX package's factory string, deploy, POST
    /queries.json.
 
+The rest of the template gallery (similar-product, e-commerce and
+recommended-user train implicit ALS through kernel B1 at rank 10):
+
+13. similar-product: the multi-events-multi-algos variant at the ML-1M
+   shape (views-ALS, like-ALS, cooccurrence n = 20), B1 on the views
+   train's own systems, batches of 64 filtered queries checked against
+   their filters and the plain product; the same-cluster share of the
+   top-10 on the bench's clustered data;
+14. e-commerce: 20,000 users x 10,000 items, 1.2 M events in the store,
+   trains at 10 and (adjust-score) 20 iterations, batches of 64 known and
+   cold users with live store reads at cacheTtlS 0 and 60;
+15. recommended-user: 50,000 users in 50 communities, 1,000,000 follows,
+   the same-community share of the top-10;
+16. classification: naive Bayes scores of 200,000 points on the card
+   against the float64 host labels; the add-algorithm variant from the
+   store;
+17. CLI: each of the four from the JAX package's engine.json, app new ->
+   import -> train (the four side by side) -> deploy -> 200 queries (one
+   server at a time).
+
 Every phase that fails raises, so the script exits non-zero and prints no
 result. The last line is ``{"ok": true, "device": {...}}``; the line before
 it is nvidia-smi's name and power limit; before that one JSON line lists
@@ -99,8 +120,12 @@ REPLACES = "predictionio_tpu/ops/spd_solve.py:76"
 KERNELS = ["spd_cg", "attention_block", "flash_attention"]
 
 
+_T0 = time.perf_counter()
+
+
 def emit(**fields) -> None:
-    print(json.dumps(fields), flush=True)
+    """One JSON line of a phase's results, with the script's elapsed seconds."""
+    print(json.dumps({**fields, "elapsed_s": time.perf_counter() - _T0}), flush=True)
 
 
 def synthesize_ratings(n_users: int, n_items: int, n_ratings: int, seed: int = 0):
@@ -125,7 +150,8 @@ def spd_batch(n: int, f: int, seed: int, reg: float = 0.05):
     plus a scaled ridge."""
     rng = np.random.default_rng(seed)
     G = rng.normal(size=(n, 3 * f, f)).astype(np.float32)
-    A = np.einsum("bdf,bdg->bfg", G, G) + reg * (3 * f) * np.eye(f, dtype=np.float32)
+    # a batched BLAS product: the unoptimised einsum took over a minute at f = 256
+    A = np.matmul(G.transpose(0, 2, 1), G) + reg * (3 * f) * np.eye(f, dtype=np.float32)
     return A.astype(np.float32), rng.normal(size=(n, f)).astype(np.float32)
 
 
@@ -163,6 +189,43 @@ def kernel_phase(torch) -> None:
         emit(phase="kernel", kernel="spd_cg", n=n, f=f, plan=launch_plan(f).kernel,
              max_abs_err=err, max_row_rel_err=row_rel,
              limit={"atol": 1e-4} if f <= 128 else {"row_rel": 1e-4})
+
+
+def kernel_grid_phase(torch) -> dict:
+    """B1 past f = 11,619 (the grid plan, vectors in a device scratch
+    buffer): one system at f = 11,700 (A 548 MB, M Mᵀ/f + 0.5 I from a seeded
+    generator on the card) against the plain version at row-relative 1e-3,
+    each timed once beside the library Cholesky."""
+    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused, launch_plan
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms
+
+    f = 11_700
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    M = torch.randn(f, f, generator=gen, device="cuda")
+    A = (M @ M.T / f + 0.5 * torch.eye(f, device="cuda"))[None].contiguous()
+    del M
+    b = torch.randn(1, f, generator=gen, device="cuda")
+    x = batched_spd_solve_fused(A, b)
+    ref = _cg_body(A, b, f + 4)
+    row_rel = float(((x - ref).norm(dim=1) / ref.norm(dim=1)).max())
+    if not (torch.isfinite(x).all() and row_rel <= 1e-3):
+        raise AssertionError(f"B1 at f = {f}: row-relative error {row_rel} against _cg_body")
+
+    def library():
+        L, _ = torch.linalg.cholesky_ex(A)
+        return torch.linalg.solve_triangular(
+            L.mT, torch.linalg.solve_triangular(L, b[..., None], upper=False), upper=True)
+
+    bound_ms, bound_by = cg_bound_ms(1, f)
+    row = {"systems": "one system past the block limit", "n": 1, "f": f,
+           "plan": launch_plan(f).kernel, "max_abs_err": float((x - ref).abs().max()),
+           "max_row_rel_err": row_rel,
+           "ms": event_ms(lambda: batched_spd_solve_fused(A, b), reps=1, warmup=0),
+           "plain_ms": event_ms(lambda: _cg_body(A, b, f + 4), reps=1, warmup=0),
+           "library_ms": event_ms(library, reps=1, warmup=1),
+           "bound_ms": bound_ms, "bound_by": bound_by}
+    emit(phase="kernel_real", kernel="spd_cg", **row)
+    return row
 
 
 def train_phase(torch, home: str):
@@ -1367,6 +1430,709 @@ def twotower_cli_phase(home: str, device: str = "cuda") -> dict:
     return result
 
 
+# ---------------------------------------------------------------------------
+# The rest of the template gallery: similar-product, e-commerce and
+# recommended-user (implicit ALS through kernel B1), and classification
+# ---------------------------------------------------------------------------
+
+# The JAX package's quality values on the CPU, which set the gates below
+# (less 0.05); tests/test_torch_similarproduct.py and
+# tests/test_torch_recommendeduser.py recompute them through the JAX package
+# and hold these constants to them. Similar-product: the share of each
+# item's top-10 similar items in its own cluster, on the bench's clustered
+# data. Recommended-user: the share of each user's top-10 similar users in
+# its own community, on the small follow graph FOLLOW_GATE_GRAPH.
+JAX_CPU_SIMILAR_CLUSTER_SHARE = 1.0
+JAX_CPU_FOLLOW_COMMUNITY_SHARE = 1.0
+FOLLOW_GATE_GRAPH = (5_000, 50, 100_000)  # users, communities, follows
+GALLERY_ALS = {"rank": 10, "num_iterations": 10, "lambda_": 0.01, "alpha": 1.0, "seed": 3}
+
+
+def clustered_item_groups(n_users=2000, n_items=1000, n_clusters=20, seed=0) -> np.ndarray:
+    """The item clusters of ``clustered_recall_data`` (its second draw)."""
+    rng = np.random.default_rng(seed)
+    rng.integers(0, n_clusters, n_users)
+    return rng.integers(0, n_clusters, n_items)
+
+
+def follow_graph(n_users: int, n_communities: int, n_follows: int, seed: int = 0,
+                 in_share: float = 0.9):
+    """(follower, followed) pairs: user u belongs to community u mod
+    ``n_communities``; a follow stays inside the follower's community with
+    probability ``in_share``, else goes to any user; self-follows dropped."""
+    rng = np.random.default_rng(seed)
+    follower = rng.integers(0, n_users, n_follows)
+    inside = rng.random(n_follows) < in_share
+    same = follower % n_communities + n_communities * rng.integers(
+        0, n_users // n_communities, n_follows)
+    followed = np.where(inside, same, rng.integers(0, n_users, n_follows))
+    keep = followed != follower
+    return follower[keep].astype(np.int32), followed[keep].astype(np.int32)
+
+
+def same_group_share(query_groups, answers) -> float:
+    """Mean over queries of the share of the answered ids (integers) whose
+    group is the query's; ``answers`` holds (ids, groups of the ids)."""
+    shares = [float(np.mean(groups == g)) for g, (_, groups) in zip(query_groups, answers)
+              if len(groups)]
+    return float(np.mean(shares))
+
+
+def similar_items_share(algo, model, query_cls, item_cluster: np.ndarray,
+                        batch: int = 64) -> float:
+    """Each item as a one-item query (top-10, in batches): the share of the
+    answers in the query item's cluster."""
+    n = len(item_cluster)
+    answers = []
+    for s in range(0, n, batch):
+        res = algo.predict_batch(model, [query_cls(items=(f"i{i}",), num=10)
+                                         for i in range(s, min(s + batch, n))])
+        for r in res:
+            ids = np.asarray([int(x.item[1:]) for x in r.item_scores], np.int64)
+            answers.append((ids, item_cluster[ids]))
+    return same_group_share(item_cluster, answers)
+
+
+def similar_users_share(algo, model, query_cls, users: np.ndarray, n_communities: int,
+                        batch: int = 64) -> float:
+    """Each user as a one-user query (top-10, in batches): the share of the
+    answers in the query user's community."""
+    answers = []
+    for s in range(0, len(users), batch):
+        res = algo.predict_batch(model, [query_cls(users=(f"u{u}",), num=10)
+                                         for u in users[s : s + batch]])
+        for r in res:
+            ids = np.asarray([int(x.user[1:]) for x in r.similar_user_scores], np.int64)
+            answers.append((ids, ids % n_communities))
+    return same_group_share(users % n_communities, answers)
+
+
+def _counted_train(torch, algo, ctx, td):
+    """algo.train with B1's launches counted around it and the wall time."""
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+
+    algo.timings = {}
+    batched_spd_solve_fused.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model = algo.train(ctx, td)
+    torch.cuda.synchronize()
+    return model, time.perf_counter() - t0, batched_spd_solve_fused.launches
+
+
+def _implicit_b1_rows(torch, users, items, counts, n_users, n_items, label: str) -> list[dict]:
+    """B1 on a template train's own implicit systems (rank 10): the train
+    is repeated outside the counted run to get its factors, then both
+    sides' regularised normal equations are solved by B1 and its plain
+    version and timed. The limit is the kernel phase's 1e-4 relative to
+    each solution's norm: popular items' factors are large, and B1's
+    absolute error grows with them."""
+    from predictionio_tpu_torch.ops.als import ALSConfig, _normal_system, als_train, pack_tables
+
+    cfg = ALSConfig(rank=GALLERY_ALS["rank"], iterations=GALLERY_ALS["num_iterations"],
+                    reg=GALLERY_ALS["lambda_"], implicit=True, alpha=GALLERY_ALS["alpha"],
+                    seed=GALLERY_ALS["seed"])
+    uf, vf = als_train(users, items, counts, n_users, n_items, cfg, device="cuda")
+    tables, block_chunk = pack_tables(users, items, counts, n_users, n_items, cfg, "cuda")
+    rows = []
+    for side, k, trained, n_side in (("user", 0, vf, n_users), ("item", 4, uf, n_items)):
+        opposite = torch.zeros(trained.shape[0] + 1, cfg.rank, device="cuda")
+        opposite[:-1] = trained
+        A, b = _normal_system(*tables[k : k + 4], opposite, n_side + 1, block_chunk, cfg.reg,
+                              True, cfg.alpha, cfg.degree_scaled_reg)
+        abs_err, row_rel = b1_errors(torch, A, b)
+        if not row_rel <= 1e-4:
+            raise AssertionError(f"B1 on the {label} {side} side: row-relative error {row_rel} "
+                                 f"(max abs {abs_err})")
+        rows.append({"systems": f"{label} {side} side, implicit rank 10", "max_abs_err": abs_err,
+                     "max_row_rel_err": row_rel, **b1_times(torch, A, b)})
+        del A, b
+    for row in rows:
+        emit(phase="kernel_real", kernel="spd_cg", **row)
+    return rows
+
+
+def _item_categories(n_items: int, n_categories: int) -> list[frozenset[str]]:
+    """One category per item, a second for every third item."""
+    return [frozenset({f"c{i % n_categories}"} | ({f"c{(7 * i + 3) % n_categories}"}
+                                                  if i % 3 == 0 else set()))
+            for i in range(n_items)]
+
+
+def similarproduct_phase(torch) -> dict:
+    """The multi-events-multi-algos variant at the ML-1M shape (6,040 users x
+    3,706 items x 1,000,209 views, a 10 % like subset, 200 categories):
+    views-ALS and like-ALS at rank 10, 10 iterations, through B1, and
+    cooccurrence n = 20; B1 on the views train's own systems; the views
+    model served in batches of 64 queries of 1-5 items with category and
+    white/black-list filters, every answer checked against its filters and
+    its scores against the plain product."""
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    n_users, n_items, n_views = 6040, 3706, 1_000_209
+    users, items, _ = synthesize_ratings(n_users, n_items, n_views, seed=5)
+    rng = np.random.default_rng(31)
+    likes = rng.random(len(users)) < 0.1
+    cats = _item_categories(n_items, 200)
+    td = sp.TrainingData([f"u{i}" for i in range(n_users)], [f"i{i}" for i in range(n_items)],
+                         cats, users, items, users[likes], items[likes])
+    ctx = WorkflowContext(device="cuda", store=None)
+    out, launches = {}, {}
+    models = {}
+    for name, algo in (("als", sp.ALSAlgorithm(sp.ALSAlgorithmParams(**GALLERY_ALS))),
+                       ("likealgo", sp.LikeAlgorithm(sp.ALSAlgorithmParams(**GALLERY_ALS))),
+                       ("cooccurrence", sp.CooccurrenceAlgorithm(sp.CooccurrenceParams(n=20)))):
+        model, wall, n_b1 = _counted_train(torch, algo, ctx, td)
+        expected = 0 if name == "cooccurrence" else 2 * GALLERY_ALS["num_iterations"]
+        if n_b1 != expected:
+            raise AssertionError(f"similar-product {name}: B1 launched {n_b1} times, "
+                                 f"expected {expected}")
+        launches[name] = n_b1
+        models[name] = (algo, model)
+        out[name] = {"train_wall_s": wall, "spd_cg_launches": n_b1,
+                     **{k: v for k, v in (algo.timings or {}).items() if k.endswith("_s")}}
+    pair, counts = np.unique(np.stack([users, items], 1), axis=0, return_counts=True)
+    rows = _implicit_b1_rows(torch, pair[:, 0], pair[:, 1], counts.astype(np.float32),
+                             n_users, n_items, "ML-1M similar-product views")
+    emit(phase="similarproduct_train", shape=[n_users, n_items, n_views],
+         likes=int(likes.sum()), categories=200, **out)
+
+    algo, model = models["als"]
+    model = algo.prepare_model(WorkflowContext(mode="serving", device="cuda", store=None), model)
+    algo.warmup_serving(model, 64)
+    popular = np.argsort(-np.bincount(items, minlength=n_items))[:1000]
+    all_cats = sorted({c for s in cats for c in s})
+    batches = []
+    for _ in range(30):
+        queries = []
+        for r in range(64):
+            q_items = tuple(f"i{i}" for i in rng.choice(popular, int(rng.integers(1, 6)), replace=False))
+            kw = {}
+            if r % 4 == 1:
+                kw["categories"] = frozenset(rng.choice(all_cats, 20, replace=False).tolist())
+            if r % 5 == 2:
+                kw["category_black_list"] = frozenset(rng.choice(all_cats, 20, replace=False).tolist())
+            if r % 6 == 3:
+                kw["white_list"] = frozenset(f"i{i}" for i in rng.choice(n_items, 400, replace=False))
+            if r % 7 == 4:
+                kw["black_list"] = frozenset(f"i{i}" for i in popular[:50])
+            queries.append(sp.Query(items=q_items, num=10, **kw))
+        batches.append(queries)
+    lat, results = [], []
+    for queries in batches:
+        t0 = time.perf_counter()
+        results.append(algo.predict_batch_dispatch(model, queries)())
+        lat.append((time.perf_counter() - t0) * 1e3)
+    table = model.device_factors()
+    worst = 0.0
+    for queries, served in zip(batches, results):
+        for q, res in zip(queries, served):
+            got = [s.item for s in res.item_scores]
+            qidx = [model.item_index(i) for i in q.items]
+            mask = sp.candidate_mask(model, q, qidx)
+            if not got or len(got) > q.num or not all(mask[model.item_index(i)] for i in got):
+                raise AssertionError(f"similar-product: {got} breaks the filters of {q}")
+            scores = torch.where(torch.from_numpy(mask).cuda(), table @ table[qidx].sum(0),
+                                 float("-inf"))
+            ref = torch.topk(scores, len(got)).values.cpu().numpy()
+            worst = max(worst, float(np.abs(np.asarray([s.score for s in res.item_scores]) - ref).max()))
+    if not worst <= 1e-5:
+        raise AssertionError(f"similar-product served scores off the plain product by {worst}")
+    qidx = np.zeros((64, 8), np.int32)
+    qidx[:, :3] = rng.choice(popular, (64, 3))
+    qw = (qidx > 0).astype(np.float32)
+    mask = np.ones((64, n_items), bool)
+    ending_ms = event_ms(lambda: topk.gather_sum_top_k_async(table, qidx, qw, mask, 16), reps=50)
+    coo_algo, coo_model = models["cooccurrence"]
+    t0 = time.perf_counter()
+    coo = coo_algo.predict_batch(coo_model, batches[0])
+    coo_ms = (time.perf_counter() - t0) * 1e3
+    if sum(len(r.item_scores) for r in coo) == 0:
+        raise AssertionError("cooccurrence served nothing")
+    serve = {"batch": 64, "dispatches": len(batches), "dispatch_p50_ms": float(np.percentile(lat, 50)),
+             "dispatch_p99_ms": float(np.percentile(lat, 99)), "max_abs_score_err": worst,
+             "gather_sum_ending_ms": ending_ms, "cooccurrence_batch_ms": coo_ms}
+    emit(phase="similarproduct_serve", **serve)
+    return {"launches": {"similarproduct_views_train": launches["als"],
+                         "similarproduct_likes_train": launches["likealgo"]}, "rows": rows}
+
+
+def similarproduct_quality_phase(torch) -> dict:
+    """The views ALS on the bench's clustered data (2,000 users x 1,000
+    items, 20 clusters, 90 % in-cluster): the share of each item's top-10
+    similar items in its own cluster, gated at the JAX package's CPU value
+    less 0.05."""
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    tu, ti, _, _ = clustered_recall_data()
+    clusters = clustered_item_groups()
+    td = sp.TrainingData([f"u{i}" for i in range(2000)], [f"i{i}" for i in range(1000)],
+                         [None] * 1000, tu, ti, tu[:0], ti[:0])
+    algo = sp.ALSAlgorithm(sp.ALSAlgorithmParams(**GALLERY_ALS))
+    model, wall, _ = _counted_train(torch, algo, WorkflowContext(device="cuda", store=None), td)
+    share = similar_items_share(algo, model, sp.Query, clusters)
+    gate = JAX_CPU_SIMILAR_CLUSTER_SHARE - 0.05
+    emit(phase="similarproduct_quality", same_cluster_share_at_10=share, gate=gate,
+         jax_cpu_share=JAX_CPU_SIMILAR_CLUSTER_SHARE, chance=1 / 20, train_wall_s=wall)
+    if not share > gate:
+        raise AssertionError(f"similar-product same-cluster share {share} under the gate {gate}")
+    return {"share": share, "gate": gate}
+
+
+def ecommerce_phase(torch, home: str) -> dict:
+    """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 1,000,000
+    rate events (the template trains on rates) and 100,000 buys of 19,000
+    known users, 100,000 views of known users and 500 cold users, 500 cold
+    users with no events, 50 categories, an unavailableItems constraint of
+    50 items and a weightedItems constraint, all in the port's store (live
+    reads go to it). Trains rank 10 at 10 iterations, and 20 for
+    adjust-score, through B1; serves batches of 64 (48 known users, 8 cold
+    with views, 8 cold without) at cacheTtlS 0 and 60, counting store
+    reads in a second pass over the same batches (a positive TTL's cache
+    then holds every user's reads); no seen or unavailable item may come
+    back, and adjust-score's scores are the plain product times the weight."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.store import LocalStore
+    from predictionio_tpu_torch.models.ecommerce import engine as ec
+    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    n_users, n_known, n_items = 20_000, 19_000, 10_000
+    t0 = time.perf_counter()
+    ru, ri, rv = synthesize_ratings(n_known, n_items, 1_000_000, seed=7)
+    rng = np.random.default_rng(37)
+    bu = rng.integers(0, n_known, 100_000).astype(np.int32)
+    bi = (rng.zipf(1.3, 100_000) % n_items).astype(np.int32)
+    vu = np.where(rng.random(100_000) < 0.8, rng.integers(0, n_known, 100_000),
+                  rng.integers(n_known, n_known + 500, 100_000)).astype(np.int32)
+    vi = (rng.zipf(1.3, 100_000) % n_items).astype(np.int32)
+    cats = [frozenset({f"c{i % 50}"}) for i in range(n_items)]
+    unavailable = [f"i{i}" for i in rng.choice(n_items, 50, replace=False)]
+    up, down = rng.choice(n_items, 150, replace=False).reshape(2, 75)
+    weights_prop = [{"items": [f"i{i}" for i in up], "weight": 2.0},
+                    {"items": [f"i{i}" for i in down], "weight": 0.5}]
+    store = LocalStore(os.path.join(home, "ecom"))
+    app_id = store.create_app("ecomapp")
+    path = os.path.join(store.root, "events", f"{app_id}.jsonl")  # the store's layout
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    t_base = dt.datetime(2024, 1, 1, tzinfo=dt.timezone.utc).timestamp()
+
+    def when(k):
+        return dt.datetime.fromtimestamp(t_base + k * 1e-3, dt.timezone.utc).isoformat(
+            timespec="milliseconds").replace("+00:00", "Z")
+
+    def line(k, event, u, i, props="{}"):
+        t = when(k)
+        return (f'{{"creationTime": "{t}", "entityId": "u{u}", "entityType": "user", "event": '
+                f'"{event}", "eventId": "{event[0]}{k}", "eventTime": "{t}", "properties": {props}, '
+                f'"targetEntityId": "i{i}", "targetEntityType": "item"}}\n')
+
+    k = 0
+    lines = []
+    for i in range(n_items):
+        t = when(k)
+        lines.append(json.dumps({"creationTime": t, "entityId": f"i{i}", "entityType": "item",
+                                 "event": "$set", "eventId": f"s{k}", "eventTime": t,
+                                 "properties": {"categories": sorted(cats[i])}}) + "\n")
+        k += 1
+    for name, us, its, vals in (("rate", ru, ri, rv), ("buy", bu, bi, None), ("view", vu, vi, None)):
+        for n, (u, i) in enumerate(zip(us.tolist(), its.tolist())):
+            props = f'{{"rating": {vals[n]}}}' if vals is not None else "{}"
+            lines.append(line(k, name, u, i, props))
+            k += 1
+    for entity, props in (("unavailableItems", {"items": unavailable}),
+                          ("weightedItems", {"weights": weights_prop})):
+        t = when(k)
+        lines.append(json.dumps({"creationTime": t, "entityId": entity, "entityType": "constraint",
+                                 "event": "$set", "eventId": f"c{k}", "eventTime": t,
+                                 "properties": props}) + "\n")
+        k += 1
+    with open(path, "a") as fh:
+        fh.writelines(lines)
+    del lines
+    data_s = time.perf_counter() - t0
+    td = ec.TrainingData([f"u{i}" for i in range(n_known)], [f"i{i}" for i in range(n_items)],
+                         cats, ru, ri, rv, bu, bi)
+    ctx = WorkflowContext(device="cuda", store=store, app_name="ecomapp")
+    base = dict(GALLERY_ALS, app_name="ecomapp", unseen_only=True)
+    trained, launches, train_out = {}, {}, {}
+    for name, params in (("default", ec.ECommAlgorithmParams(**base)),
+                         ("adjust-score", ec.ECommAlgorithmParams(**dict(
+                             base, num_iterations=20, adjust_score=True)))):
+        algo = ec.ECommAlgorithm(params)
+        model, wall, n_b1 = _counted_train(torch, algo, ctx, td)
+        if n_b1 != 2 * params.num_iterations:
+            raise AssertionError(f"e-commerce {name}: B1 launched {n_b1} times")
+        trained[name] = algo.prepare_model(ctx, model)
+        launches[name] = n_b1
+        train_out[name] = {"train_wall_s": wall, "spd_cg_launches": n_b1,
+                           **{k: v for k, v in algo.timings.items() if k.endswith("_s")}}
+    emit(phase="ecommerce_train", shape=[n_users, n_items, 1_000_000, 100_000, 100_000],
+         events_in_store=k, data_s=data_s, **train_out)
+
+    t0 = time.perf_counter()
+    store.find_by_entity("ecomapp", "user", "u0")  # the entity index, built on first read
+    index_s = time.perf_counter() - t0
+    unavail = set(unavailable)
+    batches = []
+    for _ in range(12):
+        us = np.concatenate([rng.integers(0, n_known, 48), rng.integers(n_known, n_known + 500, 8),
+                             rng.integers(n_known + 500, n_users, 8)])
+        queries = []
+        for r, u in enumerate(us.tolist()):
+            kw = {"categories": frozenset({f"c{r % 50}", f"c{(r + 7) % 50}"})} if r % 5 == 0 else {}
+            queries.append(ec.Query(user=f"u{u}", num=10, **kw))
+        batches.append(queries)
+    serve = {"entity_index_build_s": index_s}
+    reads = []
+    real_find = store.find_by_entity
+    store.find_by_entity = lambda *a, **kw: reads.append(1) or real_find(*a, **kw)
+    try:
+        for name, model in trained.items():
+            for ttl in (0.0, 60.0):
+                params = ec.ECommAlgorithmParams(**dict(
+                    base, num_iterations=20 if name != "default" else 10,
+                    adjust_score=name != "default", cache_ttl_s=ttl))
+                algo = ec.ECommAlgorithm(params)
+                algo.warmup_serving(model, 64)
+                reads.clear()
+                for queries in batches:  # a first pass fills a positive TTL's cache
+                    algo.predict_batch(model, queries)
+                first_reads = len(reads)
+                lat, results = [], []
+                reads.clear()
+                for queries in batches[1:]:
+                    t0 = time.perf_counter()
+                    results.append(algo.predict_batch_dispatch(model, queries)())
+                    lat.append((time.perf_counter() - t0) * 1e3)
+                n_reads = len(reads)
+                for queries, served in zip(batches[1:], results):
+                    for q, res in zip(queries, served):
+                        got = {s.item for s in res.item_scores}
+                        seen = algo._seen_items_live(ctx, q.user)
+                        if len(res.item_scores) != 10 or got & unavail or got & seen:
+                            raise AssertionError(f"e-commerce {name}: {sorted(got)} for {q}")
+                        if q.categories and not all(cats[int(i[1:])] & q.categories for i in got):
+                            raise AssertionError(f"e-commerce {name}: category filter broken")
+                n_q = 64 * (len(batches) - 1)
+                serve[f"{name}_ttl_{int(ttl)}"] = {
+                    "dispatch_p50_ms": float(np.percentile(lat, 50)),
+                    "dispatch_p99_ms": float(np.percentile(lat, 99)),
+                    "store_reads_per_query": n_reads / n_q,
+                    "first_pass_store_reads_per_query": first_reads / (64 * len(batches))}
+                if ttl > 0 and n_reads != 0:
+                    raise AssertionError(f"e-commerce at cacheTtlS {ttl}: {n_reads} store reads")
+    finally:
+        store.find_by_entity = real_find
+    model = trained["adjust-score"]
+    algo = ec.ECommAlgorithm(ec.ECommAlgorithmParams(**dict(base, adjust_score=True)))
+    weights = algo._item_weights_live(ctx, model)
+    worst = 0.0
+    for q, res in zip(batches[1][:48], algo.predict_batch(model, batches[1][:48])):
+        u = model.user_index(q.user)
+        for s in res.item_scores:
+            i = model.item_index(s.item)
+            plain = float(model.user_factors[u].astype(np.float64) @ model.item_factors[i])
+            worst = max(worst, abs(s.score - plain * weights[i]) / max(abs(plain * weights[i]), 1e-6))
+    if not worst <= 1e-5:
+        raise AssertionError(f"adjust-score: weighted scores off plain x weight by {worst}")
+    table = model.device_items()
+    vecs = np.ascontiguousarray(model.user_factors[:64])
+    mask = np.ones((64, n_items), bool)
+    serve["weighted_dot_ending_ms"] = event_ms(
+        lambda: topk.dot_top_k_async(table, vecs, mask, 16, weights=weights), reps=50)
+    serve["adjust_score_max_rel_err"] = worst
+    emit(phase="ecommerce_serve", batch=64, dispatches=len(batches) - 1, **serve)
+    return {"launches": {"ecommerce_train": launches["default"],
+                         "ecommerce_adjust_score_train": launches["adjust-score"]}}
+
+
+def recommendeduser_phase(torch) -> dict:
+    """A follow graph of 50,000 users in 50 communities with 1,000,000
+    follows (90 % inside the community): implicit ALS at rank 10, 10
+    iterations, through B1; 2,048 users served in batches of 64; the
+    same-community share of their top-10 gated at the JAX package's CPU
+    value on the small graph less 0.05."""
+    from predictionio_tpu_torch.models.recommendeduser import engine as ru
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    n_users, n_comm, n_follows = 50_000, 50, 1_000_000
+    follower, followed = follow_graph(n_users, n_comm, n_follows, seed=8)
+    vocab = [f"u{i}" for i in range(n_users)]
+    td = ru.TrainingData(vocab, vocab, follower, followed)
+    algo = ru.ALSAlgorithm(ru.ALSAlgorithmParams(**GALLERY_ALS))
+    ctx = WorkflowContext(device="cuda", store=None)
+    model, wall, n_b1 = _counted_train(torch, algo, ctx, td)
+    if n_b1 != 2 * GALLERY_ALS["num_iterations"]:
+        raise AssertionError(f"recommended-user: B1 launched {n_b1} times")
+    timings = {k: v for k, v in algo.timings.items() if k.endswith("_s")}
+    model = algo.prepare_model(WorkflowContext(mode="serving", device="cuda", store=None), model)
+    algo.warmup_serving(model, 64)
+    users = np.random.default_rng(41).choice(n_users, 2048, replace=False)
+    lat = []
+    for s in range(0, 2048, 64):
+        queries = [ru.Query(users=(f"u{u}",), num=10) for u in users[s : s + 64]]
+        t0 = time.perf_counter()
+        algo.predict_batch_dispatch(model, queries)()
+        lat.append((time.perf_counter() - t0) * 1e3)
+    share = similar_users_share(algo, model, ru.Query, users, n_comm)
+    gate = JAX_CPU_FOLLOW_COMMUNITY_SHARE - 0.05
+    emit(phase="recommendeduser", shape=[n_users, n_comm, len(follower)], train_wall_s=wall,
+         spd_cg_launches=n_b1, **timings, dispatch_p50_ms=float(np.percentile(lat, 50)),
+         dispatch_p99_ms=float(np.percentile(lat, 99)), same_community_share_at_10=share,
+         gate=gate, jax_cpu_share=JAX_CPU_FOLLOW_COMMUNITY_SHARE,
+         jax_cpu_graph=list(FOLLOW_GATE_GRAPH), chance=1 / n_comm)
+    if not share > gate:
+        raise AssertionError(f"recommended-user same-community share {share} under {gate}")
+    return {"launches": {"recommendeduser_train": n_b1}}
+
+
+def _nb_host_labels(model, X: np.ndarray):
+    """The float64 host labels of naive Bayes, and where the top two scores
+    lie within 1e-5 relative (a float32 score may order them otherwise)."""
+    scores = model.log_priors[None, :] + np.asarray(X, np.float64) @ model.log_theta.T
+    top2 = np.sort(scores, axis=1)[:, -2:]
+    near = (top2[:, 1] - top2[:, 0]) <= 1e-5 * np.abs(top2[:, 1])
+    return model.labels[np.argmax(scores, axis=1)], near
+
+
+def classification_phase(torch, home: str) -> dict:
+    """Naive Bayes at bench.py:2461's shape (200,000 points x 64 features x
+    8 classes): scores and argmax of the 200,000 points on the card against
+    the float64 host labels (equal except where the top two scores lie
+    within 1e-5 relative); then the add-algorithm variant (naive Bayes and
+    the forest) through Engine.train from 1,000 points in the store."""
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.store import LocalStore
+    from predictionio_tpu_torch.models.classification import engine as cl
+    from predictionio_tpu_torch.ops.classify import _nb_scores, train_naive_bayes
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    rng = np.random.default_rng(0)
+    labels = rng.integers(0, 8, 200_000).astype(np.float64)
+    feats = rng.poisson(2.0, size=(200_000, 64)).astype(np.float64)
+    t0 = time.perf_counter()
+    model = train_naive_bayes(labels, feats, 1.0)
+    train_s = time.perf_counter() - t0
+    model.device = "cuda"
+    model.predict_batch(feats[:8])  # the tables onto the card
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    got = model.predict_batch(feats)
+    predict_s = time.perf_counter() - t0
+    want, near = _nb_host_labels(model, feats)
+    wrong = int(np.sum((got != want) & ~near))
+    lp, lt = model.device_params()
+    x = torch.from_numpy(feats.astype(np.float32)).cuda()
+    scores_ms = event_ms(lambda: torch.argmax(_nb_scores(lp, lt, x), dim=1), reps=20)
+    emit(phase="classification_nb", shape=[200_000, 64, 8], train_s=train_s,
+         predict_batch_s=predict_s, nb_scores_argmax_ms=scores_ms,
+         label_mismatches=int(np.sum(got != want)), near_ties=int(near.sum()),
+         mismatches_outside_ties=wrong)
+    if wrong:
+        raise AssertionError(f"naive Bayes on the card: {wrong} labels differ outside near ties")
+    store = LocalStore(os.path.join(home, "cls"))
+    store.create_app("clsapp")
+    c = rng.integers(0, 3, 1000)
+    store.append("clsapp", [
+        Event("$set", "user", f"u{p}", properties={
+            "plan": float(c[p]), **{f"attr{j}": float(rng.poisson(2 + 3 * ((c[p] + j) % 3)))
+                                    for j in range(3)}})
+        for p in range(1000)])
+    engine = cl.engine_factory()
+    ep = engine.engine_params_from_variant({
+        "datasource": {"params": {"appName": "clsapp"}},
+        "algorithms": [{"name": "naive", "params": {"lambda": 1.0}},
+                       {"name": "randomforest", "params": {"numTrees": 10, "maxDepth": 4,
+                                                           "seed": 42}}]})
+    ctx = WorkflowContext(device="cuda", store=store, app_name="clsapp")
+    t0 = time.perf_counter()
+    models = engine.prepare_deploy(ctx, ep, engine.train(ctx, ep))
+    train2_s = time.perf_counter() - t0
+    _, _, algos, _ = engine.make_components(ep)
+    X = rng.poisson(4, size=(200, 3)).astype(np.float64)
+    queries = [cl.Query(*x) for x in X]
+    nb = [algos[0].predict(models[0], q).label for q in queries]
+    rf = [algos[1].predict(models[1], q).label for q in queries]
+    agree_nb_rf = float(np.mean(np.asarray(nb) == np.asarray(rf)))
+    want, near = _nb_host_labels(models[0], X)
+    if np.any((models[0].predict_batch(X) != np.asarray(nb)) & ~near) or not set(rf) <= {0.0, 1.0, 2.0}:
+        raise AssertionError("add-algorithm: device labels differ from the host's, or bad labels")
+    emit(phase="classification_add_algorithm", points=1000, train_s=train2_s,
+         nb_forest_agreement=agree_nb_rf)
+    return {}
+
+
+# ---------------------------------------------------------------------------
+# The four templates through the CLI
+# ---------------------------------------------------------------------------
+
+
+def _gallery_event_lines(template: str, rng) -> tuple[list[dict], list[dict]]:
+    """ML-100K-shape events of a template (1,000 points for classification)
+    and 200 queries for it."""
+    n_users, n_items = 943, 1682
+    events: list[dict] = []
+
+    def ev(k, event, entity_type, entity_id, target=None, props=None, target_type="item"):
+        d = {"event": event, "entityType": entity_type, "entityId": entity_id,
+             "eventTime": f"2024-01-01T{k // 3600000 % 24:02d}:{k // 60000 % 60:02d}:"
+                          f"{k // 1000 % 60:02d}.{k % 1000:03d}Z", "eventId": f"e{k}"}
+        if target is not None:
+            d.update(targetEntityType=target_type, targetEntityId=target)
+        if props is not None:
+            d["properties"] = props
+        events.append(d)
+
+    k = 0
+    if template == "classification":
+        for p in range(1000):
+            c = int(rng.integers(3))
+            ev(k, "$set", "user", f"u{p}", props={"plan": float(c), **{
+                f"attr{j}": float(rng.poisson(2 + 3 * ((c + j) % 3))) for j in range(3)}})
+            k += 1
+        queries = [{f"attr{j}": float(x) for j, x in enumerate(rng.poisson(4, 3))}
+                   for _ in range(200)]
+        return events, queries
+    if template == "recommendeduser":
+        follower, followed = follow_graph(n_users, 23, 100_000, seed=9)
+        for u, v in zip(follower.tolist(), followed.tolist()):
+            ev(k, "follow", "user", f"u{u}", f"u{v}", target_type="user")
+            k += 1
+        queries = [{"users": [f"u{u}" for u in rng.choice(n_users, int(rng.integers(1, 4)))],
+                    "num": 10} for _ in range(200)]
+        return events, queries
+    users, items, vals = synthesize_ratings(n_users, n_items, 100_000, seed=11)
+    for i in range(n_items):
+        ev(k, "$set", "item", f"i{i}", props={"categories": [f"c{i % 20}"]})
+        k += 1
+    if template == "similarproduct":
+        likes = rng.random(len(users)) < 0.1
+        for u, i, like in zip(users.tolist(), items.tolist(), likes.tolist()):
+            ev(k, "like" if like else "view", "user", f"u{u}", f"i{i}")
+            k += 1
+        queries = [{"items": [f"i{i}" for i in rng.choice(400, int(rng.integers(1, 4)), replace=False)],
+                    "num": 10, **({"categories": ["c1", "c2", "c3"]} if q % 4 == 0 else {})}
+                   for q in range(200)]
+        return events, queries
+    for u, i, r in zip(users.tolist(), items.tolist(), vals.tolist()):
+        ev(k, "rate", "user", f"u{u}", f"i{i}", props={"rating": r})
+        k += 1
+    for u, i in zip(rng.integers(0, n_users, 5000).tolist(), rng.integers(0, n_items, 5000).tolist()):
+        ev(k, "buy", "user", f"u{u}", f"i{i}")
+        k += 1
+    for u, i in zip(rng.integers(0, n_users + 50, 5000).tolist(), rng.integers(0, n_items, 5000).tolist()):
+        ev(k, "view", "user", f"u{u}", f"i{i}")
+        k += 1
+    ev(k, "$set", "constraint", "unavailableItems", props={"items": [f"i{i}" for i in range(0, 100, 10)]})
+    queries = [{"user": f"u{u}", "num": 10} for u in rng.integers(0, n_users + 100, 200)]
+    return events, queries
+
+
+def _check_gallery_answer(template: str, query: dict, body: dict) -> None:
+    if template == "classification":
+        if set(body) != {"label"} or body["label"] not in (0.0, 1.0, 2.0):
+            raise AssertionError(f"classification answered {body}")
+        return
+    key, id_key = (("similarUserScores", "user") if template == "recommendeduser"
+                   else ("itemScores", "item"))
+    rows = body[key]
+    if set(body) != {key} or len(rows) > query.get("num", 10):
+        raise AssertionError(f"{template} answered {body}")
+    scores = [r["score"] for r in rows]
+    if any(not (isinstance(r[id_key], str) and np.isfinite(r["score"])) for r in rows) or \
+            scores != sorted(scores, reverse=True):
+        raise AssertionError(f"{template}: malformed answer {body}")
+    own = set(query.get("items", [])) | set(query.get("users", []))
+    if own & {r[id_key] for r in rows}:
+        raise AssertionError(f"{template}: a query's own id was served: {body}")
+    if template == "ecommerce" and {r["item"] for r in rows} & {f"i{i}" for i in range(0, 100, 10)}:
+        raise AssertionError(f"e-commerce served an unavailable item: {body}")
+
+
+GALLERY_CLI = {
+    # template -> the JAX package's engine.json (or variant) it deploys from
+    "similarproduct": "predictionio_tpu/models/similarproduct/variants/multi-events-multi-algos.json",
+    "ecommerce": "predictionio_tpu/models/ecommerce/engine.json",
+    "recommendeduser": "predictionio_tpu/models/recommendeduser/engine.json",
+    "classification": "predictionio_tpu/models/classification/variants/add-algorithm.json",
+}
+
+
+def gallery_cli_setup(home: str, template: str, device: str = "cuda") -> dict:
+    """app new -> import -> train through the port's CLI from the JAX
+    package's engine.json for the template (its engineFactory string)."""
+    rng = np.random.default_rng(17)
+    events, queries = _gallery_event_lines(template, rng)
+    work = tempfile.mkdtemp(prefix=f"pio_smoke_{template}_")
+    path = os.path.join(work, "events.jsonl")
+    with open(path, "w") as fh:
+        fh.writelines(json.dumps(e) + "\n" for e in events)
+    root = os.path.dirname(os.path.abspath(__file__))
+    with open(os.path.join(root, GALLERY_CLI[template])) as fh:
+        variant = json.load(fh)
+    app = f"{template}app"
+    variant["datasource"]["params"]["appName"] = app
+    for algo in variant["algorithms"]:
+        if "appName" in algo["params"]:
+            algo["params"]["appName"] = app
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump(variant, fh)
+    cli, env, run = _cli(os.path.join(home, template))
+    steps = {"app_new_s": run("app", "new", app),
+             "import_s": run("import", "--appname", app, "--input", path),
+             "train_s": run("train", "--engine-dir", engine_dir, "--device", device)}
+    return {"template": template, "work": work, "engine_dir": engine_dir, "cli": cli, "env": env,
+            "queries": queries, "events": len(events), "steps": steps,
+            "engine_factory": variant["engineFactory"]}
+
+
+def gallery_cli_serve(setup: dict, device: str = "cuda") -> dict:
+    """deploy, then 200 queries: 40 one at a time, 160 from 32 clients at
+    once; every answer a 200 and well formed."""
+    template = setup["template"]
+    server, base, ready_s = _start_deploy(setup["cli"], setup["env"], setup["engine_dir"],
+                                          setup["work"], device)
+    queries = setup["queries"]
+    try:
+        outs = [_http(base + "/queries.json", q) for q in queries[:40]]
+        with concurrent.futures.ThreadPoolExecutor(32) as pool:
+            outs += list(pool.map(lambda q: _http(base + "/queries.json", q), queries[40:]))
+        for q, (status, body, _) in zip(queries, outs):
+            if status != 200:
+                raise AssertionError(f"{template}: {q} answered {status}")
+            _check_gallery_answer(template, q, body)
+        _, st, _ = _http(base + "/")
+    finally:
+        _stop(server)
+        shutil.rmtree(setup["work"], ignore_errors=True)
+    lat_ms = np.asarray([dt for _, _, dt in outs]) * 1e3
+    result = {**setup["steps"], "deploy_ready_s": ready_s, "requests": len(outs), "all_200": True,
+              "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
+              "largest_batch": st["largestBatch"], "batches": st["batches"],
+              "events": setup["events"], "engine_factory": setup["engine_factory"]}
+    emit(phase=f"{template}_cli", **result)
+    return result
+
+
+def gallery_cli_phase(home: str, device: str = "cuda") -> dict:
+    """The four templates through the CLI: their imports and trains run
+    side by side (independent processes and stores), then each is deployed
+    and queried alone, so that latencies see one server at a time."""
+    with concurrent.futures.ThreadPoolExecutor(len(GALLERY_CLI)) as pool:
+        setups = list(pool.map(lambda t: gallery_cli_setup(home, t, device), GALLERY_CLI))
+    return {s["template"]: gallery_cli_serve(s, device) for s in setups}
+
+
 def main() -> int:
     import torch
 
@@ -1390,6 +2156,7 @@ def main() -> int:
     home = tempfile.mkdtemp(prefix="pio_smoke_home_")
     try:
         kernel_phase(torch)
+        grid_row = kernel_grid_phase(torch)
         td, model, launches = train_phase(torch, home)
         kernel = real_system_check(torch, td, model, launches)
         cli_serve_phase(os.path.join(home, "cli"))
@@ -1412,12 +2179,20 @@ def main() -> int:
         del tt_td
         twotower_quality_phase(torch)
         twotower_cli_phase(os.path.join(home, "tt_cli"))
+        similar = similarproduct_phase(torch)
+        similarproduct_quality_phase(torch)
+        ecommerce = ecommerce_phase(torch, home)
+        recuser = recommendeduser_phase(torch)
+        classification_phase(torch, home)
+        gallery_cli_phase(os.path.join(home, "gallery_cli"))
     finally:
         shutil.rmtree(home, ignore_errors=True)
     kernel["launches_by_path"] = {"als_train": launches, "sequential_train": seq_launches,
-                                  "als_train_rank_160": rank160_launches}
-    kernel["launches"] = launches + seq_launches + rank160_launches
-    kernel["other_shapes"] += rank160["rows"]
+                                  "als_train_rank_160": rank160_launches,
+                                  **similar["launches"], **ecommerce["launches"],
+                                  **recuser["launches"]}
+    kernel["launches"] = sum(kernel["launches_by_path"].values())
+    kernel["other_shapes"] += rank160["rows"] + similar["rows"] + [grid_row]
     block = next(e for e in attention if e["name"] == "attention_block")
     block["launches_by_path"].update(twotower_train=tt_train_launches,
                                      twotower_serve=tt_serve_launches)

@@ -1,7 +1,7 @@
 """Weights carried across from the JAX package.
 
-The models of the JAX package's recommendation, sequential and two-tower
-templates are host numpy and plain Python containers. ``als_model_from_numpy``
+The models of the JAX package's templates are host numpy and plain Python
+containers. ``als_model_from_numpy``
 and ``sequential_model_from_numpy`` build the port's models from them,
 ``twotower_params_from_numpy`` turns a flax parameter tree into the port's
 ``state_dict``, and ``ModelUnpickler`` loads a blob that ``pio train`` of
@@ -38,6 +38,31 @@ CLASS_MAP = {
         "predictionio_tpu_torch.models.twotower.model",
         "TwoTowerConfig",
     ),
+    ("predictionio_tpu.models.similarproduct.engine", "SimilarModel"): (
+        "predictionio_tpu_torch.models.similarproduct.engine",
+        "SimilarModel",
+    ),
+    ("predictionio_tpu.models.similarproduct.engine", "CooccurrenceModel"): (
+        "predictionio_tpu_torch.models.similarproduct.engine",
+        "CooccurrenceModel",
+    ),
+    ("predictionio_tpu.models.ecommerce.engine", "ECommModel"): (
+        "predictionio_tpu_torch.models.ecommerce.engine",
+        "ECommModel",
+    ),
+    ("predictionio_tpu.models.recommendeduser.engine", "SimilarUserModel"): (
+        "predictionio_tpu_torch.models.recommendeduser.engine",
+        "SimilarUserModel",
+    ),
+    ("predictionio_tpu.ops.classify", "NaiveBayesModel"): (
+        "predictionio_tpu_torch.ops.classify",
+        "NaiveBayesModel",
+    ),
+    ("predictionio_tpu.ops.classify", "RandomForestModel"): (
+        "predictionio_tpu_torch.ops.classify",
+        "RandomForestModel",
+    ),
+    ("predictionio_tpu.ops.classify", "_Node"): ("predictionio_tpu_torch.ops.classify", "_Node"),
     # an older flax pickles a parameter tree as FrozenDict(dict): a plain dict here
     ("flax.core.frozen_dict", "FrozenDict"): ("builtins", "dict"),
 }

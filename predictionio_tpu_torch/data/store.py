@@ -10,11 +10,16 @@ Layout under the root directory::
 
 The root is the ``root`` argument, else ``$PIO_TORCH_HOME``, else
 ``~/.pio_torch``. Writes to one file are serialised by a process-local lock;
-the store is meant for one process at a time per root, as the CLI uses it.
+the store is meant for one writer process at a time per root, as the CLI
+uses it. Serving-time reads by entity (``find_by_entity``) go through an
+in-memory index of each app's file by (entity type, entity id), built on
+first use and extended from the file's new tail before every lookup, so an
+event appended by another process after deploy is seen by the next read.
 """
 
 from __future__ import annotations
 
+import datetime as _dt
 import json
 import os
 import threading
@@ -22,8 +27,10 @@ import uuid
 from pathlib import Path
 from typing import Any, Iterable, Iterator, Sequence
 
+from predictionio_tpu_torch.data.aggregator import aggregate_properties
 from predictionio_tpu_torch.data.columnar import ColumnarEvents, encode
-from predictionio_tpu_torch.data.event import Event, event_seq_key
+from predictionio_tpu_torch.data.datamap import PropertyMap
+from predictionio_tpu_torch.data.event import UTC, Event, SPECIAL_EVENTS, event_seq_key
 
 
 class StoreError(RuntimeError):
@@ -34,10 +41,66 @@ def default_root() -> Path:
     return Path(os.environ.get("PIO_TORCH_HOME") or Path.home() / ".pio_torch")
 
 
+def _aware(t: _dt.datetime | None) -> _dt.datetime | None:
+    """A time bound without a zone is read as UTC, as the JAX package does."""
+    return t.replace(tzinfo=UTC) if t is not None and t.tzinfo is None else t
+
+
+def _matches(
+    e: Event,
+    start_time: _dt.datetime | None,
+    until_time: _dt.datetime | None,
+    event_names: Sequence[str] | None,
+    target_entity_type,
+    target_entity_id,
+) -> bool:
+    """The find filters (start inclusive, until exclusive); the target
+    filters are tri-state: ``...`` no filter, ``None`` absent, a string equal."""
+    if start_time is not None and e.event_time < start_time:
+        return False
+    if until_time is not None and e.event_time >= until_time:
+        return False
+    if event_names is not None and e.event not in event_names:
+        return False
+    if target_entity_type is not ... and e.target_entity_type != target_entity_type:
+        return False
+    if target_entity_id is not ... and e.target_entity_id != target_entity_id:
+        return False
+    return True
+
+
+class _EntityIndex:
+    """Byte offsets of an app file's lines by (entity type, entity id), in
+    file order, and how far into the file the index has read."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.read_to = 0
+        self.offsets: dict[tuple[str, str], list[int]] = {}
+
+    def catch_up(self, path: Path) -> None:
+        """Index the complete lines appended since the last call."""
+        size = path.stat().st_size if path.exists() else 0
+        if size <= self.read_to:
+            return
+        with open(path, "rb") as fh:
+            fh.seek(self.read_to)
+            chunk = fh.read(size - self.read_to)
+        end = chunk.rfind(b"\n") + 1  # a line still being written waits
+        pos = self.read_to
+        for line in chunk[:end].split(b"\n")[:-1]:
+            if line.strip():
+                d = json.loads(line)
+                self.offsets.setdefault((d["entityType"], d["entityId"]), []).append(pos)
+            pos += len(line) + 1
+        self.read_to += end
+
+
 class LocalStore:
     def __init__(self, root: str | os.PathLike | None = None):
         self.root = Path(root) if root is not None else default_root()
         self._lock = threading.Lock()
+        self._indexes: dict[str, _EntityIndex] = {}
 
     # -- apps ---------------------------------------------------------------
     def _apps(self) -> dict[str, int]:
@@ -105,6 +168,73 @@ class LocalStore:
             for line in fh:
                 if line.strip():
                     yield Event.from_json_dict(json.loads(line))
+
+    def find_by_entity(
+        self,
+        app_name: str,
+        entity_type: str,
+        entity_id: str,
+        event_names: Sequence[str] | None = None,
+        target_entity_type=...,
+        target_entity_id=...,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        limit: int | None = None,
+        latest: bool = True,
+    ) -> list[Event]:
+        """One entity's events, newest first by event time (oldest first
+        with ``latest=False``; equal times keep file order), filtered, at
+        most ``limit`` (None or negative: no cap). Port of
+        ``LEventStore.find_by_entity``; reads through the entity index, so
+        one lookup costs the entity's events, not the file."""
+        path = self._events_path(app_name)
+        with self._lock:
+            index = self._indexes.setdefault(str(path), _EntityIndex())
+        start_time, until_time = _aware(start_time), _aware(until_time)
+        with index.lock:
+            index.catch_up(path)
+            offsets = list(index.offsets.get((entity_type, entity_id), ()))
+        events = []
+        if offsets:
+            with open(path, "rb") as fh:
+                for off in offsets:
+                    fh.seek(off)
+                    d = json.loads(fh.readline())
+                    if event_names is not None and d["event"] not in event_names:
+                        continue  # decoding an Event costs more than the JSON
+                    e = Event.from_json_dict(d)
+                    if _matches(e, start_time, until_time, event_names,
+                                target_entity_type, target_entity_id):
+                        events.append(e)
+        events.sort(key=lambda e: e.event_time, reverse=latest)
+        if limit is not None and limit >= 0:
+            events = events[:limit]
+        return events
+
+    def aggregate_properties(
+        self,
+        app_name: str,
+        entity_type: str,
+        start_time: _dt.datetime | None = None,
+        until_time: _dt.datetime | None = None,
+        required: Sequence[str] | None = None,
+    ) -> dict[str, PropertyMap]:
+        """Replay the $set/$unset/$delete events of ``entity_type`` in the
+        window into one PropertyMap per entity (deleted entities dropped),
+        keeping only entities that hold every ``required`` property. Port of
+        ``PEventStore.aggregate_properties``."""
+        start_time, until_time = _aware(start_time), _aware(until_time)
+        events = [
+            e for e in self.scan(app_name)
+            if e.entity_type == entity_type
+            and _matches(e, start_time, until_time, SPECIAL_EVENTS, ..., ...)
+        ]
+        events.sort(key=lambda e: e.event_time)
+        result = aggregate_properties(events)
+        if required:
+            req = set(required)
+            result = {k: v for k, v in result.items() if req.issubset(v.keyset())}
+        return result
 
     def iter_ordered(
         self, app_name: str, page: int = 2048, max_events: int = 500_000

@@ -60,6 +60,13 @@
 // (coalesced reads, and no bank conflicts at any f), summed by shuffles; the
 // vectors live in shared memory, element i owned by thread i % 256; the two
 // dots per step are block sums in a fixed order. Speed is later work.
+// Past f = 11,619 the five vectors of one system outgrow a block's shared
+// memory (A of one such system is 540 MB, so such calls solve a few
+// systems at most). Then the whole grid solves each system in turn, one
+// launch per phase of a CG step (matvec, x and r update, p update), with
+// the vectors in a device scratch buffer the caller allocates and x
+// written in place in the output. Per-block partial sums of the two dots
+// go to the scratch too, and every block adds them up in one fixed order.
 //
 // Measured on an H100 SXM (80GB HBM3) at 700 W: 0.58 ms at n = 138,001,
 // f = 32 (2.8x the first version), about 32 % of the bound. A solve with 0
@@ -104,6 +111,13 @@ constexpr size_t kSmemOptin = 232448;  // a block's dynamic shared memory on sm_
 // five vectors x, r, p, Ap and 1/diag(A), and two rows of warp partial sums.
 size_t block_smem(int f, bool shared_a) {
   return ((shared_a ? (size_t)f * f : 0) + 5 * (size_t)f + 2 * kBlockWarps) * sizeof(float);
+}
+
+// Floats of the grid plan's scratch at rank f over a grid of `blocks`:
+// r, p, Ap and 1/diag(A), the blocks' partial sums of <p, Ap>, and two
+// rows (steps in turn) of their partial sums of <r, z>.
+size_t grid_scratch_floats(int f, long long blocks) {
+  return 4 * (size_t)f + 3 * (size_t)blocks;
 }
 
 // The register kernel's layout for width F and G lanes per system.
@@ -518,6 +532,126 @@ __global__ void __launch_bounds__(kBlockThreads)
   }
 }
 
+// The grid plan (past f = 11,619): every block of the grid works on one
+// system at a time. Vectors in device memory: row i of the matvec goes to
+// warp i mod (warps of the grid); element i of the vector updates to
+// thread i mod (threads of the grid).
+struct GridVectors {
+  float* x;     // the system's row of the output
+  float* r;
+  float* p;
+  float* ap;
+  float* dinv;
+  float* pap;   // [blocks] partial sums of <p, Ap>
+  float* rz;    // [2][blocks] partial sums of <r, z>, steps in turn
+};
+
+__device__ __forceinline__ GridVectors grid_vectors(float* scratch, float* x, int f) {
+  const size_t fs = (size_t)f;
+  return GridVectors{x, scratch, scratch + fs, scratch + 2 * fs, scratch + 3 * fs,
+                     scratch + 4 * fs, scratch + 4 * fs + gridDim.x};
+}
+
+// The sum of a row of the blocks' partials, the same in every block.
+__device__ __forceinline__ float grid_sum(const float* part, float* red) {
+  float s = 0.0f;
+  for (int i = threadIdx.x; i < (int)gridDim.x; i += kBlockThreads) s += part[i];
+  return block_sum(s, red);
+}
+
+// x0 = b*dinv, and p = x0 for the first matvec.
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_grid_init(const float* __restrict__ A, const float* __restrict__ b, float* scratch,
+                     float* x, int f) {
+  const GridVectors v = grid_vectors(scratch, x, f);
+  for (int i = blockIdx.x * kBlockThreads + threadIdx.x; i < f; i += gridDim.x * kBlockThreads) {
+    const float d = 1.0f / A[(size_t)i * f + i];
+    v.dinv[i] = d;
+    v.x[i] = b[i] * d;
+    v.p[i] = v.x[i];
+  }
+}
+
+// Ap = A p, a warp per row with its lanes along the row (four partial sums
+// per lane); with kDot each block also writes its partial sum of <p, Ap>.
+template <bool kDot>
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_grid_matvec(const float* __restrict__ A, float* scratch, float* x, int f) {
+  __shared__ float red[kBlockWarps];
+  const GridVectors v = grid_vectors(scratch, x, f);
+  const int warp = threadIdx.x / kWarp, lane = threadIdx.x % kWarp;
+  const long long warps = (long long)gridDim.x * kBlockWarps;
+  float part = 0.0f;
+  for (long long i = (long long)blockIdx.x * kBlockWarps + warp; i < f; i += warps) {
+    const float* row = A + (size_t)i * f;
+    float acc[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    int j = lane;
+    for (; j + 3 * kWarp < f; j += 4 * kWarp) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) acc[u] = fmaf(__ldg(row + j + u * kWarp), v.p[j + u * kWarp], acc[u]);
+    }
+    for (; j < f; j += kWarp) acc[0] = fmaf(__ldg(row + j), v.p[j], acc[0]);
+    const float s = group_sum<kWarp>((acc[0] + acc[1]) + (acc[2] + acc[3]));
+    if (lane == 0) {
+      v.ap[i] = s;
+      part += v.p[i] * s;
+    }
+  }
+  if (kDot) {
+    part = block_sum(part, red);
+    if (threadIdx.x == 0) v.pap[blockIdx.x] = part;
+  }
+}
+
+// After the first matvec: r = b - A x0, z = r*dinv, p = z; partial sums of
+// <r, z> into the row of step -1.
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_grid_residual(const float* __restrict__ b, float* scratch, float* x, int f) {
+  __shared__ float red[kBlockWarps];
+  const GridVectors v = grid_vectors(scratch, x, f);
+  float part = 0.0f;
+  for (int i = blockIdx.x * kBlockThreads + threadIdx.x; i < f; i += gridDim.x * kBlockThreads) {
+    const float r = b[i] - v.ap[i];
+    const float z = r * v.dinv[i];
+    v.r[i] = r;
+    v.p[i] = z;
+    part += r * z;
+  }
+  part = block_sum(part, red);
+  if (threadIdx.x == 0) v.rz[gridDim.x + blockIdx.x] = part;
+}
+
+// Step `it`: alpha = rz / max(<p, Ap>, 1e-30); x += alpha p; r -= alpha Ap;
+// partial sums of the new <r, z> into row it % 2.
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_grid_update_xr(float* scratch, float* x, int f, int it) {
+  __shared__ float red0[kBlockWarps], red1[kBlockWarps], red2[kBlockWarps];
+  const GridVectors v = grid_vectors(scratch, x, f);
+  const float rz = grid_sum(v.rz + (size_t)((it + 1) & 1) * gridDim.x, red0);
+  const float alpha = rz / fmaxf(grid_sum(v.pap, red1), 1e-30f);
+  float part = 0.0f;
+  for (int i = blockIdx.x * kBlockThreads + threadIdx.x; i < f; i += gridDim.x * kBlockThreads) {
+    v.x[i] = v.x[i] + alpha * v.p[i];
+    const float r = v.r[i] - alpha * v.ap[i];
+    v.r[i] = r;
+    part += r * (r * v.dinv[i]);
+  }
+  part = block_sum(part, red2);
+  if (threadIdx.x == 0) v.rz[(size_t)(it & 1) * gridDim.x + blockIdx.x] = part;
+}
+
+// Step `it`: beta = rz' / max(rz, 1e-30); p = r*dinv + beta p.
+__global__ void __launch_bounds__(kBlockThreads)
+    spd_cg_grid_update_p(float* scratch, float* x, int f, int it) {
+  __shared__ float red0[kBlockWarps], red1[kBlockWarps];
+  const GridVectors v = grid_vectors(scratch, x, f);
+  const float rz2 = grid_sum(v.rz + (size_t)(it & 1) * gridDim.x, red0);
+  const float rz = grid_sum(v.rz + (size_t)((it + 1) & 1) * gridDim.x, red1);
+  const float beta = rz2 / fmaxf(rz, 1e-30f);
+  for (int i = blockIdx.x * kBlockThreads + threadIdx.x; i < f; i += gridDim.x * kBlockThreads)
+    v.p[i] = v.r[i] * v.dinv[i] + beta * v.p[i];
+}
+
 struct Args {
   const float* A;
   const float* b;
@@ -526,13 +660,16 @@ struct Args {
   int f;
   int iters;
   cudaStream_t stream;
+  float* scratch;  // the grid plan's vectors (grid_scratch_floats), else unused
+  size_t scratch_floats;
 };
 
 // What pio_spd_cg_plan reports; ops/spd_solve.py:launch_plan computes the
 // same fields but the last two.
 struct Report {
   // 0: A in registers, 1: A in a warp's shared memory, 2: one block per
-  // system with A in shared memory, 3: the same with A in device memory
+  // system with A in shared memory, 3: the same with A in device memory,
+  // 4: the whole grid per system, vectors in device memory
   int kind;
   int width;
   int exact;
@@ -658,13 +795,64 @@ cudaError_t run_block(const Args& a, Report& rep, bool plan_only) {
   return cudaGetLastError();
 }
 
+// The grid plan: a grid of as many blocks as the card keeps resident works
+// on each system in turn, 3 launches per CG step and 3 to start. The
+// caller's scratch holds the vectors (grid_scratch_floats(f, blocks)).
+cudaError_t run_grid(const Args& a, Report& rep, bool plan_only) {
+  static std::atomic<int> cache[kMaxDevices];
+  rep.kind = 4;
+  rep.width = a.f;
+  rep.exact = 1;
+  rep.group = kBlockThreads;
+  rep.warps_per_block = kBlockWarps;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  int cap = cache[dev].load(std::memory_order_relaxed);
+  if (cap == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, spd_cg_grid_matvec<true>,
+                                                        kBlockThreads, 0);
+    if (err != cudaSuccess) return err;
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cap = per_sm * sms;
+    cache[dev].store(cap, std::memory_order_relaxed);
+  }
+  rep.capacity = cap;
+  rep.blocks = a.n > 0 ? cap : 0;
+  if (plan_only || rep.blocks == 0) return cudaSuccess;
+  if (a.scratch == nullptr || a.scratch_floats < grid_scratch_floats(a.f, rep.blocks))
+    return cudaErrorInvalidValue;
+  const int g = rep.blocks;
+  const size_t ff = (size_t)a.f * a.f;
+  for (long long sys = 0; sys < a.n; ++sys) {
+    const float* As = a.A + (size_t)sys * ff;
+    const float* bs = a.b + (size_t)sys * a.f;
+    float* xs = a.x + (size_t)sys * a.f;
+    spd_cg_grid_init<<<g, kBlockThreads, 0, a.stream>>>(As, bs, a.scratch, xs, a.f);
+    spd_cg_grid_matvec<false><<<g, kBlockThreads, 0, a.stream>>>(As, a.scratch, xs, a.f);
+    spd_cg_grid_residual<<<g, kBlockThreads, 0, a.stream>>>(bs, a.scratch, xs, a.f);
+    for (int it = 0; it < a.iters; ++it) {
+      spd_cg_grid_matvec<true><<<g, kBlockThreads, 0, a.stream>>>(As, a.scratch, xs, a.f);
+      spd_cg_grid_update_xr<<<g, kBlockThreads, 0, a.stream>>>(a.scratch, xs, a.f, it);
+      spd_cg_grid_update_p<<<g, kBlockThreads, 0, a.stream>>>(a.scratch, xs, a.f, it);
+    }
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
+}
+
 // The plan by rank; ops/spd_solve.py:launch_plan mirrors it.
 cudaError_t run(const Args& a, Report& rep, bool plan_only) {
   const int f = a.f;
   if (f > kMaxWarpRank) {
     // past f = 11,619 the five CG vectors of one system outgrow a block's
-    // shared memory (A of one such system is 540 MB)
-    if (block_smem(f, false) > kSmemOptin) return cudaErrorInvalidValue;
+    // shared memory (A of one such system is 540 MB): the whole grid
+    if (block_smem(f, false) > kSmemOptin) return run_grid(a, rep, plan_only);
     return block_smem(f, true) <= kSmemOptin ? run_block<true>(a, rep, plan_only)
                                              : run_block<false>(a, rep, plan_only);
   }
@@ -685,12 +873,27 @@ extern "C" {
 
 // Solve A[s] x[s] = b[s] for s < n; A [n, f, f], b and x [n, f], all f32,
 // contiguous, on the current device. Returns a cudaError_t (0 = launched).
+// Ranks past 11,619 need the scratch entry below.
 int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n, int f, int iters,
                      void* stream) {
   if (n < 0 || f < 1 || iters < 0) return cudaErrorInvalidValue;
   if (n == 0) return cudaSuccess;
   Report rep{};
-  return run(Args{A, b, x, n, f, iters, static_cast<cudaStream_t>(stream)}, rep, false);
+  return run(Args{A, b, x, n, f, iters, static_cast<cudaStream_t>(stream), nullptr, 0}, rep,
+             false);
+}
+
+// The same with a device scratch buffer of `scratch_floats` floats for the
+// grid plan's vectors: at least grid_scratch_floats(f, blocks) (4f + 3 per
+// block) for the grid that pio_spd_cg_plan reports. Other plans ignore it.
+int pio_spd_cg_solve_scratch(const float* A, const float* b, float* x, long long n, int f,
+                             int iters, float* scratch, long long scratch_floats, void* stream) {
+  if (n < 0 || f < 1 || iters < 0 || scratch_floats < 0) return cudaErrorInvalidValue;
+  if (n == 0) return cudaSuccess;
+  Report rep{};
+  return run(Args{A, b, x, n, f, iters, static_cast<cudaStream_t>(stream), scratch,
+                  (size_t)scratch_floats},
+             rep, false);
 }
 
 // The launch plan for n systems of rank f on the current device, into
@@ -698,7 +901,8 @@ int pio_spd_cg_solve(const float* A, const float* b, float* x, long long n, int 
 int pio_spd_cg_plan(long long n, int f, int* out) {
   if (n < 0 || f < 1) return cudaErrorInvalidValue;
   Report rep{};
-  const cudaError_t err = run(Args{nullptr, nullptr, nullptr, n, f, f + 4, nullptr}, rep, true);
+  const cudaError_t err =
+      run(Args{nullptr, nullptr, nullptr, n, f, f + 4, nullptr, nullptr, 0}, rep, true);
   const int fields[7] = {rep.kind,  rep.width,           rep.exact, rep.group,
                          rep.warps_per_block, rep.capacity, rep.blocks};
   for (int k = 0; k < 7; ++k) out[k] = fields[k];

@@ -7,10 +7,13 @@ same preconditioner, the same f+4 iterations, the same update order and
 clamps. ``batched_spd_solve_fused`` launches ``csrc/spd_cg.cu``, which runs
 that algorithm with A read from device memory once: for ranks up to 64 a
 group of lanes holds one system's A in registers, for ranks up to 128 a
-warp keeps it in shared memory, and past that a block of 256 threads solves
+warp keeps it in shared memory, past that a block of 256 threads solves
 one system, with A in shared memory while it fits (f <= 238) and read from
-device memory at every step beyond. ``launch_plan`` says which, as the
-source does.
+device memory at every step beyond, and past f = 11,619, where the five CG
+vectors of one system outgrow a block's shared memory, the whole grid
+solves each system in turn with its vectors in a device scratch buffer
+that the wrapper allocates. ``launch_plan`` says which, as the source
+does.
 """
 
 from __future__ import annotations
@@ -37,13 +40,20 @@ def block_smem(f: int, shared_a: bool) -> int:
     return ((f * f if shared_a else 0) + 5 * f + 2 * (BLOCK_THREADS // WARP)) * 4
 
 
+def grid_scratch_floats(f: int, blocks: int) -> int:
+    """Floats of the grid plan's device scratch (``grid_scratch_floats`` in
+    the source): r, p, Ap, 1/diag(A), and three partial sums per block."""
+    return 4 * f + 3 * blocks
+
+
 @dataclasses.dataclass(frozen=True)
 class LaunchPlan:
     """How ``csrc/spd_cg.cu`` lays rank-f systems over the card (its
     ``run``): ``kernel`` "registers" (a group of ``group`` lanes holds one
     system's A in registers), "shared" (a warp keeps A in shared memory),
-    "block" (a block of ``group`` threads per system, A in shared memory) or
-    "block_global" (the same, A read from device memory at every step),
+    "block" (a block of ``group`` threads per system, A in shared memory),
+    "block_global" (the same, A read from device memory at every step) or
+    "grid" (every block of the grid works on each system in turn),
     compiled for ``width`` >= f, for exactly f when ``exact``. In the warp
     kernels a warp solves tiles of ``systems_per_warp`` consecutive systems
     and loops over tiles with the stride of the whole grid; in the block
@@ -56,7 +66,7 @@ class LaunchPlan:
 
     @property
     def per_block(self) -> bool:
-        return self.kernel in ("block", "block_global")
+        return self.kernel in ("block", "block_global", "grid")
 
     @property
     def warps_per_block(self) -> int:
@@ -73,7 +83,10 @@ class LaunchPlan:
 
     def blocks(self, n: int, capacity: int) -> int:
         """The grid for n systems: one warp per tile (one block per system),
-        at most ``capacity`` blocks (what the card keeps resident at once)."""
+        at most ``capacity`` blocks (what the card keeps resident at once);
+        the grid plan takes all ``capacity`` blocks for any n > 0."""
+        if self.kernel == "grid":
+            return capacity if n > 0 else 0
         if self.per_block:
             return min(n, capacity)
         return min(-(-self.tiles(n) // WARPS_PER_BLOCK), capacity)
@@ -89,7 +102,10 @@ class LaunchPlan:
         ]
 
     def block_systems(self, n: int, block: int, blocks: int) -> list[int]:
-        """The systems that block ``block`` of a grid of ``blocks`` solves."""
+        """The systems that block ``block`` of a grid of ``blocks`` solves
+        (in the grid plan: works on, as every block does)."""
+        if self.kernel == "grid":
+            return list(range(n))
         if self.per_block:
             return list(range(block, n, blocks))
         warps = blocks * WARPS_PER_BLOCK
@@ -104,15 +120,13 @@ def launch_plan(f: int) -> LaunchPlan:
     """The kernel instantiation for rank f: exact widths for the template
     default (10) and the ALS main paths (32), padded widths 8, 16, 32 and 64
     otherwise, A in a warp's shared memory past rank 64, one block per
-    system past rank 128."""
+    system past rank 128, the whole grid per system past the block's
+    shared memory (f > 11,619)."""
     if f < 1:
         raise ValueError(f"rank {f} must be at least 1")
     if f > MAX_WARP_RANK:
         if block_smem(f, False) > SMEM_OPTIN:
-            raise ValueError(
-                f"rank {f}: the five CG vectors of one system outgrow a block's "
-                f"{SMEM_OPTIN} bytes of shared memory"
-            )
+            return LaunchPlan("grid", f, True, BLOCK_THREADS)
         kernel = "block" if block_smem(f, True) <= SMEM_OPTIN else "block_global"
         return LaunchPlan(kernel, f, True, BLOCK_THREADS)
     if f > MAX_REGISTER_RANK:
@@ -156,6 +170,11 @@ def _library() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.pio_spd_cg_solve.restype = ctypes.c_int
+    lib.pio_spd_cg_solve_scratch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+    ]
+    lib.pio_spd_cg_solve_scratch.restype = ctypes.c_int
     lib.pio_cuda_error_string.argtypes = [ctypes.c_int]
     lib.pio_cuda_error_string.restype = ctypes.c_char_p
     lib.pio_spd_cg_plan.argtypes = [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
@@ -182,16 +201,27 @@ def batched_spd_solve_fused(A: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if not (A.is_contiguous() and b.is_contiguous()):
         raise ValueError("A and b must be contiguous")
     n, f = A.shape[0], A.shape[-1]
-    launch_plan(f)  # raises on a rank the kernel does not take
+    plan = launch_plan(f)  # raises on a rank the kernel does not take
     x = torch.empty_like(b)
     if n == 0:
         return x
     lib = _library()
     stream = torch.cuda.current_stream(A.device).cuda_stream
     with torch.cuda.device(A.device):
-        rc = lib.pio_spd_cg_solve(
-            A.data_ptr(), b.data_ptr(), x.data_ptr(), n, f, f + 4, stream
-        )
+        if plan.kernel == "grid":
+            out = (ctypes.c_int * 7)()
+            rc = lib.pio_spd_cg_plan(n, f, out)
+            if rc == 0:
+                floats = grid_scratch_floats(f, out[6])
+                scratch = torch.empty(floats, dtype=torch.float32, device=A.device)
+                rc = lib.pio_spd_cg_solve_scratch(
+                    A.data_ptr(), b.data_ptr(), x.data_ptr(), n, f, f + 4,
+                    scratch.data_ptr(), floats, stream,
+                )
+        else:
+            rc = lib.pio_spd_cg_solve(
+                A.data_ptr(), b.data_ptr(), x.data_ptr(), n, f, f + 4, stream
+            )
     if rc != 0:
         raise RuntimeError(
             f"spd_cg launch failed: {lib.pio_cuda_error_string(rc).decode()} ({rc})"

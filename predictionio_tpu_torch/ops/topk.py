@@ -1,7 +1,9 @@
 """Serving endings shared by engines: the fused score -> mask -> top-k
 ending, the packed [B,2,k] int32 wire, the host ending for host-born
-scores and thread-local staging buffers (port of the parts of
-``predictionio_tpu/ops/topk.py`` that the ALS and sequential paths use).
+scores and thread-local staging buffers (port of
+``predictionio_tpu/ops/topk.py``'s endings: the dot ending, with the
+per-item weights of e-commerce's adjust-score variant, and the
+gather-sum ending of similar-product and recommended-user).
 
 A result comes back in ONE device-to-host fetch: row 0 carries the float32
 score bits, row 1 the indices. The score product is a plain matrix product
@@ -21,6 +23,7 @@ from predictionio_tpu_torch.ops.als import ServingIndex, next_pow2, upload
 
 __all__ = [
     "dot_top_k_async",
+    "gather_sum_top_k_async",
     "fetch_topk",
     "host_top_k",
     "warmup_pow2_buckets",
@@ -40,18 +43,44 @@ def pack_batch(scores: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     )
 
 
-def dot_top_k_async(table: torch.Tensor, vecs, mask, k: int) -> torch.Tensor:
-    """Launch (no fetch) scores = vecs @ table.T, masked to -inf where
-    ``mask`` is False, then top-k: ``table`` [n,f] resident on its device,
-    ``vecs`` [B,f] (a device tensor or a host array), ``mask`` [B,n] bool or
-    None. Host arrays are uploaded by copy. Returns the packed [B,2,k]
-    device tensor; decode with :func:`fetch_topk`."""
-    dev = table.device
-    scores = upload(vecs, np.float32, dev).to(device=dev, dtype=torch.float32) @ table.T
+def _mask_weigh_select(scores: torch.Tensor, mask, weights, k: int) -> torch.Tensor:
+    """scores [B,n] times ``weights`` [n] (None: unweighted), -inf where
+    ``mask`` [B,n] is False (None: nowhere), then top-k, packed."""
+    dev = scores.device
+    if weights is not None:
+        scores = scores * upload(weights, np.float32, dev).to(device=dev, dtype=torch.float32)[None, :]
     if mask is not None:
         scores = torch.where(upload(mask, np.bool_, dev).to(dev), scores, float("-inf"))
     s, i = torch.topk(scores, k, dim=1)
     return pack_batch(s, i)
+
+
+def dot_top_k_async(table: torch.Tensor, vecs, mask, k: int, weights=None) -> torch.Tensor:
+    """Launch (no fetch) scores = vecs @ table.T, times ``weights`` [n] when
+    given (the adjust-score variant), masked to -inf where ``mask`` is
+    False, then top-k: ``table`` [n,f] resident on its device, ``vecs``
+    [B,f] (a device tensor or a host array), ``mask`` [B,n] bool or None.
+    Host arrays are uploaded by copy. Returns the packed [B,2,k] device
+    tensor; decode with :func:`fetch_topk`."""
+    dev = table.device
+    scores = upload(vecs, np.float32, dev).to(device=dev, dtype=torch.float32) @ table.T
+    return _mask_weigh_select(scores, mask, weights, k)
+
+
+def gather_sum_top_k_async(table: torch.Tensor, qidx, qweight, mask, k: int,
+                           weights=None) -> torch.Tensor:
+    """The summed-similarity ending (similar-product, recommended-user):
+    gather the query rows ``table[qidx]`` [B,Q,f], weigh them by
+    ``qweight`` [B,Q], score every row of ``table`` [n,f] against each and
+    sum over Q, times ``weights`` [n] when given, mask [B,n], top-k. Pad
+    slots of ``qidx`` point at row 0 with weight 0 (a torch gather raises
+    on an out-of-range index where JAX clips). Returns the packed handle."""
+    dev = table.device
+    qi = upload(qidx, np.int64, dev).to(device=dev, dtype=torch.int64)
+    qw = upload(qweight, np.float32, dev).to(device=dev, dtype=torch.float32)
+    q = table[qi] * qw[..., None]  # [B, Q, f]
+    scores = torch.einsum("nf,bqf->bn", table, q)
+    return _mask_weigh_select(scores, mask, weights, k)
 
 
 def fetch_topk(handle: torch.Tensor) -> tuple[np.ndarray, np.ndarray]:

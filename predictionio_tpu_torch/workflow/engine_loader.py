@@ -30,9 +30,18 @@ class EngineLoadError(RuntimeError):
 # engineFactory strings of the JAX package's templates that the port has
 _PORT = "predictionio_tpu_torch.models"
 JAX_FACTORIES = {
-    f"predictionio_tpu.models.{name}{sub}": f"{_PORT}.{name}.engine.engine_factory"
-    for name in ("recommendation", "sequential", "twotower")
-    for sub in (".engine_factory", ".engine.engine_factory")
+    f"predictionio_tpu.models.{name}{sub}{factory}": f"{_PORT}.{name}.engine.{factory}"
+    for name, factories in (
+        ("recommendation", ("engine_factory",)),
+        ("sequential", ("engine_factory",)),
+        ("twotower", ("engine_factory",)),
+        ("similarproduct", ("engine_factory",)),
+        ("ecommerce", ("engine_factory",)),
+        ("recommendeduser", ("engine_factory",)),
+        ("classification", ("engine_factory", "custom_properties_engine_factory")),
+    )
+    for factory in factories
+    for sub in (".", ".engine.")
 }
 
 

@@ -12,7 +12,8 @@ which a kernel that skipped the bf16 rounding of p (5e-4 to 4e-3 off at
 these shapes, ``tests/test_torch_attention.py``) or that re-summed no score
 (4e-4 off at [64, 1, 200, 32]) would fail; 2e-2 against the f32 reference.
 Past rank 128 B1 runs one block per system, and the limit is row-relative
-1e-4. ``FusedAttention``'s gradient is the f32 reference's, as explicit
+1e-4; past rank 11,619 the whole grid solves each system (f = 11,700, A of
+548 MB), held to row-relative 1e-3 over its 11,704 CG steps. ``FusedAttention``'s gradient is the f32 reference's, as explicit
 matrix products on the card against CPU autograd: atol 1e-4 (f32 sums in
 another order over 256-key softmax rows).
 """
@@ -49,7 +50,7 @@ def _c_plan(n, f):
     out = np.zeros(7, np.int32)
     assert S._library().pio_spd_cg_plan(n, f, out.ctypes.data) == 0
     kind, width, exact, group, wpb, capacity, blocks = out.tolist()
-    kernel = ("registers", "shared", "block", "block_global")[kind]
+    kernel = ("registers", "shared", "block", "block_global", "grid")[kind]
     plan = S.LaunchPlan(kernel, width, bool(exact), group)
     assert wpb == plan.warps_per_block
     return plan, capacity, blocks
@@ -124,6 +125,11 @@ def test_spd_cg_plan_is_the_python_plan(cuda):
         blocks = plan.blocks(n, capacity)
         solved = [s for blk in range(blocks) for s in plan.block_systems(n, blk, blocks)]
         assert sorted(solved) == list(range(n)), f
+    for f in (11_620, 11_700):  # the grid plan: every resident block on each system
+        for n in (0, 1, 3):
+            plan, capacity, blocks = _c_plan(n, f)
+            assert plan == launch_plan(f) and plan.kernel == "grid"
+            assert blocks == plan.blocks(n, capacity) == (capacity if n else 0)
 
 
 @pytest.mark.parametrize("f", [10, 32, 100, 160, 256])
@@ -160,10 +166,31 @@ def test_spd_cg_rejects_what_it_does_not_take(cuda):
         batched_spd_solve_fused(A_d.transpose(1, 2), b_d)
     with pytest.raises(ValueError, match="CUDA"):
         batched_spd_solve_fused(A_d.cpu(), b_d.cpu())
-    # past 11,619 the five CG vectors of one system outgrow a block's shared memory
-    big = torch.eye(11_620, device=cuda)[None]
-    with pytest.raises(ValueError, match="rank"):
-        batched_spd_solve_fused(big, torch.ones(1, 11_620, device=cuda))
+
+
+def test_spd_cg_past_the_block_limit_matches_plain(cuda):
+    """f = 11,700, n = 1: the five CG vectors of the system outgrow a block's
+    shared memory, so the whole grid solves it with its vectors in a device
+    scratch buffer (A is 548 MB). Row-relative 1e-3 against the plain
+    version, as the rank-160 phase of chip_smoke.py holds B1."""
+    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused, launch_plan
+
+    f = 11_700
+    assert launch_plan(f).kernel == "grid"
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    M = torch.randn(f, f, generator=gen, device=cuda)
+    A = (M @ M.T / f + 0.5 * torch.eye(f, device=cuda))[None].contiguous()
+    del M
+    b = torch.randn(1, f, generator=gen, device=cuda)
+    before = batched_spd_solve_fused.launches
+    x = batched_spd_solve_fused(A, b)
+    torch.cuda.synchronize()
+    assert batched_spd_solve_fused.launches == before + 1
+    ref = _cg_body(A, b, f + 4)
+    assert x.shape == (1, f) and torch.isfinite(x).all()
+    row_rel = float(((x - ref).norm(dim=1) / ref.norm(dim=1)).max())
+    assert row_rel <= 1e-3, row_rel
+    assert float((A[0] @ x[0] - b[0]).norm() / b[0].norm()) <= 1e-3  # it solved the system
 
 
 def _qkv(cuda, B, H, L, D, seed=0):
@@ -404,3 +431,70 @@ def test_two_tower_trains_and_serves_through_b2_on_the_card(cuda):
         np.testing.assert_allclose(got, ref, rtol=0, atol=1e-2)
         ids = [int(s.item[1:]) for s in res.item_scores]
         assert np.all(scores[r, ids] >= kth[r] - 1e-2)
+
+
+@pytest.mark.parametrize("ending", ["dot", "dot_weighted", "gather_sum", "gather_sum_weighted"])
+def test_topk_endings_on_cuda_match_their_plain_versions(cuda, ending):
+    """The serving endings of the item templates on CUDA tensors against the
+    same torch ops on the CPU: scores within 1e-5, ids equal outside ties."""
+    from predictionio_tpu_torch.ops import topk
+
+    rng = np.random.default_rng(12)
+    n, f, B, Q, k = 3706, 10, 64, 4, 16
+    table = rng.normal(size=(n, f)).astype(np.float32)
+    mask = rng.random((B, n)) < 0.9
+    weights = rng.uniform(0.5, 2.0, n) if ending.endswith("weighted") else None
+    if ending.startswith("dot"):
+        vecs = rng.normal(size=(B, f)).astype(np.float32)
+
+        def run(dev):
+            return topk.dot_top_k_async(torch.from_numpy(table).to(dev), vecs, mask, k,
+                                        weights=weights)
+    else:
+        qidx = rng.integers(0, n, (B, Q)).astype(np.int32)
+        qw = np.ones((B, Q), np.float32)
+        qw[::2, 2:] = 0.0
+        qidx[::2, 2:] = 0  # pad slots: row 0, weight 0
+
+        def run(dev):
+            return topk.gather_sum_top_k_async(torch.from_numpy(table).to(dev), qidx, qw, mask,
+                                               k, weights=weights)
+
+    handle = run(cuda)
+    assert handle.is_cuda and handle.shape == (B, 2, k)
+    got_s, got_i = topk.fetch_topk(handle)
+    want_s, want_i = topk.fetch_topk(run("cpu"))
+    np.testing.assert_allclose(got_s, want_s, rtol=1e-5, atol=1e-5)
+    for row in range(B):
+        ties = np.isclose(want_s[row], want_s[row][-1], rtol=1e-5, atol=1e-5)
+        assert set(got_i[row][~ties]) == set(want_i[row][~ties])
+        assert mask[row, got_i[row]].all()
+
+
+def test_implicit_als_trains_through_b1_at_rank_10(cuda, monkeypatch):
+    """The similar-product template's implicit ALS at the template's rank 10
+    on the card: B1 once per half-iteration, factors within atol 1e-3 of the
+    same train with the plain CG (index_add_ sums in another order run to
+    run)."""
+    from predictionio_tpu_torch.models.similarproduct import engine as sp
+    from predictionio_tpu_torch.ops import als as pt_als
+    from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    rng = np.random.default_rng(13)
+    n_users, n_items, nnz = 600, 400, 20_000
+    users = rng.integers(0, n_users, nnz).astype(np.int32)
+    items = (rng.zipf(1.3, nnz) % n_items).astype(np.int32)
+    td = sp.TrainingData([f"u{i}" for i in range(n_users)], [f"i{i}" for i in range(n_items)],
+                         [None] * n_items, users, items, users[:0], items[:0])
+    algo = sp.ALSAlgorithm(sp.ALSAlgorithmParams(rank=10, num_iterations=6))
+    ctx = WorkflowContext(device=cuda, store=None)
+    before = batched_spd_solve_fused.launches
+    model = algo.train(ctx, td)
+    assert batched_spd_solve_fused.launches == before + 12
+    monkeypatch.setattr(pt_als, "batched_spd_solve_auto", lambda A, b: _cg_body(A, b, A.shape[-1] + 4))
+    plain = algo.train(ctx, td)
+    assert batched_spd_solve_fused.launches == before + 12
+    np.testing.assert_allclose(model.item_factors, plain.item_factors, rtol=0, atol=1e-3)
+    served = algo.predict_batch(model, [sp.Query(items=("i1", "i2"), num=10)])[0]
+    assert len(served.item_scores) == 10

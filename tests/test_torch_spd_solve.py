@@ -165,7 +165,42 @@ def test_launch_plan_covers_every_system_once(f):
 
 @pytest.mark.parametrize("f", [0, 11620])
 def test_launch_plan_refuses_ranks_the_kernel_does_not_take(f):
-    """Ranks below 1, and ranks whose five CG vectors outgrow a block's
-    shared memory (A of one such system is 540 MB)."""
-    with pytest.raises(ValueError, match="rank"):
-        pt_spd.launch_plan(f)
+    """Ranks below 1 are refused. Ranks whose five CG vectors outgrow a
+    block's shared memory (A of one such system is 540 MB) are no longer
+    refused: the block kernels do not take them, so they go to the grid
+    plan, whose vectors live in a device scratch buffer."""
+    if f < 1:
+        with pytest.raises(ValueError, match="rank"):
+            pt_spd.launch_plan(f)
+        return
+    assert pt_spd.block_smem(f, shared_a=False) > pt_spd.SMEM_OPTIN
+    assert pt_spd.launch_plan(f) == pt_spd.LaunchPlan("grid", f, True, pt_spd.BLOCK_THREADS)
+
+
+@pytest.mark.parametrize("f", [11620, 11700, 20000])
+def test_grid_plan_past_the_block_limit(f):
+    """Past f = 11,619: every block of a full grid works on each system in
+    turn, and the scratch holds four vectors and three partial sums per
+    block. At 11,619 the block kernel with A in device memory still fits."""
+    assert pt_spd.launch_plan(11619).kernel == "block_global"
+    plan = pt_spd.launch_plan(f)
+    assert plan.kernel == "grid" and plan.per_block and plan.width == f and plan.exact
+    for capacity in _CAPACITIES:
+        assert plan.blocks(0, capacity) == 0
+        for n in (1, 3):
+            blocks = plan.blocks(n, capacity)
+            assert blocks == capacity
+            assert all(plan.block_systems(n, blk, blocks) == list(range(n)) for blk in range(blocks))
+        assert pt_spd.grid_scratch_floats(f, capacity) == 4 * f + 3 * capacity
+
+
+@pytest.mark.parametrize("n,f", [(4, 3), (2, 140), (1, 300)])
+def test_auto_on_cpu_computes_the_jax_auto_at_any_rank(n, f):
+    """Off the TPU the JAX package solves any rank through ``_cg_body``; the
+    port's plain path computes the same at ranks of each of its plans
+    (registers, block, block with A in device memory), row-relative 1e-4."""
+    A, b = _spd_batch(n, f, seed=f)
+    x_jax = np.asarray(jax_spd.batched_spd_solve_auto(jnp.asarray(A), jnp.asarray(b)))
+    x_pt = pt_spd.batched_spd_solve_auto(torch.from_numpy(A), torch.from_numpy(b)).numpy()
+    row_rel = np.linalg.norm(x_pt - x_jax, axis=1) / np.linalg.norm(x_jax, axis=1)
+    assert float(row_rel.max()) <= 1e-4

@@ -433,8 +433,10 @@ def test_jax_engine_json_maps_to_the_port():
     port_variant = json.loads((REPO / "predictionio_tpu_torch/models/twotower/engine.json").read_text())
     assert port_variant["engineFactory"].startswith("predictionio_tpu_torch.")
     assert port_variant["algorithms"] == variant["algorithms"]
+    # every template of the JAX package is ported; a factory name of the JAX
+    # package that is none of theirs is still refused, never imported
     with pytest.raises(EngineLoadError, match="no counterpart"):
-        load_engine_factory("predictionio_tpu.models.classification.engine_factory")
+        load_engine_factory("predictionio_tpu.models.classification.engine.no_such_factory")
 
 
 def test_train_two_tower_defaults_to_cuda_and_raises_without_it():
