@@ -2,17 +2,20 @@
 
 The JAX package ``predictionio_tpu`` stays beside it as the reference; this
 package imports none of it. Module names match the JAX package's, so each
-counterpart is easy to find. What is ported so far is the main path of the
-ALS recommendation template and of the sequential next-item template:
+counterpart is easy to find. What is ported so far is every template's path
+from event ingest to query:
 
   - ``ops``         ALS trainer, serving index, batched SPD solve, attention
                     and the top-k endings (CUDA kernels under ``ops/csrc``)
-  - ``data``        event JSON codec, columnar events, JSON-lines event store
+  - ``data``        the event codec, the storage locator and its memory,
+                    sqlite, jsonl and localfs backends, the event stores
+                    templates read through, the event server and webhooks
   - ``e2``          the Markov chain of the reference's e2 module
   - ``controller``  DASE base classes, params, engine, algorithm flavours
   - ``workflow``    train run, model blobs, engine loading, query server
-  - ``models``      the recommendation and sequential templates
-  - ``tools``       ``python -m predictionio_tpu_torch.tools.cli``
+  - ``models``      the seven templates
+  - ``tools``       ``python -m predictionio_tpu_torch.tools.cli``, import
+                    and export
 
 Entry points take ``device`` and default to ``"cuda"``; they raise when
 CUDA is absent unless the caller asks for ``"cpu"``.

@@ -64,3 +64,11 @@ def aggregate_properties(events: Iterable[Event]) -> dict[str, PropertyMap]:
         if pm is not None:
             out[entity_id] = pm
     return out
+
+
+def aggregate_properties_single(events: Iterable[Event]) -> PropertyMap | None:
+    """Replay one entity's events (ref aggregatePropertiesSingle)."""
+    acc = _Acc()
+    for e in sorted(events, key=lambda e: e.event_time):
+        acc.fold(e)
+    return acc.result()

@@ -1,0 +1,471 @@
+"""REST event-collection server over the standard library's
+``ThreadingHTTPServer``.
+
+Port of the data routes of ``predictionio_tpu/data/api/event_server.py``
+(ref ``data/.../api/EventServer.scala:54-663``)::
+
+  GET  /                       -> {"status": "alive"}
+  POST /events.json            -> 201 {"eventId": ...} (single event)
+  GET  /events.json            -> filtered query (default limit 20)
+  GET  /events/<id>.json       -> one event
+  DELETE /events/<id>.json     -> {"message": "Found"} | 404
+  POST /batch/events.json      -> per-event status array, <= 50 events
+  GET  /stats.json             -> ingestion stats (requires --stats)
+  GET  /plugins.json           -> plugin inventory
+  GET  /plugins/<type>/<name>/...  -> plugin REST surface
+  POST /webhooks/<name>.json   -> JSON connector ingestion
+  GET  /webhooks/<name>.json   -> connector presence check
+  POST /webhooks/<name>        -> form connector ingestion
+  GET  /webhooks/<name>        -> connector presence check
+
+Auth (ref :92-130): ``accessKey`` query param, or HTTP Basic where the
+username is the access key; per-key allowed-event enforcement; optional
+``channel`` query param must name an existing channel of the key's app.
+Status codes and JSON bodies are the JAX server's; a path no route matches
+answers 404 and a method a path does not take answers 405, with aiohttp's
+plain-text bodies.
+
+Each connection is served on its own thread and storage calls run on it;
+the sqlite backend serialises them on its connection lock. A batch request
+inserts its events one by one, each with its own status, as the JAX server
+does. A client's ``creationTime`` is ignored, as in the JAX server: an
+event's creation time is when this server accepted it, the key of the
+store's tail order. Not ported yet: ``/metrics``, ``/slo``, ``/traces/recent`` and ``/profile/*``
+(observability) and the storage breaker's 503s and ``/healthz``
+(resilience).
+"""
+
+from __future__ import annotations
+
+import base64
+import dataclasses
+import json
+import logging
+import re
+import ssl
+import threading
+import urllib.parse
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Any
+
+from predictionio_tpu_torch.data.api.plugins import EventInfo, EventServerPluginContext
+from predictionio_tpu_torch.data.api.stats import StatsCollector
+from predictionio_tpu_torch.data.event import Event, parse_event_time
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.webhooks import (
+    ConnectorException,
+    connector_to_event,
+    form_connector,
+    json_connector,
+)
+
+logger = logging.getLogger(__name__)
+
+MAX_EVENTS_PER_BATCH_REQUEST = 50  # ref EventServer.scala:70
+MAX_BODY_BYTES = 16 << 20
+
+
+@dataclasses.dataclass
+class EventServerConfig:
+    ip: str = "0.0.0.0"
+    port: int = 7070
+    stats: bool = False
+    # TLS (ref common/SSLConfiguration.scala): PEM cert + key paths
+    ssl_certfile: str | None = None
+    ssl_keyfile: str | None = None
+
+    def ssl_context(self) -> ssl.SSLContext | None:
+        """SSLContext from the cert/key pair; None when TLS is off. Exactly
+        one of the pair set is an error, never a silent plaintext server."""
+        if bool(self.ssl_certfile) != bool(self.ssl_keyfile):
+            raise ValueError("TLS misconfigured: both ssl_certfile and ssl_keyfile are required")
+        if not self.ssl_certfile:
+            return None
+        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+        ctx.load_cert_chain(self.ssl_certfile, self.ssl_keyfile)
+        return ctx
+
+
+class BlockedEvent(Exception):
+    """An input-blocker plugin rejected the event."""
+
+
+@dataclasses.dataclass
+class AuthData:
+    app_id: int
+    channel_id: int | None
+    events: tuple[str, ...]
+
+    def allows(self, event_name: str) -> bool:
+        return not self.events or event_name in self.events
+
+
+@dataclasses.dataclass
+class Request:
+    """One decoded HTTP request: what a route handler reads."""
+
+    method: str
+    path: str
+    query: dict[str, str]  # first value of each parameter
+    headers: dict[str, str]  # lower-cased names
+    body: bytes = b""
+
+
+Response = tuple[int, Any]  # status, JSON body (a str body is sent as text)
+
+
+def _error(status: int, message: str) -> Response:
+    return status, {"message": message}
+
+
+def _decode_event(item: Any) -> Event:
+    """A wire event without the client's ``creationTime`` (see the module
+    docstring)."""
+    if isinstance(item, dict) and "creationTime" in item:
+        item = {k: v for k, v in item.items() if k != "creationTime"}
+    return Event.from_json_dict(item)
+
+
+_EVENT_ID = re.compile(r"^/events/([^/{}]+)\.json$")
+_WEBHOOK_JSON = re.compile(r"^/webhooks/([^/{}]+)\.json$")
+_WEBHOOK_FORM = re.compile(r"^/webhooks/([^/{}]+)$")
+_PLUGIN = re.compile(r"^/plugins/(.+)$")
+
+
+class EventServer:
+    def __init__(
+        self,
+        storage: Storage | None = None,
+        config: EventServerConfig | None = None,
+        plugin_context: EventServerPluginContext | None = None,
+    ):
+        self.storage = storage or Storage.instance()
+        self.config = config or EventServerConfig()
+        self.levents = self.storage.get_l_events()
+        self.access_keys = self.storage.get_meta_data_access_keys()
+        self.channels = self.storage.get_meta_data_channels()
+        self.stats = StatsCollector()
+        self.plugin_context = plugin_context or EventServerPluginContext()
+        self._httpd: ThreadingHTTPServer | None = None
+        self._thread: threading.Thread | None = None
+
+    # ------------------------------------------------------------------ auth
+    def _authenticate(self, request: Request) -> AuthData | Response:
+        access_key = request.query.get("accessKey")
+        channel_name = request.query.get("channel")
+        if access_key is None:
+            auth_header = request.headers.get("authorization", "")
+            if auth_header.startswith("Basic "):
+                try:
+                    decoded = base64.b64decode(auth_header[6:]).decode()
+                    access_key = decoded.strip().split(":")[0]
+                except Exception:
+                    return _error(401, "Invalid accessKey.")
+            else:
+                return _error(401, "Missing accessKey.")
+        key = self.access_keys.get(access_key)
+        if key is None:
+            return _error(401, "Invalid accessKey.")
+        channel_id = None
+        if channel_name is not None:
+            channel_map = {c.name: c.id for c in self.channels.get_by_app_id(key.appid)}
+            if channel_name not in channel_map:
+                return _error(401, f"Invalid channel '{channel_name}'.")
+            channel_id = channel_map[channel_name]
+        return AuthData(key.appid, channel_id, tuple(key.events))
+
+    def _insert_one(self, auth: AuthData, event: Event) -> Response:
+        """Blocker -> insert -> sniffer. Raises BlockedEvent when an input
+        blocker rejects (-> 403); any other exception is a storage failure
+        (-> 500)."""
+        info = EventInfo(auth.app_id, auth.channel_id, event)
+        for blocker in self.plugin_context.input_blockers.values():
+            try:
+                blocker.process(info, self.plugin_context)
+            except Exception as exc:
+                raise BlockedEvent(str(exc)) from exc
+        event_id = self.levents.insert(event, auth.app_id, auth.channel_id)
+        for sniffer in self.plugin_context.input_sniffers.values():
+            try:
+                sniffer.process(info, self.plugin_context)
+            except Exception:  # sniffers must never fail the request
+                logger.exception("input sniffer failed")
+        return 201, {"eventId": event_id}
+
+    def _ingest(self, auth: AuthData, event: Event) -> Response:
+        """The single-event tail shared by POST /events.json and webhooks."""
+        if not auth.allows(event.event):
+            return _error(403, f"{event.event} events are not allowed")
+        try:
+            status, body = self._insert_one(auth, event)
+        except BlockedEvent as exc:
+            return _error(403, str(exc))
+        except Exception as exc:
+            logger.exception("event insert failed")
+            return _error(500, str(exc))
+        self.stats.bookkeeping(auth.app_id, status, event)
+        return status, body
+
+    # ---------------------------------------------------------------- routes
+    def handle_post_event(self, request: Request, auth: AuthData) -> Response:
+        try:
+            event = _decode_event(json.loads(request.body.decode("utf-8")))
+        except Exception as exc:
+            return _error(400, str(exc))
+        return self._ingest(auth, event)
+
+    def handle_get_events(self, request: Request, auth: AuthData) -> Response:
+        q = request.query
+        try:
+            reversed_ = q.get("reversed", "false").lower() == "true"
+            if reversed_ and not (q.get("entityType") and q.get("entityId")):
+                raise ValueError(
+                    "the parameter reversed can only be used with both entityType "
+                    "and entityId specified."
+                )
+            start_time = parse_event_time(q["startTime"]) if "startTime" in q else None
+            until_time = parse_event_time(q["untilTime"]) if "untilTime" in q else None
+            kwargs: dict[str, Any] = dict(
+                app_id=auth.app_id,
+                channel_id=auth.channel_id,
+                start_time=start_time,
+                until_time=until_time,
+                entity_type=q.get("entityType"),
+                entity_id=q.get("entityId"),
+                event_names=[q["event"]] if "event" in q else None,
+                limit=int(q.get("limit", 20)),
+                reversed=reversed_,
+            )
+            if "targetEntityType" in q:
+                kwargs["target_entity_type"] = q["targetEntityType"]
+            if "targetEntityId" in q:
+                kwargs["target_entity_id"] = q["targetEntityId"]
+        except Exception as exc:
+            return _error(400, str(exc))  # parameter errors only
+        try:
+            events = list(self.levents.find(**kwargs))
+        except Exception as exc:
+            # a storage failure is a server-side outage (500), never a 400
+            logger.exception("event find failed")
+            return _error(500, str(exc))
+        if not events:
+            return _error(404, "Not Found")
+        return 200, [e.to_json_dict() for e in events]
+
+    def handle_get_event(self, request: Request, auth: AuthData, event_id: str) -> Response:
+        event = self.levents.get(event_id, auth.app_id, auth.channel_id)
+        if event is None:
+            return _error(404, "Not Found")
+        return 200, event.to_json_dict()
+
+    def handle_delete_event(self, request: Request, auth: AuthData, event_id: str) -> Response:
+        if not self.levents.delete(event_id, auth.app_id, auth.channel_id):
+            return _error(404, "Not Found")
+        return 200, {"message": "Found"}
+
+    def handle_batch_events(self, request: Request, auth: AuthData) -> Response:
+        try:
+            payload = json.loads(request.body.decode("utf-8"))
+            if not isinstance(payload, list):
+                raise ValueError("batch request body must be a JSON array")
+        except Exception as exc:
+            return _error(400, str(exc))
+        if len(payload) > MAX_EVENTS_PER_BATCH_REQUEST:
+            return _error(
+                400,
+                "Batch request must have less than or equal to "
+                f"{MAX_EVENTS_PER_BATCH_REQUEST} events",
+            )
+        results: list[dict[str, Any] | None] = []
+        to_insert: list[tuple[int, Event]] = []  # (result slot, event)
+        for item in payload:
+            try:
+                event = _decode_event(item)
+            except Exception as exc:
+                results.append({"status": 400, "message": str(exc)})
+                continue
+            if not auth.allows(event.event):
+                results.append({"status": 403, "message": f"{event.event} events are not allowed"})
+                continue
+            results.append(None)
+            to_insert.append((len(results) - 1, event))
+        for slot, event in to_insert:
+            try:
+                status, body = self._insert_one(auth, event)
+            except BlockedEvent as exc:
+                status, body = 403, {"message": str(exc)}
+            except Exception as exc:
+                status, body = 500, {"message": str(exc)}
+            results[slot] = {"status": status, **body}
+            if status == 201:
+                self.stats.bookkeeping(auth.app_id, status, event)
+        return 200, results
+
+    def handle_stats(self, request: Request, auth: AuthData) -> Response:
+        if not self.config.stats:
+            return _error(404, "To see stats, launch Event Server with --stats argument.")
+        return 200, self.stats.get_stats(auth.app_id)
+
+    def handle_plugin_rest(self, request: Request, auth: AuthData, tail: str) -> Response:
+        parts = tail.split("/")
+        if len(parts) < 2:
+            return _error(404, "Not Found")
+        plugin_type, plugin_name, *args = parts
+        registry = (
+            self.plugin_context.input_blockers
+            if plugin_type == "inputblocker"
+            else self.plugin_context.input_sniffers
+        )
+        plugin = registry.get(plugin_name)
+        if plugin is None:
+            return _error(404, f"Unknown plugin {plugin_name}")
+        return 200, plugin.handle_rest(auth.app_id, auth.channel_id, args)
+
+    def handle_webhook(
+        self, request: Request, auth: AuthData, name: str, form: bool
+    ) -> Response:
+        connector = form_connector(name) if form else json_connector(name)
+        if connector is None:
+            return _error(404, f"webhooks connection for {name} is not supported.")
+        if request.method == "GET":
+            return 200, {"message": f"webhooks {name} connected."}
+        try:
+            if form:
+                fields = dict(
+                    urllib.parse.parse_qsl(request.body.decode("utf-8"), keep_blank_values=True)[::-1]
+                )  # reversed: the first value of a repeated field wins
+                event = connector_to_event(connector, fields)
+            else:
+                event = connector_to_event(connector, json.loads(request.body.decode("utf-8")))
+        except (ConnectorException, ValueError) as exc:
+            return _error(400, str(exc))
+        return self._ingest(auth, event)
+
+    # -------------------------------------------------------------- dispatch
+    def handle(self, request: Request) -> Response:
+        """Route one request; returns (status, body)."""
+        method, path = request.method, request.path
+        if path == "/":
+            return (200, {"status": "alive"}) if method == "GET" else (405, "405: Method Not Allowed")
+        if path == "/plugins.json":
+            if method != "GET":
+                return 405, "405: Method Not Allowed"
+            return 200, self.plugin_context.to_json_dict()
+        routes: list[tuple[set[str], Any]] = []
+        if path == "/events.json":
+            routes = [
+                ({"POST"}, self.handle_post_event),
+                ({"GET"}, self.handle_get_events),
+            ]
+        elif path == "/batch/events.json":
+            routes = [({"POST"}, self.handle_batch_events)]
+        elif path == "/stats.json":
+            routes = [({"GET"}, self.handle_stats)]
+        elif m := _EVENT_ID.match(path):
+            eid = urllib.parse.unquote(m.group(1))
+            routes = [
+                ({"GET"}, lambda r, a: self.handle_get_event(r, a, eid)),
+                ({"DELETE"}, lambda r, a: self.handle_delete_event(r, a, eid)),
+            ]
+        elif m := _WEBHOOK_JSON.match(path):
+            name = urllib.parse.unquote(m.group(1))
+            routes = [({"GET", "POST"}, lambda r, a: self.handle_webhook(r, a, name, False))]
+        elif m := _WEBHOOK_FORM.match(path):
+            name = urllib.parse.unquote(m.group(1))
+            routes = [({"GET", "POST"}, lambda r, a: self.handle_webhook(r, a, name, True))]
+        elif (m := _PLUGIN.match(path)) and m.group(1):
+            tail = urllib.parse.unquote(m.group(1))
+            routes = [({"GET"}, lambda r, a: self.handle_plugin_rest(r, a, tail))]
+        if not routes:
+            return 404, "404: Not Found"
+        handler = next((h for methods, h in routes if method in methods), None)
+        if handler is None:
+            return 405, "405: Method Not Allowed"
+        auth = self._authenticate(request)
+        if not isinstance(auth, AuthData):
+            return auth
+        return handler(request, auth)
+
+    # ------------------------------------------------------------------ HTTP
+    def _handler(self):
+        server = self
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+            # headers and body go out in two writes: with Nagle's algorithm on,
+            # the body would wait for the client's delayed ACK (~40 ms)
+            disable_nagle_algorithm = True
+
+            def log_message(self, fmt, *args):  # one line per request is noise
+                logger.debug("%s " + fmt, self.address_string(), *args)
+
+            def _serve(self):
+                length = int(self.headers.get("Content-Length") or 0)
+                if length > MAX_BODY_BYTES:
+                    self.close_connection = True
+                    self._reply(413, {"message": "payload too large"})
+                    return
+                body = self.rfile.read(length) if length else b""
+                url = urllib.parse.urlsplit(self.path)
+                query: dict[str, str] = {}
+                for k, v in urllib.parse.parse_qsl(url.query, keep_blank_values=True):
+                    query.setdefault(k, v)
+                request = Request(
+                    method=self.command,
+                    path=url.path,
+                    query=query,
+                    headers={k.lower(): v for k, v in self.headers.items()},
+                    body=body,
+                )
+                try:
+                    status, out = server.handle(request)
+                except Exception as exc:
+                    logger.exception("event server request failed")
+                    status, out = 500, {"message": str(exc)}
+                self._reply(status, out)
+
+            def _reply(self, status: int, out: Any) -> None:
+                if isinstance(out, str):
+                    data, ctype = out.encode(), "text/plain; charset=utf-8"
+                else:
+                    data, ctype = json.dumps(out).encode(), "application/json; charset=utf-8"
+                self.send_response(status)
+                self.send_header("Content-Type", ctype)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_POST = do_DELETE = do_PUT = _serve
+
+        return Handler
+
+    def start(self) -> int:
+        """Bind and serve on a background thread; returns the bound port."""
+        httpd = _HTTPServer((self.config.ip, self.config.port), self._handler())
+        tls = self.config.ssl_context()
+        if tls is not None:
+            httpd.socket = tls.wrap_socket(httpd.socket, server_side=True)
+        self._httpd = httpd
+        self._thread = threading.Thread(target=httpd.serve_forever, name="pio-events", daemon=True)
+        self._thread.start()
+        port = httpd.server_address[1]
+        logger.info("Event server started on %s:%d", self.config.ip, port)
+        return port
+
+    def shutdown(self) -> None:
+        if self._httpd is not None:
+            self._httpd.shutdown()
+            self._httpd.server_close()
+            self._thread.join(timeout=10)
+            self._httpd = None
+
+
+class _HTTPServer(ThreadingHTTPServer):
+    daemon_threads = True
+    request_queue_size = 256  # a burst of new connections must not overflow the backlog
+
+
+def create_event_server(
+    config: EventServerConfig | None = None, storage: Storage | None = None
+) -> EventServer:
+    return EventServer(storage=storage, config=config)

@@ -19,6 +19,13 @@ def now_utc() -> _dt.datetime:
     return _dt.datetime.now(tz=UTC)
 
 
+def ensure_aware(t: _dt.datetime | None) -> _dt.datetime | None:
+    """Read a naive datetime (a filter from user code) as UTC."""
+    if t is not None and t.tzinfo is None:
+        return t.replace(tzinfo=UTC)
+    return t
+
+
 def parse_event_time(value: str) -> _dt.datetime:
     """Parse an ISO8601 timestamp; it must carry a timezone."""
     if value.endswith(("Z", "z")):
@@ -52,6 +59,7 @@ class Event:
     event_id: str | None = None
     pr_id: str | None = None
     creation_time: _dt.datetime = dataclasses.field(default_factory=now_utc)
+    tags: tuple[str, ...] = ()  # stored, never on the wire (as in the JAX package)
 
     def to_json_dict(self, with_creation_time: bool = False) -> dict[str, Any]:
         d: dict[str, Any] = {
@@ -102,15 +110,6 @@ class Event:
         )
         validate(e)
         return e
-
-
-def event_seq_key(e: Event) -> tuple[int, str]:
-    """The store's total order for ordered reads: creation time in whole
-    microseconds (when the store accepted the event, not the client's event
-    time), then the event id. Two events accepted in the same microsecond
-    still have one order (own copy of ``event_seq_key`` in
-    ``predictionio_tpu/data/storage/base.py``)."""
-    return (int(e.creation_time.timestamp() * 1_000_000), e.event_id or "")
 
 
 def validate(e: Event) -> None:

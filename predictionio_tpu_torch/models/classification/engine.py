@@ -92,9 +92,10 @@ class DataSource(BaseDataSource):
     params: DataSourceParams
 
     def _read_points(self, ctx: WorkflowContext) -> tuple[np.ndarray, np.ndarray]:
-        props = ctx.store.aggregate_properties(
-            self.params.app_name or ctx.app_name,
+        props = ctx.p_event_store().aggregate_properties(
+            app_name=self.params.app_name or ctx.app_name,
             entity_type=self.params.entity_type,
+            channel_name=ctx.channel_name,
             required=[self.params.label_property, *self.params.attr_properties],
         )
         labels, rows = [], []

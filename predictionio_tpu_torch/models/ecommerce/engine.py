@@ -116,16 +116,19 @@ class DataSource(BaseDataSource):
     params: DataSourceParams
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        store = ctx.store
+        store = ctx.p_event_store()
         app_name = self.params.app_name or ctx.app_name
-        col = store.to_columnar(
-            app_name, event_names=["rate", "buy"], entity_type="user",
-            target_entity_type="item", rating_key="rating",
+        col = store.to_columnar_cached(
+            app_name=app_name, channel_name=ctx.channel_name, event_names=["rate", "buy"],
+            entity_type="user", target_entity_type="item", rating_key="rating",
         )
         item_vocab = list(col.target_vocab)
         item_index = {v: i for i, v in enumerate(item_vocab)}
         categories: list[frozenset[str] | None] = [None] * len(item_vocab)
-        for entity_id, pm in store.aggregate_properties(app_name, entity_type="item").items():
+        item_props = store.aggregate_properties(
+            app_name=app_name, entity_type="item", channel_name=ctx.channel_name
+        )
+        for entity_id, pm in item_props.items():
             idx = item_index.get(entity_id)
             cats = pm.get_opt("categories")
             if idx is not None and cats is not None:
@@ -302,8 +305,10 @@ class ECommAlgorithm(TorchAlgorithm):
             return set()
 
     def _seen_items_live(self, ctx: WorkflowContext, user: str) -> set[str]:
-        events = ctx.store.find_by_entity(
-            self._app(ctx), "user", user, event_names=list(self.params.seen_events)
+        events = ctx.l_event_store().find_by_entity(
+            app_name=self._app(ctx), entity_type="user", entity_id=user,
+            channel_name=ctx.channel_name, event_names=list(self.params.seen_events),
+            limit=None,
         )
         return {e.target_entity_id for e in events if e.target_entity_id is not None}
 
@@ -318,9 +323,10 @@ class ECommAlgorithm(TorchAlgorithm):
 
     def _unavailable_items_live(self, ctx: WorkflowContext) -> set[str]:
         """The latest $set on (constraint, unavailableItems)."""
-        events = ctx.store.find_by_entity(
-            self._app(ctx), "constraint", "unavailableItems", event_names=["$set"], limit=1
-        )
+        events = list(ctx.l_event_store().find_by_entity(
+            app_name=self._app(ctx), entity_type="constraint", entity_id="unavailableItems",
+            channel_name=ctx.channel_name, event_names=["$set"], limit=1,
+        ))
         if events:
             items = events[0].properties.get("items")
             return set(items if items is not None else [])
@@ -341,9 +347,10 @@ class ECommAlgorithm(TorchAlgorithm):
         carries ``weights``: [{"items": [...], "weight": w}]; listed items'
         scores are multiplied by w, the rest by 1. None when no constraint
         is set."""
-        events = ctx.store.find_by_entity(
-            self._app(ctx), "constraint", "weightedItems", event_names=["$set"], limit=1
-        )
+        events = list(ctx.l_event_store().find_by_entity(
+            app_name=self._app(ctx), entity_type="constraint", entity_id="weightedItems",
+            channel_name=ctx.channel_name, event_names=["$set"], limit=1,
+        ))
         if not events:
             return None
         groups = events[0].properties.get("weights") or []
@@ -371,8 +378,10 @@ class ECommAlgorithm(TorchAlgorithm):
     def _recent_item_indices_live(self, ctx: WorkflowContext, model: ECommModel,
                                   user: str) -> list[int]:
         """The items of the user's last 10 ``similarEvents`` (ref :302-320)."""
-        events = ctx.store.find_by_entity(
-            self._app(ctx), "user", user, event_names=list(self.params.similar_events), limit=10
+        events = ctx.l_event_store().find_by_entity(
+            app_name=self._app(ctx), entity_type="user", entity_id=user,
+            channel_name=ctx.channel_name, event_names=list(self.params.similar_events),
+            limit=10,
         )
         out = []
         for e in events:
@@ -516,10 +525,13 @@ class ECommAlgorithm(TorchAlgorithm):
     def warmup_serving(self, model: ECommModel, max_batch: int) -> None:
         """One launch per power-of-two batch bucket at the default k, for
         both score endings when adjust-score may weigh them; one store read,
-        so that the store's entity index is built at deploy and not on the
-        first query."""
+        so that the store's connection and the app lookup are warm at
+        deploy and not on the first query."""
         ctx = model.context()
-        ctx.store.find_by_entity(self._app(ctx), "constraint", "unavailableItems", limit=1)
+        list(ctx.l_event_store().find_by_entity(
+            app_name=self._app(ctx), entity_type="constraint", entity_id="unavailableItems",
+            channel_name=ctx.channel_name, limit=1,
+        ))
         n = len(model.item_vocab)
         f = model.user_factors.shape[1]
         kk = min(topk.next_pow2(DEFAULT_QUERY_NUM), n)

@@ -27,7 +27,7 @@ from predictionio_tpu_torch.controller import (
     SanityCheck,
     TorchAlgorithm,
 )
-from predictionio_tpu_torch.data.columnar import ColumnarEvents
+from predictionio_tpu_torch.data.storage.base import ColumnarEvents
 from predictionio_tpu_torch.ops.als import ALSConfig, ServingIndex, als_train, next_pow2
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 
@@ -126,8 +126,9 @@ class DataSource(BaseDataSource):
     params: DataSourceParams
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        col = ctx.store.to_columnar(
-            self.params.app_name or ctx.app_name,
+        col = ctx.p_event_store().to_columnar_cached(
+            app_name=self.params.app_name or ctx.app_name,
+            channel_name=ctx.channel_name,
             event_names=list(self.params.event_names),
             entity_type="user",
             target_entity_type="item",

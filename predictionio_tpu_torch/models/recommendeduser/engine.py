@@ -96,8 +96,9 @@ class DataSource(BaseDataSource):
     params: DataSourceParams
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        col = ctx.store.to_columnar(
-            self.params.app_name or ctx.app_name,
+        col = ctx.p_event_store().to_columnar_cached(
+            app_name=self.params.app_name or ctx.app_name,
+            channel_name=ctx.channel_name,
             event_names=[self.params.follow_event],
             entity_type="user",
             target_entity_type="user",

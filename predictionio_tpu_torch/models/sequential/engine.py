@@ -2,9 +2,9 @@
 ``predictionio_tpu/models/sequential/engine.py``.
 
 Query ``{"user", "recentItems", "num"}`` -> ``{"itemScores": [{item, score}]}``.
-The DataSource reads ``view`` events of user -> item from the store in its
-total order (``LocalStore.iter_ordered``), so a session is the ingest
-order. Two algorithms:
+The DataSource reads ``view`` events of user -> item from the event store
+in its tail order (``find_after`` pages in ``event_seq_key`` order), so a
+session is the ingest order. Two algorithms:
 
   - ``markov``: the e2 transition matrix over consecutive pairs
     (``e2.markov_chain.train_markov_chain``), served on the host through
@@ -43,6 +43,8 @@ from predictionio_tpu_torch.controller import (
     TorchAlgorithm,
 )
 from predictionio_tpu_torch.data.event import Event
+from predictionio_tpu_torch.data.storage.base import event_seq_key
+from predictionio_tpu_torch.data.store.event_store import resolve_app
 from predictionio_tpu_torch.e2.markov_chain import MarkovChainModel, train_markov_chain
 from predictionio_tpu_torch.ops import topk
 from predictionio_tpu_torch.ops.als import ALSConfig, als_train
@@ -184,18 +186,50 @@ def sequences_from_events(
     return per_user, item_vocab
 
 
+def _iter_ordered(
+    levents, app_id: int, channel_id: int | None, page: int, max_events: int
+) -> Iterator[Event]:
+    """Bounded ordered scan: ``find_after`` pages in ``(creation_time_us,
+    event_id)`` order up to the head observed at entry, so a live ingest
+    stream cannot keep the read open forever."""
+    if page < 1 or max_events < 0:
+        raise ValueError(f"page must be >= 1 and max_events >= 0, got {page}, {max_events}")
+    head = levents.seq_head(app_id, channel_id)
+    if head is None:
+        return
+    cursor = None
+    seen = 0
+    while seen < max_events:
+        batch = list(levents.find_after(app_id, channel_id, cursor, min(page, max_events - seen)))
+        if not batch:
+            return
+        for e in batch:
+            key = event_seq_key(e)
+            if key > head:
+                return
+            cursor = key
+            seen += 1
+            yield e
+        if len(batch) < page:
+            return
+
+
 class DataSource(BaseDataSource):
     params_class = DataSourceParams
     params: DataSourceParams
 
-    def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        if self.params.channel_name is not None:
-            raise ValueError("the port's LocalStore has no channels; drop channelName")
-        events = ctx.store.iter_ordered(
-            self.params.app_name, self.params.page, self.params.max_events
+    def _ordered_events(self, ctx: WorkflowContext) -> Iterator[Event]:
+        app_id, channel_id = resolve_app(
+            ctx.storage, self.params.app_name, self.params.channel_name
         )
+        return _iter_ordered(
+            ctx.storage.get_l_events(), app_id, channel_id,
+            self.params.page, self.params.max_events,
+        )
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
         per_user, vocab = sequences_from_events(
-            events,
+            self._ordered_events(ctx),
             event_names=self.params.event_names,
             entity_type=self.params.entity_type,
             target_entity_type=self.params.target_entity_type,

@@ -139,18 +139,20 @@ class DataSource(BaseDataSource):
     params: DataSourceParams
 
     def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        store = ctx.store
+        store = ctx.p_event_store()
         app_name = self.params.app_name or ctx.app_name
         event_names = ["view", "like"]
         if self.params.rate_event:
             event_names.append(self.params.rate_event)
-        col = store.to_columnar(
-            app_name, event_names=event_names, entity_type="user",
-            target_entity_type="item", rating_key="rating",
+        col = store.to_columnar_cached(
+            app_name=app_name, channel_name=ctx.channel_name, event_names=event_names,
+            entity_type="user", target_entity_type="item", rating_key="rating",
         )
         item_vocab = list(col.target_vocab)
         item_index = {v: i for i, v in enumerate(item_vocab)}
-        item_props = store.aggregate_properties(app_name, entity_type="item")
+        item_props = store.aggregate_properties(
+            app_name=app_name, entity_type="item", channel_name=ctx.channel_name
+        )
         categories: list[frozenset[str] | None] = [None] * len(item_vocab)
         wanted = self.params.item_property_names
         properties: list[dict[str, Any] | None] | None = (

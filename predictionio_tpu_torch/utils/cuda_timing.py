@@ -30,16 +30,16 @@ def event_ms(fn, reps: int, warmup: int = 2) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, launches: int = 20, replays: int = 10) -> float:
+def graph_ms(fn, launches: int = 20, replays: int = 10, warmup: int = 3) -> float:
     """Mean device milliseconds per call of ``fn``, free of host cost:
     ``launches`` calls captured into one CUDA graph, the graph replayed
-    ``replays`` times between two CUDA events. ``fn`` first runs outside the
-    capture, on the capture's side stream, so that no build and no first-use
-    setup falls inside the graph."""
+    ``replays`` times between two CUDA events. ``fn`` first runs ``warmup``
+    times outside the capture, on the capture's side stream, so that no
+    build and no first-use setup falls inside the graph."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        for _ in range(3):
+        for _ in range(warmup):
             fn()
     torch.cuda.current_stream().wait_stream(side)
     torch.cuda.synchronize()

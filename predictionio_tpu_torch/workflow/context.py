@@ -1,6 +1,8 @@
 """WorkflowContext — what DASE components receive (port of
 ``predictionio_tpu/workflow/context.py``): the run's mode, app addressing,
-the store, and a ``torch.device`` in place of the JAX mesh."""
+the storage locator, and a ``torch.device`` in place of the JAX mesh.
+Templates read events through :meth:`p_event_store` and
+:meth:`l_event_store`, exactly where the JAX templates do."""
 
 from __future__ import annotations
 
@@ -9,7 +11,8 @@ from typing import Any
 
 import torch
 
-from predictionio_tpu_torch.data.store import LocalStore
+from predictionio_tpu_torch.data.storage.registry import Storage
+from predictionio_tpu_torch.data.store.event_store import LEventStore, PEventStore
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -17,11 +20,22 @@ from predictionio_tpu_torch.utils.device import resolve_device
 class WorkflowContext:
     mode: str = "training"  # training | serving
     app_name: str | None = None
+    channel_name: str | None = None
     device: str | torch.device = "cuda"
-    store: LocalStore | None = None
+    _storage: Storage | None = None
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.store is None:
-            self.store = LocalStore()
+
+    @property
+    def storage(self) -> Storage:
+        if self._storage is None:
+            self._storage = Storage.instance()
+        return self._storage
+
+    def p_event_store(self) -> PEventStore:
+        return PEventStore(self.storage)
+
+    def l_event_store(self) -> LEventStore:
+        return LEventStore(self.storage)

@@ -25,8 +25,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
-from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
+from predictionio_tpu_torch.workflow.core_workflow import load_models_for_instance
 from predictionio_tpu_torch.workflow.engine_loader import load_engine
 
 logger = logging.getLogger(__name__)
@@ -216,6 +216,9 @@ class QueryServer:
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
+            # headers and body go out in two writes: with Nagle's algorithm on,
+            # the body would wait for the client's delayed ACK (~40 ms)
+            disable_nagle_algorithm = True
 
             def log_message(self, fmt, *args):  # quiet: one line per request is noise
                 logger.debug("%s " + fmt, self.address_string(), *args)
@@ -287,16 +290,18 @@ def create_query_server(
     config: ServerConfig | None = None,
     variant_path: str | None = None,
 ) -> QueryServer:
-    """Load the engine, its latest completed instance and that instance's
-    model blob, lay the models out on ``ctx.device`` and build the server."""
+    """Load the engine, its latest COMPLETED instance in the metadata
+    repository and that instance's model blob, lay the models out on
+    ``ctx.device`` and build the server (ref commands/Engine.deploy)."""
     manifest, engine = load_engine(engine_dir, variant_path)
-    store = ctx.store
-    record = store.latest_completed(manifest.engine_id)
-    if record is None:
+    instance = ctx.storage.get_meta_data_engine_instances().get_latest_completed(
+        manifest.engine_id, manifest.version, manifest.variant
+    )
+    if instance is None:
         raise RuntimeError(
-            f"no completed training of engine {manifest.engine_id!r}; run train first"
+            f"no COMPLETED engine instance for {manifest.engine_id} "
+            f"{manifest.version} {manifest.variant}; run train first"
         )
-    engine_params = engine.engine_params_from_variant(record["variant"])
-    persisted = model_io.deserialize_models(store.get_model(record["id"]))
-    models = engine.prepare_deploy(ctx, engine_params, persisted)
-    return QueryServer(engine, engine_params, models, ctx, config, record["id"])
+    engine_params = engine.engine_params_from_variant(manifest.variant_json)
+    models = load_models_for_instance(engine, engine_params, instance.id, ctx)
+    return QueryServer(engine, engine_params, models, ctx, config, instance.id)

@@ -1,14 +1,15 @@
 """The port's property aggregation and by-entity reads against the JAX
 package's, on the CPU.
 
-One seeded JSON-lines file of events goes into the JAX package's memory
-store (``import_events``) and the port's ``LocalStore``:
-``aggregate_properties`` must give the same entities in the same order
-with the same properties and update times, with and without ``required``
-and time windows; ``find_by_entity`` the same events in the same order,
-under every filter and limit. Also: the port's entity index sees an event
-appended after its first read, and the DataMap copy keeps the reference's
-getters.
+One seeded JSON-lines file of events goes through ``import_events`` into
+the JAX package's storage and the port's, on the same backend (memory,
+sqlite, jsonl): ``PEventStore.aggregate_properties`` must give the same
+entities in the same order with the same properties and update times, with
+and without ``required`` and time windows; ``LEventStore.find_by_entity``
+the same events in the same order, under every filter and limit. Also: a
+read sees an event another writer appended after the reader's first read
+(on jsonl, not before its line is whole), and the DataMap copy keeps the
+reference's getters.
 """
 
 import datetime as dt
@@ -20,11 +21,18 @@ import pytest
 pytest.importorskip("torch")
 
 from predictionio_tpu.data.storage.base import App  # noqa: E402
+from predictionio_tpu.data.storage.registry import Storage as JaxStorage  # noqa: E402
 from predictionio_tpu.data.store.event_store import LEventStore, PEventStore  # noqa: E402
 from predictionio_tpu.tools.import_export import import_events  # noqa: E402
 from predictionio_tpu_torch.data.datamap import DataMap, DataMapError  # noqa: E402
 from predictionio_tpu_torch.data.event import Event  # noqa: E402
-from predictionio_tpu_torch.data.store import LocalStore  # noqa: E402
+from predictionio_tpu_torch.data.storage.base import App as PortApp  # noqa: E402
+from predictionio_tpu_torch.data.store.event_store import (  # noqa: E402
+    LEventStore as PortLEventStore,
+    PEventStore as PortPEventStore,
+)
+from predictionio_tpu_torch.tools.import_export import import_events as port_import  # noqa: E402
+from torch_template_helpers import port_storage, port_storage_env  # noqa: E402
 
 APP = "aggapp"
 UTC = dt.timezone.utc
@@ -70,16 +78,19 @@ def _events(seed=0, n=400):
     return out
 
 
-@pytest.fixture
-def stores(memory_storage, tmp_path):
+@pytest.fixture(params=["memory", "sqlite", "jsonl"])
+def stores(request, tmp_path):
+    """The JAX package's and the port's storage on one backend type, each
+    holding the same file; their files live in separate directories."""
     path = tmp_path / "events.jsonl"
     path.write_text("".join(json.dumps(e) + "\n" for e in _events()))
-    memory_storage.get_meta_data_apps().insert(App(0, APP))
-    import_events(str(path), APP, storage=memory_storage)
-    store = LocalStore(tmp_path / "home")
-    store.create_app(APP)
-    store.import_file(APP, str(path))
-    return memory_storage, store
+    jax_storage = JaxStorage(env=port_storage_env(tmp_path / "jax", request.param))
+    jax_storage.get_meta_data_apps().insert(App(0, APP))
+    import_events(str(path), APP, storage=jax_storage)
+    storage = port_storage(tmp_path / "port", request.param)
+    storage.get_meta_data_apps().insert(PortApp(0, APP))
+    port_import(str(path), APP, storage=storage)
+    return jax_storage, storage
 
 
 def _same_property_maps(got, want):
@@ -97,11 +108,11 @@ def _same_property_maps(got, want):
      ("constraint", None, None), ("nobody", None, None)],
 )
 def test_aggregate_properties_matches_jax(stores, entity_type, required, window):
-    storage, store = stores
+    jax_storage, storage = stores
     start, until = ((T0 + dt.timedelta(seconds=s) for s in window) if window else (None, None))
-    want = PEventStore(storage).aggregate_properties(
+    want = PEventStore(jax_storage).aggregate_properties(
         APP, entity_type=entity_type, start_time=start, until_time=until, required=required)
-    got = store.aggregate_properties(
+    got = PortPEventStore(storage).aggregate_properties(
         APP, entity_type=entity_type, start_time=start, until_time=until, required=required)
     _same_property_maps(got, want)
     if entity_type in ("user", "item") and window is None:
@@ -122,37 +133,42 @@ def test_aggregate_properties_matches_jax(stores, entity_type, required, window)
 @pytest.mark.parametrize("entity", [("user", "u3"), ("item", "i4"), ("user", "u11"),
                                     ("constraint", "unavailableItems"), ("user", "nobody")])
 def test_find_by_entity_matches_jax(stores, entity, kw):
-    storage, store = stores
+    jax_storage, storage = stores
     kw = dict(kw)
     for key in ("start_time", "until_time"):
         if key in kw:
             kw[key] = T0 + dt.timedelta(seconds=kw[key])
-    want = list(LEventStore(storage).find_by_entity(APP, entity[0], entity[1], **kw))
-    got = store.find_by_entity(APP, entity[0], entity[1], **kw)
+    want = list(LEventStore(jax_storage).find_by_entity(APP, entity[0], entity[1], **kw))
+    got = list(PortLEventStore(storage).find_by_entity(APP, entity[0], entity[1], **kw))
     assert [e.to_json_dict() for e in got] == [e.to_json_dict() for e in want]
 
 
-def test_find_by_entity_sees_events_appended_after_its_first_read(tmp_path):
-    store = LocalStore(tmp_path)
-    store.create_app(APP)
+@pytest.mark.parametrize("backend", ["sqlite", "jsonl"])
+def test_find_by_entity_sees_events_appended_after_its_first_read(tmp_path, backend):
+    reader = port_storage(tmp_path, backend)
+    app_id = reader.get_meta_data_apps().insert(PortApp(0, APP))
+    store = PortLEventStore(reader)
     first = Event("$set", "constraint", "unavailableItems", properties={"items": ["i1"]},
                   event_time=T0)
-    store.append(APP, [first])
-    assert store.find_by_entity(APP, "constraint", "unavailableItems", limit=1)[0].properties == {
-        "items": ["i1"]}
-    # another writer (a second store on the same root) appends; a half line
-    # still being written is not read until it is whole
-    other = LocalStore(tmp_path)
-    other.append(APP, [Event("$set", "constraint", "unavailableItems",
-                             properties={"items": ["i2"]}, event_time=T0 + dt.timedelta(1))])
-    path = other._events_path(APP)
-    with open(path, "a") as fh:
-        fh.write('{"event": "view", "entityType": "user"')
-    got = store.find_by_entity(APP, "constraint", "unavailableItems", limit=1)
+    reader.get_l_events().insert(first, app_id)
+    got = list(store.find_by_entity(APP, "constraint", "unavailableItems", limit=1))
+    assert got[0].properties == {"items": ["i1"]}
+    # another writer (a second storage on the same files, as another process
+    # would open them) appends after the reader's first read
+    other = port_storage(tmp_path, backend)
+    other.get_l_events().insert(Event("$set", "constraint", "unavailableItems",
+                                      properties={"items": ["i2"]},
+                                      event_time=T0 + dt.timedelta(1)), app_id)
+    if backend == "jsonl":  # a half line still being written is not read until it is whole
+        path = tmp_path / "port_home" / "events" / f"events_{app_id}.jsonl"
+        with open(path, "a") as fh:
+            fh.write('{"event": "view", "entityType": "user"')
+    got = list(store.find_by_entity(APP, "constraint", "unavailableItems", limit=1))
     assert got[0].properties == {"items": ["i2"]}
-    with open(path, "a") as fh:
-        fh.write(', "entityId": "u1", "eventId": "x", "eventTime": "2024-05-02T00:00:00.000Z"}\n')
-    assert [e.event_id for e in store.find_by_entity(APP, "user", "u1")] == ["x"]
+    if backend == "jsonl":
+        with open(path, "a") as fh:
+            fh.write(', "entityId": "u1", "eventId": "x", "eventTime": "2024-05-02T00:00:00.000Z"}\n')
+        assert [e.event_id for e in store.find_by_entity(APP, "user", "u1")] == ["x"]
 
 
 def test_datamap_getters_follow_the_reference():

@@ -29,7 +29,9 @@ from torch_template_helpers import (  # noqa: E402
     event_time,
     jax_store,
     no_jax_subprocess,
+    PORT_BACKENDS,
     port_store,
+    port_storage_env,
     post,
     variant,
     write_events,
@@ -72,11 +74,12 @@ def events(tmp_path):
     return write_events(tmp_path / "ev.jsonl", _events())
 
 
-def test_datasource_read_matches_jax(memory_storage, tmp_path, events):
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_datasource_read_matches_jax(memory_storage, tmp_path, events, backend):
     jtd = jax_cl.DataSource(jax_cl.DataSourceParams(app_name=APP)).read_training(
         jax_store(memory_storage, APP, events))
     ptd = pt_cl.DataSource(pt_cl.DataSourceParams(app_name=APP)).read_training(
-        port_store(tmp_path, APP, events))
+        port_store(tmp_path, APP, events, backend=backend))
     np.testing.assert_array_equal(ptd.labels, jtd.labels)
     np.testing.assert_array_equal(ptd.features, jtd.features)
     assert ptd.features.shape[1] == 3 and 90 < len(ptd.labels) < 120
@@ -195,10 +198,10 @@ def test_cli_from_the_jax_add_algorithm_variant(tmp_path, events):
 def test_trains_and_serves_in_a_process_without_jax(tmp_path, events):
     port_store(tmp_path, APP, events)
     out = no_jax_subprocess(f"""
-from predictionio_tpu_torch.data.store import LocalStore
+from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.models.classification import engine as cl
-ctx = WorkflowContext(device="cpu", store=LocalStore({str(tmp_path / "port_home")!r}), app_name={APP!r})
+ctx = WorkflowContext(device="cpu", _storage=Storage(env={port_storage_env(tmp_path)!r}), app_name={APP!r})
 engine = cl.engine_factory()
 ep = engine.engine_params_from_variant({{"datasource": {{"params": {{"appName": {APP!r}}}}},
     "algorithms": [{{"name": "naive", "params": {{"lambda": 1.0}}}},

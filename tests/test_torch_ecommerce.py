@@ -25,7 +25,7 @@ from predictionio_tpu.models.ecommerce import engine as jax_ec  # noqa: E402
 from predictionio_tpu.ops import topk as jax_topk  # noqa: E402
 from predictionio_tpu.workflow import model_io as jax_model_io  # noqa: E402
 from predictionio_tpu_torch.data.event import Event  # noqa: E402
-from predictionio_tpu_torch.data.store import LocalStore  # noqa: E402
+from predictionio_tpu_torch.data.store.event_store import LEventStore  # noqa: E402
 from predictionio_tpu_torch.models.ecommerce import engine as pt_ec  # noqa: E402
 from predictionio_tpu_torch.ops import topk as pt_topk  # noqa: E402
 from predictionio_tpu_torch.workflow import model_io  # noqa: E402
@@ -36,7 +36,10 @@ from torch_template_helpers import (  # noqa: E402
     event_time,
     jax_store,
     no_jax_subprocess,
+    PORT_BACKENDS,
     port_store,
+    port_storage,
+    port_storage_env,
     post,
     shared_init,
     variant,
@@ -103,11 +106,12 @@ def _queries(mod):
     ]
 
 
-def test_datasource_read_matches_jax(memory_storage, tmp_path, events):
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_datasource_read_matches_jax(memory_storage, tmp_path, events, backend):
     jtd = jax_ec.DataSource(jax_ec.DataSourceParams(app_name=APP)).read_training(
         jax_store(memory_storage, APP, events))
     ptd = pt_ec.DataSource(pt_ec.DataSourceParams(app_name=APP)).read_training(
-        port_store(tmp_path, APP, events))
+        port_store(tmp_path, APP, events, backend=backend))
     assert (ptd.user_vocab, ptd.item_vocab, ptd.item_categories) == (
         jtd.user_vocab, jtd.item_vocab, jtd.item_categories)
     for name in ("rate_user_idx", "rate_item_idx", "rate_values", "buy_user_idx", "buy_item_idx"):
@@ -231,9 +235,9 @@ def test_store_reads_per_query(memory_storage, tmp_path, events, monkeypatch, tt
     _, _, palgo, pm, ctx = _trained(memory_storage, tmp_path, events, monkeypatch,
                                     "adjust-score", cacheTtlS=ttl)
     calls = []
-    real = ctx.store.find_by_entity
-    monkeypatch.setattr(ctx.store, "find_by_entity",
-                        lambda *a, **kw: calls.append(a[1:3]) or real(*a, **kw))
+    real = LEventStore.find_by_entity
+    monkeypatch.setattr(LEventStore, "find_by_entity", lambda self, **kw: calls.append(
+        (kw["entity_type"], kw["entity_id"])) or real(self, **kw))
     queries = [pt_ec.Query(user="u1"), pt_ec.Query(user="cold_viewer")]
     palgo.predict_batch(pm, queries)  # warm
     calls.clear()
@@ -254,12 +258,14 @@ def test_an_event_appended_after_deploy_changes_the_next_answer(memory_storage, 
     unavailableItems constraint take effect on the very next query."""
     _, _, palgo, pm, ctx = _trained(memory_storage, tmp_path, events, monkeypatch)
     first = [s.item for s in palgo.predict(pm, pt_ec.Query(user="u7", num=3)).item_scores]
-    writer = LocalStore(ctx.store.root)  # another process's store on the same files
-    writer.append(APP, [Event("view", "user", "u7", "item", first[0])])
+    # another process's storage on the same sqlite file: its own connection
+    writer = port_storage(tmp_path).get_l_events()
+    app_id = ctx.storage.get_meta_data_apps().get_by_name(APP).id
+    writer.insert(Event("view", "user", "u7", "item", first[0]), app_id)
     second = [s.item for s in palgo.predict(pm, pt_ec.Query(user="u7", num=3)).item_scores]
     assert first[0] not in second and second[:2] == first[1:]
-    writer.append(APP, [Event("$set", "constraint", "unavailableItems",
-                              properties={"items": [second[0]]})])
+    writer.insert(Event("$set", "constraint", "unavailableItems",
+                        properties={"items": [second[0]]}), app_id)
     third = [s.item for s in palgo.predict_batch(pm, [pt_ec.Query(user="u7", num=3)])[0].item_scores]
     assert second[0] not in third
 
@@ -310,10 +316,10 @@ def test_cli_serves_and_sees_a_later_import(tmp_path, events):
 def test_trains_and_serves_in_a_process_without_jax(tmp_path, events):
     port_store(tmp_path, APP, events)
     out = no_jax_subprocess(f"""
-from predictionio_tpu_torch.data.store import LocalStore
+from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.models.ecommerce import engine as ec
-ctx = WorkflowContext(device="cpu", store=LocalStore({str(tmp_path / "port_home")!r}), app_name={APP!r})
+ctx = WorkflowContext(device="cpu", _storage=Storage(env={port_storage_env(tmp_path)!r}), app_name={APP!r})
 engine = ec.engine_factory()
 ep = engine.engine_params_from_variant({{"datasource": {{"params": {{"appName": {APP!r}}}}},
     "algorithms": [{{"name": "ecomm", "params": {{"appName": {APP!r}, "unseenOnly": True,

@@ -488,7 +488,7 @@ def test_implicit_als_trains_through_b1_at_rank_10(cuda, monkeypatch):
     td = sp.TrainingData([f"u{i}" for i in range(n_users)], [f"i{i}" for i in range(n_items)],
                          [None] * n_items, users, items, users[:0], items[:0])
     algo = sp.ALSAlgorithm(sp.ALSAlgorithmParams(rank=10, num_iterations=6))
-    ctx = WorkflowContext(device=cuda, store=None)
+    ctx = WorkflowContext(device=cuda)
     before = batched_spd_solve_fused.launches
     model = algo.train(ctx, td)
     assert batched_spd_solve_fused.launches == before + 12

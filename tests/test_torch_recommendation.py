@@ -38,11 +38,13 @@ from predictionio_tpu.workflow.context import WorkflowContext as JaxContext  # n
 from predictionio_tpu_torch import convert  # noqa: E402
 from predictionio_tpu_torch.controller.params import params_from_dict  # noqa: E402
 from predictionio_tpu_torch.data.event import Event  # noqa: E402
-from predictionio_tpu_torch.data.store import LocalStore  # noqa: E402
+from predictionio_tpu_torch.data.storage.base import App as PortApp  # noqa: E402
 from predictionio_tpu_torch.models.recommendation import engine as pt_rec  # noqa: E402
 from predictionio_tpu_torch.ops import als as pt_als  # noqa: E402
 from predictionio_tpu_torch.workflow import model_io  # noqa: E402
+from predictionio_tpu_torch.tools.import_export import import_events as port_import  # noqa: E402
 from predictionio_tpu_torch.workflow.context import WorkflowContext  # noqa: E402
+from torch_template_helpers import port_storage, port_store  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 PORT_PKG = REPO / "predictionio_tpu_torch"
@@ -85,11 +87,8 @@ def _jax_training_data(memory_storage, events):
     return ds.read_training(JaxContext(_storage=memory_storage))
 
 
-def _port_training_data(tmp_path, events):
-    store = LocalStore(tmp_path / "home")
-    store.create_app(APP)
-    store.import_file(APP, str(events))
-    ctx = WorkflowContext(device="cpu", store=store, app_name=APP)
+def _port_training_data(tmp_path, events, backend="sqlite"):
+    ctx = port_store(tmp_path, APP, events, backend=backend)
     return ctx, pt_rec.DataSource(pt_rec.DataSourceParams(app_name=APP)).read_training(ctx)
 
 
@@ -115,10 +114,11 @@ def _assert_same_results(pt_results, jax_results, score_of, rtol):
                 np.testing.assert_allclose(score_of(q, b.item), b.score, rtol=rtol, atol=1e-6)
 
 
-def test_columnar_read_matches_jax(memory_storage, tmp_path):
+@pytest.mark.parametrize("backend", ["memory", "sqlite"])
+def test_columnar_read_matches_jax(memory_storage, tmp_path, backend):
     events = _write_events(tmp_path / "ev.jsonl")
     jtd = _jax_training_data(memory_storage, events)
-    _, ptd = _port_training_data(tmp_path, events)
+    _, ptd = _port_training_data(tmp_path, events, backend)
     assert ptd.user_vocab == jtd.user_vocab
     assert ptd.item_vocab == jtd.item_vocab
     np.testing.assert_array_equal(ptd.user_idx, jtd.user_idx)
@@ -365,15 +365,14 @@ def test_event_codec_accepts_and_rejects_like_jax(wire):
 
 
 def test_import_reports_the_bad_line(tmp_path):
-    store = LocalStore(tmp_path)
-    store.create_app("a")
+    storage = port_storage(tmp_path)
+    app_id = storage.get_meta_data_apps().insert(PortApp(0, "a"))
     bad = tmp_path / "bad.jsonl"
     bad.write_text('{"event": "rate", "entityType": "user", "entityId": "u"}\n{"event": 3}\n')
     with pytest.raises(ValueError, match="bad.jsonl:2"):
-        store.import_file("a", str(bad))
-    assert list(store.scan("a")) == []  # nothing written from a bad file
-    with pytest.raises(Exception, match="already exists"):
-        store.create_app("a")
+        port_import(str(bad), "a", storage=storage)
+    assert list(storage.get_p_events().find(app_id)) == []  # nothing written from a bad file
+    assert storage.get_meta_data_apps().insert(PortApp(0, "a")) is None  # the name is taken
 
 
 def test_engine_json_params_map_camel_case():
@@ -472,7 +471,7 @@ def test_query_server_batches_concurrent_queries(tmp_path):
         rng.normal(size=(50, 4)), rng.normal(size=(20, 4)),
         [f"u{i}" for i in range(50)], [f"i{i}" for i in range(20)],
     )
-    ctx = WorkflowContext(device="cpu", store=LocalStore(tmp_path))
+    ctx = WorkflowContext(device="cpu", _storage=port_storage(tmp_path))
     engine = pt_rec.engine_factory()
     ep = engine.engine_params_from_variant({"algorithms": [{"name": "als", "params": {}}]})
     models = engine.prepare_deploy(ctx, ep, [model])

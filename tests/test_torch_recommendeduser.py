@@ -26,7 +26,9 @@ from torch_template_helpers import (  # noqa: E402
     event_time,
     jax_store,
     no_jax_subprocess,
+    PORT_BACKENDS,
     port_store,
+    port_storage_env,
     post,
     shared_init,
     variant,
@@ -72,11 +74,12 @@ def _queries(mod):
     ]
 
 
-def test_datasource_read_matches_jax(memory_storage, tmp_path, events):
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
+def test_datasource_read_matches_jax(memory_storage, tmp_path, events, backend):
     jtd = jax_ru.DataSource(jax_ru.DataSourceParams(app_name=APP)).read_training(
         jax_store(memory_storage, APP, events))
     ptd = pt_ru.DataSource(pt_ru.DataSourceParams(app_name=APP)).read_training(
-        port_store(tmp_path, APP, events))
+        port_store(tmp_path, APP, events, backend=backend))
     assert ptd.user_vocab == jtd.user_vocab and ptd.followed_vocab == jtd.followed_vocab
     np.testing.assert_array_equal(ptd.follower_idx, jtd.follower_idx)
     np.testing.assert_array_equal(ptd.followed_idx, jtd.followed_idx)
@@ -148,10 +151,10 @@ def test_cli_from_the_jax_engine_json(tmp_path, events):
 def test_trains_and_serves_in_a_process_without_jax(tmp_path, events):
     port_store(tmp_path, APP, events)
     out = no_jax_subprocess(f"""
-from predictionio_tpu_torch.data.store import LocalStore
+from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.models.recommendeduser import engine as ru
-ctx = WorkflowContext(device="cpu", store=LocalStore({str(tmp_path / "port_home")!r}), app_name={APP!r})
+ctx = WorkflowContext(device="cpu", _storage=Storage(env={port_storage_env(tmp_path)!r}), app_name={APP!r})
 engine = ru.engine_factory()
 ep = engine.engine_params_from_variant({{"datasource": {{"params": {{"appName": {APP!r}}}}},
     "algorithms": [{{"name": "als", "params": {{"rank": 3, "numIterations": 2}}}}]}})
@@ -178,7 +181,7 @@ def test_quality_gate_is_the_jax_packages_value():
     users = np.random.default_rng(41).choice(n_users, 512, replace=False)
     vocab = [f"u{i}" for i in range(n_users)]
     shares = {}
-    for mod, ctx in ((jax_ru, JaxContext()), (pt_ru, WorkflowContext(device="cpu", store=None))):
+    for mod, ctx in ((jax_ru, JaxContext()), (pt_ru, WorkflowContext(device="cpu"))):
         algo = mod.ALSAlgorithm(mod.ALSAlgorithmParams(**cs.GALLERY_ALS))
         model = algo.train(ctx, mod.TrainingData(vocab, vocab, follower, followed))
         shares[mod] = cs.similar_users_share(algo, model, mod.Query, users, n_comm)

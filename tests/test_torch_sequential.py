@@ -42,12 +42,13 @@ from predictionio_tpu.ops import topk as jax_topk  # noqa: E402
 from predictionio_tpu.workflow import model_io as jax_model_io  # noqa: E402
 from predictionio_tpu.workflow.context import WorkflowContext as JaxContext  # noqa: E402
 from predictionio_tpu_torch import convert  # noqa: E402
-from predictionio_tpu_torch.data.event import Event, event_seq_key  # noqa: E402
-from predictionio_tpu_torch.data.store import LocalStore  # noqa: E402
+from predictionio_tpu_torch.data.event import Event  # noqa: E402
+from predictionio_tpu_torch.data.storage.base import App as PortApp, event_seq_key  # noqa: E402
 from predictionio_tpu_torch.e2 import markov_chain as pt_mc  # noqa: E402
 from predictionio_tpu_torch.models.sequential import engine as pt_seq  # noqa: E402
 from predictionio_tpu_torch.ops import topk as pt_topk  # noqa: E402
 from predictionio_tpu_torch.workflow import model_io  # noqa: E402
+from torch_template_helpers import port_storage  # noqa: E402
 from predictionio_tpu_torch.workflow.context import WorkflowContext  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -125,17 +126,21 @@ def _jax_read(memory_storage, wire, page=3):
     return ds.read_training(JaxContext(_storage=memory_storage))
 
 
-def _port_store(tmp_path, wire):
-    store = LocalStore(tmp_path / "home")
-    store.create_app(APP)
+def _port_store(tmp_path, wire, backend="sqlite"):
+    """The port's storage holding ``wire`` through ``import_events``, which
+    keeps each row's creationTime."""
+    from predictionio_tpu_torch.tools.import_export import import_events as port_import
+
+    storage = port_storage(tmp_path, backend)
+    storage.get_meta_data_apps().insert(PortApp(0, APP))
     path = tmp_path / "events.jsonl"
     path.write_text("".join(json.dumps(d) + "\n" for d in wire))
-    store.import_file(APP, str(path))
-    return store
+    port_import(str(path), APP, storage=storage)
+    return storage
 
 
 def _port_read(store, page=3):
-    ctx = WorkflowContext(device="cpu", store=store)
+    ctx = WorkflowContext(device="cpu", _storage=store)
     return pt_seq.DataSource(pt_seq.DataSourceParams(app_name=APP, page=page)).read_training(ctx)
 
 
@@ -144,11 +149,13 @@ def _port_read(store, page=3):
 # ---------------------------------------------------------------------------
 
 
+@pytest.mark.parametrize("backend", ["memory", "sqlite", "jsonl"])
 @pytest.mark.parametrize("page", [1, 3, 2048])
-def test_read_training_matches_jax_including_creation_time_ties(memory_storage, tmp_path, page):
+def test_read_training_matches_jax_including_creation_time_ties(memory_storage, tmp_path, page,
+                                                                 backend):
     wire = _wire_events(seed=1)
     jtd = _jax_read(memory_storage, wire, page)
-    ptd = _port_read(_port_store(tmp_path, wire), page)
+    ptd = _port_read(_port_store(tmp_path, wire, backend), page)
     assert ptd.users == jtd.users
     assert ptd.item_vocab == jtd.item_vocab
     for a, b in zip(ptd.sequences, jtd.sequences):
@@ -158,20 +165,26 @@ def test_read_training_matches_jax_including_creation_time_ties(memory_storage, 
 
 def test_iter_ordered_orders_by_seq_key_and_takes_the_head_at_entry(tmp_path):
     wire = _wire_events(seed=2)
-    store = _port_store(tmp_path, wire)
-    events = store.iter_ordered(APP, page=2)
+    storage = _port_store(tmp_path, wire)
+    levents = storage.get_l_events()
+    app_id = storage.get_meta_data_apps().get_by_name(APP).id
+
+    def read(page=2048, max_events=500_000):
+        return pt_seq._iter_ordered(levents, app_id, None, page, max_events)
+
+    events = read(page=2)
     first = next(events)
-    store.append(APP, [Event.from_json_dict({  # lands after the read began
+    levents.insert(Event.from_json_dict({  # lands after the read began
         "event": "view", "entityType": "user", "entityId": "late",
-        "targetEntityType": "item", "targetEntityId": "i0", "eventId": "late"})])
+        "targetEntityType": "item", "targetEntityId": "i0", "eventId": "late"}), app_id)
     rest = [first, *events]
     assert len(rest) == len(wire)
     keys = [event_seq_key(e) for e in rest]
     assert keys == sorted(keys) and len(set(keys)) == len(keys)
-    assert [e.event_id for e in store.iter_ordered(APP, max_events=5)] == [e.event_id for e in rest[:5]]
-    assert any(e.entity_id == "late" for e in store.iter_ordered(APP))
+    assert [e.event_id for e in read(max_events=5)] == [e.event_id for e in rest[:5]]
+    assert any(e.entity_id == "late" for e in read())
     with pytest.raises(ValueError):
-        store.iter_ordered(APP, page=0)
+        next(read(page=0))
 
 
 def test_event_seq_key_matches_jax():
@@ -389,7 +402,7 @@ def test_jax_engine_json_with_eval_params_trains_the_same(tmp_path):
     with_key, without = (engine.engine_params_from_variant(v) for v in (variant, base))
     assert with_key.data_source[1].eval_params == pt_seq.EvalParams(
         k_fold=2, query_num=5, holdout_tail=1)
-    ctx = WorkflowContext(device="cpu", store=store)
+    ctx = WorkflowContext(device="cpu", _storage=store)
     (m1,), (m2,) = (engine.train(ctx, ep) for ep in (with_key, without))
     assert m1.pair_counts == m2.pair_counts and m1.user_last == m2.user_last
     assert m1.item_vocab == m2.item_vocab
@@ -398,7 +411,7 @@ def test_jax_engine_json_with_eval_params_trains_the_same(tmp_path):
 def test_read_eval_waits_for_the_eval_slice(tmp_path):
     ds = pt_seq.DataSource(pt_seq.DataSourceParams(app_name=APP))
     with pytest.raises(NotImplementedError, match="eval"):
-        ds.read_eval(WorkflowContext(device="cpu", store=LocalStore(tmp_path)))
+        ds.read_eval(WorkflowContext(device="cpu", _storage=port_storage(tmp_path)))
 
 
 # ---------------------------------------------------------------------------
@@ -470,7 +483,7 @@ def test_query_server_batches_sequential_queries(tmp_path, jax_attention):
     seqs, _, jm = jax_attention
     model = convert.sequential_model_from_numpy(
         jm.item_vocab, jm.item_in, jm.item_out, jm.pair_counts, jm.user_last)
-    ctx = WorkflowContext(device="cpu", store=LocalStore(tmp_path))
+    ctx = WorkflowContext(device="cpu", _storage=port_storage(tmp_path))
     engine = pt_seq.engine_factory()
     ep = engine.engine_params_from_variant(
         {"datasource": {"params": {"appName": APP}},

@@ -33,7 +33,9 @@ from torch_template_helpers import (  # noqa: E402
     event_time,
     jax_store,
     no_jax_subprocess,
+    PORT_BACKENDS,
     port_store,
+    port_storage_env,
     post,
     shared_init,
     variant,
@@ -99,14 +101,15 @@ def _queries(mod):
     ]
 
 
+@pytest.mark.parametrize("backend", PORT_BACKENDS)
 @pytest.mark.parametrize("rate_event", [None, "rate"])
-def test_datasource_read_matches_jax(memory_storage, tmp_path, events, rate_event):
+def test_datasource_read_matches_jax(memory_storage, tmp_path, events, rate_event, backend):
     params = {"app_name": APP, "item_property_names": ("title", "date", "imdbUrl"),
               "rate_event": rate_event}
     jtd = jax_sp.DataSource(jax_sp.DataSourceParams(**params)).read_training(
         jax_store(memory_storage, APP, events))
     ptd = pt_sp.DataSource(pt_sp.DataSourceParams(**params)).read_training(
-        port_store(tmp_path, APP, events))
+        port_store(tmp_path, APP, events, backend=backend))
     assert ptd.user_vocab == jtd.user_vocab and ptd.item_vocab == jtd.item_vocab
     assert "i_props_only" in ptd.item_vocab
     assert ptd.item_categories == jtd.item_categories
@@ -294,10 +297,10 @@ def test_cli_from_a_jax_engine_json(tmp_path, events):
 def test_trains_and_serves_in_a_process_without_jax(tmp_path, events):
     port_store(tmp_path, APP, events)
     out = no_jax_subprocess(f"""
-from predictionio_tpu_torch.data.store import LocalStore
+from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.models.similarproduct import engine as sp
-ctx = WorkflowContext(device="cpu", store=LocalStore({str(tmp_path / "port_home")!r}), app_name={APP!r})
+ctx = WorkflowContext(device="cpu", _storage=Storage(env={port_storage_env(tmp_path)!r}), app_name={APP!r})
 engine = sp.engine_factory()
 ep = engine.engine_params_from_variant({{"datasource": {{"params": {{"appName": {APP!r}}}}},
     "algorithms": [{{"name": "als", "params": {{"rank": 3, "numIterations": 2}}}},
@@ -323,7 +326,7 @@ def test_quality_gate_is_the_jax_packages_value():
     tu, ti, _, _ = cs.clustered_recall_data()
     clusters = cs.clustered_item_groups()
     shares = {}
-    for mod, ctx in ((jax_sp, JaxContext()), (pt_sp, WorkflowContext(device="cpu", store=None))):
+    for mod, ctx in ((jax_sp, JaxContext()), (pt_sp, WorkflowContext(device="cpu"))):
         td = mod.TrainingData([f"u{i}" for i in range(2000)], [f"i{i}" for i in range(1000)],
                               [None] * 1000, tu, ti, tu[:0], ti[:0])
         algo = mod.ALSAlgorithm(mod.ALSAlgorithmParams(**cs.GALLERY_ALS))

@@ -204,3 +204,82 @@ def test_auto_on_cpu_computes_the_jax_auto_at_any_rank(n, f):
     x_pt = pt_spd.batched_spd_solve_auto(torch.from_numpy(A), torch.from_numpy(b)).numpy()
     row_rel = np.linalg.norm(x_pt - x_jax, axis=1) / np.linalg.norm(x_jax, axis=1)
     assert float(row_rel.max()) <= 1e-4
+
+
+def _als_item_like_systems(n_rare=200, n_dense=50, f=10, seed=0):
+    """ALS item-side systems at ``lambda`` 0.01: ``n_rare`` items with 3 to
+    13 ratings from near-parallel user factors, on which f + 4 f32 CG steps
+    do not converge, and ``n_dense`` well-conditioned systems after them."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n_rare + n_dense, f, f), np.float32)
+    b = np.zeros((n_rare + n_dense, f), np.float32)
+    for i in range(n_rare):
+        k = int(rng.integers(3, 14))
+        V = rng.normal(size=f) * 1.2 + 0.3 * rng.normal(size=(k, f))
+        A[i] = V.T @ V + 0.01 * k * np.eye(f)
+        b[i] = V.T @ (np.round(rng.uniform(1, 5, k) * 2) / 2)
+    A[n_rare:], b[n_rare:] = _spd_batch(n_dense, f, seed=seed + 1)
+    return torch.from_numpy(A), torch.from_numpy(b)
+
+
+def _cg_summed(A, b, iters):
+    """The plain CG with its products summed elementwise, not by bmm: the
+    same algorithm in another rounding order."""
+    dinv = 1.0 / torch.diagonal(A, dim1=-2, dim2=-1)
+
+    def mv(v):
+        return (A * v[:, None, :]).sum(-1)
+
+    x = b * dinv
+    r = b - mv(x)
+    p = r * dinv
+    rz = torch.sum(r * p, -1)
+    for _ in range(iters):
+        Ap = mv(p)
+        alpha = rz / torch.clamp(torch.sum(p * Ap, -1), min=1e-30)
+        x, r = x + alpha[:, None] * p, r - alpha[:, None] * Ap
+        rz2 = torch.sum(r * r * dinv, -1)
+        p = r * dinv + (rz2 / torch.clamp(rz, min=1e-30))[:, None] * p
+        rz = rz2
+    return x
+
+
+def _scale_row(row, by):
+    def spoil(x):
+        x[row] *= by
+    return spoil
+
+
+@pytest.mark.parametrize("answer,spoil,holds", [
+    ("plain", None, True),
+    ("summed", None, True),
+    ("float64", None, True),
+    ("summed", _scale_row(0, 0.0), False),
+    ("summed", _scale_row(7, 1.3), False),
+    ("summed", lambda x: x[198:200].copy_(x[198:200].flip(0).clone()), False),
+    ("summed", lambda x: x.mul_(1.02), False),
+    ("plain", _scale_row(220, 1.001), False),
+], ids=["plain", "rounding-order", "float64-solve", "zeroed-row", "row-30pc-off",
+        "two-rows-swapped", "all-rows-2pc-off", "determined-row-0.1pc-off"])
+def test_chip_smoke_holds_b1_row_by_row(monkeypatch, answer, spoil, holds):
+    """chip_smoke.py's ``b1_rows_held`` passes any correct CG answer,
+    whatever its rounding order, also where f32 CG at f + 4 steps leaves a
+    row undetermined, and fails one wrong row among 250."""
+    from torch_template_helpers import chip_smoke
+
+    cs = chip_smoke()
+    A, b = _als_item_like_systems()
+    iters = b.shape[1] + 4
+    x = {"plain": lambda: pt_spd._cg_body(A, b, iters),
+         "summed": lambda: _cg_summed(A, b, iters),
+         "float64": lambda: pt_spd._cg_body(A.double(), b.double(), iters).float()}[answer]()
+    if spoil is not None:
+        spoil(x)
+    monkeypatch.setattr(pt_spd, "batched_spd_solve_fused", lambda A_, b_: x)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda: None)
+    if holds:
+        record = cs.b1_rows_held(torch, A, b, 1e-4, "item-like systems")
+        assert record["max_row_rel_err"] > 1e-4 or answer == "plain"
+    else:
+        with pytest.raises(AssertionError, match="item-like systems"):
+            cs.b1_rows_held(torch, A, b, 1e-4, "item-like systems")

@@ -56,12 +56,12 @@ from predictionio_tpu.tools.import_export import import_events  # noqa: E402
 from predictionio_tpu.workflow import model_io as jax_model_io  # noqa: E402
 from predictionio_tpu.workflow.context import WorkflowContext as JaxContext  # noqa: E402
 from predictionio_tpu_torch import convert  # noqa: E402
-from predictionio_tpu_torch.data.store import LocalStore  # noqa: E402
 from predictionio_tpu_torch.models.twotower import engine as pt_eng  # noqa: E402
 from predictionio_tpu_torch.models.twotower import model as pt_tt  # noqa: E402
 from predictionio_tpu_torch.ops import attention as pt_attn  # noqa: E402
 from predictionio_tpu_torch.workflow import model_io  # noqa: E402
 from predictionio_tpu_torch.workflow.context import WorkflowContext  # noqa: E402
+from torch_template_helpers import port_store  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 APP = "ttapp"
@@ -325,17 +325,15 @@ def _ratings_file(path, n_users=40, n_items=25, n=800, seed=13):
     return path
 
 
-def test_read_training_matches_jax(memory_storage, tmp_path):
+@pytest.mark.parametrize("backend", ["memory", "sqlite"])
+def test_read_training_matches_jax(memory_storage, tmp_path, backend):
     events = _ratings_file(tmp_path / "ev.jsonl")
     memory_storage.get_meta_data_apps().insert(App(0, APP))
     import_events(str(events), APP, storage=memory_storage)
     jtd = jax_eng.DataSource(jax_eng.DataSourceParams(app_name=APP)).read_training(
         JaxContext(_storage=memory_storage))
-    store = LocalStore(tmp_path / "home")
-    store.create_app(APP)
-    store.import_file(APP, str(events))
     ptd = pt_eng.DataSource(pt_eng.DataSourceParams(app_name=APP)).read_training(
-        WorkflowContext(device="cpu", store=store))
+        port_store(tmp_path, APP, events, backend=backend))
     assert ptd.user_vocab == jtd.user_vocab and ptd.item_vocab == jtd.item_vocab
     np.testing.assert_array_equal(ptd.user_idx, jtd.user_idx)
     np.testing.assert_array_equal(ptd.item_idx, jtd.item_idx)

@@ -46,15 +46,52 @@ def jax_store(memory_storage, app: str, events_path: Path):
     return JaxContext(_storage=memory_storage, app_name=app)
 
 
-def port_store(tmp_path: Path, app: str, events_path: Path, mode: str = "training"):
-    """The port's LocalStore holding the file's events, and a CPU context on it."""
-    from predictionio_tpu_torch.data.store import LocalStore
+PORT_BACKENDS = ("memory", "sqlite")  # the port's backends a template test runs on
+
+
+def port_storage_env(tmp_path: Path, backend: str = "sqlite") -> dict[str, str]:
+    """The ``PIO_STORAGE_*`` environment of an isolated port storage: every
+    repository on the memory backend or on one sqlite file under
+    ``tmp_path``; ``jsonl`` puts the events in JSON-lines files and the
+    metadata and models in sqlite."""
+    home = tmp_path / "port_home"
+    home.mkdir(parents=True, exist_ok=True)
+    env = {"PIO_FS_BASEDIR": str(home)}
+    if backend == "memory":
+        env["PIO_STORAGE_SOURCES_S_TYPE"] = "memory"
+    elif backend in ("sqlite", "jsonl"):
+        env["PIO_STORAGE_SOURCES_S_TYPE"] = "sqlite"
+        env["PIO_STORAGE_SOURCES_S_PATH"] = str(home / "pio.db")
+    else:
+        raise ValueError(backend)
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "S"
+    if backend == "jsonl":
+        env["PIO_STORAGE_SOURCES_J_TYPE"] = "jsonl"
+        env["PIO_STORAGE_SOURCES_J_PATH"] = str(home / "events")
+        env["PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE"] = "J"
+    return env
+
+
+def port_storage(tmp_path: Path, backend: str = "sqlite"):
+    """An isolated ``Storage`` of the port (see :func:`port_storage_env`)."""
+    from predictionio_tpu_torch.data.storage.registry import Storage
+
+    return Storage(env=port_storage_env(tmp_path, backend))
+
+
+def port_store(tmp_path: Path, app: str, events_path: Path, mode: str = "training",
+               backend: str = "sqlite"):
+    """The port's storage (``backend``) holding the file's events, imported
+    through ``import_events``, and a CPU context on it."""
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.tools.import_export import import_events
     from predictionio_tpu_torch.workflow.context import WorkflowContext
 
-    store = LocalStore(tmp_path / "port_home")
-    store.create_app(app)
-    store.import_file(app, str(events_path))
-    return WorkflowContext(mode=mode, device="cpu", store=store, app_name=app)
+    storage = port_storage(tmp_path, backend)
+    storage.get_meta_data_apps().insert(App(0, app))
+    import_events(str(events_path), app, storage=storage)
+    return WorkflowContext(mode=mode, device="cpu", _storage=storage, app_name=app)
 
 
 def shared_init(monkeypatch) -> None:
