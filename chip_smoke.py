@@ -31,6 +31,18 @@ The recommendation template (ALS, kernel B1):
    1e-4, and no process of the path importing JAX, the JAX package or
    aiohttp; then the ML-20M model served in-process through
    ServingIndex.serve_batch and checked against a plain torch.topk;
+3a. batchpredict: that model through the offline pipeline (run_pipeline), a
+   138,000-line query file in mega-batches of 512 into a FileSink and a
+   MemorySink, every row line-aligned and equal to serve_batch for its
+   user, users/s and the five phases' p50;
+3b. the offline CLI on the event server's store: batchpredict
+   --from-events --to-events (a line and a write-back event per user),
+   undeploy of a deployed server (it exits 0 within 10 s), status, version,
+   template list; eval of the recommendation template, rank {10, 20} x
+   lambda {0.01, 0.1} x 3 folds = 12 cells by precision@10, in-process
+   (B1's launches: 12 x 2 x 10), with 2 workers (the same cells, scores
+   within 0.02) and resumed (0 cells retrained); B1 held and timed on an
+   eval cell's rank-20 systems;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -54,6 +66,10 @@ The sequential template (attention scorer, kernels B1, B2 and B3):
    torch's scaled_dot_product_attention as a yardstick: eager calls by CUDA
    events (``ms``, host cost included) and a replayed CUDA graph
    (``graph_ms``, device time per launch);
+7a. batchpredict: all 6,040 users through the offline pipeline at context
+   200 (B2) and 1024 (B3) in mega-batches of 512, one launch per
+   mega-batch, every answer equal to predict_batch_dispatch's in batches
+   of 64, each kernel timed at the mega-batch shape;
 8. CLI phase: app new, import of an ML-100K-shape view file, train and
    deploy of the attention algorithm, then POST /queries.json.
 
@@ -689,12 +705,12 @@ def cli_serve_phase(home: str, device: str = "cuda") -> dict:
 
 # Runs the port's CLI in this process and, at its exit, writes to the path
 # given as the first argument the kernel launches of the run (each count
-# zeroed before the verb runs) and every module of JAX, the JAX package or
-# aiohttp that the process imported.
+# zeroed before the verb runs; train, deploy, batchpredict and eval) and
+# every module of JAX, the JAX package or aiohttp that the process imported.
 _CLI_LAUNCHER = """
 import atexit, json, runpy, sys
 out = sys.argv.pop(1)
-counted = "train" in sys.argv or "deploy" in sys.argv
+counted = bool({"train", "deploy", "batchpredict", "eval"} & set(sys.argv))
 if counted:
     from predictionio_tpu_torch.ops import attention, spd_solve
     kernels = {"spd_cg": spd_solve.batched_spd_solve_fused,
@@ -906,7 +922,8 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
         "queries_all_200": True,
     }
     emit(phase="eventserver", shape=[n_users, n_items, n_batch + n_single], **result)
-    return {"launches": {"eventserver_train": train_launches}, "rows": kernel_rows}
+    return {"launches": {"eventserver_train": train_launches}, "rows": kernel_rows,
+            "variant": variant, "user_ids": sorted({f"u{u}" for u in users.tolist()} | {"tz-user"})}
 
 
 def inprocess_serve_phase(torch, model) -> None:
@@ -2470,6 +2487,364 @@ def gallery_cli_phase(home: str, device: str = "cuda") -> dict:
                 _stop(f.result()[0])
 
 
+# ---------------------------------------------------------------------------
+# The offline verbs: pio batchpredict and pio eval
+# ---------------------------------------------------------------------------
+
+
+def _same_topk(got_ids, got_scores, ref_ids, ref_scores, rtol: float, what: str) -> None:
+    """Row by row: the first k scores within ``rtol`` relative of the
+    reference's, and every served id one the reference scores the same,
+    within ``rtol`` (ids compared as sets within a run of tied scores; the
+    reference holds more than k columns, so a tie cut at k is seen)."""
+    k = got_ids.shape[1]
+    np.testing.assert_allclose(got_scores, ref_scores[:, :k], rtol=rtol, atol=0, err_msg=what)
+    match = got_ids[:, :, None] == ref_ids[:, None, :]
+    if not match.any(axis=2).all():
+        bad = int(np.flatnonzero(~match.any(axis=2).all(axis=1))[0])
+        raise AssertionError(f"{what}: row {bad} served {got_ids[bad]}, the reference "
+                             f"{ref_ids[bad]}")
+    np.testing.assert_allclose((match * ref_scores[:, None, :]).sum(axis=2), got_scores,
+                               rtol=rtol, atol=0, err_msg=what)
+
+
+def batchpredict_als_phase(torch, model) -> dict:
+    """The ML-20M model through the offline pipeline: a 138,000-line query
+    file (one query per user, num 10) in mega-batches of 512 into a
+    FileSink and a MemorySink; every row ok and line-aligned, and each
+    row's top-10 equal to ServingIndex.serve_batch for that row's user (a
+    torn read of the reused staging buffer would serve another user)."""
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.workflow.batch_predict import (
+        FileSink, MemorySink, iter_query_file, run_pipeline)
+
+    n_users, k = len(model.user_vocab), 10
+    work = tempfile.mkdtemp(prefix="pio_smoke_bp_")
+    try:
+        qpath, out = os.path.join(work, "queries.jsonl"), os.path.join(work, "out.jsonl")
+        with open(qpath, "w") as fh:
+            fh.writelines(json.dumps({"user": u, "num": k}) + "\n" for u in model.user_vocab)
+        sink = MemorySink()
+        algo = rec.ALSAlgorithm(rec.ALSAlgorithmParams(rank=model.user_factors.shape[1]))
+        report = run_pipeline(rec.engine_factory(), (None, None, [algo], rec.Serving()), [model],
+                              iter_query_file(qpath), [FileSink(out), sink], batch_size=512)
+        with open(out) as fh:
+            lines = fh.read().splitlines()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    if report.queries != n_users or report.ok != n_users or report.errors:
+        raise AssertionError(f"batchpredict: {report.queries} queries, {report.ok} ok")
+    if [r.lineno for r in sink.rows] != list(range(1, n_users + 1)) or len(lines) != n_users:
+        raise AssertionError("batchpredict rows are not line-aligned in source order")
+    if any(json.loads(line) != row.result for line, row in zip(lines[:1000], sink.rows)):
+        raise AssertionError("the file sink's lines differ from the served rows")
+    got_ids = np.asarray([[model.item_index(x["item"]) for x in r.result["itemScores"]]
+                          for r in sink.rows])
+    got_scores = np.asarray([[x["score"] for x in r.result["itemScores"]] for r in sink.rows])
+    if got_ids.shape != (n_users, k):
+        raise AssertionError(f"batchpredict rows of shape {got_ids.shape}")
+    index = model.serving_index()
+    for lo in range(0, n_users, 4096):
+        uidx = np.arange(lo, min(lo + 4096, n_users), dtype=np.int32)
+        ref_scores, ref_ids = index.serve_batch(uidx, 2 * k)
+        _same_topk(got_ids[uidx], got_scores[uidx], ref_ids, ref_scores, 1e-5,
+                   f"batchpredict users {lo}..")
+    result = {"host_numbers": True, "queries": report.queries, "batches": report.batches,
+              "batch_size": 512, "wall_s": report.wall_s, "users_per_s": report.users_per_s,
+              "tiling_ratio": report.tiling_ratio, "phase_p50_ms": report.phase_p50_ms,
+              "phase_total_s": report.phase_total_s, "rows_equal_serve_batch": n_users}
+    emit(phase="batchpredict_als", shape=[n_users, len(model.item_vocab)], **result)
+    return result
+
+
+def attention_row(torch, name: str, x, label: str) -> dict:
+    """One kernel at one shape, timed as the serving rows are: eager calls
+    (``ms``), a replayed CUDA graph (``graph_ms``), the plain version, SDPA
+    on bf16 as the yardstick; beside the bound."""
+    from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.utils.cuda_timing import event_ms, graph_ms
+
+    wrapper, plain = attention_kernels(A)[name]
+    err = float((wrapper(x, x, x, True) - plain(x, x, x, True)).abs().max())
+    if not err <= ATTENTION_ATOL:
+        raise AssertionError(f"{name} at {list(x.shape)}: max abs err {err}")
+    xb = x.to(torch.bfloat16)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    bound_ms, bound_by, bounds = attention_bound_ms(x, x, x, True)
+    row = {
+        "kernel": name, "shape": list(x.shape), "label": label, "max_abs_err": err,
+        "ms": event_ms(lambda: wrapper(x, x, x, True), reps=20),
+        "graph_ms": graph_ms(lambda: wrapper(x, x, x, True)),
+        "plain_ms": event_ms(lambda: plain(x, x, x, True), reps=3),
+        "library_ms": event_ms(lambda: sdpa(xb, xb, xb, is_causal=True), reps=20),
+        "library_graph_ms": graph_ms(lambda: sdpa(xb, xb, xb, is_causal=True)),
+        "bound_ms": bound_ms, "bound_by": bound_by, "bounds_ms": bounds,
+    }
+    emit(phase="kernel_attention_real", causal=True, **row)
+    return row
+
+
+def batchpredict_sequential_phase(torch, model, sessions) -> dict:
+    """The ML-1M attention model through the offline pipeline: all 6,040
+    users (their last ``context`` items as recentItems) at context 200
+    (B2) and 1024 (B3) in mega-batches of 512; the kernel's launches read
+    around each run equal the mega-batches; every answer equal to
+    predict_batch_dispatch's in batches of 64; each kernel timed at the
+    mega-batch shape."""
+    from predictionio_tpu_torch.models.sequential import engine as seq
+    from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.workflow.batch_predict import MemorySink, run_pipeline
+
+    vocab, n_users, batch = model.item_vocab, len(sessions), 512
+    n_batches = -(-n_users // batch)
+    table_in = model.device_in()
+    launches: dict[str, dict[str, int]] = {"attention_block": {}, "flash_attention": {}}
+    rows = []
+    for context, name in ((200, "attention_block"), (1024, "flash_attention")):
+        if A.route(context, context) != ("block" if name == "attention_block" else "flash"):
+            raise AssertionError(f"context {context} does not route to {name}")
+        algo = seq.AttentionAlgorithm(seq.AttentionAlgorithmParams(rank=32, context=context))
+        payloads = [{"user": f"u{u}", "recentItems": [vocab[i] for i in s[-context:]], "num": 10}
+                    for u, s in enumerate(sessions)]
+        algo.warmup_serving(model, batch)
+        torch.cuda.synchronize()
+        A.fused_attention_block.launches = 0
+        A.flash_attention.launches = 0
+        sink = MemorySink()
+        report = run_pipeline(seq.engine_factory(), (None, None, [algo], seq.Serving()), [model],
+                              enumerate(payloads, 1), [sink], batch_size=batch, warmup=False)
+        counts = {"attention_block": A.fused_attention_block.launches,
+                  "flash_attention": A.flash_attention.launches}
+        if counts[name] != n_batches or sum(counts.values()) != n_batches:
+            raise AssertionError(f"batchpredict at context {context}: launches {counts}, "
+                                 f"expected {n_batches} of {name}")
+        launches[name][f"batchpredict_context_{context}"] = counts[name]
+        if report.ok != n_users or [r.lineno for r in sink.rows] != list(range(1, n_users + 1)):
+            raise AssertionError(f"context {context}: {report.ok} of {n_users} rows ok")
+        queries = [seq.Query.from_json_dict(p) for p in payloads]
+        ref = []
+        for lo in range(0, n_users, 64):
+            ref.extend(algo.predict_batch_dispatch(model, queries[lo : lo + 64])())
+        index = model.item_index()
+        differ = 0
+        for r, (row, want) in enumerate(zip(sink.rows, ref)):
+            got_ids = [index[x["item"]] for x in row.result["itemScores"]]
+            got_scores = np.asarray([x["score"] for x in row.result["itemScores"]])
+            ref_ids = [index[x.item] for x in want.item_scores]
+            ref_scores = np.asarray([x.score for x in want.item_scores])
+            if not got_ids or len(got_ids) != len(ref_ids):
+                raise AssertionError(f"context {context}, user {r}: {len(got_ids)} items "
+                                     f"against {len(ref_ids)}")
+            np.testing.assert_allclose(got_scores, ref_scores, rtol=ATTENTION_ATOL, atol=0)
+            if set(got_ids) != set(ref_ids):
+                # a tie cut at the last place may hold another member of the tie
+                differ += 1
+                tied = np.abs(ref_scores - ref_scores[-1]) <= ATTENTION_ATOL * abs(ref_scores[-1])
+                if set(np.asarray(got_ids)[~tied]) != set(np.asarray(ref_ids)[~tied]):
+                    raise AssertionError(f"context {context}, user {r}: {got_ids} against {ref_ids}")
+        hist, _, _, _ = algo._stage_batch(model, queries[:batch])
+        x = table_in[torch.from_numpy(hist.copy()).cuda()].unsqueeze(1)
+        rows.append(attention_row(torch, name, x, f"sequential batchpredict, context {context}"))
+        emit(phase="batchpredict_sequential", context=context, batch_size=batch,
+             batches=report.batches, launches=counts, wall_s=report.wall_s,
+             users_per_s=report.users_per_s, phase_p50_ms=report.phase_p50_ms,
+             rows_differing_in_tied_ids=differ, host_numbers=True)
+    return {"launches": launches, "rows": rows}
+
+
+_GRID_EVALUATION = """
+from predictionio_tpu_torch.eval import Evaluation
+from predictionio_tpu_torch.models.recommendation.engine import engine_factory
+from predictionio_tpu_torch.tuning.metrics import PrecisionAtK
+
+VARIANT = {variant!r}
+
+
+def make_evaluation():
+    engine = engine_factory()
+    params = []
+    for rank in (10, 20):
+        for lam in (0.01, 0.1):
+            v = {{**VARIANT, "algorithms": [{{"name": "als", "params": {{
+                **VARIANT["algorithms"][0]["params"], "rank": rank, "lambda": lam}}}}]}}
+            params.append(engine.engine_params_from_variant(v))
+    return Evaluation(engine=engine, metric=PrecisionAtK(k=10), engine_params_generator=params)
+"""
+
+
+def offline_cli_phase(torch, home: str, rest: dict, device: str = "cuda") -> dict:
+    """The offline verbs as a user runs them, each a process of the port's
+    CLI on the event server's sqlite store: batchpredict --from-events
+    --to-events (one line and one write-back event per user, read back
+    through LEventStore), undeploy of a deployed server (which exits 0
+    within 10 s), status, version and template list. Then eval of the
+    recommendation template, rank {10, 20} x lambda {0.01, 0.1} x 3 folds =
+    12 cells scored by PrecisionAtK(10): in-process (--workers 0, B1's
+    launches read: 12 x 2 x iterations), with 2 spawned workers into a
+    fresh workdir (the same cell ids, each params' score within 0.02), and
+    --resume over that workdir (0 cells retrained). No process imports
+    JAX, the JAX package or aiohttp."""
+    from predictionio_tpu_torch.data.store.event_store import LEventStore
+
+    work = tempfile.mkdtemp(prefix="pio_smoke_offline_")
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    reports, steps = [], {}
+
+    def argv(*args):
+        reports.append(os.path.join(work, f"report_{len(reports)}.json"))
+        return [sys.executable, "-c", _CLI_LAUNCHER, reports[-1], "--home", home, *args]
+
+    def run(name, *args, timeout=600):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv(*args), env=env, capture_output=True, text=True,
+                              timeout=timeout, cwd=work)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {' '.join(args[:2])} failed ({proc.returncode}):\n"
+                                 f"{proc.stderr[-3000:]}")
+        steps[f"{name}_s"] = time.perf_counter() - t0
+        with open(reports[-1]) as fh:
+            return proc.stdout, json.load(fh)["launches"]
+
+    variant = rest["variant"]
+    iterations = variant["algorithms"][0]["params"]["numIterations"]
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump(variant, fh)
+    try:
+        # batchpredict --from-events --to-events
+        out = os.path.join(work, "users.jsonl")
+        run("batchpredict", "batchpredict", "--engine-dir", engine_dir, "--device", device,
+            "--from-events", "--to-events", "--output", out)
+        with open(out) as fh:
+            lines = [json.loads(line) for line in fh]
+        users = rest["user_ids"]
+        written = list(LEventStore(smoke_storage(home)).find(
+            app_name="restapp", event_names=["batchpredict.result"]))
+        if len(lines) != len(users) or sorted(e.entity_id for e in written) != users:
+            raise AssertionError(f"batchpredict: {len(lines)} lines, {len(written)} write-back "
+                                 f"events for {len(users)} users")
+        full = sum(len(r["itemScores"]) == 10 for r in lines)
+        if full != len(users) - 1:  # every rater; the +08:00 event's viewer has no rating
+            raise AssertionError(f"batchpredict: {full} users with 10 items")
+        # deploy, then undeploy: the server exits 0 within 10 s
+        port = _free_port()
+        deploy = subprocess.Popen(
+            argv("deploy", "--engine-dir", engine_dir, "--device", device,
+                 "--ip", "127.0.0.1", "--port", str(port)),
+            env=env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL, cwd=work)
+        try:
+            t0 = time.perf_counter()
+            while True:
+                if deploy.poll() is not None:
+                    raise AssertionError(f"deploy exited {deploy.returncode}")
+                try:
+                    if _http(f"http://127.0.0.1:{port}/", timeout=2)[0] == 200:
+                        break
+                except (urllib.error.URLError, ConnectionError, TimeoutError):
+                    pass
+                if time.perf_counter() - t0 > 180:
+                    raise AssertionError("deploy did not answer GET / within 180 s")
+                time.sleep(0.2)
+            stdout, _ = run("undeploy", "undeploy", "--ip", "127.0.0.1", "--port", str(port))
+            t0 = time.perf_counter()
+            if json.loads(stdout) != {"message": "Stopping."}:
+                raise AssertionError(f"undeploy answered {stdout!r}")
+            code = deploy.wait(timeout=10)
+            steps["undeploy_exit_s"] = time.perf_counter() - t0
+            if code != 0:
+                raise AssertionError(f"the undeployed server exited {code}")
+        finally:
+            if deploy.poll() is None:
+                _stop(deploy)
+        stdout, _ = run("status", "status")
+        if torch.cuda.get_device_name(0) not in stdout:
+            raise AssertionError(f"status does not name the card:\n{stdout}")
+        stdout, _ = run("version", "version")
+        if not stdout.strip():
+            raise AssertionError("version printed nothing")
+        stdout, _ = run("template_list", "template", "list")
+        if "recommendation" not in stdout.split():
+            raise AssertionError(f"template list: {stdout}")
+
+        # eval: the grid in-process, with 2 workers, then resumed
+        grid_variant = {**variant, "datasource": {"params": {
+            **variant["datasource"]["params"], "evalParams": {"kFold": 3, "queryNum": 10}}}}
+        with open(os.path.join(work, "smoke_grid_eval.py"), "w") as fh:
+            fh.write(_GRID_EVALUATION.format(variant=grid_variant))
+        grid = ["eval", "smoke_grid_eval.make_evaluation", "--device", device]
+        w0, w2 = os.path.join(work, "grid0"), os.path.join(work, "grid2")
+        stdout, counts = run("eval_workers_0", *grid, "--workers", "0", "--workdir", w0,
+                             "--out", os.path.join(work, "r0.json"))
+        expected = 12 * 2 * iterations
+        if counts.get("spd_cg") != expected:
+            raise AssertionError(f"eval launched B1 {counts.get('spd_cg')} times, expected {expected}")
+        run("eval_workers_2", *grid, "--workers", "2", "--workdir", w2,
+            "--out", os.path.join(work, "r2.json"))
+        run("eval_resume", *grid, "--workers", "0", "--workdir", w2, "--resume",
+            "--out", os.path.join(work, "r3.json"))
+        r0, r2, r3 = (json.load(open(os.path.join(work, f"r{i}.json"))) for i in (0, 2, 3))
+
+        def cell_ids(workdir):
+            with open(os.path.join(workdir, "ledger.jsonl")) as fh:
+                return sorted(json.loads(line)["cellId"] for line in fh)
+
+        if r0["cells_total"] != 12 or r0["cells_run"] != 12 or r0["cells_failed"]:
+            raise AssertionError(f"eval --workers 0: {r0['cells_run']} of {r0['cells_total']} cells")
+        if cell_ids(w0) != cell_ids(w2) or r2["cells_run"] != 12:
+            raise AssertionError("eval --workers 2 scored other cells than --workers 0")
+        # atomic sums in the Gram build make ALS differ at rounding between runs
+        score_limit = 0.02
+        diffs = [abs(a["score"] - b["score"]) for a, b in zip(r0["scores"], r2["scores"])]
+        if not max(diffs) <= score_limit:
+            raise AssertionError(f"eval: workers 0 and 2 differ by {diffs}")
+        if r3["cells_run"] != 0 or r3["cells_skipped"] != 12:
+            raise AssertionError(f"eval --resume retrained {r3['cells_run']} cells")
+        if not all(0.0 < s["score"] < 1.0 for s in r0["scores"]):
+            raise AssertionError(f"eval: precision@10 out of range {r0['scores']}")
+        for path in reports:
+            with open(path) as fh:
+                foreign = json.load(fh)["foreign_modules"]
+            if foreign:
+                raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    result = {
+        "host_numbers": True, **steps,
+        "batchpredict_lines": len(lines), "writeback_events": len(written),
+        "eval_cells": r0["cells_total"], "eval_spd_cg_launches": counts["spd_cg"],
+        "precision_at_10": {f"rank {10 if i < 2 else 20}, lambda {(0.01, 0.1)[i % 2]}":
+                            [s["score"] for s in (r0["scores"][i], r2["scores"][i])]
+                            for i in range(4)},
+        "max_score_diff_workers_0_2": max(diffs), "score_limit": score_limit,
+        "eval_cells_per_s": 12 / r0["wall_s"], "eval_wall_s_workers_0_2": [r0["wall_s"], r2["wall_s"]],
+        "resume_cells_run": r3["cells_run"],
+    }
+    emit(phase="offline_cli", **result)
+    return {"launches": {"eval": counts["spd_cg"]}}
+
+
+def eval_b1_rows(torch, home: str) -> list[dict]:
+    """B1 on the systems of an eval cell at rank 20 (fold 0 of the grid's
+    read_eval, lambda 0.1), trained in-process, each row held to the plain
+    version and timed."""
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+
+    ctx = WorkflowContext(mode="evaluation", device="cuda", _storage=smoke_storage(home))
+    ds = rec.DataSource(rec.DataSourceParams(app_name="restapp",
+                                             eval_params=rec.EvalParams(k_fold=3)))
+    td, _, _ = ds.read_eval(ctx)[0]
+    params = rec.ALSAlgorithmParams(rank=20, num_iterations=10, lambda_=0.1, seed=3)
+    batched_spd_solve_fused.launches = 0
+    model = rec.ALSAlgorithm(params).train(ctx, td)
+    rows, _ = real_system_check(torch, td, model, params, batched_spd_solve_fused.launches,
+                                row_rel_limit=1e-4, label="eval cell, rank 20, fold 0",
+                                synthetic=False)
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2499,12 +2874,16 @@ def main() -> int:
         cli_serve_phase(os.path.join(home, "cli"))
         rest = eventserver_phase(torch, os.path.join(home, "rest"))
         inprocess_serve_phase(torch, model)
+        batchpredict_als_phase(torch, model)
         del td, model
+        offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)
+        eval_rows = eval_b1_rows(torch, os.path.join(home, "rest"))
         rank160, rank160_launches = als_rank160_phase(torch, home)
         attention_kernel_phase(torch)
         wide_rows = wide_head_times(torch)
         seq_model, sessions, seq_launches = sequential_train_phase(torch, home)
         attention = sequential_serve_phase(torch, seq_model, sessions)
+        seq_bp = batchpredict_sequential_phase(torch, seq_model, sessions)
         sequential_cli_phase(os.path.join(home, "seq_cli"))
         del seq_model, sessions
         tt_model, tt_algo, tt_td, tt_train_launches = twotower_train_phase(torch, home)
@@ -2528,16 +2907,23 @@ def main() -> int:
     kernel["launches_by_path"] = {"als_train": launches, "sequential_train": seq_launches,
                                   "als_train_rank_160": rank160_launches,
                                   **rest["launches"], **similar["launches"],
-                                  **ecommerce["launches"], **recuser["launches"]}
+                                  **ecommerce["launches"], **recuser["launches"],
+                                  **offline["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
-    kernel["other_shapes"] += rest["rows"] + rank160["rows"] + similar["rows"] + [grid_row]
+    kernel["other_shapes"] += (rest["rows"] + eval_rows + rank160["rows"] + similar["rows"]
+                               + [grid_row])
     block = next(e for e in attention if e["name"] == "attention_block")
     block["launches_by_path"].update(twotower_train=tt_train_launches,
-                                     twotower_serve=tt_serve_launches)
+                                     twotower_serve=tt_serve_launches,
+                                     **seq_bp["launches"]["attention_block"])
     block["launches"] = sum(block["launches_by_path"].values())
-    block["other_shapes"] = b2_rows + [r for r in wide_rows if r["kernel"] == "attention_block"]
+    block["other_shapes"] = b2_rows + [r for r in wide_rows if r["kernel"] == "attention_block"] \
+        + [r for r in seq_bp["rows"] if r["kernel"] == "attention_block"]
     flash = next(e for e in attention if e["name"] == "flash_attention")
-    flash["other_shapes"] = [r for r in wide_rows if r["kernel"] == "flash_attention"]
+    flash["launches_by_path"].update(seq_bp["launches"]["flash_attention"])
+    flash["launches"] = sum(flash["launches_by_path"].values())
+    flash["other_shapes"] = [r for r in wide_rows if r["kernel"] == "flash_attention"] \
+        + [r for r in seq_bp["rows"] if r["kernel"] == "flash_attention"]
     print(json.dumps({"kernels": [kernel, *attention]}), flush=True)
     print(smi, flush=True)
     print(json.dumps({

@@ -3,7 +3,7 @@
 The JAX package ``predictionio_tpu`` stays beside it as the reference; this
 package imports none of it. Module names match the JAX package's, so each
 counterpart is easy to find. What is ported so far is every template's path
-from event ingest to query:
+from event ingest to query, and the offline verbs:
 
   - ``ops``         ALS trainer, serving index, batched SPD solve, attention
                     and the top-k endings (CUDA kernels under ``ops/csrc``)
@@ -12,7 +12,12 @@ from event ingest to query:
                     templates read through, the event server and webhooks
   - ``e2``          the Markov chain of the reference's e2 module
   - ``controller``  DASE base classes, params, engine, algorithm flavours
-  - ``workflow``    train run, model blobs, engine loading, query server
+  - ``workflow``    train and evaluation runs, model blobs, engine loading,
+                    query server, offline batch prediction
+  - ``eval``        metrics, evaluator, params grids, the prefix-caching engine
+  - ``tuning``      the fold×params evaluation grid, its ledger and workers
+  - ``obs``         the metrics registry and the step profiler
+  - ``resilience``  the retry policy and circuit breaker
   - ``models``      the seven templates
   - ``tools``       ``python -m predictionio_tpu_torch.tools.cli``, import
                     and export

@@ -56,6 +56,10 @@ class BaseDataSource(_Component, Generic[TD, EI, Q, A]):
     def read_training(self, ctx: WorkflowContext) -> TD:
         raise NotImplementedError
 
+    def read_eval(self, ctx: WorkflowContext) -> Sequence[tuple[TD, EI, Sequence[tuple[Q, A]]]]:
+        """k folds of (training data, eval info, [(query, actual)])."""
+        raise NotImplementedError
+
 
 class BasePreparator(_Component, Generic[TD, PD]):
     def prepare(self, ctx: WorkflowContext, training_data: TD) -> PD:
@@ -70,6 +74,12 @@ class BaseAlgorithm(_Component, Generic[PD, M, Q, P]):
 
     def predict(self, model: Any, query: Q) -> P:
         raise NotImplementedError
+
+    def batch_predict(self, model: Any, queries: Sequence[tuple[int, Q]]) -> list[tuple[int, P]]:
+        """Offline scoring of indexed queries (``Engine.eval`` and the
+        finalize of ``Engine.dispatch_batch``): default maps ``predict``;
+        algorithms with a vectorised path override it."""
+        return [(i, self.predict(model, q)) for i, q in queries]
 
     def predict_batch(self, model: Any, queries: Sequence[Q]) -> list[P]:
         """Serving micro-batch: default maps ``predict``."""

@@ -1,13 +1,13 @@
-"""Engine — the DASE composition and its train dataflow (port of
-``predictionio_tpu/controller/engine.py`` without evaluation, offline
-dispatch and the step profiler)."""
+"""Engine — the DASE composition and its train, offline-dispatch and eval
+dataflow (port of ``predictionio_tpu/controller/engine.py`` without the
+step profiler's train phases and the stop-after flags)."""
 
 from __future__ import annotations
 
 import dataclasses
 import json
 import logging
-from typing import Any, Generic, Mapping
+from typing import Any, Callable, Generic, Mapping, Sequence
 
 from predictionio_tpu_torch.controller.base import (
     A,
@@ -118,6 +118,39 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
             models.append(model)
         return models
 
+    def dispatch_batch(
+        self,
+        algorithms: Sequence[BaseAlgorithm],
+        serving: BaseServing,
+        models: Sequence[Any],
+        queries: Sequence[Any],
+    ) -> Callable[[], list[Any]]:
+        """Offline mega-batch entry (``pio batchpredict``, the eval grid):
+        launch one query batch's device work through every algorithm's
+        ``predict_batch_dispatch`` and return a zero-arg finalize that
+        fetches, regroups per query and serves. The offline pipeline
+        dispatches batch N, then drains batch N-1 while the card computes
+        N. An algorithm without a pipelined path (``predict_batch_dispatch``
+        returns None) runs its indexed ``batch_predict`` inside finalize."""
+        supplemented = [serving.supplement(q) for q in queries]
+        fins = [
+            algo.predict_batch_dispatch(model, supplemented)
+            for algo, model in zip(algorithms, models)
+        ]
+
+        def finalize() -> list[Any]:
+            per_query: list[list[Any]] = [[] for _ in supplemented]
+            for algo, model, fin in zip(algorithms, models, fins):
+                if fin is not None:
+                    for i, p in enumerate(fin()):
+                        per_query[i].append(p)
+                else:
+                    for i, p in algo.batch_predict(model, list(enumerate(supplemented))):
+                        per_query[i].append(p)
+            return [serving.serve(q, preds) for q, preds in zip(queries, per_query)]
+
+        return finalize
+
     def make_serializable_models(
         self, ctx: WorkflowContext, engine_params: EngineParams, models: list[Any]
     ) -> list[Any]:
@@ -134,6 +167,32 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         return [
             algo.prepare_model(ctx, blob) for algo, blob in zip(algorithms, persisted)
         ]
+
+    def eval(
+        self, ctx: WorkflowContext, engine_params: EngineParams
+    ) -> list[tuple[EI, list[tuple[Q, P, A]]]]:
+        """Per fold: train every algorithm, then supplement -> indexed
+        ``batch_predict`` per algorithm -> regroup by query index -> serve."""
+        data_source, preparator, algorithms, serving = self.make_components(engine_params)
+        results: list[tuple[EI, list[tuple[Q, P, A]]]] = []
+        for fold_idx, (td, ei, qa_pairs) in enumerate(data_source.read_eval(ctx)):
+            # materialise once: a data source may yield a generator, and a
+            # second pass over it would evaluate zero queries
+            qa_list = list(qa_pairs)
+            logger.info("eval fold %d: %d queries", fold_idx, len(qa_list))
+            pd = preparator.prepare(ctx, td)
+            models = [algo.train(ctx, pd) for algo in algorithms]
+            supplemented = [(i, serving.supplement(q)) for i, (q, _) in enumerate(qa_list)]
+            per_query: list[list[P]] = [[] for _ in qa_list]
+            for algo, model in zip(algorithms, models):
+                for i, p in algo.batch_predict(model, supplemented):
+                    per_query[i].append(p)
+            joined = [
+                (qa_list[i][0], serving.serve(qa_list[i][0], preds), qa_list[i][1])
+                for i, preds in enumerate(per_query)
+            ]
+            results.append((ei, joined))
+        return results
 
     def engine_params_from_variant(self, variant: Mapping[str, Any]) -> EngineParams:
         """EngineParams from a parsed engine.json variant::

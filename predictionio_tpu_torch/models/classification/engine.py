@@ -9,8 +9,8 @@ and every attribute; algorithms ``naive`` (multinomial naive Bayes) and
 package; ``NaiveBayesAlgorithm.batch_predict`` scores a batch on the
 model's device. The reading-custom-properties variant
 (``custom_properties_engine_factory``) reads ``label`` and
-``featureA``..``featureD``. Not ported yet: ``read_eval`` (the k-fold
-evaluation folds), which comes with ``pio eval``.
+``featureA``..``featureD``. ``read_eval`` cuts ``evalK`` folds by point
+index (``e2.cross_validation.k_fold_split``).
 """
 
 from __future__ import annotations
@@ -112,10 +112,26 @@ class DataSource(BaseDataSource):
         return TrainingData(labels, features)
 
     def read_eval(self, ctx: WorkflowContext):
-        raise NotImplementedError(
-            "classification read_eval (k-fold evaluation folds) is not ported yet; "
-            "it comes with pio eval (ROADMAP A9)"
-        )
+        from predictionio_tpu_torch.e2.cross_validation import k_fold_split
+        from predictionio_tpu_torch.tuning.grid import clamp_folds
+
+        if not self.params.eval_k:
+            raise ValueError("DataSourceParams.evalK must not be None")
+        labels, features = self._read_points(ctx)
+        indices = list(range(len(labels)))
+        # an evalK beyond the corpus degrades loudly to leave-one-out
+        k = clamp_folds(self.params.eval_k, len(indices), what="points")
+        folds = []
+        for train_idx, test_idx in k_fold_split(indices, k):
+            td = TrainingData(labels[train_idx], features[train_idx])
+            qa = [(self._make_query(features[i]), ActualResult(float(labels[i]))) for i in test_idx]
+            folds.append((td, {}, qa))
+        return folds
+
+    def _make_query(self, features_row: np.ndarray):
+        """Eval query of one point; a variant with another Query shape
+        overrides this."""
+        return Query(*[float(x) for x in features_row[:3]])
 
 
 class Preparator(BasePreparator):
@@ -222,6 +238,9 @@ class CustomPropertiesDataSourceParams(DataSourceParams):
 
 class CustomPropertiesDataSource(DataSource):
     params_class = CustomPropertiesDataSourceParams
+
+    def _make_query(self, features_row: np.ndarray) -> CustomPropertiesQuery:
+        return CustomPropertiesQuery(*[float(x) for x in features_row[:4]])
 
 
 def custom_properties_engine_factory() -> Engine:

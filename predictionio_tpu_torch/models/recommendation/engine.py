@@ -64,6 +64,18 @@ class PredictedResult:
         return {"itemScores": [{"item": s.item, "score": s.score} for s in self.item_scores]}
 
 
+@dataclasses.dataclass(frozen=True)
+class Rating:
+    user: str
+    item: str
+    rating: float
+
+
+@dataclasses.dataclass(frozen=True)
+class ActualResult:
+    ratings: tuple[Rating, ...]
+
+
 # ---------------------------------------------------------------------------
 # DataSource
 # ---------------------------------------------------------------------------
@@ -78,9 +90,8 @@ class EvalParams(Params):
 @dataclasses.dataclass(frozen=True)
 class DataSourceParams(Params):
     """``rating_map`` assigns a fixed rating to each listed event name,
-    overriding any per-event "rating" property. ``eval_params`` is kept for
-    the evaluation folds (``read_eval`` is not ported yet); training
-    ignores it."""
+    overriding any per-event "rating" property. ``eval_params`` shapes the
+    evaluation folds of ``read_eval``; training ignores it."""
 
     app_name: str = ""
     event_names: tuple[str, ...] = ("rate", "buy")
@@ -125,8 +136,8 @@ class DataSource(BaseDataSource):
     params_class = DataSourceParams
     params: DataSourceParams
 
-    def read_training(self, ctx: WorkflowContext) -> TrainingData:
-        col = ctx.p_event_store().to_columnar_cached(
+    def _read_columnar(self, ctx: WorkflowContext) -> ColumnarEvents:
+        return ctx.p_event_store().to_columnar_cached(
             app_name=self.params.app_name or ctx.app_name,
             channel_name=ctx.channel_name,
             event_names=list(self.params.event_names),
@@ -134,8 +145,38 @@ class DataSource(BaseDataSource):
             target_entity_type="item",
             rating_key="rating",
         )
+
+    def read_training(self, ctx: WorkflowContext) -> TrainingData:
+        col = self._read_columnar(ctx)
         u, i, r = _columnar_to_ratings(col, self.params.buy_rating, self.params.rating_map)
         return TrainingData(u, i, r, col.entity_vocab, col.target_vocab)
+
+    def read_eval(self, ctx: WorkflowContext):
+        """k folds by rating index (rating n is held out in fold n mod k),
+        one query per held-out user whose actual is that user's held-out
+        ratings (ref DataSource.scala:81-104)."""
+        if self.params.eval_params is None:
+            raise ValueError("Must specify evalParams for evaluation")
+        ep = self.params.eval_params
+        col = self._read_columnar(ctx)
+        u, i, r = _columnar_to_ratings(col, self.params.buy_rating, self.params.rating_map)
+        idx = np.arange(len(u))
+        folds = []
+        for fold in range(ep.k_fold):
+            test = idx % ep.k_fold == fold
+            td = TrainingData(u[~test], i[~test], r[~test], col.entity_vocab, col.target_vocab)
+            test_u, test_i, test_r = u[test], i[test], r[test]
+            qa: list[tuple[Query, ActualResult]] = []
+            for user in np.unique(test_u):
+                sel = test_u == user
+                name = col.entity_vocab[int(user)]
+                ratings = tuple(
+                    Rating(name, col.target_vocab[int(ti)], float(tr))
+                    for ti, tr in zip(test_i[sel], test_r[sel])
+                )
+                qa.append((Query(name, ep.query_num), ActualResult(ratings)))
+            folds.append((td, {}, qa))
+        return folds
 
 
 class Preparator(BasePreparator):

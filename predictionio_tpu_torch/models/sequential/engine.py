@@ -122,7 +122,7 @@ class DataSourceParams(Params):
     # page size and total-event bound of one ordered training read
     page: int = 2048
     max_events: int = 500_000
-    # kept for the evaluation folds (read_eval is not ported yet)
+    # shapes the evaluation folds of read_eval
     eval_params: EvalParams | None = None
 
 
@@ -238,10 +238,52 @@ class DataSource(BaseDataSource):
         return TrainingData(users, [np.asarray(per_user[u], np.int32) for u in users], vocab)
 
     def read_eval(self, ctx: WorkflowContext):
-        raise NotImplementedError(
-            "sequential read_eval (k-fold by user) is not ported yet; it comes "
-            "with the port's eval and tuning slice"
+        """k folds by user through the grid's ``EventStoreSplitter``: a
+        user's fold is its sticky sha256 bucket, so grid cells in any
+        process (and either package) agree on who is held out. A held-out
+        session's last ``holdout_tail`` items are the actual continuation;
+        the prefix is the query's ``recentItems``."""
+        from predictionio_tpu_torch.tuning.grid import EventStoreSplitter
+
+        if self.params.eval_params is None:
+            raise ValueError("Must specify evalParams for evaluation")
+        ep = self.params.eval_params
+        app_id, channel_id = resolve_app(
+            ctx.storage, self.params.app_name, self.params.channel_name
         )
+        splitter = EventStoreSplitter(
+            ctx.storage.get_l_events(),
+            app_id,
+            ep.k_fold,
+            channel_id,
+            num=ep.query_num,
+            entity_type=self.params.entity_type,
+            event_names=self.params.event_names,
+            page=self.params.page,
+        )
+        per_user, vocab = sequences_from_events(
+            splitter.iter_ordered(),
+            event_names=self.params.event_names,
+            entity_type=self.params.entity_type,
+            target_entity_type=self.params.target_entity_type,
+        )
+        folds = []
+        for fold in range(ep.k_fold):
+            keep = splitter.keep_for_training(fold)
+            users = sorted(u for u in per_user if keep(u))
+            td = TrainingData(users, [np.asarray(per_user[u], np.int32) for u in users], vocab)
+            qa: list[tuple[Query, ActualResult]] = []
+            for u in sorted(per_user):
+                seq = per_user[u]
+                if keep(u) or len(seq) < 2:
+                    continue
+                tail = min(ep.holdout_tail, len(seq) - 1)
+                query = Query(
+                    user=u, recent_items=tuple(vocab[i] for i in seq[:-tail]), num=ep.query_num
+                )
+                qa.append((query, ActualResult(tuple(vocab[i] for i in seq[-tail:]))))
+            folds.append((td, {}, qa))
+        return folds
 
 
 class Preparator(BasePreparator):

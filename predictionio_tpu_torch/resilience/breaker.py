@@ -1,0 +1,99 @@
+"""Circuit breaker (port of ``predictionio_tpu/resilience/breaker.py``
+without transition listeners).
+
+closed: consecutive failures are counted; at ``failure_threshold`` the
+circuit opens and every call is refused with :class:`CircuitOpenError`.
+After ``recovery_timeout_s`` it is half-open: a bounded number of probes go
+through, one success closes it, one failure opens it again. Thread-safe;
+the clock is injectable.
+"""
+
+from __future__ import annotations
+
+import threading
+import time
+from typing import Any, Callable
+
+CLOSED = "closed"
+OPEN = "open"
+HALF_OPEN = "half-open"
+
+
+class CircuitOpenError(RuntimeError):
+    """Refused without trying: the circuit is open. Not transient."""
+
+    transient = False
+
+    def __init__(self, name: str, retry_after_s: float):
+        super().__init__(f"circuit '{name}' is open; retry after {retry_after_s:.2f}s")
+        self.retry_after_s = retry_after_s
+
+
+class CircuitBreaker:
+    def __init__(
+        self,
+        name: str = "",
+        failure_threshold: int = 5,
+        recovery_timeout_s: float = 5.0,
+        half_open_max_probes: int = 1,
+        clock: Callable[[], float] = time.monotonic,
+    ):
+        self.name = name or "breaker"
+        self.failure_threshold = max(1, failure_threshold)
+        self.recovery_timeout_s = recovery_timeout_s
+        self.half_open_max_probes = max(1, half_open_max_probes)
+        self._clock = clock
+        self._lock = threading.Lock()
+        self._state = CLOSED
+        self._consecutive_failures = 0
+        self._opened_at = 0.0
+        self._probes_inflight = 0
+        self.trips = 0
+
+    def _trip(self) -> None:
+        self._state = OPEN
+        self._opened_at = self._clock()
+        self._probes_inflight = 0
+        self.trips += 1
+
+    def allow(self) -> None:
+        """Gate one call; pair a return with record_success/record_failure."""
+        with self._lock:
+            if self._state == CLOSED:
+                return
+            elapsed = self._clock() - self._opened_at
+            if self._state == OPEN:
+                if elapsed < self.recovery_timeout_s:
+                    raise CircuitOpenError(self.name, self.recovery_timeout_s - elapsed)
+                self._state = HALF_OPEN
+                self._probes_inflight = 0
+            if self._probes_inflight >= self.half_open_max_probes:
+                raise CircuitOpenError(self.name, self.recovery_timeout_s)
+            self._probes_inflight += 1
+
+    def record_success(self) -> None:
+        with self._lock:
+            self._consecutive_failures = 0
+            if self._state == HALF_OPEN:
+                self._state = CLOSED
+                self._probes_inflight = 0
+
+    def record_failure(self) -> None:
+        with self._lock:
+            if self._state == HALF_OPEN:
+                self._trip()
+                return
+            self._consecutive_failures += 1
+            if self._state == CLOSED and self._consecutive_failures >= self.failure_threshold:
+                self._trip()
+
+    def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+        """Gate, run and record in one step."""
+        self.allow()
+        try:
+            result = fn(*args, **kwargs)
+        except BaseException:
+            self.record_failure()
+            raise
+        self.record_success()
+        return result

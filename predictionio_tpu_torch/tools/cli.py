@@ -11,23 +11,35 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
     export --appname NAME --output FILE [--channel C] [--format json|parquet|npz]
     train  --engine-dir DIR [--variant FILE] [--device cuda|cpu]
     deploy --engine-dir DIR [--variant FILE] [--ip IP] [--port N] [--device cuda|cpu]
+    undeploy [--ip IP] [--port N] [--ssl]
+    batchpredict --engine-dir DIR [--input FILE | --from-events] [--output FILE]
+                 [--to-events] [--app-name A] [--batch N] [--device cuda|cpu] ...
+    eval EVALUATION [--workers N] [--folds K] [--workdir W] [--resume]
+         [--batch-size N] [--status-file F] [--out F] [--device cuda|cpu] ...
+    version | upgrade | status | template list | template get NAME [DIR]
+    run MAIN [ARGS ...]
 
 Apps, access keys, channels, events, engine instances and models live in
 the storage the ``PIO_STORAGE_*`` environment names, as in the JAX package;
 without it, one sqlite file ``pio.db`` under the basedir (``--home``, else
 ``$PIO_FS_BASEDIR``, else ``$PIO_TORCH_HOME``, else ``~/.pio_torch``).
-``--device`` defaults to ``cuda``; without a card, train and deploy fail
-unless ``--device cpu``.
+``--device`` defaults to ``cuda``; without a card, train, deploy,
+batchpredict and eval fail unless ``--device cpu``. ``eval --publish``
+raises: the model registry the winner ships through is not ported yet.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import logging
 import os
+import shutil
 import signal
 import sys
 import threading
+
+import predictionio_tpu_torch
 
 from predictionio_tpu_torch.data.storage.base import AccessKey, App, Channel
 from predictionio_tpu_torch.data.storage.registry import Storage, StorageError
@@ -47,8 +59,9 @@ def _die(msg: str, code: int = 1) -> int:
     return code
 
 
-def _wait_for_signal() -> None:
-    stop = threading.Event()
+def _wait_for_signal(stop: threading.Event | None = None) -> None:
+    """Block until SIGINT, SIGTERM or ``stop`` is set."""
+    stop = stop or threading.Event()
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, lambda *_: stop.set())
     stop.wait()
@@ -298,8 +311,275 @@ def cmd_deploy(args) -> int:
         f"on {ctx.device}",
         flush=True,
     )
-    _wait_for_signal()
+    _wait_for_signal(server.stop_requested)  # a signal or POST /stop
     server.shutdown()
+    return 0
+
+
+def cmd_undeploy(args) -> int:
+    """POST /stop to a running engine server (ref commands/Engine.scala:244-267)."""
+    import ssl
+    import urllib.request
+
+    scheme = "https" if args.ssl else "http"
+    url = f"{scheme}://{args.ip}:{args.port}/stop"
+    context = ssl._create_unverified_context() if args.ssl else None
+    try:
+        with urllib.request.urlopen(
+            urllib.request.Request(url, method="POST"), timeout=10, context=context
+        ) as resp:
+            print(resp.read().decode())
+        return 0
+    except Exception as exc:
+        return _die(f"undeploy failed: {exc}")
+
+
+def cmd_batchpredict(args) -> int:
+    """Offline mega-batch prediction: stream queries from a file or off the
+    event store, dispatch batches through the engines' kernels
+    (double-buffered), and write the results to a file (atomic) and/or the
+    event store. Nonzero exit only when setup fails or every query line
+    failed; a malformed line becomes a line-aligned error object."""
+    from predictionio_tpu_torch.workflow.batch_predict import run_batch_predict
+
+    if args.from_events and args.input is not None:
+        return _die("--from-events and --input are mutually exclusive")
+    input_path = None if args.from_events else (args.input or "batchpredict-input.json")
+    try:
+        report = run_batch_predict(
+            args.engine_dir,
+            input_path,
+            args.output,
+            variant_path=args.variant,
+            storage=_storage(),
+            device=args.device,
+            from_events=args.from_events,
+            app_name=args.app_name,
+            channel=args.channel,
+            query_num=args.query_num,
+            to_events=args.to_events,
+            batch_size=args.batch,
+            limit=args.limit,
+            status_path=args.status_file,
+        )
+    except (RuntimeError, OSError) as exc:
+        return _die(f"batchpredict failed: {exc}")
+    sinks = ([args.output] if args.output else []) + (["event store"] if args.to_events else [])
+    print(
+        f"Batch predict completed: {report.queries} queries "
+        f"({report.ok} ok, {report.errors} errors) in {report.wall_s:.2f}s "
+        f"({report.qps:.0f} q/s) -> {', '.join(sinks)}"
+    )
+    if report.all_failed:
+        return _die("batch predict: every query line failed")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# evaluation
+# ---------------------------------------------------------------------------
+
+
+def cmd_eval(args) -> int:
+    """Hyperparameter search as the evaluation grid: fold×params cells
+    trained in parallel workers, scored through the offline mega-batch
+    path, finished cells persisted to a durable ledger (``--resume``
+    retrains zero finished cells). A FakeRun evaluation runs as is."""
+    import importlib
+    import tempfile
+
+    from predictionio_tpu_torch.tuning.cells import resolve_evaluation
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import (
+        run_evaluation,
+        run_grid_evaluation,
+    )
+
+    # user evaluations live in the engine project's cwd
+    cwd = os.getcwd()
+    if cwd not in sys.path:
+        sys.path.insert(0, cwd)
+    if args.publish and args.no_publish:
+        return _die("--publish and --no-publish are mutually exclusive")
+    if args.publish:
+        return _die(
+            "--publish needs the model registry, which is not yet ported to "
+            "predictionio_tpu_torch; run without it and train the winning "
+            "params with `train`"
+        )
+    if args.resume and not args.workdir:
+        return _die("--resume needs the --workdir of the run to resume (the trial ledger lives there)")
+    probe = resolve_evaluation(args.evaluation)
+    device = "cpu" if args.worker_class == "cpu-fallback" else args.device
+    ctx = WorkflowContext(
+        mode="evaluation", device=device, _storage=_storage(), batch=args.batch or ""
+    )
+    if (
+        getattr(probe, "engine", None) is None or getattr(probe, "metric", None) is None
+    ) and hasattr(probe, "run"):
+        # FakeRun-style: no grid to search
+        instance_id, result = run_evaluation(probe, ctx)
+        print(result.one_liner())
+        print(f"Evaluation instance ID: {instance_id}")
+        return 0
+    source = args.evaluation
+    if args.engine_params_generator:
+        if args.workers > 0:
+            return _die(
+                "an explicit engine_params_generator cannot ride to process "
+                "workers (they rebuild the evaluation by its dotted path); set "
+                "engine_params_generator on the Evaluation itself, or use --workers 0"
+            )
+        module_name, _, attr = args.engine_params_generator.rpartition(".")
+        generator = getattr(importlib.import_module(module_name), attr)
+        probe.engine_params_generator = generator() if isinstance(generator, type) else generator
+        source = probe
+    workdir = args.workdir or tempfile.mkdtemp(prefix="pio_eval_grid_")
+    env = {"PIO_FS_BASEDIR": os.path.abspath(args.home)} if args.home else None
+    instance_id, report = run_grid_evaluation(
+        source,
+        ctx,
+        evaluation=probe,
+        workdir=workdir,
+        workers=args.workers,
+        folds=args.folds,
+        resume=args.resume,
+        batch_size=args.batch_size,
+        status_path=args.status_file,
+        cwd=cwd,
+        env=env,
+        nice=args.nice,
+        worker_class=args.worker_class,
+    )
+    print(report.one_liner())
+    print(f"Trial ledger: {report.ledger_path}")
+    print(f"Evaluation instance ID: {instance_id}")
+    if args.out:
+        with open(args.out, "w") as fh:
+            json.dump(report.to_json_dict(), fh, indent=1, sort_keys=True)
+        print(f"Grid report written to {args.out}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# status, version, templates, run
+# ---------------------------------------------------------------------------
+
+# the card probe runs in a bounded subprocess: a wedged CUDA init must not hang `status`
+_CUDA_PROBE = (
+    "import json, torch; n = torch.cuda.device_count() if torch.cuda.is_available() else 0; "
+    "print('PIO-TORCH ' + json.dumps({'torch': torch.__version__, 'cuda': torch.version.cuda, "
+    "'count': n, 'names': [torch.cuda.get_device_name(i) for i in range(n)]}))"
+)
+
+
+def cmd_status(args) -> int:
+    """ref commands/Management.status + Storage.verifyAllDataObjects."""
+    import subprocess
+
+    print(f"predictionio_tpu_torch {predictionio_tpu_torch.__version__}")
+    try:
+        storage = _storage()
+    except Exception as exc:
+        return _die(f"storage configuration invalid: {exc}")
+    failures = storage.verify_all_data_objects()
+    if failures:
+        for f in failures:
+            print(f"  [FAILED] {f}")
+        return _die("storage verification failed")
+    print("  storage: all data objects verified")
+    pkg_root = os.path.dirname(os.path.dirname(os.path.abspath(predictionio_tpu_torch.__file__)))
+    env = {**os.environ, "PYTHONPATH": pkg_root + os.pathsep + os.environ.get("PYTHONPATH", "")}
+    try:
+        probe = subprocess.run(
+            [sys.executable, "-c", _CUDA_PROBE],
+            capture_output=True,
+            timeout=45,
+            text=True,
+            env=env,
+        )
+        line = next(
+            (ln for ln in probe.stdout.splitlines() if ln.startswith("PIO-TORCH ")), None
+        )
+        if probe.returncode == 0 and line:
+            info = json.loads(line[len("PIO-TORCH "):])
+            names = ", ".join(info["names"]) or "none"
+            print(
+                f"  torch {info['torch']} (CUDA {info['cuda']}); "
+                f"cards: {info['count']} ({names})"
+            )
+        else:
+            err = probe.stderr.strip().splitlines()
+            print(f"  cards unavailable: {err[-1] if err else 'unknown'}")
+    except subprocess.TimeoutExpired:
+        print("  cards unavailable: CUDA init timed out after 45s")
+    print("(sleeping)   <- your engine is ready to train")
+    return 0
+
+
+def cmd_upgrade(args) -> int:
+    """Storage-format check (ref Console.scala 'upgrade'): every repository
+    is verified and the event store's identity reported."""
+    storage = _storage()
+    errors = storage.verify_all_data_objects()
+    if errors:
+        for e in errors:
+            print(f"[ERROR] {e}")
+        return 1
+    print("All storage repositories verified; data formats are current.")
+    stamp = storage.get_p_events().store_identity()
+    if stamp:
+        print(f"Event store identity: {stamp}")
+    print("No migration necessary.")
+    return 0
+
+
+def cmd_version(args) -> int:
+    print(predictionio_tpu_torch.__version__)
+    return 0
+
+
+def _templates_dir() -> str:
+    return os.path.join(os.path.dirname(os.path.abspath(predictionio_tpu_torch.__file__)), "models")
+
+
+def _template_names() -> list[str]:
+    base = _templates_dir()
+    return sorted(
+        name for name in os.listdir(base) if os.path.isfile(os.path.join(base, name, "engine.json"))
+    )
+
+
+def cmd_template_list(args) -> int:
+    for name in _template_names():
+        print(f"  {name}")
+    return 0
+
+
+def cmd_template_get(args) -> int:
+    """Copy a template's engine.json into a new engine dir."""
+    if args.name not in _template_names():
+        return _die(f"unknown template {args.name}; see `template list`")
+    dst = args.directory or args.name
+    if os.path.exists(dst) and os.listdir(dst):
+        return _die(f"directory {dst} exists and is not empty")
+    os.makedirs(dst, exist_ok=True)
+    shutil.copy(
+        os.path.join(_templates_dir(), args.name, "engine.json"), os.path.join(dst, "engine.json")
+    )
+    with open(os.path.join(dst, "template.json"), "w") as f:
+        json.dump({"pio": {"version": {"min": "0.1.0"}}}, f)
+    print(f"Engine template {args.name} created at {dst}/")
+    print("Edit engine.json (appName, algorithm params) and run `train`.")
+    return 0
+
+
+def cmd_run(args) -> int:
+    """Run a python main with the framework importable (ref `pio run`)."""
+    import runpy
+
+    sys.argv = [args.main] + (args.args or [])
+    runpy.run_path(args.main, run_name="__main__")
     return 0
 
 
@@ -312,6 +592,10 @@ def build_parser() -> argparse.ArgumentParser:
         "(default $PIO_FS_BASEDIR, else $PIO_TORCH_HOME, else ~/.pio_torch)",
     )
     sub = p.add_subparsers(dest="command", required=True)
+
+    sub.add_parser("version").set_defaults(fn=cmd_version)
+    sub.add_parser("upgrade", help="verify storage formats").set_defaults(fn=cmd_upgrade)
+    sub.add_parser("status").set_defaults(fn=cmd_status)
 
     app = sub.add_parser("app").add_subparsers(dest="subcommand", required=True)
     x = app.add_parser("new")
@@ -391,6 +675,70 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--ip", default="0.0.0.0")
     x.add_argument("--port", type=int, default=8000)
     x.set_defaults(fn=cmd_deploy)
+
+    x = sub.add_parser("undeploy")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--ssl", action="store_true", help="server was deployed with TLS")
+    x.set_defaults(fn=cmd_undeploy)
+
+    x = sub.add_parser("batchpredict", help="offline mega-batch prediction")
+    engine_args(x)
+    x.add_argument("--input", default=None, help="multi-line JSON query file (default "
+                   "batchpredict-input.json; exclusive with --from-events)")
+    x.add_argument("--output", default="batchpredict-output.json",
+                   help="line-aligned JSONL predictions, written atomically; '' disables")
+    x.add_argument("--from-events", action="store_true",
+                   help="stream distinct users off the app's event store")
+    x.add_argument("--app-name", default="",
+                   help="app of --from-events/--to-events (default: the variant's appName)")
+    x.add_argument("--channel", default="")
+    x.add_argument("--query-num", type=int, default=10,
+                   help="top-k per --from-events query (default 10)")
+    x.add_argument("--batch", type=int, default=512, help="mega-batch size (default 512)")
+    x.add_argument("--to-events", action="store_true",
+                   help="also write the results into the event store (batchpredict.result)")
+    x.add_argument("--limit", type=int, default=0, help="cap the queries (0 = all)")
+    x.add_argument("--status-file", default=None, help="throttled atomic progress snapshots")
+    x.set_defaults(fn=cmd_batchpredict)
+
+    x = sub.add_parser("eval", help="parallel, resumable fold×params evaluation grid")
+    x.add_argument("evaluation", help="dotted path to an Evaluation")
+    x.add_argument("engine_params_generator", nargs="?")
+    x.add_argument("--batch", default="")
+    x.add_argument("--workers", type=int, default=0,
+                   help="cell worker processes (0 = in-process; workers rebuild the "
+                        "evaluation from its dotted path)")
+    x.add_argument("--folds", type=int, default=None,
+                   help="fold count (default: what the data source's read_eval yields)")
+    x.add_argument("--workdir", default=None,
+                   help="grid directory holding the trial ledger (default: a fresh temp dir)")
+    x.add_argument("--resume", action="store_true",
+                   help="resume from --workdir's ledger: finished cells are never retrained")
+    x.add_argument("--batch-size", type=int, default=512,
+                   help="held-out scoring mega-batch (default 512)")
+    x.add_argument("--publish", action="store_true",
+                   help="publish the winner (needs the model registry: not yet ported)")
+    x.add_argument("--no-publish", action="store_true", help="never publish (the default)")
+    x.add_argument("--status-file", default=None, help="throttled atomic progress snapshots")
+    x.add_argument("--nice", type=int, default=0, help="re-nice grid workers by this amount")
+    x.add_argument("--worker-class", choices=["", "cpu-fallback"], default="",
+                   help="cpu-fallback: workers see no card and run on the CPU, at most 4")
+    x.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    x.add_argument("--out", default=None, help="write the grid report JSON here")
+    x.set_defaults(fn=cmd_eval)
+
+    tpl = sub.add_parser("template").add_subparsers(dest="subcommand", required=True)
+    tpl.add_parser("list").set_defaults(fn=cmd_template_list)
+    x = tpl.add_parser("get")
+    x.add_argument("name")
+    x.add_argument("directory", nargs="?")
+    x.set_defaults(fn=cmd_template_get)
+
+    x = sub.add_parser("run")
+    x.add_argument("main")
+    x.add_argument("args", nargs="*")
+    x.set_defaults(fn=cmd_run)
     return p
 
 

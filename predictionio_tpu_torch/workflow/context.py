@@ -18,11 +18,12 @@ from predictionio_tpu_torch.utils.device import resolve_device
 
 @dataclasses.dataclass
 class WorkflowContext:
-    mode: str = "training"  # training | serving
+    mode: str = "training"  # training | serving | evaluation
     app_name: str | None = None
     channel_name: str | None = None
     device: str | torch.device = "cuda"
     _storage: Storage | None = None
+    batch: str = ""  # the batch label an evaluation run records
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
 
     def __post_init__(self):

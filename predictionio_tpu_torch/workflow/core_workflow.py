@@ -1,5 +1,6 @@
-"""Train runs recorded in the metadata and model repositories (port of
-``run_train`` and ``load_models_for_instance`` in
+"""Train and evaluation runs recorded in the metadata and model
+repositories (port of ``run_train``, ``load_models_for_instance``,
+``run_evaluation`` and ``run_grid_evaluation`` in
 ``predictionio_tpu/workflow/core_workflow.py``, without the registry
 publish, the step profiler and multi-host training).
 
@@ -12,6 +13,7 @@ package; ``pio deploy`` finds the latest COMPLETED instance there.
 from __future__ import annotations
 
 import datetime as _dt
+import json
 import logging
 import time
 from typing import Any
@@ -20,6 +22,8 @@ from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
     EngineInstanceStatus,
+    EvaluationInstance,
+    EvaluationInstanceStatus,
     Model,
 )
 from predictionio_tpu_torch.workflow import model_io
@@ -95,3 +99,93 @@ def load_models_for_instance(
         raise RuntimeError(f"no model blob for engine instance {instance_id}")
     persisted = model_io.deserialize_models(record.models)
     return engine.prepare_deploy(ctx, engine_params, persisted)
+
+
+def _evaluation_instance(evaluation: Any, batch: str) -> EvaluationInstance:
+    now = _dt.datetime.now(tz=UTC)
+    return EvaluationInstance(
+        id="",
+        status=EvaluationInstanceStatus.INIT,
+        start_time=now,
+        end_time=now,
+        evaluation_class=f"{type(evaluation).__module__}.{type(evaluation).__qualname__}",
+        batch=batch,
+    )
+
+
+def run_grid_evaluation(
+    evaluation_source: Any,
+    ctx: WorkflowContext,
+    **grid_kwargs: Any,
+) -> tuple[str, Any]:
+    """Run an Evaluation through the evaluation grid
+    (:func:`predictionio_tpu_torch.tuning.run_grid`) with an
+    EvaluationInstance in the metadata store: inserted once the grid's
+    arguments and ledger validated, EVALCOMPLETED with the one-liner, JSON
+    and HTML results when it finishes. Returns (instance_id, GridReport)."""
+    from predictionio_tpu_torch.tuning import run_grid
+    from predictionio_tpu_torch.tuning.cells import resolve_evaluation
+
+    evaluation = grid_kwargs.pop("evaluation", None) or resolve_evaluation(evaluation_source)
+    instances = ctx.storage.get_meta_data_evaluation_instances()
+    instance = _evaluation_instance(evaluation, ctx.batch)
+    instance_id = ""
+
+    def record_start() -> None:
+        # inserted only after run_grid validated its arguments and ledger,
+        # so a flag typo leaves no row stuck in EVALUATING
+        nonlocal instance_id
+        instance_id = instances.insert(instance)
+        instance.status = EvaluationInstanceStatus.EVALUATING
+        instances.update(instance)
+
+    # process workers rebuild the evaluation by name: hand the original
+    # source through; the resolved instance serves the in-process path
+    source = (
+        evaluation_source
+        if isinstance(evaluation_source, str) or not hasattr(evaluation_source, "run")
+        else evaluation
+    )
+    try:
+        report = run_grid(
+            source, ctx=ctx, evaluation=evaluation, on_validated=record_start, **grid_kwargs
+        )
+    except BaseException:
+        # stays EVALUATING; the ledger holds the finished cells for --resume
+        if instance_id:
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instances.update(instance)
+        raise
+    result = report.evaluator_result
+    instance.status = EvaluationInstanceStatus.EVALCOMPLETED
+    instance.end_time = _dt.datetime.now(tz=UTC)
+    instance.evaluator_results = report.one_liner()
+    if result is not None:
+        instance.evaluator_results_json = json.dumps(result.to_json_dict())
+        instance.evaluator_results_html = result.to_html()
+    instances.update(instance)
+    return instance_id, report
+
+
+def run_evaluation(evaluation: Any, ctx: WorkflowContext) -> tuple[str, Any]:
+    """Run an Evaluation (engine + metric + params list, or a FakeRun)
+    sequentially; records an EvaluationInstance with the one-liner, JSON and
+    HTML results unless the result says ``no_save``. Returns (instance_id,
+    result)."""
+    instances = ctx.storage.get_meta_data_evaluation_instances()
+    instance = _evaluation_instance(evaluation, ctx.batch)
+    instance_id = instances.insert(instance)
+    instance.status = EvaluationInstanceStatus.EVALUATING
+    instances.update(instance)
+    result = evaluation.run(ctx)
+    if getattr(result, "no_save", False):
+        # FakeRun results are not persisted (ref CoreWorkflow.scala:140-142)
+        logger.info("evaluation result not inserted into database (no_save)")
+    else:
+        instance.status = EvaluationInstanceStatus.EVALCOMPLETED
+        instance.end_time = _dt.datetime.now(tz=UTC)
+        instance.evaluator_results = result.one_liner()
+        instance.evaluator_results_json = json.dumps(result.to_json_dict())
+        instance.evaluator_results_html = result.to_html()
+        instances.update(instance)
+    return instance_id, result

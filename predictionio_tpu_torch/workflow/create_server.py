@@ -1,5 +1,6 @@
-"""The query server: ``GET /`` and ``POST /queries.json`` over the standard
-library's ``ThreadingHTTPServer``, with a micro-batcher.
+"""The query server: ``GET /``, ``POST /queries.json`` and ``POST``/``GET
+/stop`` over the standard library's ``ThreadingHTTPServer``, with a
+micro-batcher.
 
 Port of the serving core of ``predictionio_tpu/workflow/create_server.py``
 (``_MicroBatcher`` and ``_dispatch_query_batch``) without rollout lanes,
@@ -10,7 +11,10 @@ supplements it, and calls every algorithm's ``predict_batch_dispatch``,
 which launches the device work without waiting; the returned finalize runs
 on a fetch thread, so batch n+1 dispatches while batch n is fetched.
 Batching is adaptive: a solo request dispatches at once, and arrivals
-during a busy dispatch form the next batch.
+during a busy dispatch form the next batch. ``/stop`` (what ``pio
+undeploy`` calls) answers ``{"message": "Stopping."}`` and sets
+:attr:`QueryServer.stop_requested`; the deploying process then shuts the
+server down, the micro-batcher after the HTTP side.
 """
 
 from __future__ import annotations
@@ -158,6 +162,7 @@ class QueryServer:
         self.batcher = _MicroBatcher(self, self.config.max_batch, MAX_INFLIGHT)
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self.stop_requested = threading.Event()
 
     # -- the serving pipeline ------------------------------------------------
     def dispatch_batch(self, payloads: list[Any]):
@@ -231,9 +236,16 @@ class QueryServer:
                 self.end_headers()
                 self.wfile.write(data)
 
+            def _stop(self) -> None:
+                self._reply(200, {"message": "Stopping."})
+                server.stop_requested.set()
+
             def do_GET(self):
-                if self.path.split("?")[0] == "/":
+                path = self.path.split("?")[0]
+                if path == "/":
                     self._reply(200, server.status())
+                elif path == "/stop":
+                    self._stop()
                 else:
                     self._reply(404, {"message": "not found"})
 
@@ -244,6 +256,9 @@ class QueryServer:
                     self._reply(413, {"message": "payload too large"})
                     return
                 body = self.rfile.read(length)
+                if self.path.split("?")[0] == "/stop":
+                    self._stop()
+                    return
                 if self.path.split("?")[0] != "/queries.json":
                     self._reply(404, {"message": "not found"})
                     return

@@ -160,10 +160,23 @@ def test_variants_train_and_serve_like_jax(memory_storage, tmp_path, name):
             (i, r.label) for i, r in jalgos[0].batch_predict(jmodels[0], list(enumerate(jq)))]
 
 
-def test_read_eval_waits_for_the_eval_slice(tmp_path, events):
-    ds = pt_cl.DataSource(pt_cl.DataSourceParams(app_name=APP, eval_k=3))
-    with pytest.raises(NotImplementedError, match="A9"):
-        ds.read_eval(port_store(tmp_path, APP, events))
+def test_read_eval_waits_for_the_eval_slice(memory_storage, tmp_path, events):
+    """The eval slice has landed: ``read_eval`` cuts the JAX package's
+    ``evalK`` folds (identical points, queries and actuals), and an evalK
+    past the corpus clamps as the JAX package's does."""
+    jctx = jax_store(memory_storage, APP, events)
+    pctx = port_store(tmp_path, APP, events)
+    for k in (3, 1000):
+        jfolds = jax_cl.DataSource(jax_cl.DataSourceParams(app_name=APP, eval_k=k)).read_eval(jctx)
+        folds = pt_cl.DataSource(pt_cl.DataSourceParams(app_name=APP, eval_k=k)).read_eval(pctx)
+        assert len(folds) == len(jfolds) == min(k, len(folds[0][0].labels) + len(folds[0][2]))
+        for (td, ei, qa), (jtd, jei, jqa) in zip(folds, jfolds):
+            np.testing.assert_array_equal(td.labels, jtd.labels)
+            np.testing.assert_array_equal(td.features, jtd.features)
+            assert [(q.to_array().tolist(), a.label) for q, a in qa] == [
+                (q.to_array().tolist(), a.label) for q, a in jqa]
+    with pytest.raises(ValueError, match="evalK"):
+        pt_cl.DataSource(pt_cl.DataSourceParams(app_name=APP)).read_eval(pctx)
 
 
 def test_jax_blob_serves_in_the_port(memory_storage, tmp_path, events):

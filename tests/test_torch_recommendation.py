@@ -515,7 +515,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "import importlib, sys\n"
         f"for m in {modules!r}: importlib.import_module(m)\n"
         "bad = [k for k in sys.modules if k.split('.')[0] in "
-        "('jax', 'flax', 'optax', 'predictionio_tpu')]\n"
+        "('jax', 'flax', 'optax', 'predictionio_tpu', 'aiohttp')]\n"
         "print(len(bad), bad[:5])\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
@@ -526,6 +526,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert len(modules) >= 29
     assert {"predictionio_tpu_torch.models.twotower.model",
             "predictionio_tpu_torch.models.twotower.engine"} <= set(modules)
+    # the offline verbs' modules (batchpredict, eval, the grid) are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "workflow.batch_predict", "workflow.fake_workflow", "obs.metrics", "obs.xray",
+        "resilience.retry", "resilience.breaker", "eval.metric", "eval.generator",
+        "eval.evaluator", "eval.fast_eval", "tuning.grid", "tuning.ledger",
+        "tuning.metrics", "tuning.cells", "tuning.runner", "e2.cross_validation",
+    )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"

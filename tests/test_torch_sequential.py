@@ -408,10 +408,29 @@ def test_jax_engine_json_with_eval_params_trains_the_same(tmp_path):
     assert m1.item_vocab == m2.item_vocab
 
 
-def test_read_eval_waits_for_the_eval_slice(tmp_path):
-    ds = pt_seq.DataSource(pt_seq.DataSourceParams(app_name=APP))
-    with pytest.raises(NotImplementedError, match="eval"):
-        ds.read_eval(WorkflowContext(device="cpu", _storage=port_storage(tmp_path)))
+def test_read_eval_waits_for_the_eval_slice(memory_storage, tmp_path):
+    """The eval slice has landed: ``read_eval`` folds users as the JAX
+    package does (the same sticky buckets, sessions, queries and actuals)."""
+    wire = _wire_events(seed=2)
+    _jax_read(memory_storage, wire)
+    ep = {"k_fold": 3, "query_num": 5, "holdout_tail": 2}
+    jax_folds = jax_seq.DataSource(jax_seq.DataSourceParams(
+        app_name=APP, page=3, eval_params=jax_seq.EvalParams(**ep))).read_eval(
+        JaxContext(_storage=memory_storage))
+    ds = pt_seq.DataSource(pt_seq.DataSourceParams(
+        app_name=APP, page=3, eval_params=pt_seq.EvalParams(**ep)))
+    folds = ds.read_eval(WorkflowContext(device="cpu", _storage=_port_store(tmp_path, wire)))
+    assert len(folds) == len(jax_folds) == 3
+    for (td, ei, qa), (jtd, jei, jqa) in zip(folds, jax_folds):
+        assert td.users == jtd.users and td.item_vocab == jtd.item_vocab and ei == jei
+        for a, b in zip(td.sequences, jtd.sequences):
+            np.testing.assert_array_equal(a, b)
+        assert [(q.user, q.recent_items, q.num, a.items) for q, a in qa] == [
+            (q.user, q.recent_items, q.num, a.items) for q, a in jqa]
+    assert sum(len(qa) for _, _, qa in folds) == 12  # every user held out once
+    with pytest.raises(ValueError, match="evalParams"):
+        pt_seq.DataSource(pt_seq.DataSourceParams(app_name=APP)).read_eval(
+            WorkflowContext(device="cpu", _storage=port_storage(tmp_path / "empty")))
 
 
 # ---------------------------------------------------------------------------
