@@ -43,6 +43,27 @@ The recommendation template (ALS, kernel B1):
    (B1's launches: 12 x 2 x 10), with 2 workers (the same cells, scores
    within 0.02) and resumed (0 cells retrained); B1 held and timed on an
    eval cell's rank-20 systems;
+3c. stream fold-in: the ML-20M model published as stable into a model
+   registry, 200,000 rate events (150,000 by 7,500 active users, 50,000 by
+   5,000 new users) in a sqlite event store, drained 500 at a time through
+   FoldInALSTrainer on the card (two B1 launches an absorb, each held to the
+   plain version; 1,000 folded users held to a float64 solve) into
+   StreamPipeline, which publishes and stages 4 canary candidates; events/s,
+   the p50 of an absorb's build, upload, B1 and fetch, each publish's
+   seconds;
+3d. rollout lanes: a QueryServer on the card deployed from that registry
+   with registry sync every 0.5 s adopts the canary candidate; 2,000
+   queries route by sticky bucket (share 0.1 +- 0.03), each answer equal to
+   its lane's serve_batch; promote, stage then rollback, a shadow candidate
+   (answers from stable, divergence recorded), five stage/promote cycles
+   (card memory within 10 %), POST /reload;
+3e. the registry CLI on the event server's store: train --registry-dir,
+   models list, deploy --registry-dir --registry-sync-interval 0.5, 5,000
+   more events through POST /batch/events.json, stream --cycles 3
+   --notify-url (its own process, B1 twice an absorb), 200 queries, models
+   promote and rollback (the server adopts both), eval --publish (the
+   winner lands as the candidate); B1 held and timed on a rank-10
+   fold-in's systems;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -378,7 +399,7 @@ def order_spread(torch, A, b, orders: int = 8):
     return spread
 
 
-def b1_rows_held(torch, A, b, row_rel_limit: float, what: str) -> dict:
+def b1_rows_held(torch, A, b, row_rel_limit: float, what: str, x=None) -> dict:
     """Holds B1 to its plain version on every one of the systems A, b, and
     raises on any row outside. A row passes within row-relative
     ``row_rel_limit`` of the plain answer. f32 CG at f+4 steps does not
@@ -388,10 +409,12 @@ def b1_rows_held(torch, A, b, row_rel_limit: float, what: str) -> dict:
     version does not determine it either (``order_spread`` above a tenth of
     the limit) and B1's row is within 1.5x the plain version's largest row
     distance from the float64 solution; B1's mean distance must also be
-    within 1.25x the plain version's. Returns the check's record."""
+    within 1.25x the plain version's. ``x``: B1's answer from a launch the
+    caller made (none is made here then). Returns the check's record."""
     from predictionio_tpu_torch.ops.spd_solve import _cg_body, batched_spd_solve_fused
 
-    x = batched_spd_solve_fused(A, b)
+    if x is None:
+        x = batched_spd_solve_fused(A, b)
     ref = _cg_body(A, b, b.shape[1] + 4)
     torch.cuda.synchronize()
     if not torch.isfinite(x).all():
@@ -705,12 +728,12 @@ def cli_serve_phase(home: str, device: str = "cuda") -> dict:
 
 # Runs the port's CLI in this process and, at its exit, writes to the path
 # given as the first argument the kernel launches of the run (each count
-# zeroed before the verb runs; train, deploy, batchpredict and eval) and
+# zeroed before the verb runs; train, deploy, batchpredict, eval and stream) and
 # every module of JAX, the JAX package or aiohttp that the process imported.
 _CLI_LAUNCHER = """
 import atexit, json, runpy, sys
 out = sys.argv.pop(1)
-counted = bool({"train", "deploy", "batchpredict", "eval"} & set(sys.argv))
+counted = bool({"train", "deploy", "batchpredict", "eval", "stream"} & set(sys.argv))
 if counted:
     from predictionio_tpu_torch.ops import attention, spd_solve
     kernels = {"spd_cg": spd_solve.batched_spd_solve_fused,
@@ -923,7 +946,8 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
     }
     emit(phase="eventserver", shape=[n_users, n_items, n_batch + n_single], **result)
     return {"launches": {"eventserver_train": train_launches}, "rows": kernel_rows,
-            "variant": variant, "user_ids": sorted({f"u{u}" for u in users.tolist()} | {"tz-user"})}
+            "variant": variant, "user_ids": sorted({f"u{u}" for u in users.tolist()} | {"tz-user"}),
+            "access_key": key}
 
 
 def inprocess_serve_phase(torch, model) -> None:
@@ -2845,6 +2869,583 @@ def eval_b1_rows(torch, home: str) -> list[dict]:
     return rows
 
 
+REC_FACTORY = "predictionio_tpu_torch.models.recommendation.engine.engine_factory"
+STREAM_ENGINE = "smoke-stream"
+
+
+def _p50_ms(values) -> float:
+    return float(np.percentile(np.asarray(values, dtype=np.float64) * 1e3, 50))
+
+
+def _query(base: str, payload, timeout: float = 30.0):
+    """POST /queries.json: (status, body, the answering model version, seconds)."""
+    req = urllib.request.Request(base + "/queries.json", data=json.dumps(payload).encode(),
+                                 headers={"Content-Type": "application/json"})
+    t0 = time.perf_counter()
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+        body = json.loads(resp.read())
+        return resp.status, body, resp.headers.get("X-Pio-Model-Version"), time.perf_counter() - t0
+
+
+def _rating_events(model, rng, existing: np.ndarray, new_ids: list, new_taste: np.ndarray,
+                   n_new: int, t_start):
+    """Rate events around a trained ALS model's own scores (plus noise 0.3,
+    half stars in 1..5) on zipf-popular items: one per entry of
+    ``existing`` (user indices), then ``n_new`` by the users of ``new_ids``,
+    each rating as the existing user ``new_taste[j]`` would; shuffled, one
+    millisecond apart from ``t_start``."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.event import Event
+
+    n_items = len(model.item_vocab)
+    new = rng.integers(0, len(new_ids), n_new)
+    src = np.concatenate([existing, new_taste[new]])
+    ids = [model.user_vocab[u] for u in existing] + [new_ids[j] for j in new]
+    items = (rng.zipf(1.3, len(src)) % n_items).astype(np.int64)
+    raw = np.sum(model.user_factors[src] * model.item_factors[items], axis=1)
+    ratings = np.clip(np.round(2 * (raw + 0.3 * rng.normal(size=len(src)))) / 2, 1.0, 5.0)
+    out = []
+    for n, k in enumerate(rng.permutation(len(src)).tolist()):
+        t = t_start + dt.timedelta(milliseconds=n)
+        out.append(Event(event="rate", entity_type="user", entity_id=ids[k], target_entity_type="item",
+                         target_entity_id=model.item_vocab[items[k]],
+                         properties={"rating": float(ratings[k])}, event_time=t, creation_time=t,
+                         event_id=f"s{n:07d}"))
+    return out
+
+
+def stream_foldin_phase(torch, home: str, model, n_active: int = 7_500, n_existing: int = 150_000,
+                        n_new_users: int = 5_000, n_new: int = 50_000, batch_limit: int = 500,
+                        publish_min_events: int = 50_000, sampled_users: int = 1_000) -> dict:
+    """The speed layer in-process at full width: the ML-20M model of the
+    train phase published as stable into an ArtifactStore; 200,000 rate
+    events from a fixed seed written into a sqlite event store (150,000 by
+    7,500 active existing users on existing items, 20 each, and 50,000 by
+    5,000 new users, 10 each, every rating around the model's own score);
+    EventTailer(batch_limit=500) -> FoldInALSTrainer on the card ->
+    StreamPipeline(publish_min_events=50,000, canary 0.1): 400 absorbs, two
+    B1 launches each (the touched users against the fixed items, then the
+    touched items against the updated users), 4 published candidates.
+    Every launch's x is held to the plain version on the same A and b by
+    b1_rows_held's rule at row-relative 1e-3, the limit of the same model's
+    training systems (real_system_check), 1,000 folded users to a float64
+    solve of their
+    normal equations (row-relative 1e-3); the drift guard is ok at every
+    publish and the new users have factors."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest
+    from predictionio_tpu_torch.stream import (CursorStore, EventTailer, StreamConfig,
+                                               StreamPipeline, trainer_for_models)
+    from predictionio_tpu_torch.stream.trainers import FOLD_PARTS
+    from predictionio_tpu_torch.workflow import model_io
+
+    work = os.path.join(home, "stream")
+    storage = smoke_storage(work)
+    app_id = storage.get_meta_data_apps().insert(App(0, "streamapp"))
+    levents = storage.get_l_events()
+    levents.init(app_id)
+    store = ArtifactStore(os.path.join(work, "registry"))
+    t0 = time.perf_counter()
+    stable_blob = model_io.serialize_models([model])
+    store.publish(ModelManifest(version="", engine_id=STREAM_ENGINE, engine_version="1",
+                                engine_variant="engine.json", engine_factory=REC_FACTORY), stable_blob)
+    stable_publish_s = time.perf_counter() - t0
+    rng = np.random.default_rng(31)
+    n_users = len(model.user_vocab)
+    active = rng.choice(n_users, n_active, replace=False)
+    new_ids = [f"new{j}" for j in range(n_new_users)]
+    events = _rating_events(model, rng, active[rng.integers(0, n_active, n_existing)], new_ids,
+                            rng.integers(0, n_users, n_new_users), n_new,
+                            dt.datetime.now(tz=dt.timezone.utc) - dt.timedelta(days=1))
+    t0 = time.perf_counter()
+    for lo in range(0, len(events), 10_000):
+        levents.insert_batch(events[lo:lo + 10_000], app_id)
+    write_s = time.perf_counter() - t0
+    n_total = len(events)
+    seen_new = {e.entity_id for e in events if e.entity_id.startswith("new")}
+    del events
+
+    trainer = trainer_for_models([model], device="cuda")
+    parts: list[dict] = []
+    absorb = trainer.absorb
+
+    def timed_absorb(batch):
+        n = absorb(batch)
+        parts.append(dict(trainer.last_absorb_stats))
+        return n
+
+    trainer.absorb = timed_absorb
+    held = {"user": [], "item": []}
+    sizes = {"user": [], "item": []}
+    f64 = []
+    systems = {}
+
+    def hold(side, order, A, b, x):
+        record = b1_rows_held(torch, A, b, 1e-3, f"a fold-in's {side} side", x=x)
+        held[side].append(record["max_row_rel_err"])
+        sizes[side].append(len(order))
+        if len(parts) == 10 and side not in systems:  # an absorb of the steady state
+            systems[side] = (A.clone(), b.clone())
+        if side == "user" and len(f64) < sampled_users:
+            fixed = trainer.item_factors  # the table this solve ran against
+            xs = x.cpu().numpy()
+            for k in range(0, len(order), max(1, len(order) // 3))[:3]:
+                pairs = trainer._user_ratings[order[k]]
+                V = fixed[np.fromiter((p[0] for p in pairs), np.int64, len(pairs))].astype(np.float64)
+                r = np.fromiter((p[1] for p in pairs), np.float64, len(pairs))
+                exact = np.linalg.solve(V.T @ V + trainer.reg * max(1.0, len(pairs)) * np.eye(V.shape[1]),
+                                        V.T @ r)
+                f64.append(float(np.linalg.norm(xs[k] - exact) / np.linalg.norm(exact)))
+
+    trainer.solve_hook = hold
+    pipeline = StreamPipeline(
+        EventTailer(levents, app_id, batch_limit=batch_limit), trainer,
+        CursorStore(os.path.join(work, "cursors")), store,
+        StreamConfig(engine_id=STREAM_ENGINE, engine_version="1", engine_variant="engine.json",
+                     engine_factory=REC_FACTORY, mode="canary", fraction=0.1,
+                     publish_min_events=publish_min_events,
+                     max_batches_per_cycle=publish_min_events // batch_limit,
+                     keep_versions=20))
+    batched_spd_solve_fused.launches = 0
+    t0 = time.perf_counter()
+    summaries = []
+    while True:
+        summaries.append(pipeline.run_once())
+        if summaries[-1]["drained"] == 0:
+            break
+    wall_s = time.perf_counter() - t0
+    launches = batched_spd_solve_fused.launches
+    published = [s["published"] for s in summaries if s["published"]]
+    drained = sum(s["drained"] for s in summaries)
+    absorbs = -(-n_total // batch_limit)
+    if drained != n_total or len(parts) != absorbs:
+        raise AssertionError(f"fold-in drained {drained} of {n_total} events in {len(parts)} absorbs")
+    if any(s["driftSuppressed"] for s in summaries) or not trainer.drift().ok:
+        raise AssertionError(f"the drift guard breached: {trainer.drift()}")
+    if len(published) != n_total // publish_min_events:
+        raise AssertionError(f"fold-in published {published}")
+    if launches != 2 * absorbs:
+        raise AssertionError(f"fold-in launched B1 {launches} times for {absorbs} absorbs")
+    if len(f64) < sampled_users or max(f64) > 1e-3:
+        raise AssertionError(f"{len(f64)} folded users, largest row error {max(f64)} from float64")
+    # a new user whose every event the drift guard held out is never folded
+    folded_new = [trainer._user_index[u] for u in sorted(seen_new) if u in trainer._user_index]
+    new_norm = np.linalg.norm(trainer.user_factors[folded_new], axis=1)
+    if len(folded_new) < 0.99 * len(seen_new) or not (np.isfinite(new_norm).all() and (new_norm > 0).all()):
+        raise AssertionError(f"{len(folded_new)} of {len(seen_new)} new users folded, or one has no factors")
+    state = store.get_state(STREAM_ENGINE)
+    if (state.stable, state.candidate, state.mode, state.fraction) != ("v000001", published[-1], "canary", 0.1):
+        raise AssertionError(f"registry state after the stream: {state.to_json_dict()}")
+    kernel_rows = []
+    for side in ("user", "item"):
+        A, b = systems[side]
+        kernel_rows.append({"systems": f"stream fold-in, ML-20M {side}s of one absorb",
+                            **b1_rows_held(torch, A, b, 1e-3, f"the timed fold-in {side} side"),
+                            **b1_times(torch, A, b)})
+        emit(phase="kernel_real", kernel="spd_cg", **kernel_rows[-1])
+    publish = [{k: v for k, v in p.items()} for p in pipeline.publish_seconds]
+    result = {
+        "host_numbers": True, "events": n_total, "active_users": n_active, "new_users": len(seen_new),
+        "new_users_folded": len(folded_new),
+        "write_events_per_s": n_total / write_s, "stable_publish_s": stable_publish_s,
+        "foldin_wall_s": wall_s, "foldin_events_per_s": n_total / wall_s, "absorbs": len(parts),
+        "absorb_p50_ms": {k: _p50_ms([p[k] for p in parts]) for k in FOLD_PARTS},
+        "systems_per_solve_p50": {k: float(np.percentile(v, 50)) for k, v in sizes.items()},
+        "publish_s": publish, "published": published, "spd_cg_launches": launches,
+        "held_max_row_rel_err": {k: max(v) for k, v in held.items()},
+        "float64_users": len(f64), "float64_max_row_err": max(f64),
+        "drift": trainer.drift().to_json_dict(),
+    }
+    emit(phase="stream_foldin", shape=[n_users, len(model.item_vocab), 32], **result)
+    return {"launches": {"stream_foldin": launches}, "rows": kernel_rows, "store": store,
+            "storage": storage, "work": work, "published": published, "stable_blob": stable_blob}
+
+
+def _engine_dir(path: str, engine_id: str, app_name: str, params: dict) -> str:
+    os.makedirs(path, exist_ok=True)
+    with open(os.path.join(path, "engine.json"), "w") as fh:
+        json.dump({"id": engine_id, "engineFactory": REC_FACTORY,
+                   "datasource": {"params": {"appName": app_name}},
+                   "algorithms": [{"name": "als", "params": params}]}, fh)
+    return path
+
+
+def _lane_answers_held(server, lane, outs, users, what: str) -> None:
+    """Every answer equal to ServingIndex.serve_batch of that lane's own
+    model (tie-aware, rtol 1e-5)."""
+    model = lane.models[0]
+    got_ids = np.asarray([[model.item_index(x["item"]) for x in body["itemScores"]] for _, body, _, _ in outs])
+    got_scores = np.asarray([[x["score"] for x in body["itemScores"]] for _, body, _, _ in outs])
+    uidx = np.asarray([model.user_index(u) for u in users], dtype=np.int32)
+    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 20)
+    _same_topk(got_ids, got_scores, ref_ids, ref_scores, 1e-5, what)
+
+
+def rollout_lanes_phase(torch, home: str, foldin: dict, n_queries: int = 2_000) -> dict:
+    """A QueryServer on the card deployed from the fold-in's registry with
+    registry sync every 0.5 s. Canary: it adopts the staged candidate, and
+    2,000 queries for 2,000 distinct users route by sticky_bucket(user,
+    salt = candidate version) with a candidate share within 0.1 +- 0.03,
+    every answer equal to serve_batch of its lane's own model. POST
+    /models/promote: every answer from the candidate. Staging the next
+    candidate then POST /models/rollback: stable unchanged. Shadow: answers
+    only from stable, divergence recorded. Five stage/promote cycles:
+    torch.cuda.memory_allocated within 10 % of its value after the first.
+    POST /reload last: the latest COMPLETED instance swaps in."""
+    import datetime as dt
+    import gc
+
+    from predictionio_tpu_torch.data.storage.base import EngineInstance, EngineInstanceStatus, Model
+    from predictionio_tpu_torch.registry import sticky_bucket
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.create_server import ServerConfig, create_query_server
+
+    storage, store, published = foldin["storage"], foldin["store"], foldin["published"]
+    params = {"rank": 32}
+    engine_dir = _engine_dir(os.path.join(foldin["work"], "engine"), STREAM_ENGINE, "streamapp", params)
+    now = dt.datetime.now(tz=dt.timezone.utc)
+    instance_id = storage.get_meta_data_engine_instances().insert(EngineInstance(
+        id="", status=EngineInstanceStatus.COMPLETED, start_time=now, end_time=now,
+        engine_id=STREAM_ENGINE, engine_version="1", engine_variant="engine.json",
+        engine_factory=REC_FACTORY, data_source_params=json.dumps({"appName": "streamapp"}),
+        algorithms_params=json.dumps([{"name": "als", "params": params}])))
+    storage.get_model_data_models().insert(Model(instance_id, foldin["stable_blob"]))
+    ctx = WorkflowContext(mode="serving", device="cuda", _storage=storage)
+    config = ServerConfig(ip="127.0.0.1", port=0, registry_dir=store.base_dir,
+                          registry_sync_interval_s=0.5, bake_window_s=3600.0)
+    t0 = time.perf_counter()
+    server = create_query_server(engine_dir, ctx, config)
+    deploy_s = time.perf_counter() - t0
+    base = f"http://127.0.0.1:{server.start()}"
+    users = [f"u{i}" for i in range(n_queries)]
+    steps = {"deploy_s": deploy_s}
+
+    def queries(us, workers=16):
+        with concurrent.futures.ThreadPoolExecutor(workers) as pool:
+            outs = list(pool.map(lambda u: _query(base, {"user": u, "num": 10}), us))
+        if any(status != 200 for status, _, _, _ in outs):
+            raise AssertionError("a query was not answered 200")
+        return outs
+
+    def post(path, payload=None):
+        t = time.perf_counter()
+        status, body, _ = _http(base + path, payload if payload is not None else {})
+        if status != 200:
+            raise AssertionError(f"POST {path} answered {status}: {body}")
+        return body, time.perf_counter() - t
+
+    try:
+        cand = published[-1]
+        t0 = time.perf_counter()
+        while server._candidate is None or server._candidate.version != cand:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"the server never adopted the staged candidate {cand}")
+            time.sleep(0.05)
+        steps["adopt_candidate_s"] = time.perf_counter() - t0
+        stable, cand_lane, plan, _ = server.lanes()
+        outs = queries(users)
+        lanes = [v for _, _, v, _ in outs]
+        want = [cand if sticky_bucket(u, cand) < plan.fraction else stable.version for u in users]
+        if lanes != want:
+            bad = next(i for i, (a, b) in enumerate(zip(lanes, want)) if a != b)
+            raise AssertionError(f"{users[bad]} answered by {lanes[bad]}, its bucket says {want[bad]}")
+        share = lanes.count(cand) / len(lanes)
+        if abs(share - 0.1) > 0.03:
+            raise AssertionError(f"candidate share {share} outside 0.1 +- 0.03")
+        for lane in (stable, cand_lane):
+            pick = [i for i, v in enumerate(lanes) if v == lane.version]
+            _lane_answers_held(server, lane, [outs[i] for i in pick], [users[i] for i in pick],
+                               f"canary answers of {lane.version}")
+        canary_p50 = _p50_ms([dt_s for _, _, _, dt_s in outs])
+
+        body, _ = post("/models/promote")
+        if body["version"] != cand or store.get_state(STREAM_ENGINE).stable != cand:
+            raise AssertionError(f"promote: {body}")
+        outs = queries(users[:500])
+        if {v for _, _, v, _ in outs} != {cand}:
+            raise AssertionError("after promote an answer came from another lane")
+        _lane_answers_held(server, server._active, outs, users[:500], "answers after promote")
+        stable_p50 = _p50_ms([dt_s for _, _, _, dt_s in outs])
+
+        nxt = published[-2]
+        _, steps["lane_load_s"] = post("/models/candidate", {"version": nxt, "fraction": 0.5})
+        body, _ = post("/models/rollback")
+        state = store.get_state(STREAM_ENGINE)
+        if body["version"] != nxt or state.stable != cand or state.candidate:
+            raise AssertionError(f"rollback: {body} {state.to_json_dict()}")
+        if {v for _, _, v, _ in queries(users[:200])} != {cand}:
+            raise AssertionError("after rollback an answer came from another lane")
+
+        post("/models/candidate", {"version": published[0], "mode": "shadow"})
+        inst = server._rollout_instruments
+        outs = queries(users[:300], workers=4)
+        if {v for _, _, v, _ in outs} != {cand}:
+            raise AssertionError("a shadow candidate answered a query")
+        t0 = time.perf_counter()
+        while inst.shadow_scored.value(version=published[0]) + inst.shadow_dropped.value(version=published[0]) < 300:
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError("shadow scoring never caught up")
+            time.sleep(0.05)
+        shadow = {"scored": inst.shadow_scored.value(version=published[0]),
+                  "dropped": inst.shadow_dropped.value(version=published[0]),
+                  "diverged": inst.divergence.value(version=published[0]),
+                  "errors": inst.errors.value(version=published[0], lane="shadow")}
+        if shadow["scored"] == 0 or shadow["errors"]:
+            raise AssertionError(f"shadow: {shadow}")
+        post("/models/rollback")
+
+        memory = []
+        for cycle in range(5):
+            current = server.model_version
+            version = next(v for v in reversed(published) if v != current)
+            post("/models/candidate", {"version": version, "fraction": 0.5})
+            queries(users[:64], workers=8)
+            post("/models/promote")
+            gc.collect()
+            torch.cuda.synchronize()
+            memory.append(torch.cuda.memory_allocated())
+        if memory[-1] > 1.1 * memory[0]:
+            raise AssertionError(f"card memory grew across lane swaps: {memory}")
+
+        # the sync must have seen the last promote first: a registry stable
+        # it had yet to reconcile would otherwise replace the reloaded lane
+        t0 = time.perf_counter()
+        while server._seen_state_gen != store.state_generation(STREAM_ENGINE):
+            if time.perf_counter() - t0 > 30:
+                raise AssertionError("registry sync never caught up with the promotes")
+            time.sleep(0.05)
+        body, steps["reload_s"] = post("/reload")
+        if body.get("instanceId") != instance_id or server.model_version != instance_id:
+            raise AssertionError(f"/reload: {body}")
+        outs = queries(users[:200])
+        if {v for _, _, v, _ in outs} != {instance_id}:
+            raise AssertionError("after /reload an answer came from another lane")
+        _lane_answers_held(server, server._active, outs, users[:200], "answers after /reload")
+    finally:
+        server.shutdown()
+    result = {"host_numbers": True, **steps, "queries_canary": n_queries, "candidate_share": share,
+              "canary_query_p50_ms": canary_p50, "stable_query_p50_ms": stable_p50,
+              "shadow": shadow, "memory_allocated_after_cycles": memory,
+              "promotions": inst.promotions.value(),
+              "rollbacks": inst.rollbacks.value(reason="manual")}
+    emit(phase="rollout_lanes", **result)
+    return result
+
+
+def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new_users: int = 500,
+                       n_new: int = 5_000) -> dict:
+    """The registry path as a user drives it, each verb a process of the
+    port's CLI on the event server's ML-100K store: train --registry-dir
+    (v000001 stable), models list, deploy --registry-dir
+    --registry-sync-interval 0.5, stream --cycles 1 (seeds its cursor at
+    the store head), 5,000 more rate events through POST
+    /batch/events.json (by 500 new users, each rating as an existing user
+    would under the trained model), stream --cycles 3 --notify-url
+    (B1 twice per absorb, one candidate staged on the server), 200 queries
+    answered 200 (some by the candidate), models promote and rollback on
+    the registry (the server adopts both), eval --publish (its winner
+    lands as the candidate, the server adopts it). No process imports
+    JAX, the JAX package or aiohttp."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.workflow import model_io
+
+    work = tempfile.mkdtemp(prefix="pio_smoke_registry_")
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    reports, steps, procs = [], {}, []
+
+    def argv(*args):
+        reports.append(os.path.join(work, f"report_{len(reports)}.json"))
+        return [sys.executable, "-c", _CLI_LAUNCHER, reports[-1], "--home", home, *args]
+
+    def run(name, *args, timeout=600):
+        t0 = time.perf_counter()
+        proc = subprocess.run(argv(*args), env=env, capture_output=True, text=True, timeout=timeout, cwd=work)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {' '.join(args[:2])} failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        steps[f"{name}_s"] = time.perf_counter() - t0
+        with open(reports[-1]) as fh:
+            return proc.stdout, json.load(fh)["launches"]
+
+    def start(name, *args):
+        port = _free_port()
+        with open(os.path.join(work, f"{name}.err"), "w") as err:
+            proc = subprocess.Popen(argv(*args, "--ip", "127.0.0.1", "--port", str(port)), env=env,
+                                    stdout=subprocess.DEVNULL, stderr=err, cwd=work)
+        procs.append(proc)
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                with open(os.path.join(work, f"{name}.err")) as fh:
+                    raise AssertionError(f"{name} exited {proc.returncode}: {fh.read()[-3000:]}")
+            try:
+                if _http(f"http://127.0.0.1:{port}/", timeout=2)[0] == 200:
+                    steps[f"{name}_ready_s"] = time.perf_counter() - t0
+                    return f"http://127.0.0.1:{port}"
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError(f"{name} did not answer GET / within 180 s")
+            time.sleep(0.2)
+
+    def models_state(base):
+        with urllib.request.urlopen(base + "/models", timeout=30) as resp:
+            return json.loads(resp.read())
+
+    def wait_for(base, what, check):
+        t0 = time.perf_counter()
+        while not check(models_state(base)):
+            if time.perf_counter() - t0 > 60:
+                raise AssertionError(f"the server never adopted {what}: {models_state(base)}")
+            time.sleep(0.1)
+        return time.perf_counter() - t0
+
+    registry = os.path.join(work, "registry")
+    variant = {**rest["variant"], "id": "smoke-registry"}
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump(variant, fh)
+    ed = ["--engine-dir", engine_dir, "--device", device]
+    launches = {}
+    try:
+        _, counts = run("train", "train", *ed, "--registry-dir", registry)
+        launches["train"] = counts["spd_cg"]
+        stdout, _ = run("models_list", "models", "list", "--engine-dir", engine_dir, "--registry-dir", registry)
+        if not any(line.startswith("v000001") and "stable" in line for line in stdout.splitlines()):
+            raise AssertionError(f"models list:\n{stdout}")
+        base = start("deploy", "deploy", *ed, "--registry-dir", registry, "--registry-sync-interval", "0.5",
+                     "--bake-window", "3600")
+        if models_state(base)["stable"]["version"] != "v000001":
+            raise AssertionError("deploy does not serve the registry's stable")
+        stream = ["stream", *ed, "--app-name", "restapp", "--registry-dir", registry,
+                  "--batch-limit", "500", "--interval", "1", "--fraction", "0.5"]
+        run("stream_seed", *stream, "--cycles", "1")  # a fresh cursor starts at the store head
+
+        from predictionio_tpu_torch.registry import ArtifactStore
+
+        store = ArtifactStore(registry)
+        (model,) = model_io.deserialize_models(store.load_blob("smoke-registry", "v000001"))
+        rng = np.random.default_rng(37)
+        events = _rating_events(model, rng, np.zeros(0, np.int64), [f"cli-new{j}" for j in range(n_new_users)],
+                                rng.integers(0, len(model.user_vocab), n_new_users), n_new,
+                                dt.datetime.now(tz=dt.timezone.utc))
+        es = start("eventserver", "eventserver")
+        key = rest["access_key"]
+        t0 = time.perf_counter()
+        for lo in range(0, len(events), 50):
+            status, results, _ = _http(f"{es}/batch/events.json?accessKey={key}",
+                                       [{k: v for k, v in e.to_json_dict().items() if k != "eventId"}
+                                        for e in events[lo:lo + 50]])
+            if status != 200 or any(r.get("status") != 201 for r in results):
+                raise AssertionError(f"batch at {lo}: {status} {results[:2]}")
+        steps["post_events_s"] = time.perf_counter() - t0
+        time.sleep(1.0)  # past the stream's safety lag
+        stdout, counts = run("stream", *stream, "--cycles", "3", "--notify-url", base)
+        launches["stream"] = counts["spd_cg"]
+        absorbs = -(-len(events) // 500)
+        if launches["stream"] != 2 * absorbs or "1 published" not in stdout:
+            raise AssertionError(f"pio stream: {launches['stream']} B1 launches for {absorbs} absorbs:\n{stdout}")
+        state = store.get_state("smoke-registry")
+        cand = state.candidate
+        if not cand or models_state(base)["candidate"]["version"] != cand:
+            raise AssertionError(f"the streamed candidate was not staged on the server: {state.to_json_dict()}")
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            outs = list(pool.map(lambda u: _query(base, {"user": u, "num": 10}),
+                                 [u for u in rest["user_ids"] if u.startswith("u")][:200]))
+        if any(status != 200 for status, _, _, _ in outs):
+            raise AssertionError("a query was not answered 200")
+        by_version = {v: sum(1 for _, _, w, _ in outs if w == v) for v in {w for _, _, w, _ in outs}}
+        if set(by_version) != {"v000001", cand}:
+            raise AssertionError(f"answers by version {by_version}")
+        for status, body, _, _ in outs[:50]:
+            _check_result(body, 10, 1682)
+        run("models_promote", "models", "promote", "--engine-dir", engine_dir, "--registry-dir", registry)
+        steps["adopt_promote_s"] = wait_for(base, "the promote", lambda s: s["stable"]["version"] == cand)
+        run("models_rollback", "models", "rollback", "--engine-dir", engine_dir, "--registry-dir", registry)
+        steps["adopt_rollback_s"] = wait_for(base, "the rollback",
+                                             lambda s: s["stable"]["version"] == "v000001")
+        with open(os.path.join(work, "registry_grid.py"), "w") as fh:
+            fh.write(_REGISTRY_GRID.format(variant={**variant, "datasource": {"params": {
+                **variant["datasource"]["params"], "evalParams": {"kFold": 2, "queryNum": 10}}}}))
+        stdout, counts = run("eval_publish", "eval", "registry_grid.make_evaluation", "--device", device,
+                             "--workers", "0", "--workdir", os.path.join(work, "grid"),
+                             "--engine-dir", engine_dir, "--registry-dir", registry, "--publish")
+        launches["eval_publish"] = counts["spd_cg"]
+        winner = store.get_state("smoke-registry").candidate
+        if f"candidate {winner}" not in stdout or not store.get_manifest("smoke-registry", winner).eval_evidence:
+            raise AssertionError(f"eval --publish landed no candidate:\n{stdout}")
+        steps["adopt_winner_s"] = wait_for(base, "the grid winner", lambda s: (s["candidate"] or {}).get("version") == winner)
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                _stop(proc)
+    for path in reports:
+        with open(path) as fh:
+            foreign = json.load(fh)["foreign_modules"]
+        if foreign:
+            raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
+    shutil.rmtree(work, ignore_errors=True)
+    if launches["train"] != 20 or launches["eval_publish"] != (4 + 1) * 20:
+        raise AssertionError(f"B1 launches {launches}")
+    result = {"host_numbers": True, **steps, "spd_cg_launches": launches, "streamed_events": len(events),
+              "answers_by_version": by_version, "candidate": cand, "grid_winner": winner}
+    emit(phase="registry_cli", **result)
+    return {"launches": {"registry_cli": sum(launches.values())}}
+
+
+_REGISTRY_GRID = """
+from predictionio_tpu_torch.eval import Evaluation
+from predictionio_tpu_torch.models.recommendation.engine import engine_factory
+from predictionio_tpu_torch.tuning.metrics import PrecisionAtK
+
+VARIANT = {variant!r}
+
+
+def make_evaluation():
+    engine = engine_factory()
+    params = [engine.engine_params_from_variant({{**VARIANT, "algorithms": [{{"name": "als", "params": {{
+        **VARIANT["algorithms"][0]["params"], "rank": rank}}}}]}}) for rank in (10, 20)]
+    return Evaluation(engine=engine, metric=PrecisionAtK(k=10), engine_params_generator=params)
+"""
+
+
+def stream_b1_rows(torch, home: str, n_events: int = 5_000) -> list[dict]:
+    """B1 at a fold-in's rank-10 shape: the event server's rank-10 model
+    folding 5,000 rate events (as registry_cli streams them) in-process;
+    the first absorb's user and item systems held and timed."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.stream import FoldInALSTrainer
+    from predictionio_tpu_torch.workflow import model_io
+
+    storage = smoke_storage(home)
+    instance = storage.get_meta_data_engine_instances().get_latest_completed("smoke-rest", "1", "engine.json")
+    (model,) = model_io.deserialize_models(storage.get_model_data_models().get(instance.id).models)
+    rng = np.random.default_rng(41)
+    active = rng.choice(len(model.user_vocab), 50, replace=False)
+    events = _rating_events(model, rng, active[rng.integers(0, 50, 1_000)], [f"b1-new{j}" for j in range(400)],
+                            rng.integers(0, len(model.user_vocab), 400), n_events - 1_000,
+                            dt.datetime.now(tz=dt.timezone.utc))
+    trainer = FoldInALSTrainer([model], device="cuda")
+    systems = {}
+    trainer.solve_hook = lambda side, order, A, b, x: systems.setdefault(side, (A.clone(), b.clone(), x.clone()))
+    # the first absorb's systems: a fresh fold at the stream's batch limit
+    trainer.absorb(events[:500])
+    rows = []
+    for side in ("user", "item"):
+        A, b, x = systems[side]
+        rows.append({"systems": f"stream fold-in, ML-100K {side}s of one absorb (rank 10)",
+                     **b1_rows_held(torch, A, b, 1e-4, f"a rank-10 fold-in's {side} side", x=x),
+                     **b1_times(torch, A, b)})
+        emit(phase="kernel_real", kernel="spd_cg", **rows[-1])
+    return rows
+
+
 def main() -> int:
     import torch
 
@@ -2875,9 +3476,15 @@ def main() -> int:
         rest = eventserver_phase(torch, os.path.join(home, "rest"))
         inprocess_serve_phase(torch, model)
         batchpredict_als_phase(torch, model)
+        foldin = stream_foldin_phase(torch, home, model)
         del td, model
+        rollout_lanes_phase(torch, home, foldin)
+        foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
+        del foldin
         offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)
         eval_rows = eval_b1_rows(torch, os.path.join(home, "rest"))
+        registry = registry_cli_phase(torch, os.path.join(home, "rest"), rest)
+        foldin_rows += stream_b1_rows(torch, os.path.join(home, "rest"))
         rank160, rank160_launches = als_rank160_phase(torch, home)
         attention_kernel_phase(torch)
         wide_rows = wide_head_times(torch)
@@ -2908,10 +3515,11 @@ def main() -> int:
                                   "als_train_rank_160": rank160_launches,
                                   **rest["launches"], **similar["launches"],
                                   **ecommerce["launches"], **recuser["launches"],
-                                  **offline["launches"]}
+                                  **offline["launches"], **foldin_launches,
+                                  **registry["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
-    kernel["other_shapes"] += (rest["rows"] + eval_rows + rank160["rows"] + similar["rows"]
-                               + [grid_row])
+    kernel["other_shapes"] += (rest["rows"] + eval_rows + foldin_rows + rank160["rows"]
+                               + similar["rows"] + [grid_row])
     block = next(e for e in attention if e["name"] == "attention_block")
     block["launches_by_path"].update(twotower_train=tt_train_launches,
                                      twotower_serve=tt_serve_launches,

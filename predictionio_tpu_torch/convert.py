@@ -54,6 +54,14 @@ CLASS_MAP = {
         "predictionio_tpu_torch.models.recommendeduser.engine",
         "SimilarUserModel",
     ),
+    ("predictionio_tpu.e2.naive_bayes", "CategoricalNaiveBayesModel"): (
+        "predictionio_tpu_torch.e2.naive_bayes",
+        "CategoricalNaiveBayesModel",
+    ),
+    ("predictionio_tpu.e2.naive_bayes", "LabeledPoint"): (
+        "predictionio_tpu_torch.e2.naive_bayes",
+        "LabeledPoint",
+    ),
     ("predictionio_tpu.ops.classify", "NaiveBayesModel"): (
         "predictionio_tpu_torch.ops.classify",
         "NaiveBayesModel",

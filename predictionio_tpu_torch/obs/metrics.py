@@ -1,6 +1,6 @@
 """Lock-cheap metrics registry: counters, gauges and fixed-bucket
-histograms (port of ``predictionio_tpu/obs/metrics.py`` without the
-Prometheus exposition and exemplars).
+histograms (port of ``predictionio_tpu/obs/metrics.py``; its Prometheus
+text exposition without exemplars).
 
 ``inc``/``observe`` take one small per-metric lock; the registry lock is
 taken only at instrument creation. Histograms use a fixed bucket ladder and
@@ -135,13 +135,17 @@ class Histogram(_Metric):
             series.sum += value
             series.max = max(series.max, value)
 
-    def percentile(self, q: float, **labels: str) -> float:
+    def _snapshot(self, labels: dict[str, str]) -> tuple[list[int], int] | None:
         key = self._key(labels)
         with self._lock:
             series = self._series.get(key)
-            if series is None or series.count == 0:
-                return 0.0
-            counts, count = list(series.counts), series.count
+            if series is None:
+                return None
+            return list(series.counts), series.count
+
+    def _percentile_of(self, counts: list[int], count: int, q: float) -> float:
+        if count == 0:
+            return 0.0
         target = q * count
         acc = 0
         for i, c in enumerate(counts):
@@ -152,6 +156,20 @@ class Histogram(_Metric):
                 lo = self.buckets[i - 1] if i > 0 else 0.0
                 return lo + (self.buckets[i] - lo) * ((target - prev) / c if c else 1.0)
         return self.buckets[-1]
+
+    def percentile(self, q: float, **labels: str) -> float:
+        snap = self._snapshot(labels)
+        return 0.0 if snap is None else self._percentile_of(*snap, q)
+
+    def bucket_counts(self, **labels: str) -> list[int]:
+        """Per-bucket counts (last slot +Inf), zeros before the first
+        observation: a baseline whose elementwise delta to a later snapshot
+        :meth:`percentile_from_counts` reads as a window."""
+        snap = self._snapshot(labels)
+        return [0] * (len(self.buckets) + 1) if snap is None else snap[0]
+
+    def percentile_from_counts(self, counts: list[int], q: float) -> float:
+        return self._percentile_of(list(counts), sum(counts), q)
 
     def summary(self, **labels: str) -> dict[str, float]:
         key = self._key(labels)
@@ -165,6 +183,7 @@ class Histogram(_Metric):
             "sum": total,
             "mean": total / count,
             "p50": self.percentile(0.50, **labels),
+            "p95": self.percentile(0.95, **labels),
             "p99": self.percentile(0.99, **labels),
             "max": peak,
         }
@@ -222,3 +241,35 @@ class MetricsRegistry:
                     samples.append({"labels": labels, "value": v})
             out[m.name] = {"type": m.kind, "samples": samples}
         return out
+
+    def render_prometheus(self) -> str:
+        """Prometheus text exposition v0.0.4 of every series."""
+        with self._lock:
+            metrics = sorted(self._metrics.values(), key=lambda m: m.name)
+        lines: list[str] = []
+        for m in metrics:
+            lines.append(f"# HELP {m.name} {m.help}")
+            lines.append(f"# TYPE {m.name} {m.kind}")
+            for key, v in sorted(m.collect()):
+                labels = dict(zip(m.labelnames, key))
+                if isinstance(m, Histogram):
+                    acc = 0
+                    for bound, c in zip((*m.buckets, "+Inf"), v.counts):
+                        acc += c
+                        le = bound if bound == "+Inf" else repr(float(bound))
+                        lines.append(f"{m.name}_bucket{_labels({**labels, 'le': le})} {acc}")
+                    lines.append(f"{m.name}_sum{_labels(labels)} {v.sum!r}")
+                    lines.append(f"{m.name}_count{_labels(labels)} {v.count}")
+                else:
+                    lines.append(f"{m.name}{_labels(labels)} {float(v)!r}")
+        return "\n".join(lines) + "\n"
+
+
+def _escape(value: str) -> str:
+    return value.replace("\\", "\\\\").replace('"', '\\"').replace("\n", "\\n")
+
+
+def _labels(labels: dict[str, str]) -> str:
+    if not labels:
+        return ""
+    return "{" + ",".join(f'{k}="{_escape(str(v))}"' for k, v in labels.items()) + "}"

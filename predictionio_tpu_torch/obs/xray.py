@@ -24,6 +24,7 @@ import torch
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 
 PHASE_HOST_ETL = "host_etl"  # event-store reads, preparation
+PHASE_SWEEP = "sweep"  # fold-in absorbs of the stream pipeline
 PHASE_SOLVE = "solve"  # whole-algorithm train
 PHASE_EVAL = "eval"  # held-out scoring
 

@@ -78,6 +78,12 @@ class CircuitBreaker:
                 self._state = CLOSED
                 self._probes_inflight = 0
 
+    def release_probe(self) -> None:
+        """Un-claim a half-open probe slot whose call never ran."""
+        with self._lock:
+            if self._state == HALF_OPEN and self._probes_inflight > 0:
+                self._probes_inflight -= 1
+
     def record_failure(self) -> None:
         with self._lock:
             if self._state == HALF_OPEN:
@@ -87,13 +93,41 @@ class CircuitBreaker:
             if self._state == CLOSED and self._consecutive_failures >= self.failure_threshold:
                 self._trip()
 
-    def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
-        """Gate, run and record in one step."""
+    def call(
+        self,
+        fn: Callable[..., Any],
+        *args: Any,
+        counts_as_failure: Callable[[BaseException], bool] | None = None,
+        **kwargs: Any,
+    ) -> Any:
+        """Gate, run and record in one step. An error that
+        ``counts_as_failure`` does not classify as the dependency's fault
+        records neither outcome and frees its half-open probe slot."""
         self.allow()
         try:
             result = fn(*args, **kwargs)
-        except BaseException:
-            self.record_failure()
+        except BaseException as exc:
+            if counts_as_failure is None or counts_as_failure(exc):
+                self.record_failure()
+            else:
+                self.release_probe()
             raise
         self.record_success()
         return result
+
+    @property
+    def state(self) -> str:
+        with self._lock:
+            if self._state == OPEN and self._clock() - self._opened_at >= self.recovery_timeout_s:
+                return HALF_OPEN
+            return self._state
+
+    def snapshot(self) -> dict[str, Any]:
+        state = self.state
+        with self._lock:
+            return {
+                "name": self.name,
+                "state": state,
+                "consecutiveFailures": self._consecutive_failures,
+                "trips": self.trips,
+            }

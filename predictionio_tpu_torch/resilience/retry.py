@@ -1,5 +1,5 @@
 """Retry with exponential backoff and jitter, bounded by a per-process
-budget (port of ``predictionio_tpu/resilience/retry.py`` without deadlines).
+budget (port of ``predictionio_tpu/resilience/retry.py``).
 
 Only errors that can succeed on replay are retried: an exception whose
 ``transient`` attribute says so, or a connection-level error. The token
@@ -14,6 +14,8 @@ import random
 import threading
 import time
 from typing import Any, Callable
+
+from predictionio_tpu_torch.resilience.deadline import Deadline
 
 _TRANSIENT_TYPES = (ConnectionError, InterruptedError)
 
@@ -75,13 +77,22 @@ class RetryPolicy:
         raw = min(self.backoff_max_s, self.backoff_base_s * self.backoff_multiplier**retry_index)
         return raw * (1.0 - self.jitter * self.rng())
 
-    def call(self, fn: Callable[..., Any], *args: Any, **kwargs: Any) -> Any:
+    def call(
+        self,
+        fn: Callable[..., Any],
+        *args: Any,
+        deadline: Deadline | None = None,
+        **kwargs: Any,
+    ) -> Any:
         """Run ``fn`` with retries; the underlying error propagates
-        unchanged when it is not transient or the attempts run out."""
+        unchanged when it is not transient, the attempts run out, or the
+        next backoff would pass ``deadline``."""
         if self.budget is not None:
             self.budget.record_attempt()
         attempts = 0
         while True:
+            if deadline is not None:
+                deadline.check("retryable call")
             attempts += 1
             try:
                 return fn(*args, **kwargs)
@@ -97,5 +108,9 @@ class RetryPolicy:
                     except Exception:
                         pass  # monitoring must never break the retry loop
                 pause = self.backoff_s(attempts - 1)
+                if deadline is not None:
+                    rem = deadline.remaining()
+                    if rem is not None and pause >= rem:
+                        raise
                 if pause > 0:
                     self.sleep(pause)

@@ -10,7 +10,13 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
     import --appname NAME --input FILE [--channel C]
     export --appname NAME --output FILE [--channel C] [--format json|parquet|npz]
     train  --engine-dir DIR [--variant FILE] [--device cuda|cpu]
+           [--registry-dir R] [--keep-versions N] [--follow --app-name A ...]
+    stream --engine-dir DIR --app-name A [--registry-dir R] [--cycles N]
+           [--interval S] [--batch-limit N] [--publish-min-events N]
+           [--mode canary|shadow] [--fraction F] [--notify-url URL] ...
     deploy --engine-dir DIR [--variant FILE] [--ip IP] [--port N] [--device cuda|cpu]
+           [--registry-dir R] [--registry-sync-interval S] [--bake-window S] ...
+    models list | show [V] | promote [V] | rollback | stage V --url U | diff A B
     undeploy [--ip IP] [--port N] [--ssl]
     batchpredict --engine-dir DIR [--input FILE | --from-events] [--output FILE]
                  [--to-events] [--app-name A] [--batch N] [--device cuda|cpu] ...
@@ -23,9 +29,11 @@ Apps, access keys, channels, events, engine instances and models live in
 the storage the ``PIO_STORAGE_*`` environment names, as in the JAX package;
 without it, one sqlite file ``pio.db`` under the basedir (``--home``, else
 ``$PIO_FS_BASEDIR``, else ``$PIO_TORCH_HOME``, else ``~/.pio_torch``).
-``--device`` defaults to ``cuda``; without a card, train, deploy,
-batchpredict and eval fail unless ``--device cpu``. ``eval --publish``
-raises: the model registry the winner ships through is not ported yet.
+``--device`` defaults to ``cuda``; without a card, train, deploy, stream,
+batchpredict and eval fail unless ``--device cpu``. The model registry is
+``--registry-dir``, else ``$PIO_REGISTRY_DIR``, else ``registry/`` under
+the basedir; ``pio stream`` keeps its cursors under ``--cursor-dir``, else
+``$PIO_STREAM_DIR``, else ``stream/`` under the basedir.
 """
 
 from __future__ import annotations
@@ -284,17 +292,176 @@ def cmd_export(args) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _basedir(args) -> str | None:
+    return os.path.abspath(args.home) if getattr(args, "home", None) else None
+
+
+def _registry_dir(args) -> str:
+    """``--registry-dir``, else ``$PIO_REGISTRY_DIR``, else ``registry/``
+    under ``--home`` or the default basedir."""
+    from predictionio_tpu_torch.registry.store import default_registry_dir
+
+    if getattr(args, "registry_dir", None):
+        return args.registry_dir
+    if not os.environ.get("PIO_REGISTRY_DIR") and _basedir(args):
+        return os.path.join(_basedir(args), "registry")
+    return default_registry_dir()
+
+
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.workflow.context import WorkflowContext
     from predictionio_tpu_torch.workflow.core_workflow import run_train
     from predictionio_tpu_torch.workflow.engine_loader import load_engine
 
+    if args.follow and not args.app_name:
+        # fail BEFORE the train, not after it
+        return _die("pio train --follow requires --app-name")
     manifest, engine = load_engine(args.engine_dir, args.variant)
     engine_params = engine.engine_params_from_variant(manifest.variant_json)
     ctx = WorkflowContext(mode="training", device=args.device, _storage=_storage())
-    instance_id = run_train(engine, manifest, engine_params, ctx)
+    registry_dir = args.registry_dir or (_registry_dir(args) if args.follow else None)
+    instance_id = run_train(
+        engine,
+        manifest,
+        engine_params,
+        ctx,
+        batch=args.batch or "",
+        registry_dir=registry_dir,
+        keep_versions=args.keep_versions,
+    )
     print(f"Training completed. Engine instance {instance_id} on {ctx.device}")
+    if args.follow:
+        # the batch train just published the stable: keep tailing the event
+        # store and publishing candidates (the speed layer)
+        print("Entering follow mode (speed layer)...", flush=True)
+        args.registry_dir = registry_dir
+        return _run_stream(args, manifest)
     return 0
+
+
+def _http_json(url: str, method: str = "GET", payload=None, timeout: float = 30.0):
+    import urllib.error
+    import urllib.request
+
+    data = json.dumps(payload).encode() if payload is not None else None
+    req = urllib.request.Request(
+        url, data=data, method=method, headers={"Content-Type": "application/json"}
+    )
+    try:
+        with urllib.request.urlopen(req, timeout=timeout) as resp:
+            return json.loads(resp.read().decode())
+    except urllib.error.HTTPError as exc:
+        body = exc.read().decode(errors="replace")
+        try:
+            message = json.loads(body).get("message", body)
+        except ValueError:
+            message = body
+        raise RuntimeError(f"{method} {url} -> {exc.code}: {message}") from exc
+
+
+def _run_stream(args, manifest) -> int:
+    """Build and run the speed-layer pipeline (``pio stream`` and ``pio
+    train --follow``): fold-in solves on ``--device``."""
+    from predictionio_tpu_torch.data.store.event_store import resolve_app
+    from predictionio_tpu_torch.registry import ArtifactStore
+    from predictionio_tpu_torch.stream import (
+        CursorStore,
+        EventTailer,
+        StreamConfig,
+        StreamInstruments,
+        StreamPipeline,
+        serve_metrics,
+        trainer_for_models,
+    )
+    from predictionio_tpu_torch.workflow import model_io
+
+    if not args.app_name:
+        return _die("--app-name is required to tail an event store")
+    storage = _storage()
+    app_id, channel_id = resolve_app(storage, args.app_name, args.channel or None)
+    store = ArtifactStore(_registry_dir(args))
+    state = store.get_state(manifest.engine_id)
+    if not state.stable:
+        return _die(
+            f"no stable model in registry {store.base_dir} for engine "
+            f"{manifest.engine_id}; run `train --registry-dir ...` first"
+        )
+    models = model_io.deserialize_models(store.load_blob(manifest.engine_id, state.stable))
+    trainer = trainer_for_models(models, device=args.device)
+    tailer = EventTailer(
+        storage.get_l_events(),
+        app_id,
+        channel_id,
+        batch_limit=args.batch_limit,
+        safety_lag_s=args.safety_lag,
+    )
+    cursor_dir = args.cursor_dir
+    if not cursor_dir and not os.environ.get("PIO_STREAM_DIR") and _basedir(args):
+        cursor_dir = os.path.join(_basedir(args), "stream")
+    cursors = CursorStore(cursor_dir)
+    cursor = cursors.load(app_id, channel_id)
+    if cursor.position is None and not args.from_beginning:
+        # fresh cursor: the stable already covers history — start at the
+        # store head so only NEW events fold in (--from-beginning replays)
+        head = tailer.head_position()
+        if head is not None:
+            cursor.seed(head)
+            cursors.save(cursor)
+    config = StreamConfig(
+        engine_id=manifest.engine_id,
+        engine_version=manifest.version,
+        engine_variant=manifest.variant,
+        engine_factory=manifest.engine_factory,
+        mode=args.mode,
+        fraction=args.fraction,
+        publish_min_events=args.publish_min_events,
+        interval_s=args.interval,
+    )
+    stage_hook = None
+    if args.notify_url:
+
+        def stage_hook(version, mode, fraction, _url=args.notify_url):
+            _http_json(
+                f"{_url}/models/candidate",
+                method="POST",
+                payload={"version": version, "mode": mode, "fraction": fraction},
+            )
+
+    instruments = StreamInstruments()
+    pipeline = StreamPipeline(
+        tailer, trainer, cursors, store, config, instruments=instruments, stage_hook=stage_hook
+    )
+    metrics_server = None
+    if args.metrics_port:
+        metrics_server = serve_metrics(instruments.registry, args.metrics_port)
+        print(f"Metrics on http://0.0.0.0:{args.metrics_port}/metrics")
+    print(
+        f"Streaming app {args.app_name} (id {app_id}) -> registry {store.base_dir} "
+        f"[{trainer.name}, {config.mode}@{config.fraction:g}, {args.device}]",
+        flush=True,
+    )
+    try:
+        pipeline.run_forever(max_cycles=args.cycles)
+    except KeyboardInterrupt:
+        pass
+    finally:
+        if metrics_server is not None:
+            metrics_server.shutdown()
+    print(
+        f"Stream stopped: {pipeline.cursor.events_read} events read, "
+        f"{pipeline.cursor.publishes} published, last {pipeline.cursor.last_published_version or '-'}",
+        flush=True,
+    )
+    return 0
+
+
+def cmd_stream(args) -> int:
+    """Speed layer: tail the event store, fold events into the stable
+    model, publish registry candidates."""
+    from predictionio_tpu_torch.workflow.engine_loader import load_engine
+
+    manifest, _ = load_engine(args.engine_dir, args.variant)
+    return _run_stream(args, manifest)
 
 
 def cmd_deploy(args) -> int:
@@ -302,13 +469,22 @@ def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.workflow.create_server import ServerConfig, create_query_server
 
     ctx = WorkflowContext(mode="serving", device=args.device, _storage=_storage())
-    server = create_query_server(
-        args.engine_dir, ctx, ServerConfig(ip=args.ip, port=args.port), args.variant
+    config = ServerConfig(
+        ip=args.ip,
+        port=args.port,
+        registry_dir=args.registry_dir,
+        sticky_key_field=args.sticky_key,
+        candidate_breaker_threshold=args.candidate_breaker_threshold,
+        bake_window_s=args.bake_window,
+        bake_min_requests=args.bake_min_requests,
+        auto_promote=not args.no_auto_promote,
+        registry_sync_interval_s=args.registry_sync_interval or 0.0,
     )
+    server = create_query_server(args.engine_dir, ctx, config, args.variant)
     port = server.start()
     print(
-        f"Engine instance {server.instance_id} deployed at http://{args.ip}:{port} "
-        f"on {ctx.device}",
+        f"Engine instance {server.instance_id} (model {server.model_version}) deployed at "
+        f"http://{args.ip}:{port} on {ctx.device}",
         flush=True,
     )
     _wait_for_signal(server.stop_requested)  # a signal or POST /stop
@@ -401,12 +577,15 @@ def cmd_eval(args) -> int:
         sys.path.insert(0, cwd)
     if args.publish and args.no_publish:
         return _die("--publish and --no-publish are mutually exclusive")
-    if args.publish:
-        return _die(
-            "--publish needs the model registry, which is not yet ported to "
-            "predictionio_tpu_torch; run without it and train the winning "
-            "params with `train`"
-        )
+    engine_manifest = None
+    if args.engine_dir:
+        from predictionio_tpu_torch.workflow.engine_loader import load_manifest
+
+        engine_manifest = load_manifest(args.engine_dir, args.variant)
+    registry_dir = args.registry_dir or os.environ.get("PIO_REGISTRY_DIR")
+    # publish when the pieces are in place (engine identity and registry);
+    # --publish forces (and fails on a missing piece), --no-publish wins
+    publish = False if args.no_publish else (args.publish or bool(engine_manifest and registry_dir))
     if args.resume and not args.workdir:
         return _die("--resume needs the --workdir of the run to resume (the trial ledger lives there)")
     probe = resolve_evaluation(args.evaluation)
@@ -436,28 +615,186 @@ def cmd_eval(args) -> int:
         source = probe
     workdir = args.workdir or tempfile.mkdtemp(prefix="pio_eval_grid_")
     env = {"PIO_FS_BASEDIR": os.path.abspath(args.home)} if args.home else None
-    instance_id, report = run_grid_evaluation(
-        source,
-        ctx,
-        evaluation=probe,
-        workdir=workdir,
-        workers=args.workers,
-        folds=args.folds,
-        resume=args.resume,
-        batch_size=args.batch_size,
-        status_path=args.status_file,
-        cwd=cwd,
-        env=env,
-        nice=args.nice,
-        worker_class=args.worker_class,
-    )
+    try:
+        instance_id, report = run_grid_evaluation(
+            source,
+            ctx,
+            evaluation=probe,
+            workdir=workdir,
+            workers=args.workers,
+            folds=args.folds,
+            resume=args.resume,
+            batch_size=args.batch_size,
+            publish=publish,
+            registry_dir=registry_dir,
+            engine_manifest=engine_manifest,
+            stage_mode=args.stage_mode,
+            stage_fraction=args.stage_fraction,
+            status_path=args.status_file,
+            cwd=cwd,
+            env=env,
+            nice=args.nice,
+            worker_class=args.worker_class,
+        )
+    except ValueError as exc:
+        return _die(str(exc))
     print(report.one_liner())
+    if report.published_version:
+        print(
+            f"Winner published to registry as candidate {report.published_version} "
+            f"(evidence: {report.cells_total} cells, ledger sha {report.ledger_sha256[:12]})"
+        )
     print(f"Trial ledger: {report.ledger_path}")
     print(f"Evaluation instance ID: {instance_id}")
     if args.out:
         with open(args.out, "w") as fh:
             json.dump(report.to_json_dict(), fh, indent=1, sort_keys=True)
         print(f"Grid report written to {args.out}")
+    return 0
+
+
+# ---------------------------------------------------------------------------
+# model registry
+# ---------------------------------------------------------------------------
+
+
+def _models_store(args):
+    from predictionio_tpu_torch.registry import ArtifactStore
+
+    return ArtifactStore(_registry_dir(args))
+
+
+def _models_engine_id(args) -> str:
+    if args.engine_id:
+        return args.engine_id
+    from predictionio_tpu_torch.workflow.engine_loader import load_manifest
+
+    return load_manifest(args.engine_dir, args.variant).engine_id
+
+
+def cmd_models_list(args) -> int:
+    store = _models_store(args)
+    engine_id = _models_engine_id(args)
+    state = store.get_state(engine_id)
+    versions = store.list_versions(engine_id)
+    if not versions:
+        print(
+            f"No versions in registry {store.base_dir} for engine {engine_id} "
+            f"(key {store.engine_key(engine_id)}). Train with --registry-dir."
+        )
+        return 0
+    print(f"Registry: {store.base_dir} (engine key {store.engine_key(engine_id)})")
+    print(f"{'Version':<10} | {'Role':<10} | {'Created':<26} | {'Bytes':>9} | Instance")
+    for m in versions:
+        role = ""
+        if m.version == state.stable:
+            role = "stable"
+        elif m.version == state.candidate:
+            role = f"candidate ({state.mode} {state.fraction:g})"
+        print(f"{m.version:<10} | {role:<10} | {(m.created_at or '')[:26]:<26} | {m.blob_size:>9} | {m.instance_id}")
+    return 0
+
+
+def cmd_models_show(args) -> int:
+    if args.url:
+        data = _http_json(f"{args.url}/models")
+        if not args.version:
+            print(json.dumps(data, indent=2))
+            return 0
+        out = {"version": args.version}
+        for role in ("stable", "candidate"):
+            lane = data.get(role)
+            if lane and lane.get("version") == args.version:
+                out["role"] = role
+                out["live"] = lane
+        row = next(
+            (v for v in (data.get("registry") or {}).get("versions", ()) if v.get("version") == args.version),
+            None,
+        )
+        if row is not None:
+            out["registry"] = row
+        if "live" not in out and row is None:
+            return _die(f"version {args.version} is not known to the server at {args.url}")
+        print(json.dumps(out, indent=2))
+        return 0
+    store = _models_store(args)
+    engine_id = _models_engine_id(args)
+    state = store.get_state(engine_id)
+    version = args.version or state.stable
+    if not version:
+        return _die("no version given and no stable recorded; see `models list`")
+    manifest = store.get_manifest(engine_id, version)
+    if manifest is None:
+        return _die(f"unknown version {version}; see `models list`")
+    print(json.dumps({"manifest": manifest.to_json_dict(), "rollout": state.to_json_dict()}, indent=2))
+    return 0
+
+
+def cmd_models_promote(args) -> int:
+    if args.url:
+        # an explicit version is a guard: the server refuses (409) unless
+        # it is the staged candidate
+        payload = {"version": args.version} if args.version else {}
+        out = _http_json(f"{args.url}/models/promote", method="POST", payload=payload)
+        print(f"Promoted {out.get('version')} (instance {out.get('instanceId')}).")
+        return 0
+    state = _models_store(args).promote(_models_engine_id(args), args.version or None)
+    print(f"Promoted {state.stable} to stable (previous: {state.previous_stable or '-'}).")
+    return 0
+
+
+def cmd_models_rollback(args) -> int:
+    if args.url:
+        out = _http_json(f"{args.url}/models/rollback", method="POST", payload={})
+        print(f"Rolled back candidate {out.get('version')}.")
+        return 0
+    state = _models_store(args).rollback(_models_engine_id(args), reason="manual (cli)")
+    print(f"Rolled back; stable is {state.stable or '-'}.")
+    return 0
+
+
+def cmd_models_stage(args) -> int:
+    """Stage a candidate on a RUNNING server (sticky canary or shadow)."""
+    out = _http_json(
+        f"{args.url}/models/candidate",
+        method="POST",
+        payload={"version": args.version, "mode": args.mode, "fraction": args.fraction},
+    )
+    print(f"Staged {out.get('version')} as {out.get('mode')} candidate (fraction {out.get('fraction')}).")
+    return 0
+
+
+def cmd_models_diff(args) -> int:
+    store = _models_store(args)
+    engine_id = _models_engine_id(args)
+    a = store.get_manifest(engine_id, args.version_a)
+    b = store.get_manifest(engine_id, args.version_b)
+    if a is None or b is None:
+        return _die(f"unknown version {args.version_a if a is None else args.version_b}; see `models list`")
+    da, db = a.to_json_dict(), b.to_json_dict()
+    # the train profiles are compared as a wall-clock delta, not dumped
+    pa, pb = da.pop("train_profile", None) or {}, db.pop("train_profile", None) or {}
+    for d in (da, db):
+        stream = d.get("data_span", {}).get("stream")
+        if isinstance(stream, dict):
+            stream.pop("profile", None)
+    same = True
+    for key in sorted(set(da) | set(db)):
+        va, vb = da.get(key), db.get(key)
+        if va != vb:
+            same = False
+            print(f"{key}:")
+            print(f"  - {args.version_a}: {va}")
+            print(f"  + {args.version_b}: {vb}")
+    if pa or pb:
+        wa, wb = pa.get("wallClockS"), pb.get("wallClockS")
+        print(f"train_profile ({args.version_a} -> {args.version_b}):")
+        print(f"  wall clock: {wa}s -> {wb}s")
+        same = same and pa == pb
+    if same:
+        print(f"{args.version_a} and {args.version_b} are identical.")
+    elif a.params_hash == b.params_hash:
+        print("(same engine params; differs only in data/lineage)")
     return 0
 
 
@@ -666,15 +1003,115 @@ def build_parser() -> argparse.ArgumentParser:
         x.add_argument("--variant")
         x.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
 
+    def stream_args(x, require_app: bool):
+        """Speed-layer flags of `stream` and `train --follow`."""
+        x.add_argument("--app-name", required=require_app, default=None if require_app else "",
+                       help="app whose event store to tail")
+        x.add_argument("--channel", default="", help="channel name (optional)")
+        x.add_argument("--interval", type=float, default=5.0, help="seconds between cycles")
+        x.add_argument("--batch-limit", type=int, default=500,
+                       help="events per drain micro-batch (the backpressure unit)")
+        x.add_argument("--safety-lag", type=float, default=0.5,
+                       help="seconds the drain stays behind the wall clock, so a concurrently "
+                            "committing insert cannot land behind the cursor (0 disables)")
+        x.add_argument("--publish-min-events", type=int, default=1,
+                       help="publish a candidate once this many new events folded in")
+        x.add_argument("--mode", choices=("canary", "shadow"), default="canary",
+                       help="rollout mode published candidates are staged with")
+        x.add_argument("--fraction", type=float, default=0.1, help="canary fraction")
+        x.add_argument("--from-beginning", action="store_true",
+                       help="a fresh cursor replays the whole store instead of starting at the head")
+        x.add_argument("--cursor-dir", help="cursor state dir (default: $PIO_STREAM_DIR)")
+        x.add_argument("--cycles", type=int, default=None,
+                       help="stop after N cycles (default: run until interrupted)")
+        x.add_argument("--notify-url",
+                       help="POST staged candidates to this query server's /models/candidate "
+                            "instead of writing registry rollout state directly")
+        x.add_argument("--metrics-port", type=int, default=0,
+                       help="serve the pipeline's pio_stream_* metrics at :PORT/metrics; 0 disables")
+
     x = sub.add_parser("train")
     engine_args(x)
+    x.add_argument("--batch", default="")
+    x.add_argument("--registry-dir",
+                   help="publish the trained model into this artifact registry "
+                        "(default: $PIO_REGISTRY_DIR when set, else no registry publish)")
+    x.add_argument("--keep-versions", type=int, default=5,
+                   help="registry GC: keep this many versions (stable/candidate always kept)")
+    x.add_argument("--follow", action="store_true",
+                   help="after training, keep tailing the event store and publish registry "
+                        "candidates (the speed layer; needs --app-name)")
+    stream_args(x, require_app=False)
     x.set_defaults(fn=cmd_train)
+
+    x = sub.add_parser("stream", help="speed layer: tail the event store, fold events into "
+                                      "the stable model, publish registry candidates")
+    engine_args(x)
+    x.add_argument("--registry-dir", help="registry holding the stable model and receiving "
+                                          "candidates (default: $PIO_REGISTRY_DIR)")
+    stream_args(x, require_app=True)
+    x.set_defaults(fn=cmd_stream)
 
     x = sub.add_parser("deploy")
     engine_args(x)
     x.add_argument("--ip", default="0.0.0.0")
     x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--registry-dir",
+                   help="serve the registry's stable version and expose the /models rollout "
+                        "routes (default: registry disabled)")
+    x.add_argument("--registry-sync-interval", type=float, default=0.0,
+                   help="seconds between polls of the registry's rollout state (0 disables)")
+    x.add_argument("--sticky-key", default="user",
+                   help="query field that pins a user to one lane for a whole bake")
+    x.add_argument("--candidate-breaker-threshold", type=int, default=3,
+                   help="consecutive candidate failures that force an instant rollback")
+    x.add_argument("--bake-window", type=float, default=60.0,
+                   help="seconds a candidate bakes before the promotion gates run")
+    x.add_argument("--bake-min-requests", type=int, default=20,
+                   help="canary queries (shadow: scored queries) before any verdict")
+    x.add_argument("--no-auto-promote", action="store_true",
+                   help="gates report ready; an operator promotes")
     x.set_defaults(fn=cmd_deploy)
+
+    mdl = sub.add_parser("models", help="model registry: versions, canary/shadow rollout, "
+                                        "promote/rollback").add_subparsers(dest="subcommand", required=True)
+
+    def models_args(x):
+        x.add_argument("--engine-dir", default=".")
+        x.add_argument("--variant")
+        x.add_argument("--engine-id", help="registry engine id (skips resolving it from --engine-dir)")
+        x.add_argument("--registry-dir", help="registry base dir (default: $PIO_REGISTRY_DIR, "
+                                              "else registry/ under the basedir)")
+
+    x = mdl.add_parser("list")
+    models_args(x)
+    x.set_defaults(fn=cmd_models_list)
+    x = mdl.add_parser("show")
+    models_args(x)
+    x.add_argument("version", nargs="?", help="default: the stable version")
+    x.add_argument("--url", help="show a RUNNING server's /models instead")
+    x.set_defaults(fn=cmd_models_show)
+    x = mdl.add_parser("promote")
+    models_args(x)
+    x.add_argument("version", nargs="?", help="default: the staged candidate")
+    x.add_argument("--url", help="promote on a RUNNING server (lanes swap live)")
+    x.set_defaults(fn=cmd_models_promote)
+    x = mdl.add_parser("rollback")
+    models_args(x)
+    x.add_argument("--url", help="roll back on a RUNNING server")
+    x.set_defaults(fn=cmd_models_rollback)
+    x = mdl.add_parser("stage")
+    models_args(x)
+    x.add_argument("version")
+    x.add_argument("--url", required=True, help="running server base URL")
+    x.add_argument("--mode", choices=["canary", "shadow"], default="canary")
+    x.add_argument("--fraction", type=float, default=0.1)
+    x.set_defaults(fn=cmd_models_stage)
+    x = mdl.add_parser("diff")
+    models_args(x)
+    x.add_argument("version_a")
+    x.add_argument("version_b")
+    x.set_defaults(fn=cmd_models_diff)
 
     x = sub.add_parser("undeploy")
     x.add_argument("--ip", default="127.0.0.1")
@@ -717,9 +1154,19 @@ def build_parser() -> argparse.ArgumentParser:
                    help="resume from --workdir's ledger: finished cells are never retrained")
     x.add_argument("--batch-size", type=int, default=512,
                    help="held-out scoring mega-batch (default 512)")
+    x.add_argument("--engine-dir", default=None,
+                   help="engine project directory: the registry identity the winner publishes under")
+    x.add_argument("--variant", help="engine.json variant (with --engine-dir)")
+    x.add_argument("--registry-dir", help="registry receiving the winning refit as a candidate "
+                                          "(default: $PIO_REGISTRY_DIR)")
     x.add_argument("--publish", action="store_true",
-                   help="publish the winner (needs the model registry: not yet ported)")
-    x.add_argument("--no-publish", action="store_true", help="never publish (the default)")
+                   help="force winner publication (default: publish when --engine-dir and a "
+                        "registry dir are both given)")
+    x.add_argument("--no-publish", action="store_true", help="never publish the winner")
+    x.add_argument("--stage-mode", choices=["canary", "shadow"], default="canary",
+                   help="rollout mode the winner is staged under")
+    x.add_argument("--stage-fraction", type=float, default=0.1,
+                   help="canary fraction of the staged winner")
     x.add_argument("--status-file", default=None, help="throttled atomic progress snapshots")
     x.add_argument("--nice", type=int, default=0, help="re-nice grid workers by this amount")
     x.add_argument("--worker-class", choices=["", "cpu-fallback"], default="",

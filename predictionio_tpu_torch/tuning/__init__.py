@@ -1,6 +1,5 @@
 """The evaluation grid: parallel, resumable fold×params hyperparameter
-search (port of ``predictionio_tpu/tuning/`` without the winner's
-publication to the model registry).
+search (port of ``predictionio_tpu/tuning/``).
 
 The grid is an EngineParamsGenerator × k-fold splits
 (:mod:`~predictionio_tpu_torch.tuning.grid`); each cell is trained and
@@ -8,7 +7,8 @@ scored through the offline mega-batch path (:meth:`Engine.dispatch_batch`,
 :mod:`~predictionio_tpu_torch.tuning.cells`); finished cells land in a
 durable JSONL trial ledger (:mod:`~predictionio_tpu_torch.tuning.ledger`),
 so a killed run resumes retraining zero finished cells; the runner picks
-the winner (:mod:`~predictionio_tpu_torch.tuning.runner`).
+the winner and can publish its refit to the model registry as a candidate
+(:mod:`~predictionio_tpu_torch.tuning.runner`).
 """
 
 from predictionio_tpu_torch.tuning.grid import (
@@ -30,7 +30,7 @@ from predictionio_tpu_torch.tuning.runner import (
     WORKER_CLASS_CPU_FALLBACK,
     EvalGridInstruments,
     GridReport,
-    RegistryNotPortedError,
+    grid_evidence,
     grid_worker_env,
     register_eval_metrics,
     run_grid,
@@ -45,7 +45,6 @@ __all__ = [
     "GridReport",
     "GridSpec",
     "NDCGAtK",
-    "RegistryNotPortedError",
     "PrecisionAtK",
     "RecallAtK",
     "TrialLedger",
@@ -53,6 +52,7 @@ __all__ = [
     "build_cells",
     "cell_id_of",
     "clamp_folds",
+    "grid_evidence",
     "grid_worker_env",
     "register_eval_metrics",
     "run_grid",

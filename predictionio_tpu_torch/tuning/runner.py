@@ -1,6 +1,7 @@
 """The grid runner: schedule cells over workers, persist the ledger, pick
-the winner (port of ``predictionio_tpu/tuning/runner.py`` without the
-winner's publication to the model registry, which is not ported yet).
+the winner and, asked to, publish its refit to the model registry as a
+candidate with the grid's evidence (port of
+``predictionio_tpu/tuning/runner.py``).
 
 Flow::
 
@@ -26,6 +27,7 @@ on ``device="cpu"``.
 from __future__ import annotations
 
 import dataclasses
+import datetime as _dt
 import json
 import logging
 import math
@@ -60,11 +62,6 @@ WORKER_CLASS_CPU_FALLBACK = "cpu-fallback"
 # a cpu-fallback grid is a background citizen: bounded worker count so a
 # wide grid can't starve the serving host of cores
 CPU_FALLBACK_MAX_WORKERS = 4
-
-
-class RegistryNotPortedError(ValueError):
-    """``publish=True``: the model registry the winner ships through is
-    not ported yet."""
 
 
 def grid_worker_env(
@@ -264,6 +261,8 @@ class GridReport:
     wall_s: float = 0.0
     cells_per_hour: float = 0.0
     workers: int = 0
+    engine_id: str = ""
+    published_version: str = ""
     evaluator_result: MetricEvaluatorResult | None = None
 
     def to_json_dict(self) -> dict[str, Any]:
@@ -281,6 +280,38 @@ class GridReport:
         )
 
 
+def grid_evidence(report: GridReport, records: dict[str, dict[str, Any]]) -> dict:
+    """The eval-evidence block the winner's manifest carries: scores
+    table, fold layout, metric, and the ledger's content hash as the
+    integrity anchor."""
+    return {
+        "metric": report.metric,
+        "otherMetrics": report.other_metrics,
+        "folds": report.folds,
+        "cellsTotal": report.cells_total,
+        "cellsFailed": report.cells_failed,
+        "bestParamsIndex": report.best_params_index,
+        "bestScore": report.best_score,
+        "scoresTable": report.scores,
+        "ledgerSha256": report.ledger_sha256,
+        "gridWallS": report.wall_s,
+        "workers": report.workers,
+        "cells": [
+            {
+                "cellId": r["cellId"],
+                "paramsIndex": r.get("paramsIndex"),
+                "fold": r.get("fold"),
+                "score": r.get("score"),
+                "queries": r.get("queries"),
+                "wallS": r.get("wallS"),
+                **({"error": r["error"]} if r.get("error") else {}),
+            }
+            for r in sorted(records.values(), key=lambda r: (r.get("paramsIndex", 0), r.get("fold", 0)))
+        ],
+        "evaluatedAt": _dt.datetime.now(tz=_dt.timezone.utc).isoformat(),
+    }
+
+
 # ---------------------------------------------------------------------------
 # the runner
 # ---------------------------------------------------------------------------
@@ -296,6 +327,11 @@ def run_grid(
     batch_size: int = DEFAULT_CELL_BATCH,
     data_span: dict[str, Any] | None = None,
     publish: bool = False,
+    registry_dir: str | None = None,
+    engine_manifest: Any = None,
+    stage_mode: str = "canary",
+    stage_fraction: float = 0.1,
+    keep_versions: int = 5,
     status_path: str | None = None,
     instruments: EvalGridInstruments | None = None,
     cwd: str = "",
@@ -314,9 +350,10 @@ def run_grid(
     ``workers=0`` only — a live Evaluation instance (process workers must
     rebuild it by name). A caller that already resolved the source may
     pass the instance via ``evaluation`` to skip re-construction.
-    ``publish=True`` raises :class:`RegistryNotPortedError`: the winner's
-    refit ships through the model registry, which the port does not have
-    yet. ``on_validated`` (zero-arg) fires after
+    ``publish=True`` refits the winning params on the full training data
+    and ships it to the registry as a CANDIDATE carrying the grid
+    evidence; it requires ``engine_manifest`` (the engine identity) and a
+    registry dir (``registry_dir`` or ``$PIO_REGISTRY_DIR``). ``on_validated`` (zero-arg) fires after
     every argument/ledger validation passed, just before cells start —
     the hook bookkeeping callers use to avoid recording runs that never
     validated.
@@ -366,11 +403,13 @@ def run_grid(
             "use workers=0 for in-process scoring"
         )
     if publish:
-        raise RegistryNotPortedError(
-            "publishing the grid winner needs the model registry, which is "
-            "not yet ported to predictionio_tpu_torch; run with publish=False "
-            "(--no-publish) and train the winning params with `pio train`"
-        )
+        if engine_manifest is None:
+            raise ValueError(
+                "publish needs the engine identity (engine_manifest) — pass --engine-dir to `eval`"
+            )
+        registry_dir = registry_dir or os.environ.get("PIO_REGISTRY_DIR")
+        if not registry_dir:
+            raise ValueError("publish needs a registry dir (--registry-dir or $PIO_REGISTRY_DIR)")
 
     # fold count: explicit, or probed ONCE from the data source (the
     # probe's read stays warm in the parent's cache and is reused when
@@ -597,6 +636,21 @@ def run_grid(
                 )
             logger.info("best engine params written to %s", output_path)
 
+        if publish:
+            if math.isnan(report.best_score):
+                logger.warning("every params aggregated to NaN — refusing to publish a degenerate winner")
+            else:
+                report.published_version = _publish_winner(
+                    evaluation,
+                    params_list[best],
+                    engine_manifest,
+                    registry_dir,
+                    grid_evidence(report, records),
+                    ctx=ctx,
+                    stage_mode=stage_mode,
+                    stage_fraction=stage_fraction,
+                    keep_versions=keep_versions,
+                )
         push_status("done", force=True)
         return report
     except BaseException:
@@ -607,3 +661,52 @@ def run_grid(
         instruments.active.set(0.0)
         instruments.workers.set(0.0)
 
+
+def _publish_winner(
+    evaluation: Any,
+    winner: EngineParams,
+    engine_manifest: Any,
+    registry_dir: str,
+    evidence: dict[str, Any],
+    *,
+    ctx: WorkflowContext,
+    stage_mode: str = "canary",
+    stage_fraction: float = 0.1,
+    keep_versions: int = 5,
+) -> str:
+    """Refit the winning params on the FULL training data through
+    ``run_train`` (the metadata ledger and the registry publish every
+    trained version takes), attach the grid evidence to its manifest and
+    stage it, so the bake gates (or an operator) decide promotion."""
+    from predictionio_tpu_torch.registry import ArtifactStore
+    from predictionio_tpu_torch.workflow.core_workflow import run_train
+
+    train_ctx = WorkflowContext(
+        mode="training", device=ctx.device, _storage=ctx._storage, batch="evalgrid"
+    )
+    instance_id = run_train(
+        evaluation.engine,
+        engine_manifest,
+        winner,
+        train_ctx,
+        batch="evalgrid",
+        registry_dir=registry_dir,
+        keep_versions=keep_versions,
+    )
+    store = ArtifactStore(registry_dir)
+    engine_id = engine_manifest.engine_id
+    published = [m for m in store.list_versions(engine_id) if m.instance_id == instance_id]
+    if not published:
+        raise RuntimeError(
+            f"winner refit trained (instance {instance_id}) but never reached the registry — "
+            "publish failed, metadata store remains authoritative"
+        )
+    version = published[-1].version
+    store.attach_eval_evidence(engine_id, version, evidence)
+    state = store.get_state(engine_id)
+    if state.stable and state.stable != version:
+        store.stage_candidate(engine_id, version, mode=stage_mode, fraction=stage_fraction)
+        logger.info("grid winner %s staged as %s candidate (fraction %g)", version, stage_mode, stage_fraction)
+    else:
+        logger.info("grid winner %s is the first stable version", version)
+    return version

@@ -1,8 +1,8 @@
 """Train and evaluation runs recorded in the metadata and model
 repositories (port of ``run_train``, ``load_models_for_instance``,
 ``run_evaluation`` and ``run_grid_evaluation`` in
-``predictionio_tpu/workflow/core_workflow.py``, without the registry
-publish, the step profiler and multi-host training).
+``predictionio_tpu/workflow/core_workflow.py``, with its registry publish,
+without the step profiler and multi-host training).
 
 An engine instance goes through ``get_meta_data_engine_instances()`` (INIT,
 TRAINING, then COMPLETED or FAILED) and the model blob through
@@ -15,6 +15,7 @@ from __future__ import annotations
 import datetime as _dt
 import json
 import logging
+import os
 import time
 from typing import Any
 
@@ -41,11 +42,20 @@ def run_train(
     ctx: WorkflowContext,
     batch: str = "",
     env: dict[str, str] | None = None,
+    registry_dir: str | None = None,
+    keep_versions: int = 5,
 ) -> str:
     """Train, store the serialised models, and record the engine instance;
-    returns its id. A failed run is recorded as FAILED."""
+    returns its id. A failed run is recorded as FAILED.
+
+    With a registry (``registry_dir`` or ``$PIO_REGISTRY_DIR``) the blob is
+    also published as a checksummed artifact with a lineage manifest; the
+    first publish becomes stable. A failed publish never fails the train:
+    the metadata and model repositories, written first, stay
+    authoritative."""
     storage = ctx.storage
     instances = storage.get_meta_data_engine_instances()
+    params_json = Engine.engine_params_to_json(engine_params)
     instance = EngineInstance(
         id="",
         status=EngineInstanceStatus.INIT,
@@ -57,7 +67,7 @@ def run_train(
         engine_factory=manifest.engine_factory,
         batch=batch,
         env=env or {},
-        **Engine.engine_params_to_json(engine_params),
+        **params_json,
     )
     instance_id = instances.insert(instance)
     logger.info("engine instance %s created", instance_id)
@@ -83,8 +93,53 @@ def run_train(
         "device": str(ctx.device),
     }
     instances.update(instance)
+    _publish_to_registry(
+        manifest, instance_id, blob, params_json, wall, batch, registry_dir, keep_versions
+    )
     logger.info("training completed: engine instance %s, %.2fs", instance_id, wall)
     return instance_id
+
+
+def _publish_to_registry(
+    manifest: EngineManifest,
+    instance_id: str,
+    blob: bytes,
+    params_json: dict[str, str],
+    wall_s: float,
+    batch: str,
+    registry_dir: str | None,
+    keep_versions: int,
+) -> None:
+    """Write the trained blob into the artifact registry with its lineage
+    manifest (atomic inside the store); best-effort by contract — a broken
+    registry disk must not fail a completed train."""
+    registry_dir = registry_dir or os.environ.get("PIO_REGISTRY_DIR")
+    if not registry_dir:
+        return
+    try:
+        from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest, params_hash_of
+
+        published = ArtifactStore(registry_dir).publish(
+            ModelManifest(
+                version="",
+                engine_id=manifest.engine_id,
+                engine_version=manifest.version,
+                engine_variant=manifest.variant,
+                engine_factory=manifest.engine_factory,
+                instance_id=instance_id,
+                params_hash=params_hash_of(params_json),
+                data_span={
+                    "trainedAt": ModelManifest.now_iso(),
+                    "batch": batch,
+                    "trainWallClockSec": round(wall_s, 3),
+                },
+            ),
+            blob,
+            keep_last=keep_versions,
+        )
+        logger.info("registry: published %s (instance %s)", published.version, instance_id)
+    except Exception:
+        logger.exception("registry publish failed (metadata store remains authoritative)")
 
 
 def load_models_for_instance(

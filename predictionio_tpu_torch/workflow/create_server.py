@@ -1,20 +1,30 @@
-"""The query server: ``GET /``, ``POST /queries.json`` and ``POST``/``GET
-/stop`` over the standard library's ``ThreadingHTTPServer``, with a
-micro-batcher.
+"""The query server: ``GET /``, ``POST /queries.json``, ``POST``/``GET
+/stop``, ``POST /reload`` and the rollout routes over the standard
+library's ``ThreadingHTTPServer``, with a micro-batcher.
 
-Port of the serving core of ``predictionio_tpu/workflow/create_server.py``
-(``_MicroBatcher`` and ``_dispatch_query_batch``) without rollout lanes,
-result cache, resilience and observability, which later slices add. Each
-handler thread submits its query to the batcher and waits. One dispatch
-thread takes everything queued (up to ``max_batch``), decodes and
-supplements it, and calls every algorithm's ``predict_batch_dispatch``,
-which launches the device work without waiting; the returned finalize runs
-on a fetch thread, so batch n+1 dispatches while batch n is fetched.
-Batching is adaptive: a solo request dispatches at once, and arrivals
-during a busy dispatch form the next batch. ``/stop`` (what ``pio
-undeploy`` calls) answers ``{"message": "Stopping."}`` and sets
-:attr:`QueryServer.stop_requested`; the deploying process then shuts the
-server down, the micro-batcher after the HTTP side.
+Port of ``predictionio_tpu/workflow/create_server.py``: the serving core
+(``_MicroBatcher``, ``_dispatch_query_batch``) and its rollout half
+(stable and candidate lanes, sticky canary routing, shadow scoring, the
+bake loop, registry sync, ``/reload`` and ``/models``), without the result
+cache, the bandit, ANN attach, load shedding and observability, which
+later slices add. Each handler thread submits its query to the batcher and
+waits. One dispatch thread takes everything queued (up to ``max_batch``),
+decodes and supplements it, and calls every algorithm's
+``predict_batch_dispatch``, which launches the device work without
+waiting; the returned finalize runs on a fetch thread, so batch n+1
+dispatches while batch n is fetched. ``/stop`` (what ``pio undeploy``
+calls) answers ``{"message": "Stopping."}`` and sets
+:attr:`QueryServer.stop_requested`.
+
+Rollout: the stable lane, the candidate lane, the routing plan and the
+rollout generation change together under one lock, and the dispatch
+thread reads all four at once (:meth:`QueryServer.lanes`) per
+micro-batch: an in-flight batch finishes on the lanes it read, whatever a
+concurrent promote, rollback or ``/reload`` swaps in. Where the reference
+runs an asyncio task (the bake loop, registry sync), the port runs a
+daemon thread; shadow scoring runs on a one-thread pool off the serving
+path. A retired lane is dropped from every reference, so its device
+tables are freed once its last in-flight batch is done.
 """
 
 from __future__ import annotations
@@ -25,13 +35,35 @@ import json
 import logging
 import queue
 import threading
+import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+from predictionio_tpu_torch.registry.controller import (
+    VERDICT_PROMOTE,
+    VERDICT_ROLLBACK,
+    PromotionCriteria,
+    RolloutController,
+)
+from predictionio_tpu_torch.registry.router import (
+    LANE_CANDIDATE,
+    LANE_SHADOW,
+    LANE_STABLE,
+    PLAN_OFF,
+    Lane,
+    RolloutInstruments,
+    RolloutPlan,
+    choose_lane,
+    routing_key,
+)
+from predictionio_tpu_torch.registry.store import MODE_CANARY, MODE_SHADOW, ArtifactStore
+from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker
+from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.core_workflow import load_models_for_instance
-from predictionio_tpu_torch.workflow.engine_loader import load_engine
+from predictionio_tpu_torch.workflow.engine_loader import EngineManifest, load_engine
 
 logger = logging.getLogger(__name__)
 
@@ -39,6 +71,7 @@ logger = logging.getLogger(__name__)
 MAX_INFLIGHT = 4  # batches dispatched but not yet fetched
 REQUEST_TIMEOUT_S = 10.0  # a query not answered by then gets 503
 MAX_PAYLOAD_BYTES = 1 << 20
+VERSION_HEADER = "X-Pio-Model-Version"  # the lane version that answered
 
 
 @dataclasses.dataclass
@@ -46,6 +79,26 @@ class ServerConfig:
     ip: str = "0.0.0.0"
     port: int = 8000
     max_batch: int = 64
+    # -- model registry / progressive rollout ----------------------------
+    # artifact registry base dir; None: the metadata store's latest
+    # COMPLETED instance is the only source of what serves
+    registry_dir: str | None = None
+    # the payload field whose value routes a user to one lane for a whole
+    # bake; a payload without it routes by a hash of the whole payload
+    sticky_key_field: str = "user"
+    # consecutive candidate failures that trip the candidate breaker and
+    # roll the candidate back at once
+    candidate_breaker_threshold: int = 3
+    # promotion gates (the rest are PromotionCriteria's defaults)
+    bake_window_s: float = 60.0
+    bake_min_requests: int = 20
+    auto_promote: bool = True
+    bake_check_interval_s: float = 1.0
+    # shadow batches queued at most; past it samples are dropped (counted)
+    shadow_max_backlog: int = 8
+    # poll the registry's state generation on this cadence and adopt the
+    # stage/promote/rollback/stable moves other processes made; 0 disables
+    registry_sync_interval_s: float = 0.0
 
 
 class BadQuery(ValueError):
@@ -106,6 +159,9 @@ class _MicroBatcher:
                 self.largest_batch = max(self.largest_batch, len(batch))
                 fetch = self._fetch_pool.submit(finalize)
                 fetch.add_done_callback(lambda f, batch=batch: self._finish(batch, f))
+                # drop this batch's lanes here, not when the next batch comes:
+                # a retired lane's device tables go with its last batch
+                del finalize, fetch
             if stop:
                 return
 
@@ -115,12 +171,12 @@ class _MicroBatcher:
             outs = fetch.result()
         except Exception as exc:
             logger.exception("micro-batch finalize failed")
-            outs = [exc] * len(batch)
-        for (_, fut), out in zip(batch, outs):
+            outs = [(exc, "")] * len(batch)
+        for (_, fut), (out, version) in zip(batch, outs):
             if isinstance(out, BaseException):
                 fut.set_exception(out)
             else:
-                fut.set_result(out)
+                fut.set_result((out, version))
 
     def close(self) -> None:
         self._closed = True
@@ -141,6 +197,20 @@ class _HTTPServer(ThreadingHTTPServer):
     request_queue_size = 256  # a burst of new connections must not overflow the backlog
 
 
+def _canonical_json(body: Any) -> str:
+    return json.dumps(body, sort_keys=True, default=str)
+
+
+def _engine_params_of_instance(engine: Engine, instance: Any) -> EngineParams:
+    variant = {
+        "datasource": {"params": json.loads(instance.data_source_params or "{}")},
+        "preparator": {"params": json.loads(instance.preparator_params or "{}")},
+        "algorithms": json.loads(instance.algorithms_params or "[]"),
+        "serving": {"params": json.loads(instance.serving_params or "{}")},
+    }
+    return engine.engine_params_from_variant(variant)
+
+
 class QueryServer:
     def __init__(
         self,
@@ -150,65 +220,535 @@ class QueryServer:
         ctx: WorkflowContext,
         config: ServerConfig | None = None,
         instance_id: str = "",
+        manifest: EngineManifest | None = None,
+        registry_store: ArtifactStore | None = None,
+        model_version: str | None = None,
     ):
         self.engine = engine
+        self.engine_params = engine_params
         self.config = config or ServerConfig()
         self.ctx = ctx
         self.instance_id = instance_id
-        _, _, self.algorithms, self.serving = engine.make_components(engine_params)
-        self.models = models
-        for algo, model in zip(self.algorithms, self.models):
-            algo.warmup_serving(model, self.config.max_batch)
+        self.manifest = manifest or EngineManifest(
+            engine_id="", version="", variant="", engine_factory=""
+        )
+        self.registry_store = registry_store or (
+            ArtifactStore(self.config.registry_dir) if self.config.registry_dir else None
+        )
+        _, _, algorithms, serving = engine.make_components(engine_params)
+        self._warmup_components(algorithms, models)
+        # the lanes: (algorithms, serving, models, version) per lane, the
+        # plan and the generation change together under _rollout_mutex
+        self._active = Lane(
+            algorithms, serving, models, model_version or instance_id, instance_id, engine_params
+        )
+        self._candidate: Lane | None = None
+        self._plan: RolloutPlan = PLAN_OFF
+        # bumped on every stage/promote/rollback/stable swap: work queued
+        # for an earlier rollout must not feed the current one's breaker
+        self._rollout_gen = 0
+        self._rollout_mutex = threading.Lock()
+        # serializes the heavy transitions (lane loads, /reload, staging,
+        # promote, registry sync) against one another
+        self._reload_lock = threading.Lock()
+        self._seen_state_gen: int | None = None
+        self.metrics = MetricsRegistry()
+        self._rollout_instruments = RolloutInstruments(self.metrics)
+        self.rollout_controller = RolloutController(
+            self._rollout_instruments,
+            PromotionCriteria(
+                bake_window_s=self.config.bake_window_s,
+                min_requests=self.config.bake_min_requests,
+                auto_promote=self.config.auto_promote,
+            ),
+        )
+        self.candidate_breaker = self._new_candidate_breaker()
+        self._shadow_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pio-shadow"
+        )
+        self._shadow_lock = threading.Lock()
+        self._shadow_pending = 0
         self.batcher = _MicroBatcher(self, self.config.max_batch, MAX_INFLIGHT)
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
+        self._loops: list[threading.Thread] = []
+        self._closing = threading.Event()
         self.stop_requested = threading.Event()
+
+    # -- lanes -------------------------------------------------------------------
+    def lanes(self) -> tuple[Lane, Lane | None, RolloutPlan, int]:
+        """(stable, candidate, plan, generation), read together."""
+        with self._rollout_mutex:
+            return self._active, self._candidate, self._plan, self._rollout_gen
+
+    @property
+    def model_version(self) -> str:
+        return self._active.version
+
+    @property
+    def algorithms(self) -> list[Any]:
+        return self._active.algorithms
+
+    @property
+    def serving(self) -> Any:
+        return self._active.serving
+
+    @property
+    def models(self) -> list[Any]:
+        return self._active.models
+
+    def _warmup_components(self, algorithms: list[Any], models: list[Any]) -> None:
+        for algo, model in zip(algorithms, models):
+            algo.warmup_serving(model, self.config.max_batch)
 
     # -- the serving pipeline ------------------------------------------------
     def dispatch_batch(self, payloads: list[Any]):
-        """Decode and supplement each payload, launch every algorithm's
-        device work, and return the finalize that fetches, serves and
-        encodes one result (or exception) per payload."""
+        """Decode each payload, route it to a lane (sticky canary),
+        supplement it on that lane, launch every lane's device work, and
+        return the finalize that fetches, serves and encodes one
+        ``(result or exception, version)`` per payload. A candidate-lane
+        failure never reaches the client: it feeds the candidate breaker
+        and the query is answered again on the stable lane."""
+        stable, cand, plan, gen = self.lanes()
+        canary = cand is not None and plan.mode == MODE_CANARY and plan.fraction > 0
+        shadow = cand is not None and plan.mode == MODE_SHADOW
+        inst = self._rollout_instruments
         n = len(payloads)
         outs: list[Any] = [None] * n
+        versions = [stable.version] * n
         queries: list[Any] = [None] * n
-        ok: list[int] = []
+        supplemented: list[Any] = [None] * n
+        stable_idx: list[int] = []
+        cand_idx: list[int] = []
         for i, payload in enumerate(payloads):
             try:
-                queries[i] = self.serving.supplement(self.engine.decode_query(payload))
-                ok.append(i)
+                q = self.engine.decode_query(payload)
             except (AttributeError, KeyError, TypeError, ValueError) as exc:
                 # a payload of the wrong JSON type (a list, null) fails alone
                 outs[i] = BadQuery(f"bad query: {exc!r}")
-        sup = [queries[i] for i in ok]
-        fins = [
-            algo.predict_batch_dispatch(model, sup) if sup else None
-            for algo, model in zip(self.algorithms, self.models)
-        ]
-
-        def finalize() -> list[Any]:
-            if not sup:
-                return outs
-            preds_per_algo = [
-                fin() if fin is not None else algo.predict_batch(model, sup)
-                for algo, model, fin in zip(self.algorithms, self.models, fins)
-            ]
-            for row, i in enumerate(ok):
+                continue
+            queries[i] = q
+            lane = stable
+            if canary and choose_lane(plan, routing_key(payload, self.config.sticky_key_field)) == LANE_CANDIDATE:
                 try:
-                    outs[i] = self.engine.encode_result(
-                        self.serving.serve(queries[i], [p[row] for p in preds_per_algo])
-                    )
-                except Exception as exc:  # isolate one query's failure
-                    logger.exception("serving a query failed")
-                    outs[i] = exc
-            return outs
+                    supplemented[i] = cand.serving.supplement(q)
+                    lane = cand
+                except Exception:
+                    logger.exception("candidate supplement failed")
+                    if gen == self._rollout_gen:
+                        inst.requests.inc(version=cand.version, lane=LANE_CANDIDATE)
+                    self._record_candidate_failure(cand.version, gen)
+            if lane is stable:
+                try:
+                    supplemented[i] = stable.serving.supplement(q)
+                except (AttributeError, KeyError, TypeError, ValueError) as exc:
+                    inst.requests.inc(version=stable.version, lane=LANE_STABLE)
+                    inst.errors.inc(version=stable.version, lane=LANE_STABLE)
+                    outs[i] = BadQuery(f"bad query: {exc!r}")
+                    continue
+                stable_idx.append(i)
+            else:
+                versions[i] = cand.version
+                cand_idx.append(i)
+        dispatched = []
+        for lane, lane_name, idxs in ((stable, LANE_STABLE, stable_idx), (cand, LANE_CANDIDATE, cand_idx)):
+            if lane is None or not idxs:
+                continue
+            sup = [supplemented[i] for i in idxs]
+            fins = []
+            for algo, model in zip(lane.algorithms, lane.models):
+                try:
+                    fins.append(algo.predict_batch_dispatch(model, sup))
+                except Exception:
+                    if lane_name == LANE_STABLE:
+                        raise
+                    logger.exception("candidate dispatch failed; deferring to fetch")
+                    fins.append(None)
+            dispatched.append((lane, lane_name, idxs, sup, fins))
+
+        def finalize() -> list[tuple[Any, str]]:
+            for lane, lane_name, idxs, sup, fins in dispatched:
+                t0 = time.perf_counter()
+                preds_per_algo = self._lane_predictions(lane, sup, fins)
+                inst.predict_seconds.observe(time.perf_counter() - t0, version=lane.version)
+                for row, i in enumerate(idxs):
+                    if lane_name != LANE_CANDIDATE or gen == self._rollout_gen:
+                        inst.requests.inc(version=lane.version, lane=lane_name)
+                    try:
+                        outs[i] = self._serve_one(lane, queries[i], [p[row] for p in preds_per_algo])
+                        if lane_name == LANE_CANDIDATE and gen == self._rollout_gen:
+                            self.candidate_breaker.record_success()
+                    except Exception as exc:
+                        if lane_name == LANE_CANDIDATE:
+                            self._record_candidate_failure(lane.version, gen)
+                            outs[i], versions[i] = self._stable_retry(stable, queries[i])
+                        else:
+                            logger.exception("serving a query failed")
+                            inst.errors.inc(version=lane.version, lane=lane_name)
+                            outs[i] = exc
+            if shadow:
+                pairs = [
+                    (queries[i], outs[i]) for i in stable_idx if not isinstance(outs[i], BaseException)
+                ]
+                if pairs:
+                    self._submit_shadow(cand, pairs, gen)
+            return list(zip(outs, versions))
 
         return finalize
+
+    def _lane_predictions(self, lane: Lane, sup: list[Any], fins: list[Any]) -> list[list[Any]]:
+        """One lane's per-algorithm predictions; a batch that fails falls
+        back to per-query predicts, so one poisonous query cannot fail its
+        batch mates."""
+        preds_per_algo: list[list[Any]] = []
+        for fin, algo, model in zip(fins, lane.algorithms, lane.models):
+            try:
+                preds = list(fin() if fin is not None else algo.predict_batch(model, sup))
+                if len(preds) != len(sup):
+                    raise RuntimeError(f"predict_batch returned {len(preds)} results for {len(sup)} queries")
+            except Exception:
+                logger.exception("batched predict failed; falling back to per-query")
+                preds = []
+                for s in sup:
+                    try:
+                        preds.append(algo.predict(model, s))
+                    except Exception as exc:
+                        preds.append(exc)
+            preds_per_algo.append(preds)
+        return preds_per_algo
+
+    def _serve_one(self, lane: Lane, query: Any, plist: list[Any]) -> Any:
+        for p in plist:
+            if isinstance(p, BaseException):
+                raise p
+        return self.engine.encode_result(lane.serving.serve(query, plist))
+
+    def _stable_retry(self, stable: Lane, query: Any) -> tuple[Any, str]:
+        """Answer a candidate-lane query again on the stable lane."""
+        inst = self._rollout_instruments
+        inst.requests.inc(version=stable.version, lane=LANE_STABLE)
+        try:
+            s = stable.serving.supplement(query)
+            plist = [algo.predict(model, s) for algo, model in zip(stable.algorithms, stable.models)]
+            return self._serve_one(stable, query, plist), stable.version
+        except Exception as exc:
+            logger.exception("stable retry after candidate failure failed")
+            inst.errors.inc(version=stable.version, lane=LANE_STABLE)
+            return exc, stable.version
+
+    def _record_candidate_failure(self, version: str, gen: int | None = None) -> None:
+        """One candidate failure against the breaker, unless the work
+        belongs to an earlier rollout. A trip rolls the candidate back at
+        once."""
+        if gen is not None and gen != self._rollout_gen:
+            return
+        self._rollout_instruments.errors.inc(version=version, lane=LANE_CANDIDATE)
+        self.candidate_breaker.record_failure()
+        if self.candidate_breaker.state == OPEN:
+            self._rollback_candidate("breaker-trip")
+
+    def _submit_shadow(self, cand: Lane, pairs: list[tuple[Any, Any]], gen: int) -> None:
+        """Queue one batch for shadow scoring, bounded: a candidate slower
+        than live traffic drops samples (counted) instead of queueing."""
+        with self._shadow_lock:
+            if self._shadow_pending >= self.config.shadow_max_backlog:
+                self._rollout_instruments.shadow_dropped.inc(len(pairs), version=cand.version)
+                return
+            self._shadow_pending += 1
+        self._shadow_pool.submit(self._shadow_score, cand, pairs, gen)
+
+    def _shadow_score(self, cand: Lane, pairs: list[tuple[Any, Any]], gen: int) -> None:
+        """Score the candidate on answered stable traffic, off the serving
+        path (the shadow thread launches on the same card): the answer is
+        compared with stable's on the host and discarded. A failure feeds
+        the candidate breaker; work of an ended rollout is skipped."""
+        inst = self._rollout_instruments
+        try:
+            for query, stable_body in pairs:
+                if gen != self._rollout_gen:
+                    return
+                try:
+                    t0 = time.perf_counter()
+                    s = cand.serving.supplement(query)
+                    plist = [algo.predict(model, s) for algo, model in zip(cand.algorithms, cand.models)]
+                    body = self._serve_one(cand, query, plist)
+                    scored_s = time.perf_counter() - t0
+                    if gen != self._rollout_gen:
+                        return
+                    inst.predict_seconds.observe(scored_s, version=cand.version)
+                    inst.shadow_scored.inc(version=cand.version)
+                    if _canonical_json(body) != _canonical_json(stable_body):
+                        inst.divergence.inc(version=cand.version)
+                    self.candidate_breaker.record_success()
+                except Exception:
+                    logger.exception("shadow scoring failed")
+                    if gen != self._rollout_gen:
+                        return
+                    inst.shadow_scored.inc(version=cand.version)
+                    inst.errors.inc(version=cand.version, lane=LANE_SHADOW)
+                    self.candidate_breaker.record_failure()
+                    if self.candidate_breaker.state == OPEN:
+                        self._rollback_candidate("breaker-trip")
+        finally:
+            with self._shadow_lock:
+                self._shadow_pending -= 1
+
+    # -- rollout transitions ---------------------------------------------------
+    def _new_candidate_breaker(self) -> CircuitBreaker:
+        return CircuitBreaker(name="candidate", failure_threshold=self.config.candidate_breaker_threshold)
+
+    def stage_candidate_lane(
+        self, lane: Lane, mode: str = MODE_CANARY, fraction: float = 0.1, persist: bool = True
+    ) -> None:
+        """Install a candidate lane and begin the bake. The sticky salt is
+        the candidate version, so every replica canaries the same users."""
+        if mode not in (MODE_CANARY, MODE_SHADOW):
+            raise ValueError(f"rollout mode must be canary|shadow, got {mode!r}")
+        if lane.version == self._active.version:
+            raise ValueError(f"{lane.version} is already the stable version")
+        fraction = max(0.0, min(1.0, float(fraction)))
+        with self._rollout_mutex:
+            self._rollout_gen += 1
+            self.candidate_breaker = self._new_candidate_breaker()
+            self._candidate = lane
+            self._plan = RolloutPlan(mode, fraction if mode == MODE_CANARY else 0.0, lane.version)
+            self.rollout_controller.begin(self._active.version, lane.version, mode)
+            plan = self._plan
+        self._rollout_instruments.set_plan(plan)
+        if persist and self.registry_store is not None:
+            try:
+                self.registry_store.stage_candidate(
+                    self.manifest.engine_id, lane.version, mode=mode, fraction=fraction
+                )
+            except Exception:
+                logger.exception("registry stage bookkeeping failed")
+        logger.info("staged candidate %s (%s, fraction %.3f)", lane.version, mode, fraction)
+
+    def _promote_candidate(self, persist: bool = True) -> str | None:
+        """Candidate becomes stable. Returns its version, or None when none
+        is staged. ``persist=False``: the registry already records it."""
+        with self._rollout_mutex:
+            cand = self._candidate
+            if cand is None:
+                return None
+            self._rollout_gen += 1
+            self._active = cand
+            if cand.instance_id:
+                self.instance_id = cand.instance_id
+            if cand.engine_params is not None:
+                self.engine_params = cand.engine_params
+            self._candidate = None
+            self._plan = PLAN_OFF
+            self.rollout_controller.end()
+        self._rollout_instruments.set_plan(PLAN_OFF)
+        self._rollout_instruments.promotions.inc()
+        if persist and self.registry_store is not None:
+            try:
+                self.registry_store.promote(self.manifest.engine_id, cand.version)
+            except Exception:
+                logger.exception("registry promote bookkeeping failed")
+        logger.info("promoted candidate %s to stable", cand.version)
+        return cand.version
+
+    def _rollback_candidate(self, reason: str, detail: str = "", persist: bool = True) -> str | None:
+        """Drop the candidate lane; stable serves on untouched. The
+        registry is unstaged, never rolled back: its rollback would revert
+        the stable pin when no candidate is recorded there."""
+        with self._rollout_mutex:
+            cand = self._candidate
+            if cand is None:
+                return None
+            self._rollout_gen += 1
+            self._candidate = None
+            self._plan = PLAN_OFF
+            self.rollout_controller.end()
+        self._rollout_instruments.set_plan(PLAN_OFF)
+        self._rollout_instruments.rollbacks.inc(reason=reason)
+        if persist and self.registry_store is not None:
+            try:
+                self.registry_store.unstage(
+                    self.manifest.engine_id, reason=f"{reason}: {detail}" if detail else reason
+                )
+            except Exception:
+                logger.exception("registry rollback bookkeeping failed")
+        logger.warning("candidate %s rolled back (%s) %s", cand.version, reason, detail)
+        return cand.version
+
+    def _adopt_stable(self, lane: Lane) -> None:
+        """Swap in a new stable lane (``/reload``, or a stable pin another
+        process moved); a bake in flight is rebased on the new stable."""
+        with self._rollout_mutex:
+            self._rollout_gen += 1
+            self._active = lane
+            if lane.instance_id:
+                self.instance_id = lane.instance_id
+            if lane.engine_params is not None:
+                self.engine_params = lane.engine_params
+            cand = self._candidate
+            if cand is not None:
+                self.rollout_controller.begin(lane.version, cand.version, self._plan.mode)
+
+    def _version_for_instance(self, instance_id: str) -> str:
+        """Registry version whose lineage points at this engine instance;
+        the instance id itself when the registry does not know it."""
+        if self.registry_store is not None:
+            for m in self.registry_store.list_versions(self.manifest.engine_id):
+                if m.instance_id == instance_id:
+                    return m.version
+        return instance_id
+
+    def _load_lane_from_registry(self, version: str) -> Lane:
+        """Registry artifact -> servable lane: verified blob, deserialize,
+        prepare_deploy on this server's device, fresh components, warmup.
+        Engine params come from the manifest's engine instance when the
+        metadata store still has it."""
+        store = self.registry_store
+        if store is None:
+            raise RuntimeError("no model registry configured (registry_dir)")
+        manifest = store.get_manifest(self.manifest.engine_id, version)
+        if manifest is None:
+            raise ValueError(f"unknown model version {version!r}")
+        persisted = model_io.deserialize_models(store.load_blob(self.manifest.engine_id, version))
+        engine_params = self.engine_params
+        if manifest.instance_id:
+            instance = self.ctx.storage.get_meta_data_engine_instances().get(manifest.instance_id)
+            if instance is not None:
+                engine_params = _engine_params_of_instance(self.engine, instance)
+        models = self.engine.prepare_deploy(self.ctx, engine_params, persisted)
+        _, _, algorithms, serving = self.engine.make_components(engine_params)
+        self._warmup_components(algorithms, models)
+        return Lane(algorithms, serving, models, version, manifest.instance_id, engine_params)
+
+    def reload(self) -> dict[str, Any]:
+        """Swap in the latest COMPLETED instance (ref MasterActor reload):
+        load and warm first, then commit in one swap."""
+        with self._reload_lock:
+            latest = self.ctx.storage.get_meta_data_engine_instances().get_latest_completed(
+                self.manifest.engine_id, self.manifest.version, self.manifest.variant
+            )
+            if latest is None:
+                raise LookupError("no completed engine instance found")
+            engine_params = _engine_params_of_instance(self.engine, latest)
+            models = load_models_for_instance(self.engine, engine_params, latest.id, self.ctx)
+            _, _, algorithms, serving = self.engine.make_components(engine_params)
+            self._warmup_components(algorithms, models)
+            version = self._version_for_instance(latest.id)
+            self._adopt_stable(Lane(algorithms, serving, models, version, latest.id, engine_params))
+        logger.info("reloaded engine instance %s", latest.id)
+        return {"message": "Reload successful", "instanceId": latest.id}
+
+    def stage_from_registry(self, version: str, mode: str = MODE_CANARY, fraction: float = 0.1) -> None:
+        with self._reload_lock:
+            self.stage_candidate_lane(self._load_lane_from_registry(version), mode=mode, fraction=fraction)
+
+    # -- the background loops --------------------------------------------------
+    def _loop(self, interval_s: float, tick) -> None:
+        while not self._closing.wait(interval_s):
+            try:
+                tick()
+            except Exception:
+                logger.exception("%s failed", getattr(tick, "__name__", "tick"))
+
+    def _rollout_tick(self) -> None:
+        """The bake gate (the reference's plain-gate branch: no bandit)."""
+        if self._candidate is None:
+            return
+        verdict, reason = self.rollout_controller.evaluate()
+        if verdict == VERDICT_ROLLBACK:
+            self._rollback_candidate(reason.split(" ")[0], reason)
+        elif verdict == VERDICT_PROMOTE:
+            with self._reload_lock:
+                version = self._promote_candidate()
+            if version:
+                logger.info("auto-promoted %s: %s", version, reason)
+
+    def _registry_sync_tick(self) -> None:
+        """Adopt what other processes did to the registry's rollout state;
+        a generation whose lane failed to load is retried next tick."""
+        store = self.registry_store
+        if store is None:
+            return
+        if store.state_generation(self.manifest.engine_id) == self._seen_state_gen:
+            return
+        with self._reload_lock:
+            state = store.get_state(self.manifest.engine_id)
+            if self._reconcile_registry_state(state):
+                self._seen_state_gen = state.generation
+
+    def _reconcile_registry_state(self, state) -> bool:
+        if state.stable and state.stable != self._active.version:
+            cand = self._candidate
+            if cand is not None and cand.version == state.stable:
+                self._promote_candidate(persist=False)
+                logger.info("registry sync: adopted promote of %s", state.stable)
+            else:
+                try:
+                    lane = self._load_lane_from_registry(state.stable)
+                except Exception:
+                    logger.exception("registry sync: stable %s unloadable", state.stable)
+                    return False
+                self._adopt_stable(lane)
+        cand = self._candidate
+        if state.candidate and state.candidate != self._active.version:
+            plan_changed = cand is not None and (
+                self._plan.mode != state.mode
+                or (state.mode == MODE_CANARY and abs(self._plan.fraction - state.fraction) > 1e-9)
+            )
+            if cand is not None and cand.version == state.candidate and not plan_changed:
+                return True
+            if cand is not None and cand.version == state.candidate:
+                lane = cand  # plan change only: reuse the loaded lane
+            else:
+                try:
+                    lane = self._load_lane_from_registry(state.candidate)
+                except Exception:
+                    logger.exception("registry sync: candidate %s unloadable", state.candidate)
+                    return False
+            self.stage_candidate_lane(lane, mode=state.mode, fraction=state.fraction, persist=False)
+            logger.info("registry sync: adopted candidate %s (%s)", state.candidate, state.mode)
+        elif not state.candidate and cand is not None:
+            self._rollback_candidate(
+                "registry-sync", "registry candidate cleared by another process", persist=False
+            )
+        return True
+
+    # -- views ---------------------------------------------------------------------
+    def models_snapshot(self) -> dict[str, Any]:
+        stable, cand, plan, _ = self.lanes()
+        inst = self._rollout_instruments
+
+        def lane_json(lane: Lane) -> dict[str, Any]:
+            return {
+                "version": lane.version,
+                "instanceId": lane.instance_id,
+                "counters": inst.lane_counts(lane.version),
+                "p95PredictMs": round(inst.p95_seconds(lane.version) * 1e3, 3),
+            }
+
+        out: dict[str, Any] = {
+            "stable": lane_json(stable),
+            "candidate": lane_json(cand) if cand is not None else None,
+            "mode": plan.mode,
+            "fraction": plan.fraction,
+            "stickyKeyField": self.config.sticky_key_field,
+            "candidateBreaker": self.candidate_breaker.snapshot(),
+            "controller": self.rollout_controller.snapshot(),
+        }
+        if self.registry_store is not None:
+            state = self.registry_store.get_state(self.manifest.engine_id)
+            out["registry"] = {
+                "dir": self.registry_store.base_dir,
+                "stateGeneration": state.generation,
+                "state": state.to_json_dict(),
+                "versions": [m.summary_row() for m in self.registry_store.list_versions(self.manifest.engine_id)],
+            }
+        return out
 
     def status(self) -> dict[str, Any]:
         return {
             "status": "alive",
             "engineInstanceId": self.instance_id,
+            "modelVersion": self.model_version,
             "device": str(self.ctx.device),
             "batches": self.batcher.batches_dispatched,
             "queries": self.batcher.queries_dispatched,
@@ -228,11 +768,13 @@ class QueryServer:
             def log_message(self, fmt, *args):  # quiet: one line per request is noise
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
-            def _reply(self, code: int, body: Any) -> None:
+            def _reply(self, code: int, body: Any, headers: dict[str, str] | None = None) -> None:
                 data = json.dumps(body).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -240,12 +782,26 @@ class QueryServer:
                 self._reply(200, {"message": "Stopping."})
                 server.stop_requested.set()
 
+            def _reload(self) -> None:
+                try:
+                    self._reply(200, server.reload())
+                except LookupError as exc:
+                    self._reply(404, {"message": str(exc)})
+                except Exception as exc:
+                    logger.exception("reload failed")
+                    self._reply(500, {"message": str(exc)})
+
             def do_GET(self):
                 path = self.path.split("?")[0]
                 if path == "/":
                     self._reply(200, server.status())
                 elif path == "/stop":
                     self._stop()
+                elif path == "/models":
+                    self._reply(200, server.models_snapshot())
+                elif path == "/reload":
+                    logger.warning("GET /reload is deprecated (state-mutating GET); use POST /reload")
+                    self._reload()
                 else:
                     self._reply(404, {"message": "not found"})
 
@@ -256,10 +812,18 @@ class QueryServer:
                     self._reply(413, {"message": "payload too large"})
                     return
                 body = self.rfile.read(length)
-                if self.path.split("?")[0] == "/stop":
-                    self._stop()
+                path = self.path.split("?")[0]
+                routes = {
+                    "/stop": self._stop,
+                    "/reload": self._reload,
+                    "/models/candidate": lambda: self._models_candidate(body),
+                    "/models/promote": lambda: self._models_promote(body),
+                    "/models/rollback": self._models_rollback,
+                }
+                if path in routes:
+                    routes[path]()
                     return
-                if self.path.split("?")[0] != "/queries.json":
+                if path != "/queries.json":
                     self._reply(404, {"message": "not found"})
                     return
                 try:
@@ -269,7 +833,7 @@ class QueryServer:
                     return
                 fut = server.batcher.submit(payload)
                 try:
-                    out = fut.result(timeout=REQUEST_TIMEOUT_S)
+                    out, version = fut.result(timeout=REQUEST_TIMEOUT_S)
                 except concurrent.futures.TimeoutError:
                     self._reply(503, {"message": "query deadline exceeded"})
                 except BadQuery as exc:
@@ -277,26 +841,91 @@ class QueryServer:
                 except Exception as exc:
                     self._reply(500, {"message": f"{type(exc).__name__}: {exc}"})
                 else:
-                    self._reply(200, out)
+                    self._reply(200, out, {VERSION_HEADER: version})
+
+            def _models_candidate(self, body: bytes) -> None:
+                try:
+                    req = json.loads(body or b"null")
+                    version = str(req["version"])
+                    mode = req.get("mode", MODE_CANARY)
+                    fraction = float(req.get("fraction", 0.1))
+                except Exception:
+                    self._reply(400, {"message": "body must be JSON with a 'version' key"})
+                    return
+                try:
+                    server.stage_from_registry(version, mode=mode, fraction=fraction)
+                except (ValueError, RuntimeError) as exc:
+                    self._reply(400, {"message": str(exc)})
+                    return
+                except Exception as exc:
+                    logger.exception("staging candidate failed")
+                    self._reply(500, {"message": str(exc)})
+                    return
+                self._reply(
+                    200,
+                    {"message": "Candidate staged", "version": version, "mode": mode, "fraction": fraction},
+                )
+
+            def _models_promote(self, body: bytes) -> None:
+                # an explicit version is a guard, not a selector: it must
+                # name the staged candidate, or nothing happens (409)
+                try:
+                    requested = (json.loads(body) or {}).get("version") if body else None
+                except (ValueError, AttributeError):
+                    requested = None
+                with server._reload_lock:
+                    cand = server._candidate
+                    if requested is not None and (cand is None or cand.version != requested):
+                        staged = cand.version if cand is not None else "none"
+                        self._reply(
+                            409,
+                            {"message": f"version {requested} is not the staged candidate (staged: {staged})"},
+                        )
+                        return
+                    version = server._promote_candidate()
+                if version is None:
+                    self._reply(404, {"message": "no candidate staged"})
+                    return
+                self._reply(200, {"message": "Promoted", "version": version, "instanceId": server.instance_id})
+
+            def _models_rollback(self) -> None:
+                version = server._rollback_candidate("manual")
+                if version is None:
+                    self._reply(404, {"message": "no candidate staged"})
+                    return
+                self._reply(200, {"message": "Rolled back", "version": version})
 
         return Handler
 
     def start(self) -> int:
-        """Bind and serve on a background thread; returns the bound port."""
+        """Bind and serve on a background thread, start the bake loop (and
+        registry sync when configured); returns the bound port."""
         self._httpd = _HTTPServer((self.config.ip, self.config.port), self._handler())
         self._thread = threading.Thread(
             target=self._httpd.serve_forever, name="pio-http", daemon=True
         )
         self._thread.start()
+        loops = [("pio-rollout", self.config.bake_check_interval_s, self._rollout_tick)]
+        if self.registry_store is not None and self.config.registry_sync_interval_s > 0:
+            loops.append(("pio-registry-sync", self.config.registry_sync_interval_s, self._registry_sync_tick))
+        for name, interval, tick in loops:
+            t = threading.Thread(target=self._loop, args=(interval, tick), name=name, daemon=True)
+            t.start()
+            self._loops.append(t)
         return self._httpd.server_address[1]
 
     def shutdown(self) -> None:
+        self._closing.set()
+        for t in self._loops:
+            t.join(timeout=10)
+        self._loops = []
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._thread.join(timeout=10)
             self._httpd = None
         self.batcher.close()
+        self._shadow_pool.shutdown(wait=True)
 
 
 def create_query_server(
@@ -305,10 +934,24 @@ def create_query_server(
     config: ServerConfig | None = None,
     variant_path: str | None = None,
 ) -> QueryServer:
-    """Load the engine, its latest COMPLETED instance in the metadata
-    repository and that instance's model blob, lay the models out on
-    ``ctx.device`` and build the server (ref commands/Engine.deploy)."""
+    """Load the engine and what serves, lay the models out on
+    ``ctx.device`` and build the server (ref commands/Engine.deploy). With a
+    registry configured its pinned stable version serves; without one, or
+    when it cannot be read, the latest COMPLETED instance in the metadata
+    repository and that instance's model blob."""
+    config = config or ServerConfig()
     manifest, engine = load_engine(engine_dir, variant_path)
+    store = ArtifactStore(config.registry_dir) if config.registry_dir else None
+    if store is not None:
+        state = store.get_state(manifest.engine_id)
+        if state.stable:
+            try:
+                return _query_server_from_registry(engine, manifest, store, state.stable, ctx, config)
+            except Exception:
+                logger.exception(
+                    "registry stable %s unusable; falling back to the latest COMPLETED instance",
+                    state.stable,
+                )
     instance = ctx.storage.get_meta_data_engine_instances().get_latest_completed(
         manifest.engine_id, manifest.version, manifest.variant
     )
@@ -319,4 +962,42 @@ def create_query_server(
         )
     engine_params = engine.engine_params_from_variant(manifest.variant_json)
     models = load_models_for_instance(engine, engine_params, instance.id, ctx)
-    return QueryServer(engine, engine_params, models, ctx, config, instance.id)
+    return QueryServer(
+        engine, engine_params, models, ctx, config, instance.id, manifest=manifest, registry_store=store
+    )
+
+
+def _query_server_from_registry(
+    engine: Engine,
+    manifest: EngineManifest,
+    store: ArtifactStore,
+    version: str,
+    ctx: WorkflowContext,
+    config: ServerConfig,
+) -> QueryServer:
+    """Deploy the registry's stable version: verified blob, deserialize,
+    prepare_deploy; params from the lineage manifest's instance."""
+    reg_manifest = store.get_manifest(manifest.engine_id, version)
+    if reg_manifest is None:
+        raise RuntimeError(f"registry stable {version} has no manifest")
+    persisted = model_io.deserialize_models(store.load_blob(manifest.engine_id, version))
+    engine_params = None
+    if reg_manifest.instance_id:
+        instance = ctx.storage.get_meta_data_engine_instances().get(reg_manifest.instance_id)
+        if instance is not None:
+            engine_params = _engine_params_of_instance(engine, instance)
+    if engine_params is None:
+        engine_params = engine.engine_params_from_variant(manifest.variant_json)
+    models = engine.prepare_deploy(ctx, engine_params, persisted)
+    logger.info("deploying registry stable %s (instance %s)", version, reg_manifest.instance_id or "?")
+    return QueryServer(
+        engine,
+        engine_params,
+        models,
+        ctx,
+        config,
+        reg_manifest.instance_id or version,
+        manifest=manifest,
+        registry_store=store,
+        model_version=version,
+    )

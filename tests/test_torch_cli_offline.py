@@ -3,7 +3,8 @@ against a deployed server (``/stop`` answers as the JAX server does and the
 process exits 0), ``status``, ``version``, ``upgrade``, ``template
 list/get``, ``run``, ``batchpredict`` (file and ``--from-events``, with the
 JAX package's exit codes) and ``eval`` (``--workers 0``, ``--resume``,
-``--publish`` refused, a FakeRun). Every subprocess has its own timeout."""
+``--publish`` without an engine identity refused, a FakeRun). Every
+subprocess has its own timeout."""
 
 import asyncio
 import json
@@ -246,9 +247,9 @@ def test_eval_workers_0_resume_publish_and_fakerun(trained, tmp_path, capsys, mo
     assert again["cells_run"] == 0 and again["cells_skipped"] == 4
     assert again["scores"] == first["scores"]
     capsys.readouterr()
-    # --publish needs the model registry, which the port does not have yet
+    # --publish needs the engine identity the winner publishes under
     assert cli.main([*base, "--workdir", str(tmp_path / "g2"), "--publish"]) == 1
-    assert "registry" in capsys.readouterr().err
+    assert "--engine-dir" in capsys.readouterr().err
     assert not (tmp_path / "g2").exists()
     assert cli.main([*base, "--resume"]) == 1  # --resume needs --workdir
     # a FakeRun evaluation runs as is, on the sequential path

@@ -498,3 +498,60 @@ def test_implicit_als_trains_through_b1_at_rank_10(cuda, monkeypatch):
     np.testing.assert_allclose(model.item_factors, plain.item_factors, rtol=0, atol=1e-3)
     served = algo.predict_batch(model, [sp.Query(items=("i1", "i2"), num=10)])[0]
     assert len(served.item_scores) == 10
+
+
+@pytest.mark.parametrize("rank", [10, 32])
+def test_foldin_on_the_card_launches_b1_and_matches_its_plain_version(cuda, rank):
+    """Stream fold-in on the card: one B1 launch per side per absorb, each
+    launch's x held to the plain CG on the same A and b by chip_smoke's
+    ``b1_rows_held`` at row-relative 1e-3, the limit it holds the smoke's
+    fold-in to (rows the f32 CG does not determine to 1e-3, 1.2e-3 apart
+    at rank 10 here, pass on their float64 errors), and the user factors
+    within row-relative 1e-4 of the same absorbs with the plain CG, from
+    the same tables before each absorb (both solve the same host-built
+    systems)."""
+    from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.stream.trainers import FoldInALSTrainer
+
+    rng = np.random.default_rng(rank)
+    n_users, n_items = 2_000, 500
+    uf = rng.normal(size=(n_users, rank)).astype(np.float32) * 0.5
+    vf = rng.normal(size=(n_items, rank)).astype(np.float32) * 0.5
+
+    def model():
+        return convert.als_model_from_numpy(uf, vf, [f"u{i}" for i in range(n_users)],
+                                            [f"i{i}" for i in range(n_items)])
+
+    events = []
+    for n in range(3_000):
+        u, i = int(rng.integers(0, n_users + 200)), int(rng.zipf(1.3) % n_items)
+        base = float(uf[u] @ vf[i]) if u < n_users else 0.0
+        events.append(Event(event="rate", entity_type="user", entity_id=f"u{u}", target_entity_type="item",
+                            target_entity_id=f"i{i}", properties={"rating": float(np.clip(round(3 + base), 1, 5))}))
+    card = FoldInALSTrainer([model()], device=cuda)
+    host = FoldInALSTrainer([model()], device="cpu")
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location("chip_smoke", Path(__file__).parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    held = []
+
+    def hold(side, order, A, b, x):
+        assert A.is_cuda and A.is_contiguous() and A.dtype == torch.float32
+        held.append(cs.b1_rows_held(torch, A, b, 1e-3, f"a rank-{rank} fold-in's {side} side", x=x))
+
+    card.solve_hook = hold
+    before = batched_spd_solve_fused.launches
+    for s in range(0, len(events), 500):
+        host.user_factors, host.item_factors = card.user_factors.copy(), card.item_factors.copy()
+        card.absorb(events[s:s + 500])
+        host.absorb(events[s:s + 500])
+        rel = np.linalg.norm(card.user_factors - host.user_factors, axis=1) / np.maximum(
+            np.linalg.norm(host.user_factors, axis=1), 1e-12)
+        assert rel.max() < 1e-4
+    assert batched_spd_solve_fused.launches == before + 12 == before + len(held)
+    assert len(card.user_vocab) > n_users  # new users got rows and factors

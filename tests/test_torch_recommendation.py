@@ -506,7 +506,7 @@ _IMPORT = re.compile(
 )
 
 
-def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
         for p in PORT_PKG.rglob("*.py")
@@ -533,9 +533,47 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         "eval.evaluator", "eval.fast_eval", "tuning.grid", "tuning.ledger",
         "tuning.metrics", "tuning.cells", "tuning.runner", "e2.cross_validation",
     )} <= set(modules)
+    # the registry and the speed layer are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "registry", "registry.manifest", "registry.lease", "registry.store", "registry.router",
+        "registry.controller", "registry.probe", "stream", "stream.cursor", "stream.tailer",
+        "stream.trainers", "stream.pipeline", "resilience.deadline", "resilience.policy",
+        "e2.naive_bayes",
+    )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
+    # a `pio stream` process: one fold-in cycle from a registry stable
+    from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest
+
+    engine_dir = tmp_path / "engine"
+    engine_dir.mkdir()
+    variant = json.loads((REPO / "predictionio_tpu_torch/models/recommendation/engine.json").read_text())
+    variant.update(id="importcheck")
+    variant["datasource"]["params"]["appName"] = "importapp"
+    (engine_dir / "engine.json").write_text(json.dumps(variant))
+    storage = port_storage(tmp_path / "home")
+    app_id = storage.get_meta_data_apps().insert(PortApp(0, "importapp"))
+    storage.get_l_events().init(app_id)
+    model = convert.als_model_from_numpy(np.ones((2, 3)), np.ones((2, 3)), ["u0", "u1"], ["i0", "i1"])
+    ArtifactStore(str(tmp_path / "registry")).publish(
+        ModelManifest(version="", engine_id="importcheck", engine_version="1", engine_variant="engine.json"),
+        model_io.serialize_models([model]),
+    )
+    code = (
+        "import sys\n"
+        "from predictionio_tpu_torch.tools import cli\n"
+        f"rc = cli.main(['--home', {str(tmp_path / 'home' / 'port_home')!r}, 'stream', '--engine-dir', {str(engine_dir)!r}, "
+        f"'--device', 'cpu', '--app-name', 'importapp', '--registry-dir', {str(tmp_path / 'registry')!r}, "
+        "'--cycles', '1', '--interval', '0'])\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'predictionio_tpu', 'aiohttp')]\n"
+        "print('RC', rc, len(bad), bad[:5])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "Streaming app importapp" in out.stdout and "RC 0 0 []" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize(

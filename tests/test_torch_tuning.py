@@ -510,11 +510,17 @@ class TestGridRunner:
         with pytest.raises(ValueError, match="dotted path"):
             run_grid(make_eval(), workdir=str(tmp_path), workers=2)
 
-    def test_publish_raises_until_the_registry_is_ported(self, tmp_path):
-        from predictionio_tpu_torch.tuning import RegistryNotPortedError
+    def test_publish_raises_until_the_registry_is_ported(self, tmp_path, monkeypatch):
+        # the registry is ported: publish is refused (as in the JAX package)
+        # only without the engine identity or a registry dir, before any cell
+        from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
 
-        with pytest.raises(RegistryNotPortedError, match="registry"):
+        monkeypatch.delenv("PIO_REGISTRY_DIR", raising=False)
+        with pytest.raises(ValueError, match="engine identity"):
             run_grid(make_eval(), workdir=str(tmp_path), workers=0, publish=True)
+        with pytest.raises(ValueError, match="registry dir"):
+            run_grid(make_eval(), workdir=str(tmp_path), workers=0, publish=True,
+                     engine_manifest=EngineManifest("e", "1", "engine.json", ""))
         assert not os.path.exists(tmp_path / "ledger.jsonl")  # refused before any cell
 
     def test_output_path_written(self, tmp_path):
