@@ -13,7 +13,7 @@ from predictionio_tpu_torch.controller.base import (
     Doer,
     SanityCheck,
 )
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.engine import Engine, EngineParams, TrainOptions
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
@@ -37,6 +37,7 @@ __all__ = [
     "ParamsError",
     "SanityCheck",
     "TorchAlgorithm",
+    "TrainOptions",
     "model_to_host",
     "params_from_dict",
 ]

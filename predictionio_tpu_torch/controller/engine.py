@@ -1,6 +1,6 @@
 """Engine — the DASE composition and its train, offline-dispatch and eval
 dataflow (port of ``predictionio_tpu/controller/engine.py`` without the
-step profiler's train phases and the stop-after flags)."""
+step profiler's train phases)."""
 
 from __future__ import annotations
 
@@ -37,7 +37,18 @@ class EngineParams:
     serving: tuple[str, Params] = ("", None)  # type: ignore[assignment]
 
 
-def _sanity_check(obj: Any, what: str) -> None:
+@dataclasses.dataclass
+class TrainOptions:
+    """Sanity-check and stop-after flags (ref WorkflowParams)."""
+
+    skip_sanity_check: bool = False
+    stop_after_read: bool = False
+    stop_after_prepare: bool = False
+
+
+def _sanity_check(obj: Any, what: str, skip: bool = False) -> None:
+    if skip:
+        return
     if isinstance(obj, SanityCheck):
         logger.info("sanity check %s", what)
         obj.sanity_check()
@@ -102,19 +113,29 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
         )
         return data_source, preparator, algorithms, serving
 
-    def train(self, ctx: WorkflowContext, engine_params: EngineParams) -> list[Any]:
+    def train(self, ctx: WorkflowContext, engine_params: EngineParams,
+              options: TrainOptions | None = None) -> list[Any]:
         """read -> sanity -> prepare -> sanity -> train each algorithm ->
-        sanity. Returns one model per algorithm."""
+        sanity (ref Engine.train, Engine.scala:623-710). Returns one model
+        per algorithm, or none after a stop that ``options`` asks for."""
+        options = options or TrainOptions()
+        skip = options.skip_sanity_check
         data_source, preparator, algorithms, _ = self.make_components(engine_params)
         td = data_source.read_training(ctx)
-        _sanity_check(td, "training data")
+        _sanity_check(td, "training data", skip)
+        if options.stop_after_read:
+            logger.info("stopping after read_training")
+            return []
         pd = preparator.prepare(ctx, td)
-        _sanity_check(pd, "prepared data")
+        _sanity_check(pd, "prepared data", skip)
+        if options.stop_after_prepare:
+            logger.info("stopping after prepare")
+            return []
         models = []
         for i, algo in enumerate(algorithms):
             logger.info("training algorithm %d: %s", i, type(algo).__name__)
             model = algo.train(ctx, pd)
-            _sanity_check(model, f"model {i}")
+            _sanity_check(model, f"model {i}", skip)
             models.append(model)
         return models
 

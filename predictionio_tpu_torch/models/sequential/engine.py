@@ -17,9 +17,11 @@ session is the ingest order. Two algorithms:
     in ``ops.topk.dot_top_k_async``: one matmul, mask and top-k, fetched
     once as a packed [B,2,k] tensor.
 
-Not ported yet: ``read_eval`` (the eval slice) and the ANN lane of the
-attention scorer (the ANN slice); without a pinned index the JAX path
-never takes it.
+With an ANN index pinned on the model (``ann.lifecycle.ATTR``) the
+attention scorer's session vector feeds the clustered search instead of
+the product with the whole output table.
+
+Not ported yet: ``read_eval`` (the eval slice).
 """
 
 from __future__ import annotations
@@ -32,6 +34,7 @@ from typing import Any, Iterator, Sequence
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ann.lifecycle import ATTR as ANN_ATTR
 from predictionio_tpu_torch.controller import (
     BaseDataSource,
     BasePreparator,
@@ -352,7 +355,7 @@ class SequentialModel(SanityCheck):
 
     def __getstate__(self):
         state = dict(self.__dict__)
-        for k in ("_lock", "_dev_in", "_dev_out", "_index", "device"):
+        for k in ("_lock", "_dev_in", "_dev_out", "_index", "device", ANN_ATTR):
             state.pop(k, None)
         return state
 
@@ -559,14 +562,25 @@ class AttentionAlgorithm(TorchAlgorithm):
             alg = MarkovAlgorithm(MarkovAlgorithmParams(top_n=model.top_n))
             results = [alg.predict(model, q) for q in queries]
             return lambda: results
-        hist, mask, sessions, _ = self._stage_batch(model, queries)
+        hist, mask, sessions, bb = self._stage_batch(model, queries)
         n = len(model.item_vocab)
         kk = min(topk.next_pow2(max(1, max(q.num for q in queries))), n)
         ctx_vec = self._encode(table_in, topk.upload(hist, np.int64, table_in.device))
-        handle = topk.dot_top_k_async(table_out, ctx_vec, mask, kk)
+        ann = getattr(model, ANN_ATTR, None)
+        if ann is not None and not ann.supports(kk):
+            ann.count_fallback(len(queries))
+            ann = None
+        if ann is not None:
+            # session items are excluded by id inside the search
+            handle = ann.search_async(ctx_vec, kk, exclude=self._exclude_rows(sessions, bb))
+        else:
+            handle = topk.dot_top_k_async(table_out, ctx_vec, mask, kk)
 
         def finalize() -> list[PredictedResult]:
-            scores, idx = topk.fetch_topk(handle)
+            if ann is not None:
+                scores, idx = ann.fetch(handle, rows=len(queries))
+            else:
+                scores, idx = topk.fetch_topk(handle)
             out: list[PredictedResult] = []
             for q_i, q in enumerate(queries):
                 banned = set(sessions[q_i])
@@ -583,6 +597,16 @@ class AttentionAlgorithm(TorchAlgorithm):
 
         return finalize
 
+    @staticmethod
+    def _exclude_rows(sessions: list[list[int]], bb: int) -> np.ndarray:
+        """[bb, E] int32 session item ids per row, -1 padded."""
+        width = max(1, max((len(s) for s in sessions), default=1))
+        ex = np.full((bb, width), -1, np.int32)
+        for r, s in enumerate(sessions):
+            if s:
+                ex[r, : len(s)] = s
+        return ex
+
     def predict_batch(self, model: SequentialModel, queries: Sequence[Query]) -> list[PredictedResult]:
         return self.predict_batch_dispatch(model, queries)()
 
@@ -590,8 +614,9 @@ class AttentionAlgorithm(TorchAlgorithm):
         return self.predict_batch(model, [query])[0]
 
     def warmup_serving(self, model: SequentialModel, max_batch: int) -> None:
-        """One dispatch per power-of-two batch bucket, so the first burst
-        after deploy finds every shape launched once."""
+        """One dispatch per power-of-two batch bucket (through the pinned
+        index when there is one), so the first burst after deploy finds
+        every shape launched once."""
         if model.device_in() is None or not model.item_vocab:
             return
         probe = Query(recent_items=(model.item_vocab[0],), num=min(10, len(model.item_vocab)))

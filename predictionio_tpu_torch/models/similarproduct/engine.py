@@ -17,8 +17,8 @@ Algorithms:
 
 A served micro-batch of the ALS algorithms is one device call
 (``ops.topk.gather_sum_top_k_async``: gather, summed cosine, candidate
-mask, top-k) fetched once. Not ported: the ANN lane of the JAX path (the
-ANN slice); without a pinned index the JAX path never takes it.
+mask, top-k) fetched once; with an ANN index pinned on the model
+(``ann.lifecycle.ATTR``) it goes through the clustered search instead.
 """
 
 from __future__ import annotations
@@ -29,6 +29,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ann.lifecycle import ATTR as ANN_ATTR
 from predictionio_tpu_torch.controller import (
     BaseDataSource,
     BasePreparator,
@@ -387,17 +388,30 @@ class _ALSBase(TorchAlgorithm):
     def predict_batch(self, model: SimilarModel, queries: Sequence[Query]) -> list[PredictedResult]:
         return self.predict_batch_dispatch(model, queries)()
 
+    @staticmethod
+    def _has_filters(q: Query) -> bool:
+        return (q.categories is not None or q.category_black_list is not None
+                or q.white_list is not None or q.black_list is not None)
+
     def predict_batch_dispatch(self, model: SimilarModel, queries: Sequence[Query]):
         """One device call for the micro-batch: query-item indices (pad
         slots at row 0 with weight 0) and candidate masks are staged in
         reused buffers, gather -> summed cosine -> mask -> top-k runs on
         the model's device, and the finalize fetches [B, 2, k] once. Batch,
-        query width and k round up to powers of two."""
+        query width and k round up to powers of two.
+
+        With an ANN index pinned, scoring goes through the clustered search
+        instead: the summed query vector (a sum of cosines is one dot with
+        the summed normalised factors) probes ``nprobe`` buckets. A
+        filter-less batch excludes its own items by id inside the search; a
+        filtered one hands its candidate mask to the masked search. Exact
+        stays the fallback (counted) and the sampled recall shadow."""
         n = len(model.item_vocab)
         results: list[PredictedResult | None] = [None] * len(queries)
         rows: list[int] = []
         row_qidx: list[list[int]] = []
         max_q = max_num = 1
+        filtered = False
         for i, q in enumerate(queries):
             qidx = [j for it in q.items if (j := model.item_index(it)) is not None]
             if not qidx or q.num <= 0:
@@ -407,7 +421,8 @@ class _ALSBase(TorchAlgorithm):
             row_qidx.append(qidx)
             max_q = max(max_q, len(qidx))
             max_num = max(max_num, q.num)
-        handle = None
+            filtered = filtered or self._has_filters(q)
+        handle = ann = exact_handle = None
         kk = 0
         if rows:
             b = topk.next_pow2(len(rows))
@@ -415,19 +430,50 @@ class _ALSBase(TorchAlgorithm):
             pool = topk.scratch()
             qidx_buf = pool.zeros("similar.qidx", (b, qcap), np.int32)
             qw_buf = pool.zeros("similar.qw", (b, qcap), np.float32)
-            mask_buf = pool.get("similar.mask", (b, n), np.bool_)
-            mask_buf[len(rows):] = True  # pad rows: a harmless full mask
-            for row, (i, qidx) in enumerate(zip(rows, row_qidx)):
+            for row, qidx in enumerate(row_qidx):
                 qidx_buf[row, : len(qidx)] = qidx
                 qw_buf[row, : len(qidx)] = 1.0
-                candidate_mask(model, queries[i], qidx, out=mask_buf[row])
             kk = min(topk.next_pow2(max_num), n)
-            handle = topk.gather_sum_top_k_async(model.device_factors(), qidx_buf, qw_buf,
-                                                 mask_buf, kk)
+            ann = getattr(model, ANN_ATTR, None)
+            if ann is not None and not ann.supports(kk, filtered=filtered):
+                ann.count_fallback(len(rows))
+                ann = None
+            mask_buf = None
+            sample = ann is not None and ann.take_recall_sample()
+            if ann is None or filtered or sample:
+                # the exact path and the masked search read the full
+                # candidate mask; the filter-less ANN path skips it
+                mask_buf = pool.get("similar.mask", (b, n), np.bool_)
+                mask_buf[len(rows):] = True  # pad rows: a harmless full mask
+                for row, (i, qidx) in enumerate(zip(rows, row_qidx)):
+                    candidate_mask(model, queries[i], qidx, out=mask_buf[row])
+            if ann is not None:
+                qvec_buf = pool.zeros("similar.qvec", (b, model.item_factors.shape[1]), np.float32)
+                for row, qidx in enumerate(row_qidx):
+                    np.sum(model.item_factors[qidx], axis=0, out=qvec_buf[row])
+                if filtered:
+                    handle = ann.search_async(qvec_buf, kk, mask=mask_buf)
+                else:
+                    excl_buf = pool.full("similar.excl", (b, qcap), np.int32, -1)
+                    for row, qidx in enumerate(row_qidx):
+                        excl_buf[row, : len(qidx)] = qidx
+                    handle = ann.search_async(qvec_buf, kk, exclude=excl_buf)
+                if sample:
+                    exact_handle = topk.gather_sum_top_k_async(
+                        model.device_factors(), qidx_buf, qw_buf, mask_buf, kk)
+            else:
+                handle = topk.gather_sum_top_k_async(model.device_factors(), qidx_buf, qw_buf,
+                                                     mask_buf, kk)
 
         def finalize() -> list[PredictedResult]:
             if handle is not None:
-                scores, idx = topk.fetch_topk(handle)
+                if ann is not None:
+                    scores, idx = ann.fetch(handle, rows=len(rows))
+                    if exact_handle is not None:
+                        _, exact_idx = topk.fetch_topk(exact_handle)
+                        ann.record_recall(idx, exact_idx, rows=len(rows))
+                else:
+                    scores, idx = topk.fetch_topk(handle)
                 for row, i in enumerate(rows):
                     num = min(queries[i].num, kk)
                     results[i] = PredictedResult(tuple(
@@ -441,7 +487,8 @@ class _ALSBase(TorchAlgorithm):
 
     def warmup_serving(self, model: SimilarModel, max_batch: int) -> None:
         """One launch of the single-item query per power-of-two batch bucket
-        at the default k."""
+        at the default k; with an index pinned, also its filter-less search
+        (the exact path stays warm: it is the shadow and the fallback)."""
         n = len(model.item_vocab)
         kk = min(topk.next_pow2(DEFAULT_QUERY_NUM), n)
         topk.warmup_pow2_buckets(
@@ -451,6 +498,13 @@ class _ALSBase(TorchAlgorithm):
                 np.zeros((b, 1), np.float32), np.ones((b, n), bool), kk,
             ),
         )
+        ann = getattr(model, ANN_ATTR, None)
+        if ann is not None and ann.supports(kk):
+            topk.warmup_pow2_buckets(
+                max_batch,
+                lambda b: ann.search_async(np.zeros((b, model.item_factors.shape[1]), np.float32), kk,
+                                           exclude=np.full((b, 1), -1, np.int32))[0],
+            )
 
 
 class ALSAlgorithm(_ALSBase):

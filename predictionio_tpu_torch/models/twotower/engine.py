@@ -8,9 +8,10 @@ view events of user -> item with their times; the algorithm trains
 when ``historyLen > 0``) and serves one fused user tower -> u·itemsᵀ ->
 ``torch.topk`` per micro-batch, fetched once as a packed [B,2,k] tensor.
 
-Not ported yet: the ANN lane of ``predict_batch_dispatch`` (the ANN slice);
-without a pinned index the JAX path never takes it. A ``mesh`` that asks
-for more than one device (A14).
+With an ANN index pinned on the model (``ann.lifecycle.ATTR``) the user
+embedding feeds the clustered search instead of the corpus-wide product.
+
+Not ported yet: a ``mesh`` that asks for more than one device (A14).
 """
 
 from __future__ import annotations
@@ -21,6 +22,7 @@ from typing import Any, Sequence
 import numpy as np
 import torch
 
+from predictionio_tpu_torch.ann.lifecycle import ATTR as ANN_ATTR
 from predictionio_tpu_torch.controller import (
     BaseDataSource,
     BasePreparator,
@@ -291,7 +293,13 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         against the resident item table -> top-k, with user indices (and
         histories) staged in reused buffers and only [B, k] fetched in the
         finalize. Batch and k round up to powers of two; pad rows serve user
-        0 and are dropped. Unknown users answer empty without the device."""
+        0 and are dropped. Unknown users answer empty without the device.
+
+        With an ANN index pinned, the user embedding (the tower, B2 in its
+        history encoder) feeds the two-stage clustered search on the card
+        instead of the product with every item. Exact stays the fallback
+        (a k wider than the probe pool, counted) and the sampled shadow
+        that measures live recall."""
         n = len(model.item_vocab)
         results: list[PredictedResult | None] = [None] * len(queries)
         rows: list[int] = []
@@ -305,7 +313,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
             rows.append(i)
             uidxs.append(uidx)
             max_num = max(max_num, q.num)
-        handle = None
+        handle = ann = exact_handle = None
         kk = 0
         if rows:
             b = topk.next_pow2(len(rows))
@@ -319,11 +327,26 @@ class TwoTowerAlgorithm(TorchAlgorithm):
                 )
                 np.take(model.history, uidx_buf, axis=0, out=hist_buf)
             kk = min(topk.next_pow2(max_num), n)
-            handle = model.serve_topk(uidx_buf, hist_buf, kk)
+            ann = getattr(model, ANN_ATTR, None)
+            if ann is not None and not ann.supports(kk):
+                ann.count_fallback(len(rows))
+                ann = None
+            if ann is not None:
+                handle = ann.search_async(model.embed_users_async(uidx_buf, hist_buf), kk)
+                if ann.take_recall_sample():
+                    exact_handle = model.serve_topk(uidx_buf, hist_buf, kk)
+            else:
+                handle = model.serve_topk(uidx_buf, hist_buf, kk)
 
         def finalize() -> list[PredictedResult]:
             if handle is not None:
-                scores, idx = topk.fetch_topk(handle)
+                if ann is not None:
+                    scores, idx = ann.fetch(handle, rows=len(rows))
+                    if exact_handle is not None:
+                        _, exact_idx = topk.fetch_topk(exact_handle)
+                        ann.record_recall(idx, exact_idx, rows=len(rows))
+                else:
+                    scores, idx = topk.fetch_topk(handle)
                 for row, i in enumerate(rows):
                     num = min(queries[i].num, kk)
                     results[i] = PredictedResult(
@@ -338,18 +361,26 @@ class TwoTowerAlgorithm(TorchAlgorithm):
         return finalize
 
     def warmup_serving(self, model: TwoTowerModelState, max_batch: int) -> None:
-        """One dispatch per power-of-two batch bucket at the default k."""
+        """One dispatch per power-of-two batch bucket at the default k; with
+        an index pinned, the tower -> search composition as well (the exact
+        path stays warm: it is the shadow and the fallback)."""
         kk = min(topk.next_pow2(10), len(model.item_vocab))
+        ann = getattr(model, ANN_ATTR, None)
 
-        def dispatch(b: int):
-            hist = (
-                np.zeros((b, model.history.shape[1]), model.history.dtype)
-                if model.history is not None
-                else None
+        def hist(b: int):
+            if model.history is None:
+                return None
+            return np.zeros((b, model.history.shape[1]), model.history.dtype)
+
+        topk.warmup_pow2_buckets(
+            max_batch, lambda b: model.serve_topk(np.zeros(b, np.int32), hist(b), kk)
+        )
+        if ann is not None and ann.supports(kk):
+            topk.warmup_pow2_buckets(
+                max_batch,
+                lambda b: ann.search_async(
+                    model.embed_users_async(np.zeros(b, np.int32), hist(b)), kk)[0],
             )
-            return model.serve_topk(np.zeros(b, np.int32), hist, kk)
-
-        topk.warmup_pow2_buckets(max_batch, dispatch)
 
 
 class Serving(BaseServing):

@@ -10,9 +10,12 @@ read percentiles by walking the cumulative counts.
 from __future__ import annotations
 
 import bisect
+import logging
 import re
 import threading
-from typing import Any, Iterable
+from typing import Any, Callable, Iterable
+
+logger = logging.getLogger(__name__)
 
 _NAME_RE = re.compile(r"^[a-zA-Z_:][a-zA-Z0-9_:]*$")
 _LABEL_RE = re.compile(r"^[a-zA-Z_][a-zA-Z0-9_]*$")
@@ -196,6 +199,22 @@ class MetricsRegistry:
     def __init__(self):
         self._lock = threading.Lock()
         self._metrics: dict[str, _Metric] = {}
+        self._collectors: list[Callable[[], None]] = []
+
+    def register_collector(self, fn: Callable[[], None]) -> None:
+        """Run ``fn`` before every snapshot and scrape: the hook that
+        refreshes derived gauges exactly when someone reads them."""
+        with self._lock:
+            self._collectors.append(fn)
+
+    def _run_collectors(self) -> None:
+        with self._lock:
+            collectors = list(self._collectors)
+        for fn in collectors:
+            try:
+                fn()
+            except Exception:  # a broken collector must not fail the scrape
+                logger.exception("metrics collector %r failed", fn)
 
     def _get_or_create(self, cls, name: str, help: str, labelnames, **kw) -> Any:
         labelnames = tuple(labelnames)
@@ -228,6 +247,7 @@ class MetricsRegistry:
 
     def snapshot(self) -> dict[str, Any]:
         """JSON view: every series of every instrument."""
+        self._run_collectors()
         with self._lock:
             metrics = sorted(self._metrics.values(), key=lambda m: m.name)
         out: dict[str, Any] = {}
@@ -244,6 +264,7 @@ class MetricsRegistry:
 
     def render_prometheus(self) -> str:
         """Prometheus text exposition v0.0.4 of every series."""
+        self._run_collectors()
         with self._lock:
             metrics = sorted(self._metrics.values(), key=lambda m: m.name)
         lines: list[str] = []

@@ -6,7 +6,11 @@
 // It computes what `_cg_body` computes: dinv = 1/diag(A), x0 = b*dinv,
 // then exactly `iters` (= f+4) CG steps with the same update order and
 // the same 1e-30 clamps on both denominators. Only the order of f32 sums
-// differs.
+// differs, except at ranks 1..64 (the register plan), which follows that
+// solve with one step of refinement (below) and so returns x within 1e-6
+// of float64 wherever f32 CG converges (a few 1e-8 on fold-in systems,
+// where f32 CG alone is 1e-5 to 1e-3 off). Ranks above 64 are not refined
+// (ops/spd_solve.py says why).
 //
 // What bounds it. The function must read A and b and write x once,
 // n*(f*f + 2f)*4 bytes, and does about (f+5)*2*f*f*n f32 operations plus
@@ -39,8 +43,19 @@
 //     turn, one __syncwarp). The two dot products per step take log2(G)
 //     shuffle levels, and a warp runs 32/G systems' dots and divisions at
 //     once.
-//   - Each row sums in two to four partial sums (at least four
-//     independent FMA chains per lane).
+//   - Each row of the matvec sums in kFP/4 chains of four products (column
+//     j in chain j % (kFP/4)), added pairwise: one chain per row summed
+//     32 products in a row at f = 32, and B1's mean float64 error on
+//     fold-in systems was 1.5-1.9x the plain version's; with the chains it
+//     is 0.8-0.95x (tools/kernel_ab.py --accuracy, H100, 700 W).
+//   - One step of refinement: r = b - A x in float64 (products and sums),
+//     scaled to unit size, solved for by the same f32 CG, and x + d added
+//     in float64. f32 CG at f + 4 steps leaves rows 1e-5 to 1e-3 from
+//     float64 on fold-in item systems whatever the sum order (an emulation
+//     of the orders on the CPU, and the card: a rank-10 row 8.6e-4 off
+//     where the plain version's worst was 2.6e-4); refined, every row was
+//     within 5e-8. It doubles the CG: 1.23 ms against 0.59 ms at
+//     n = 138,001, f = 32.
 //   - f = 10 (the template default) and f = 32 (the ALS main paths) are
 //     compiled for their exact width. Other ranks run on widths 8, 16, 32
 //     and 64, with rows and columns past f zero-filled in the copy and
@@ -68,11 +83,12 @@
 // written in place in the output. Per-block partial sums of the two dots
 // go to the scratch too, and every block adds them up in one fixed order.
 //
-// Measured on an H100 SXM (80GB HBM3) at 700 W: 0.58 ms at n = 138,001,
-// f = 32 (2.8x the first version), about 32 % of the bound. A solve with 0
-// CG steps takes 0.22 ms, which is the loads at about 2.8 TB/s, and the
-// full solve hides them under its steps. Each of the 36 steps costs about
-// 0.015 ms, at about 0.5 issued instructions per cycle per scheduler.
+// Measured on an H100 SXM (80GB HBM3) at 700 W, before the refinement:
+// 0.58 ms at n = 138,001, f = 32 (2.8x the first version), about 32 % of
+// the bound. A solve with 0 CG steps takes 0.22 ms, which is the loads at
+// about 2.8 TB/s, and the full solve hides them under its steps. Each of
+// the 36 steps costs about 0.015 ms, at about 0.5 issued instructions per
+// cycle per scheduler. With the refinement (two CG passes): 1.23 ms.
 // 8 warps per SM (this kernel) reach that rate and 12 run no faster; 4
 // run 1.5x slower. A doubled matvec costs 42 % more and an approximate
 // division saves 12 %. About half of the matvec's FFMAs read the A element
@@ -134,8 +150,8 @@ struct Layout {
   static constexpr int kPStride = (2 * kFP + 23) / 32 * 32 + 8;
   static constexpr int kWarpFloats = kStage + kB + kSys * kPStride;
   static constexpr size_t kSmem = (size_t)kWarpsPerBlock * kWarpFloats * sizeof(float);
-  // partial sums per row: at least four independent FMA chains per lane
-  static constexpr int kSplit = kRows >= 4 ? 1 : 4 / kRows;
+  // partial sums per row: chains of four products, added pairwise
+  static constexpr int kSplit = kFP / 4;
 };
 
 template <int G>
@@ -211,6 +227,102 @@ __device__ __forceinline__ void matvec(float (&out)[Layout<F, G>::kRows],
   }
 }
 
+// out[t] = row (l + t*G) of A times p, products and sums in float64.
+template <int F, int G>
+__device__ __forceinline__ void matvec64(double (&out)[Layout<F, G>::kRows],
+                                         const float (&a)[Layout<F, G>::kRows][Layout<F, G>::kFP],
+                                         const float* p) {
+  using L = Layout<F, G>;
+#pragma unroll
+  for (int t = 0; t < L::kRows; ++t) out[t] = 0.0;
+#pragma unroll
+  for (int k = 0; k < L::kFP / 4; ++k) {
+    const float4 v = *reinterpret_cast<const float4*>(p + 4 * k);
+    const float pv[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int t = 0; t < L::kRows; ++t)
+        out[t] = fma((double)a[t][4 * k + c], (double)pv[c], out[t]);
+  }
+}
+
+template <int G>
+__device__ __forceinline__ float group_max(float v) {
+#pragma unroll
+  for (int off = G / 2; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(kFull, v, off));
+  return v;
+}
+
+// One CG solve of a group's system for this lane's rows of the right-hand
+// side br: x0 = br*dinv, then exactly `iters` steps of _cg_body, p through
+// the group's two shared buffers in turn.
+template <int F, int G>
+__device__ __forceinline__ void cg_solve(float (&x)[Layout<F, G>::kRows],
+                                         const float (&a)[Layout<F, G>::kRows][Layout<F, G>::kFP],
+                                         const float (&br)[Layout<F, G>::kRows],
+                                         const float (&dinv)[Layout<F, G>::kRows], float* pbuf,
+                                         int gl, int iters) {
+  using L = Layout<F, G>;
+  constexpr int R = L::kRows, FP = L::kFP;
+  // x0 = b*dinv; r = b - A x0; z = r*dinv; p = z; rz = <r, z>
+  float r[R], p[R], ap[R];
+  float* cur = pbuf;
+  float* nxt = pbuf + FP;
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    x[t] = br[t] * dinv[t];
+    if (F % G == 0 || gl + t * G < F) cur[gl + t * G] = x[t];
+  }
+  __syncwarp();
+  matvec<F, G>(ap, a, cur);
+  float part = 0.0f;
+#pragma unroll
+  for (int t = 0; t < R; ++t) {
+    r[t] = br[t] - ap[t];
+    const float z = r[t] * dinv[t];
+    p[t] = z;
+    part += r[t] * z;
+    if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
+  }
+  float rz = group_sum<G>(part);
+  __syncwarp();
+
+  for (int it = 0; it < iters; ++it) {
+    {
+      float* tmp = cur;
+      cur = nxt;
+      nxt = tmp;
+    }
+    matvec<F, G>(ap, a, cur);
+    part = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) part += p[t] * ap[t];
+    const float alpha = rz / fmaxf(group_sum<G>(part), 1e-30f);
+    float z[R];
+    part = 0.0f;
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      x[t] = x[t] + alpha * p[t];
+      r[t] = r[t] - alpha * ap[t];
+      z[t] = r[t] * dinv[t];
+      part += r[t] * z[t];
+    }
+    const float rz2 = group_sum<G>(part);
+    const float beta = rz2 / fmaxf(rz, 1e-30f);
+    // nxt was last read in the previous step's matvec, which every lane
+    // finished before that step's __syncwarp
+#pragma unroll
+    for (int t = 0; t < R; ++t) {
+      p[t] = z[t] + beta * p[t];
+      if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
+    }
+    __syncwarp();
+    rz = rz2;
+  }
+
+}
+
 // Ranks 1..64: a group of G lanes per system, A in registers, persistent
 // warps over tiles of kSys systems (kExact: f == F).
 template <int F, int G, bool kExact>
@@ -262,61 +374,36 @@ __global__ void __launch_bounds__(kThreads)
     __syncwarp();  // every lane has read the staging tile
     if (tile + stride < tiles) stage_tile<F, G>(st, A, b, (tile + stride) * L::kSys, n, f, vec, lane);
 
-    // x0 = b*dinv; r = b - A x0; z = r*dinv; p = z; rz = <r, z>
-    float x[R], r[R], p[R], ap[R];
-    float* cur = pbuf;
-    float* nxt = pbuf + FP;
+    float x[R];
+    cg_solve<F, G>(x, a, br, dinv, pbuf, gl, iters);
+    // one step of refinement: the residual b - A x in float64, scaled to
+    // unit size, solved for by the same CG and added in float64
+    __syncwarp();
+#pragma unroll
+    for (int t = 0; t < R; ++t)
+      if (F % G == 0 || gl + t * G < F) pbuf[gl + t * G] = x[t];
+    __syncwarp();
+    double ax[R];
+    matvec64<F, G>(ax, a, pbuf);
+    float res[R];
+    float amax = 0.0f;
 #pragma unroll
     for (int t = 0; t < R; ++t) {
-      x[t] = br[t] * dinv[t];
-      if (F % G == 0 || gl + t * G < F) cur[gl + t * G] = x[t];
+      res[t] = (float)((double)br[t] - ax[t]);
+      amax = fmaxf(amax, fabsf(res[t]));
     }
-    __syncwarp();
-    matvec<F, G>(ap, a, cur);
-    float part = 0.0f;
+    amax = group_max<G>(amax);
+    // every group of the warp runs the second solve (its shuffles and
+    // __syncwarp take the whole warp): a zero or vanishing residual, as of a
+    // system past n, solves as a zero right-hand side to d = 0
+    const float inv = amax > 1e-37f ? 1.0f / amax : 0.0f;
 #pragma unroll
-    for (int t = 0; t < R; ++t) {
-      r[t] = br[t] - ap[t];
-      const float z = r[t] * dinv[t];
-      p[t] = z;
-      part += r[t] * z;
-      if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
-    }
-    float rz = group_sum<G>(part);
-    __syncwarp();
-
-    for (int it = 0; it < iters; ++it) {
-      {
-        float* tmp = cur;
-        cur = nxt;
-        nxt = tmp;
-      }
-      matvec<F, G>(ap, a, cur);
-      part = 0.0f;
+    for (int t = 0; t < R; ++t) res[t] *= inv;
+    __syncwarp();  // every lane has read x before the solve writes the buffers
+    float d[R];
+    cg_solve<F, G>(d, a, res, dinv, pbuf, gl, iters);
 #pragma unroll
-      for (int t = 0; t < R; ++t) part += p[t] * ap[t];
-      const float alpha = rz / fmaxf(group_sum<G>(part), 1e-30f);
-      float z[R];
-      part = 0.0f;
-#pragma unroll
-      for (int t = 0; t < R; ++t) {
-        x[t] = x[t] + alpha * p[t];
-        r[t] = r[t] - alpha * ap[t];
-        z[t] = r[t] * dinv[t];
-        part += r[t] * z[t];
-      }
-      const float rz2 = group_sum<G>(part);
-      const float beta = rz2 / fmaxf(rz, 1e-30f);
-      // nxt was last read in the previous step's matvec, which every lane
-      // finished before that step's __syncwarp
-#pragma unroll
-      for (int t = 0; t < R; ++t) {
-        p[t] = z[t] + beta * p[t];
-        if (F % G == 0 || gl + t * G < F) nxt[gl + t * G] = p[t];
-      }
-      __syncwarp();
-      rz = rz2;
-    }
+    for (int t = 0; t < R; ++t) x[t] = (float)((double)x[t] + (double)amax * (double)d[t]);
 
     if (live) {
       float* xg = x_out + sys * f;

@@ -14,6 +14,24 @@ vectors of one system outgrow a block's shared memory, the whole grid
 solves each system in turn with its vectors in a device scratch buffer
 that the wrapper allocates. ``launch_plan`` says which, as the source
 does.
+
+Two accuracy contracts, by plan. In the register plan (ranks up to 64) the
+kernel follows the CG with one step of refinement: the residual b - A x in
+float64, solved for by the same CG and added in float64. Wherever f32 CG
+at f + 4 steps converges (``_cg_body`` within 1e-5 of float64) its answer
+is within 1e-6 of the float64 solution, and its mean error is never above
+``_cg_body``'s; ``chip_smoke.b1_refinement_held`` holds it to both on the
+card. Where f32 CG converges slowly (few ratings, a small lambda) one step
+does not reach float64, but narrows the error: on ML-20M's training and
+fold-in systems every row came within 5e-8 on an H100, where ``_cg_body``
+is 1e-5 to 1e-3 off on fold-in item systems. Ranks above 64 are not refined and compute
+``_cg_body`` in another f32 sum order: their matvec already splits each row
+over a warp's 32 lanes and adds the parts by a shuffle tree (the order the
+register plan's pairwise chains copy), the fault the refinement repairs was
+measured in the register plan only, and a second CG would double their
+time (24 ms a launch at the ML-1M rank 160). Both plans are held to the
+plain version by ``chip_smoke.b1_rows_held``: row by row, or closer to
+float64 than the plain version is.
 """
 
 from __future__ import annotations

@@ -16,12 +16,17 @@ registry's manifests are consulted for that span id — a crash replay of
 the same interval recognizes the existing candidate instead of minting a
 second one.
 
+Each candidate publish carries the stable version's ANN index forward
+(``ann.lifecycle.refresh_for_publish``, on the trainer's device) before it
+is staged.
+
 Port of ``predictionio_tpu/stream/pipeline.py``. Not carried over (not
 ported yet): tracing spans, the ``CompileWatcher``, the telemetry ring and
-incident bundles of a drift breach, and the ANN index refresh of a
-publish; the reference's "not configured" branch of each is taken. The
-step profiler records phases only. ``publish_seconds`` times each
-publish's four parts (snapshot, serialize, the store's sha256 and write).
+incident bundles of a drift breach; the reference's "not configured"
+branch of each is taken. The step profiler records phases only.
+``publish_seconds`` times each publish's four parts (snapshot, serialize,
+the store's sha256 and write), ``ann_refreshes`` each index refresh's
+path, drift and seconds.
 """
 
 from __future__ import annotations
@@ -111,6 +116,11 @@ class StreamInstruments:
         # the pio_train_* family exists (zero series) from process start:
         # the fold-in profiler fills it
         xray.register_train_metrics(r)
+        # the pio_ann_* family: the stream layer is the index's refresh
+        # producer (the serving-side instruments ride the query server's)
+        from predictionio_tpu_torch.ann.metrics import AnnInstruments
+
+        self.ann = AnnInstruments(r)
         # the pio_seq_* slot of the reference stays empty: the port has no
         # sequential serving instruments yet
 
@@ -172,6 +182,9 @@ class StreamPipeline:
         # per publish: the four parts' seconds (snapshot, serialize,
         # sha256, write) and the blob's bytes, newest last
         self.publish_seconds: deque[dict[str, float]] = deque(maxlen=256)
+        # per candidate whose parent pins an index: the refresh's path,
+        # drift and seconds, newest last
+        self.ann_refreshes: deque[dict[str, Any]] = deque(maxlen=256)
 
     # ------------------------------------------------------------------ run
     def _ensure_profile(self) -> xray.TrainProfile:
@@ -371,6 +384,10 @@ class StreamPipeline:
                 }
             )
             version = manifest.version
+            # the index is pinned before staging: the lane loader reads the
+            # manifest at stage time. It bakes with its candidate and never
+            # reaches stable on its own
+            self._refresh_ann(state.stable, version, models)
             self._stage(version)
         self.cursor.record_publish(version, span_id, span_to)
         self.cursors.save(self.cursor)
@@ -380,6 +397,29 @@ class StreamPipeline:
         self._pending_events = 0
         self._pending_absorbed = 0
         return version, False
+
+    def _refresh_ann(self, parent_version: str, version: str, models) -> None:
+        """Carry the stable version's ANN index onto the candidate just
+        published (an incremental rebucket, or a drift-guarded rebuild).
+        Best-effort, as in the reference: a failed refresh leaves the
+        candidate serving exact, is counted in ``errors{stage="ann"}`` and
+        never blocks the publish."""
+        from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
+
+        t0 = time.perf_counter()
+        try:
+            report = ann_lifecycle.refresh_for_publish(
+                self.store, self.config.engine_id, parent_version, version, models,
+                instruments=self.instruments.ann, device=getattr(self.trainer, "device", "cuda"),
+            )
+        except Exception:
+            logger.exception("ann index refresh failed (candidate %s serves exact)", version)
+            self.instruments.errors.inc(stage="ann")
+            return
+        if report is not None:
+            self.ann_refreshes.append(
+                {"version": version, **report, "seconds": time.perf_counter() - t0}
+            )
 
     def _stage(self, version: str) -> None:
         """Hand the published version to the rollout path. The first ever

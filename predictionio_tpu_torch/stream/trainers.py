@@ -157,11 +157,12 @@ class FoldInALSTrainer:
     [n, f] to ``device`` as contiguous f32; ``b1`` is the solve (kernel B1
     on a CUDA device, its plain version on the CPU, never a library
     solve); ``fetch`` copies x back into the host table. The tables stay
-    host numpy, which snapshots and blobs hold. An entity with an empty
-    buffer keeps A = 0 and b = 0, which the solve returns as zeros (its
-    1e-30 clamps), as in the reference. ``solve_hook(side, order, A, b,
-    x)``, when set, sees every solve's device inputs and output before the
-    fetch.
+    host numpy, which snapshots and blobs hold. An entity is touched only
+    once a rating is in its buffer, so every system it builds has a positive
+    diagonal; an all-zero system would solve to NaN in both packages' plain
+    CG (1/0 on the Jacobi diagonal), not to zeros. ``solve_hook(side,
+    order, A, b, x)``, when set, sees every solve's device inputs and
+    output before the fetch.
     """
 
     name = "als-foldin"
@@ -313,7 +314,7 @@ class FoldInALSTrainer:
         for k, idx in enumerate(order):
             pairs = buffers.get(idx)
             if not pairs:
-                continue  # A = 0, b = 0: the solve's clamps return zeros
+                continue  # as the reference; never taken: a touched entity has ratings
             opp = np.fromiter((p[0] for p in pairs), np.int64, len(pairs))
             r = np.fromiter((p[1] for p in pairs), np.float32, len(pairs))
             V = fixed[opp]  # [n, f] gather against the FIXED side

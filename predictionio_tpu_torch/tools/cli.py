@@ -309,6 +309,7 @@ def _registry_dir(args) -> str:
 
 
 def cmd_train(args) -> int:
+    from predictionio_tpu_torch.controller.engine import TrainOptions
     from predictionio_tpu_torch.workflow.context import WorkflowContext
     from predictionio_tpu_torch.workflow.core_workflow import run_train
     from predictionio_tpu_torch.workflow.engine_loader import load_engine
@@ -320,6 +321,11 @@ def cmd_train(args) -> int:
     engine_params = engine.engine_params_from_variant(manifest.variant_json)
     ctx = WorkflowContext(mode="training", device=args.device, _storage=_storage())
     registry_dir = args.registry_dir or (_registry_dir(args) if args.follow else None)
+    options = TrainOptions(
+        skip_sanity_check=args.skip_sanity_check,
+        stop_after_read=args.stop_after_read,
+        stop_after_prepare=args.stop_after_prepare,
+    )
     instance_id = run_train(
         engine,
         manifest,
@@ -328,6 +334,7 @@ def cmd_train(args) -> int:
         batch=args.batch or "",
         registry_dir=registry_dir,
         keep_versions=args.keep_versions,
+        options=options,
     )
     print(f"Training completed. Engine instance {instance_id} on {ctx.device}")
     if args.follow:
@@ -1033,6 +1040,9 @@ def build_parser() -> argparse.ArgumentParser:
     x = sub.add_parser("train")
     engine_args(x)
     x.add_argument("--batch", default="")
+    x.add_argument("--skip-sanity-check", action="store_true")
+    x.add_argument("--stop-after-read", action="store_true")
+    x.add_argument("--stop-after-prepare", action="store_true")
     x.add_argument("--registry-dir",
                    help="publish the trained model into this artifact registry "
                         "(default: $PIO_REGISTRY_DIR when set, else no registry publish)")

@@ -16,8 +16,19 @@ process times, on seeded inputs:
   item sides) and n = 138,001 with f = 10 (the template default rank);
   with ``--b1-steps``, also its C entry at those CG step counts instead of
   f + 4, which splits its time into loads and steps;
+- B1 at the shapes of one ML-20M fold-in absorb (n = 432 and 149 at
+  f = 32) and of one ML-100K absorb (n = 280 and 144 at f = 10);
 - B2 at the scorer's [64, 1, 8, 32] and [64, 1, 200, 32] and B3 at
   [64, 1, 1024, 32], all causal.
+
+With ``--accuracy``, each turn also holds B1 to float64 on fold-in
+systems: those of ``FoldInALSTrainer`` absorbing 3,000 seeded ratings
+(2,000 users x 500 zipf items, batches of 500, the recipe of the card test
+``test_foldin_on_the_card_launches_b1_and_matches_its_plain_version``) at
+ranks 10 and 32 and seeds 10, 11, 32 and 33. Per side it reports B1's and
+the plain version's mean and largest row-relative distance from
+``torch.linalg.solve`` in float64, and whether ``chip_smoke.b1_rows_held``
+holds B1 at row-relative 1e-4 and 1e-3.
 
 Each gets ``ms`` from back-to-back eager calls and ``graph_ms`` from a
 replayed CUDA graph (both from this checkout's ``utils/cuda_timing.py``).
@@ -39,7 +50,8 @@ import subprocess
 import sys
 from pathlib import Path
 
-SPD_SHAPES = [(138_001, 32), (27_001, 32), (138_001, 10)]
+SPD_SHAPES = [(138_001, 32), (27_001, 32), (138_001, 10), (432, 32), (149, 32), (280, 10), (144, 10)]
+ACCURACY_CASES = [(10, 10), (10, 11), (32, 32), (32, 33)]  # (rank, seed)
 ATTENTION_SHAPES = [
     ("fused_attention_block", (64, 1, 8, 32)),
     ("fused_attention_block", (64, 1, 200, 32)),
@@ -111,6 +123,85 @@ def measure(b1_steps: list[int]) -> list[dict]:
     return rows
 
 
+def _chip_smoke():
+    """The main checkout's chip_smoke.py (its ``b1_rows_held``), by path."""
+    path = Path(__file__).resolve().parents[2] / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("_chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def foldin_systems(rank: int, seed: int) -> list[tuple[str, object, object]]:
+    """(side, A, b) of every solve of a CPU FoldInALSTrainer absorbing the
+    card test's seeded ratings in batches of 500."""
+    import numpy as np
+
+    from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.stream.trainers import FoldInALSTrainer
+
+    rng = np.random.default_rng(seed)
+    n_users, n_items = 2_000, 500
+    uf = rng.normal(size=(n_users, rank)).astype(np.float32) * 0.5
+    vf = rng.normal(size=(n_items, rank)).astype(np.float32) * 0.5
+    model = convert.als_model_from_numpy(uf, vf, [f"u{i}" for i in range(n_users)],
+                                         [f"i{i}" for i in range(n_items)])
+    events = []
+    for _ in range(3_000):
+        u, i = int(rng.integers(0, n_users + 200)), int(rng.zipf(1.3) % n_items)
+        base = float(uf[u] @ vf[i]) if u < n_users else 0.0
+        events.append(Event(event="rate", entity_type="user", entity_id=f"u{u}", target_entity_type="item",
+                            target_entity_id=f"i{i}",
+                            properties={"rating": float(np.clip(round(3 + base), 1, 5))}))
+    trainer = FoldInALSTrainer([model], device="cpu")
+    out = []
+    trainer.solve_hook = lambda side, order, A, b, x: out.append((side, A.clone(), b.clone()))
+    for start in range(0, len(events), 500):
+        trainer.absorb(events[start:start + 500])
+    return out
+
+
+def accuracy() -> list[dict]:
+    """B1 and the plain version against float64 on fold-in systems, per
+    (rank, seed, side), with ``b1_rows_held``'s verdict at 1e-4 and 1e-3."""
+    import torch
+
+    from predictionio_tpu_torch.ops import spd_solve as S
+
+    cs = _chip_smoke()
+    rows = []
+    for rank, seed in ACCURACY_CASES:
+        per_side: dict[str, dict] = {}
+        for side, A, b in foldin_systems(rank, seed):
+            A, b = A.cuda(), b.cuda()
+            x = S.batched_spd_solve_fused(A, b)
+            ref = S._cg_body(A, b, rank + 4)
+            exact = torch.linalg.solve(A.double(), b.double().unsqueeze(-1)).squeeze(-1)
+            norm = exact.norm(dim=1).clamp(min=1e-30)
+            errs = {"b1": ((x.double() - exact).norm(dim=1) / norm).cpu(),
+                    "plain": ((ref.double() - exact).norm(dim=1) / norm).cpu()}
+            rec = per_side.setdefault(side, {"rank": rank, "seed": seed, "side": side, "rows": 0,
+                                             "b1": [], "plain": [], "held_1e-4": 0, "held_1e-3": 0,
+                                             "launches": 0})
+            rec["rows"] += int(b.shape[0])
+            rec["launches"] += 1
+            for name in ("b1", "plain"):
+                rec[name].append(errs[name])
+            for name, limit in (("held_1e-4", 1e-4), ("held_1e-3", 1e-3)):
+                try:
+                    cs.b1_rows_held(torch, A, b, limit, f"{side} side", x=x)
+                    rec[name] += 1
+                except AssertionError:
+                    pass
+        for rec in per_side.values():
+            for name in ("b1", "plain"):
+                e = torch.cat(rec.pop(name))
+                rec[f"{name}_f64_mean"], rec[f"{name}_f64_max"] = float(e.mean()), float(e.max())
+            rows.append(rec)
+    return rows
+
+
 def step_counts(sass: str) -> dict:
     """Per register kernel (width, lanes per system, exact) of a
     ``cuobjdump -sass`` listing: the opcodes of its shortest loop (a
@@ -157,6 +248,8 @@ def main(argv: list[str] | None = None) -> int:
                         help="comma-separated CG step counts at which to time B1's C entry too")
     parser.add_argument("--sass", action="store_true",
                         help="count the CG step's instructions in each tree's B1 build")
+    parser.add_argument("--accuracy", action="store_true",
+                        help="hold each tree's B1 to float64 on fold-in systems too")
     parser.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = parser.parse_args(argv)
     steps = [int(s) for s in args.b1_steps.split(",") if s]
@@ -164,6 +257,8 @@ def main(argv: list[str] | None = None) -> int:
         result = {"kernels": measure(steps)}
         if args.sass:
             result["b1_step_sass"] = sass_counts()
+        if args.accuracy:
+            result["b1_accuracy"] = accuracy()
         print(json.dumps(result), flush=True)
         return 0
     trees = [str(Path(t).resolve()) for t in args.tree]
@@ -178,7 +273,8 @@ def main(argv: list[str] | None = None) -> int:
     for turn, i in enumerate(order):
         proc = subprocess.run(
             [sys.executable, str(Path(__file__).resolve()), "--child", "--tree", trees[i],
-             "--b1-steps", args.b1_steps, *(["--sass"] if args.sass else [])],
+             "--b1-steps", args.b1_steps, *(["--sass"] if args.sass else []),
+             *(["--accuracy"] if args.accuracy else [])],
             env={**os.environ, "PYTHONPATH": trees[i]}, cwd=trees[i],
             capture_output=True, text=True, timeout=900,
         )

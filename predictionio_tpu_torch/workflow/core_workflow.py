@@ -1,8 +1,9 @@
 """Train and evaluation runs recorded in the metadata and model
 repositories (port of ``run_train``, ``load_models_for_instance``,
 ``run_evaluation`` and ``run_grid_evaluation`` in
-``predictionio_tpu/workflow/core_workflow.py``, with its registry publish,
-without the step profiler and multi-host training).
+``predictionio_tpu/workflow/core_workflow.py``, with its registry publish
+and the ANN index built at publish, without the step profiler and
+multi-host training).
 
 An engine instance goes through ``get_meta_data_engine_instances()`` (INIT,
 TRAINING, then COMPLETED or FAILED) and the model blob through
@@ -19,7 +20,7 @@ import os
 import time
 from typing import Any
 
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams
+from predictionio_tpu_torch.controller.engine import Engine, EngineParams, TrainOptions
 from predictionio_tpu_torch.data.storage.base import (
     EngineInstance,
     EngineInstanceStatus,
@@ -44,15 +45,19 @@ def run_train(
     env: dict[str, str] | None = None,
     registry_dir: str | None = None,
     keep_versions: int = 5,
+    options: TrainOptions | None = None,
 ) -> str:
     """Train, store the serialised models, and record the engine instance;
-    returns its id. A failed run is recorded as FAILED.
+    returns its id. A failed run is recorded as FAILED. After a stop that
+    ``options`` asks for (read or prepare) the instance is COMPLETED with
+    no model blob and nothing is published (ref core_workflow.py:170-180).
 
     With a registry (``registry_dir`` or ``$PIO_REGISTRY_DIR``) the blob is
     also published as a checksummed artifact with a lineage manifest; the
-    first publish becomes stable. A failed publish never fails the train:
-    the metadata and model repositories, written first, stay
-    authoritative."""
+    first publish becomes stable, and a model with an item-vector table
+    large enough gets its ANN index pinned (``ann.lifecycle``). A failed
+    publish never fails the train: the metadata and model repositories,
+    written first, stay authoritative."""
     storage = ctx.storage
     instances = storage.get_meta_data_engine_instances()
     params_json = Engine.engine_params_to_json(engine_params)
@@ -75,10 +80,14 @@ def run_train(
     try:
         instance.status = EngineInstanceStatus.TRAINING
         instances.update(instance)
-        models = engine.train(ctx, engine_params)
-        blob = model_io.serialize_models(
-            engine.make_serializable_models(ctx, engine_params, models)
-        )
+        models = engine.train(ctx, engine_params, options)
+        if options and (options.stop_after_read or options.stop_after_prepare):
+            instance.status = EngineInstanceStatus.COMPLETED
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instances.update(instance)
+            return instance_id
+        persistable = engine.make_serializable_models(ctx, engine_params, models)
+        blob = model_io.serialize_models(persistable)
         storage.get_model_data_models().insert(Model(instance_id, blob))
     except BaseException:
         instance.status = EngineInstanceStatus.FAILED
@@ -94,7 +103,8 @@ def run_train(
     }
     instances.update(instance)
     _publish_to_registry(
-        manifest, instance_id, blob, params_json, wall, batch, registry_dir, keep_versions
+        manifest, instance_id, blob, params_json, wall, batch, registry_dir, keep_versions,
+        models=persistable, device=ctx.device,
     )
     logger.info("training completed: engine instance %s, %.2fs", instance_id, wall)
     return instance_id
@@ -109,17 +119,25 @@ def _publish_to_registry(
     batch: str,
     registry_dir: str | None,
     keep_versions: int,
+    models: list[Any] | None = None,
+    device: Any = "cuda",
 ) -> None:
     """Write the trained blob into the artifact registry with its lineage
     manifest (atomic inside the store); best-effort by contract — a broken
-    registry disk must not fail a completed train."""
+    registry disk must not fail a completed train.
+
+    When ``models`` has an item-vector table and the corpus clears the ANN
+    threshold (``PIO_ANN_MIN_ITEMS``), the version also gets its retrieval
+    index built on ``device`` and pinned here: the end-of-train half of the
+    index lifecycle."""
     registry_dir = registry_dir or os.environ.get("PIO_REGISTRY_DIR")
     if not registry_dir:
         return
     try:
         from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest, params_hash_of
 
-        published = ArtifactStore(registry_dir).publish(
+        store = ArtifactStore(registry_dir)
+        published = store.publish(
             ModelManifest(
                 version="",
                 engine_id=manifest.engine_id,
@@ -138,6 +156,12 @@ def _publish_to_registry(
             keep_last=keep_versions,
         )
         logger.info("registry: published %s (instance %s)", published.version, instance_id)
+        if models:
+            from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
+
+            ann_lifecycle.build_for_version(
+                store, manifest.engine_id, published.version, models, device=device
+            )
     except Exception:
         logger.exception("registry publish failed (metadata store remains authoritative)")
 

@@ -5,9 +5,10 @@ library's ``ThreadingHTTPServer``, with a micro-batcher.
 Port of ``predictionio_tpu/workflow/create_server.py``: the serving core
 (``_MicroBatcher``, ``_dispatch_query_batch``) and its rollout half
 (stable and candidate lanes, sticky canary routing, shadow scoring, the
-bake loop, registry sync, ``/reload`` and ``/models``), without the result
-cache, the bandit, ANN attach, load shedding and observability, which
-later slices add. Each handler thread submits its query to the batcher and
+bake loop, registry sync, ``/reload`` and ``/models``) and the ANN
+attach of a lane loaded from the registry (with the ``pio_ann_*``
+instruments), without the result cache, the bandit, load shedding and
+observability, which later slices add. Each handler thread submits its query to the batcher and
 waits. One dispatch thread takes everything queued (up to ``max_batch``),
 decodes and supplements it, and calls every algorithm's
 ``predict_batch_dispatch``, which launches the device work without
@@ -39,6 +40,8 @@ import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
 
+from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
+from predictionio_tpu_torch.ann.metrics import AnnInstruments
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 from predictionio_tpu_torch.registry.controller import (
@@ -235,6 +238,13 @@ class QueryServer:
         self.registry_store = registry_store or (
             ArtifactStore(self.config.registry_dir) if self.config.registry_dir else None
         )
+        self.metrics = MetricsRegistry()
+        # the pio_ann_* family exists from start; lanes loaded from the
+        # registry bind their attached index to it in _warmup_components,
+        # and the collector retires a reloaded lane's version gauges
+        self.ann_instruments = AnnInstruments(self.metrics)
+        self.metrics.register_collector(self._collect_ann_indexes)
+        self._candidate: Lane | None = None
         _, _, algorithms, serving = engine.make_components(engine_params)
         self._warmup_components(algorithms, models)
         # the lanes: (algorithms, serving, models, version) per lane, the
@@ -242,7 +252,6 @@ class QueryServer:
         self._active = Lane(
             algorithms, serving, models, model_version or instance_id, instance_id, engine_params
         )
-        self._candidate: Lane | None = None
         self._plan: RolloutPlan = PLAN_OFF
         # bumped on every stage/promote/rollback/stable swap: work queued
         # for an earlier rollout must not feed the current one's breaker
@@ -252,7 +261,6 @@ class QueryServer:
         # promote, registry sync) against one another
         self._reload_lock = threading.Lock()
         self._seen_state_gen: int | None = None
-        self.metrics = MetricsRegistry()
         self._rollout_instruments = RolloutInstruments(self.metrics)
         self.rollout_controller = RolloutController(
             self._rollout_instruments,
@@ -297,7 +305,17 @@ class QueryServer:
     def models(self) -> list[Any]:
         return self._active.models
 
+    def _collect_ann_indexes(self) -> None:
+        stable, candidate, _, _ = self.lanes()
+        self.ann_instruments.sync_indexes(ann_lifecycle.pinned_indexes(
+            [stable.models] + ([candidate.models] if candidate is not None else [])
+        ))
+
     def _warmup_components(self, algorithms: list[Any], models: list[Any]) -> None:
+        # the lane loader attached any index before this server's
+        # instruments were in scope; each engine's warmup launches the
+        # search it dispatches
+        ann_lifecycle.bind_instruments(models, self.ann_instruments)
         for algo, model in zip(algorithms, models):
             algo.warmup_serving(model, self.config.max_batch)
 
@@ -615,6 +633,10 @@ class QueryServer:
             if instance is not None:
                 engine_params = _engine_params_of_instance(self.engine, instance)
         models = self.engine.prepare_deploy(self.ctx, engine_params, persisted)
+        # pin the version's ANN index (when its manifest carries one) onto
+        # the model before warmup launches the serving path
+        ann_lifecycle.attach_from_registry(store, self.manifest.engine_id, version, models,
+                                           device=self.ctx.device)
         _, _, algorithms, serving = self.engine.make_components(engine_params)
         self._warmup_components(algorithms, models)
         return Lane(algorithms, serving, models, version, manifest.instance_id, engine_params)
@@ -989,6 +1011,7 @@ def _query_server_from_registry(
     if engine_params is None:
         engine_params = engine.engine_params_from_variant(manifest.variant_json)
     models = engine.prepare_deploy(ctx, engine_params, persisted)
+    ann_lifecycle.attach_from_registry(store, manifest.engine_id, version, models, device=ctx.device)
     logger.info("deploying registry stable %s (instance %s)", version, reg_manifest.instance_id or "?")
     return QueryServer(
         engine,

@@ -4,7 +4,9 @@ Run on a machine with an NVIDIA H100:
 ``python -m pytest tests/test_torch_gpu.py -q -m gpu --noconftest``.
 This file imports no JAX: the kernels are held against their plain PyTorch
 versions on the card. B1: f32 sum order differs over f+4 CG iterations,
-hence atol 1e-4 on well-conditioned systems. B2 and B3: both sides follow
+and up to rank 64 B1 refines its answer (within 1e-6 of float64 wherever
+f32 CG converges), so it differs from the plain version by that version's
+own f32 error: atol 1e-4 on well-conditioned systems. B2 and B3: both sides follow
 one bf16 contract and differ only in the order of f32 sums; the kernels
 re-sum in the plain version's order every score whose tensor-core sum could
 move a row's max or flip bf16(p), so atol 1e-5 against the plain version,
@@ -509,7 +511,12 @@ def test_foldin_on_the_card_launches_b1_and_matches_its_plain_version(cuda, rank
     at rank 10 here, pass on their float64 errors), and the user factors
     within row-relative 1e-4 of the same absorbs with the plain CG, from
     the same tables before each absorb (both solve the same host-built
-    systems)."""
+    systems). B1 refines its answer (ranks up to 64), and the plain CG on
+    the CPU is up to 5e-4 off float64 at rank 32, so a user row past 1e-4
+    passes only if B1's last solve of it is within row-relative 1e-6 of
+    the float64 solution of its own system. Each launch is also held by
+    ``b1_refinement_held``: B1 within 1e-6 of float64 on every row the
+    plain CG solves to 1e-5, and no worse than it on average."""
     from predictionio_tpu_torch import convert
     from predictionio_tpu_torch.data.event import Event
     from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
@@ -539,10 +546,15 @@ def test_foldin_on_the_card_launches_b1_and_matches_its_plain_version(cuda, rank
     cs = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(cs)
     held = []
+    user_f64_err = {}  # user row -> B1's row-relative float64 error at its last solve
 
     def hold(side, order, A, b, x):
         assert A.is_cuda and A.is_contiguous() and A.dtype == torch.float32
-        held.append(cs.b1_rows_held(torch, A, b, 1e-3, f"a rank-{rank} fold-in's {side} side", x=x))
+        held.append(cs.b1_held(torch, A, b, 1e-3, f"a rank-{rank} fold-in's {side} side", x=x))
+        if side == "user":
+            exact = torch.linalg.solve(A.double(), b.double().unsqueeze(-1)).squeeze(-1)
+            err = (x.double() - exact).norm(dim=1) / exact.norm(dim=1).clamp(min=1e-30)
+            user_f64_err.update(zip(np.asarray(order).tolist(), err.cpu().tolist()))
 
     card.solve_hook = hold
     before = batched_spd_solve_fused.launches
@@ -552,6 +564,52 @@ def test_foldin_on_the_card_launches_b1_and_matches_its_plain_version(cuda, rank
         host.absorb(events[s:s + 500])
         rel = np.linalg.norm(card.user_factors - host.user_factors, axis=1) / np.maximum(
             np.linalg.norm(host.user_factors, axis=1), 1e-12)
-        assert rel.max() < 1e-4
+        for row in np.flatnonzero(rel >= 1e-4):
+            assert user_f64_err.get(int(row), np.inf) <= 1e-6, (row, rel[row])
     assert batched_spd_solve_fused.launches == before + 12 == before + len(held)
     assert len(card.user_vocab) > n_users  # new users got rows and factors
+
+
+def _ann_corpus(n, f, seed=0):
+    rng = np.random.default_rng(seed)
+    modes = rng.normal(size=(max(32, n // 512), f))
+    modes /= np.linalg.norm(modes, axis=1, keepdims=True)
+    vecs = modes[rng.integers(0, len(modes), n)] + 0.15 * rng.normal(size=(n, f))
+    vecs /= np.linalg.norm(vecs, axis=1, keepdims=True)
+    q = modes[rng.integers(0, len(modes), 64)] + 0.15 * rng.normal(size=(64, f))
+    return vecs.astype(np.float32), (q / np.linalg.norm(q, axis=1, keepdims=True)).astype(np.float32)
+
+
+@pytest.mark.parametrize("kind", ["plain", "excl", "masked", "q8"])
+def test_ann_search_on_the_card_equals_the_cpu_copy(cuda, kind):
+    """Each of the four searches on CUDA tables against the same call on
+    the CPU copy of the index: scores within rtol 1e-5 (f32 sums in another
+    order), ids equal where the scores are not tied, counts equal."""
+    from predictionio_tpu_torch.ann import AnnConfig, build_index
+    from predictionio_tpu_torch.ann.search import AnnSearcher
+
+    vecs, q = _ann_corpus(20_000, 32, seed=3)
+    index = build_index(vecs, AnnConfig(min_items=0, quantize_int8=kind == "q8"), device=cuda)
+    rng = np.random.default_rng(4)
+    kw = {}
+    if kind in ("excl", "q8"):
+        kw["exclude"] = rng.integers(0, len(vecs), (64, 3)).astype(np.int32)
+    if kind == "masked":
+        kw["mask"] = rng.random((64, len(vecs))) < 0.5
+    table = torch.tensor(vecs) if kind == "q8" else None
+    got = AnnSearcher.fetch(AnnSearcher(index, exact_table=None if table is None else table.cuda(),
+                                        device=cuda).search_async(q, 16, **kw))
+    want = AnnSearcher.fetch(AnnSearcher(index, exact_table=table, device="cpu").search_async(q, 16, **kw))
+    np.testing.assert_array_equal(got[2], want[2])
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    for gs, gi, wi in zip(got[0], got[1], want[1]):
+        tied = np.isclose(gs[:, None], gs[None, :], rtol=1e-5, atol=1e-6).sum(axis=1) > 1
+        np.testing.assert_array_equal(gi[~tied], wi[~tied])
+
+
+def test_ann_build_on_the_card_is_byte_identical_across_runs(cuda):
+    from predictionio_tpu_torch.ann import AnnConfig, build_index, serialize_index
+
+    vecs, _ = _ann_corpus(30_000, 32, seed=5)
+    blobs = {serialize_index(build_index(vecs, AnnConfig(min_items=0), device=cuda)) for _ in range(2)}
+    assert len(blobs) == 1

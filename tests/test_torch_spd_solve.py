@@ -283,3 +283,65 @@ def test_chip_smoke_holds_b1_row_by_row(monkeypatch, answer, spoil, holds):
     else:
         with pytest.raises(AssertionError, match="item-like systems"):
             cs.b1_rows_held(torch, A, b, 1e-4, "item-like systems")
+
+
+def _als_user_like_systems(n=200, f=10, seed=0):
+    """ALS user-side systems at ``lambda`` 0.01: 10 to 40 ratings from
+    correlated item factors, on which f + 4 f32 CG steps mostly converge to
+    between 1e-6 and 1e-5 of float64, and on a few do not converge."""
+    rng = np.random.default_rng(seed)
+    A = np.zeros((n, f, f), np.float32)
+    b = np.zeros((n, f), np.float32)
+    for i in range(n):
+        k = int(rng.integers(10, 40))
+        V = rng.normal(size=f) * 1.2 + 0.8 * rng.normal(size=(k, f))
+        A[i] = V.T @ V + 0.01 * k * np.eye(f)
+        b[i] = V.T @ (np.round(rng.uniform(1, 5, k) * 2) / 2)
+    return torch.from_numpy(A), torch.from_numpy(b)
+
+
+def _refined(A, b):
+    """A refined answer: the float64 solution, rounded to f32."""
+    return torch.linalg.solve(A.double(), b.double().unsqueeze(-1)).squeeze(-1).float()
+
+
+def _spoil_first_converged(by):
+    """Scales the first row that f32 CG at f + 4 steps solves to within
+    row-relative 1e-5 of float64 (a dense system)."""
+    def spoil(x, A, b):
+        exact = torch.linalg.solve(A.double(), b.double().unsqueeze(-1)).squeeze(-1)
+        plain = pt_spd._cg_body(A, b, b.shape[1] + 4).double()
+        err = (plain - exact).norm(dim=1) / exact.norm(dim=1)
+        x[int(torch.nonzero(err <= 1e-5)[0])] *= by
+    return spoil
+
+
+@pytest.mark.parametrize("answer,spoil,holds", [
+    ("refined", None, True),
+    ("refined", _spoil_first_converged(1 + 1e-5), False),
+    ("plain", None, False),
+    ("summed", None, False),
+], ids=["float64-rounded", "converged-row-1e-5-off", "plain-cg", "rounding-order"])
+def test_chip_smoke_holds_b1s_refinement_to_float64(answer, spoil, holds):
+    """chip_smoke.py's ``b1_refinement_held`` (the register plan's own
+    contract) passes an answer within f32 rounding of float64, also where
+    f32 CG does not converge, and fails an unrefined f32 CG in either
+    rounding order and one converged row 1e-5 off."""
+    from torch_template_helpers import chip_smoke
+
+    cs = chip_smoke()
+    (A1, b1), (A2, b2) = _als_item_like_systems(), _als_user_like_systems()
+    A, b = torch.cat([A1, A2]), torch.cat([b1, b2])
+    iters = b.shape[1] + 4
+    ref = pt_spd._cg_body(A, b, iters)
+    x = {"refined": lambda: _refined(A, b), "plain": lambda: ref.clone(),
+         "summed": lambda: _cg_summed(A, b, iters)}[answer]()
+    if spoil is not None:
+        spoil(x, A, b)
+    if holds:
+        record = cs.b1_refinement_held(torch, A, b, x, ref, "item-like systems")
+        assert 0 < record["rows_converged"] < record["rows"]
+        assert record["kernel_max_f64_row_err_converged"] <= 1e-6
+    else:
+        with pytest.raises(AssertionError, match="item-like systems"):
+            cs.b1_refinement_held(torch, A, b, x, ref, "item-like systems")
