@@ -29,7 +29,16 @@ The recommendation template (ALS, kernel B1):
    at +08:00), train (B1, rank 10) and deploy from that store, 200 queries;
    B1 held to its plain version on that train's systems at row-relative
    1e-4, and no process of the path importing JAX, the JAX package or
-   aiohttp; then the ML-20M model served in-process through
+   aiohttp; with that event server still up, the serving contract through
+   the CLI: pio deploy with TLS (an openssl certificate), an access key,
+   feedback into the event server, a remote log, request timeout 2 s,
+   queue high water 32 and drain grace 5 s; 200 HTTPS queries answer 200,
+   401 without the key, 400 plus one remote-log body for a failing query,
+   one predict event per answered query in the store, a silent TCP client
+   delaying nobody, SIGTERM amid a burst of 32 (/healthz 503 while
+   draining, every accepted query 200, exit 0 within the grace), a retrain
+   through B1 and pio undeploy --ssl of its deploy; then the ML-20M model
+   served in-process through
    ServingIndex.serve_batch and checked against a plain torch.topk;
 3a. batchpredict: that model through the offline pipeline (run_pipeline), a
    138,000-line query file in mega-batches of 512 into a FileSink and a
@@ -60,6 +69,18 @@ The recommendation template (ALS, kernel B1):
    its lane's serve_batch; promote, stage then rollback, a shadow candidate
    (answers from stable, divergence recorded), five stage/promote cycles
    (card memory within 10 %), POST /reload;
+3f. the serving contract in-process at full width: that model in a
+   QueryServer on the card with TLS, an access key, feedback into an
+   event server on the fold-in's store, a remote log, an output blocker
+   and a sniffer, request timeout 1 s, queue high water 64, breaker
+   threshold 2 and recovery 1 s: 2,000 queries from 16 clients, each the
+   blocker's rewrite of serve_batch and each seen by the sniffer, p50 and
+   qps beside a server with none of it; predict_batch_dispatch hung
+   through FaultInjector (503 + Retry-After within 1.5 s, two watchdog
+   trips, the breaker open and /healthz 503, then half-open and closed,
+   answers equal again); a burst of 512 concurrent queries (each shed one
+   503 + Retry-After, the rest 200 and equal, no 500 and no reset); card
+   memory within 10 % across the chaos;
 3e. the registry CLI on the event server's store, every process with
    PIO_ANN_MIN_ITEMS=0: train --registry-dir (its version pins an index),
    models list, deploy --registry-dir --registry-sync-interval 0.5, 5,000
@@ -124,7 +145,7 @@ recommended-user train implicit ALS through kernel B1 at rank 10):
    train's own systems, batches of 64 filtered queries checked against
    their filters and the plain product; the same-cluster share of the
    top-10 on the bench's clustered data;
-14. e-commerce: 20,000 users x 10,000 items, 0.7 M events imported with
+14. e-commerce: 20,000 users x 10,000 items, 0.46 M events imported with
    import_events into a sqlite store, trains at 10 and (adjust-score) 20
    iterations, batches of 64 known and cold users with live reads through
    LEventStore at cacheTtlS 0 and 60;
@@ -173,6 +194,7 @@ import socket
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import urllib.error
 import urllib.request
@@ -840,7 +862,8 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
     queries, each answered 200 and well formed. B1 is held to its plain
     version on that train's user-side and item-side systems, read back
     from the store. Every process reports its kernel launches and that it
-    imported nothing of JAX, the JAX package or aiohttp."""
+    imported nothing of JAX, the JAX package or aiohttp. Before the event
+    server stops, :func:`serving_contract_cli_phase` runs on its store."""
     import http.client
 
     from predictionio_tpu_torch.controller.params import params_from_dict
@@ -980,6 +1003,9 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
             if status != 200:
                 raise AssertionError(f"query answered {status}")
             _check_result(body, 10, n_items)
+        contract_launches = serving_contract_cli_phase(
+            work, argv, reports, run, es_port, engine_dir,
+            [f"u{u}" for u in np.unique(users)[:200].tolist()], n_items, train_launches, device)
     finally:
         for proc in (deploy, server):
             if proc is not None:
@@ -1020,7 +1046,8 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
         "queries_all_200": True,
     }
     emit(phase="eventserver", shape=[n_users, n_items, n_batch + n_single], **result)
-    return {"launches": {"eventserver_train": train_launches}, "rows": kernel_rows,
+    return {"launches": {"eventserver_train": train_launches, "serving_contract_cli": contract_launches},
+            "rows": kernel_rows,
             "variant": variant, "user_ids": sorted({f"u{u}" for u in users.tolist()} | {"tz-user"}),
             "access_key": key}
 
@@ -2113,13 +2140,13 @@ def similarproduct_quality_phase(torch) -> dict:
     return {"share": share, "gate": gate}
 
 
-ECOMMERCE_RATES = 500_000
+ECOMMERCE_RATES = 250_000
 
 
 def ecommerce_phase(torch, home: str) -> dict:
-    """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 500,000
-    rate events (the template trains on rates; half the bench's 1,000,000,
-    to keep the script within its time) and 100,000 buys of 19,000
+    """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 250,000
+    rate events (the template trains on rates; a quarter of the bench's
+    1,000,000, to keep the script within its time) and 100,000 buys of 19,000
     known users, 100,000 views of known users and 500 cold users, 500 cold
     users with no events, 50 categories, an unavailableItems constraint of
     50 items and a weightedItems constraint, imported with import_events into
@@ -3343,6 +3370,565 @@ def rollout_lanes_phase(torch, home: str, foldin: dict, n_queries: int = 2_000) 
     return result
 
 
+# ---------------------------------------------------------------------------
+# the query server's serving contract
+# ---------------------------------------------------------------------------
+
+
+def _make_cert(work: str) -> tuple[str, str]:
+    """A self-signed certificate for 127.0.0.1 from openssl, as
+    tests/test_torch_event_server.py makes one; no openssl fails the phase."""
+    cert, key = os.path.join(work, "cert.pem"), os.path.join(work, "key.pem")
+    subprocess.run(["openssl", "req", "-x509", "-newkey", "rsa:2048", "-nodes", "-days", "1",
+                    "-subj", "/CN=127.0.0.1", "-keyout", key, "-out", cert],
+                   check=True, capture_output=True, timeout=60)
+    return cert, key
+
+
+def _tls_context(cert: str):
+    import ssl
+
+    ctx = ssl.create_default_context(cafile=cert)
+    ctx.check_hostname = False
+    return ctx
+
+
+class _Conn:
+    """A keep-alive client of one server, HTTPS when given a context:
+    ``call`` returns (status, Retry-After, decoded body, seconds)."""
+
+    def __init__(self, port: int, tls=None, timeout: float = 30.0):
+        import http.client
+
+        self.conn = (http.client.HTTPSConnection("127.0.0.1", port, context=tls, timeout=timeout)
+                     if tls is not None else http.client.HTTPConnection("127.0.0.1", port, timeout=timeout))
+
+    def call(self, method: str, path: str, payload=None, headers=None):
+        t0 = time.perf_counter()
+        data = None if payload is None else json.dumps(payload).encode()
+        self.conn.request(method, path, body=data, headers={"Content-Type": "application/json", **(headers or {})})
+        resp = self.conn.getresponse()
+        body = json.loads(resp.read())
+        return resp.status, resp.getheader("Retry-After"), body, time.perf_counter() - t0
+
+    def close(self) -> None:
+        self.conn.close()
+
+
+def _one_call(port: int, tls, method: str, path: str, payload=None, headers=None, timeout: float = 30.0):
+    conn = _Conn(port, tls, timeout)
+    try:
+        return conn.call(method, path, payload, headers)
+    finally:
+        conn.close()
+
+
+class _Collector:
+    """A plain HTTP server in this process recording every POST body: the
+    remote-log collector."""
+
+    def __init__(self):
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        self.bodies: list[bytes] = []
+        bodies = self.bodies
+
+        class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
+            def log_message(self, *args):
+                pass
+
+            def do_POST(self):
+                bodies.append(self.rfile.read(int(self.headers.get("Content-Length") or 0)))
+                self.send_response(200)
+                self.send_header("Content-Length", "0")
+                self.end_headers()
+
+        self.httpd = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.httpd.daemon_threads = True
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}/log"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self) -> None:
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join(10)
+
+
+def _wait(pred, timeout: float, what: str) -> float:
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > timeout:
+            raise AssertionError(f"{what}: not within {timeout} s")
+        time.sleep(0.02)
+    return time.perf_counter() - t0
+
+
+def serving_contract_cli_phase(work: str, argv, reports: list, run, es_port: int, engine_dir: str,
+                               users: list, n_items: int, train_launches: int, device: str = "cuda") -> int:
+    """The serving contract through the CLI, on the event server's store
+    while that event server is up, every verb a process of the launcher
+    (no JAX, JAX package or aiohttp in any): ``pio deploy`` with every
+    serving flag (TLS from an openssl certificate, an access key, feedback
+    into the running event server, a remote log to a collector in this
+    process, request timeout 2 s, queue high water 32, drain grace 5 s).
+    200 queries over HTTPS with the key answer 200; without the key 401; a
+    query that fails in serving 400, and exactly one remote-log body with
+    the prefix arrives; the store then holds one predict event per answered
+    query, with its query and the body answered; a silent TCP client does
+    not delay an HTTPS query; SIGTERM amid a burst of 32: /healthz answers
+    503 while draining, every accepted query 200, the process exits 0
+    within the grace. Meanwhile ``pio train`` retrains through B1, and a
+    second TLS deploy, started beside the first, stops through ``pio
+    undeploy --ssl``. The retrain must launch B1 as often as the first
+    train (``train_launches``); returns that count."""
+    import socket as socket_mod
+
+    cert, key = _make_cert(work)
+    tls = _tls_context(cert)
+    collector = _Collector()
+    steps = {}
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    # the retrain runs beside the first deploy's checks
+    retrain = subprocess.Popen(argv("train", "--engine-dir", engine_dir, "--device", device),
+                               env=env, stdout=subprocess.DEVNULL, stderr=subprocess.PIPE, text=True)
+    retrain_report = reports[-1]
+    out, _ = run("app", "new", "feedbackapp")
+    fb_key = next(ln.split(":", 1)[1].strip() for ln in out.splitlines() if ln.startswith("Access Key:"))
+    qkey = "smoke-query-key"
+    prefix = "SMOKE-LOG "
+
+    def deploy(name, *flags):
+        port = _free_port()
+        err = open(os.path.join(work, f"{name}.err"), "w")
+        proc = subprocess.Popen(
+            argv("deploy", "--engine-dir", engine_dir, "--device", device, "--ip", "127.0.0.1",
+                 "--port", str(port), "--ssl-certfile", cert, "--ssl-keyfile", key, *flags),
+            env=env, stdout=subprocess.DEVNULL, stderr=err)
+        err.close()
+        return name, proc, port, time.perf_counter()
+
+    def ready(name, proc, port, t0):
+        while True:
+            if proc.poll() is not None:
+                with open(os.path.join(work, f"{name}.err")) as fh:
+                    raise AssertionError(f"{name} exited {proc.returncode}: {fh.read()}")
+            try:
+                if _one_call(port, tls, "GET", "/healthz", timeout=2)[0] == 200:
+                    return proc, port, time.perf_counter() - t0
+            except OSError:
+                pass
+            if time.perf_counter() - t0 > 180:
+                _stop(proc)
+                raise AssertionError(f"{name} did not answer GET /healthz over HTTPS within 180 s")
+            time.sleep(0.2)
+
+    first = deploy(
+        "contract_deploy", "--accesskey", qkey, "--feedback",
+        "--event-server-url", f"http://127.0.0.1:{es_port}", "--feedback-access-key", fb_key,
+        "--log-url", collector.url, "--log-prefix", prefix, "--request-timeout", "2",
+        "--queue-high-water", "32", "--drain-grace", "5")
+    second = deploy("undeploy_target")
+    proc, proc2 = first[1], second[1]
+    qpath = f"/queries.json?accessKey={qkey}"
+    passed = False
+    try:
+        _, port, steps["deploy_ready_s"] = ready(*first)
+        local = threading.local()
+
+        def query(u):
+            if not hasattr(local, "conn"):
+                local.conn = _Conn(port, tls)
+            return local.conn.call("POST", qpath, {"user": u, "num": 10})
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            answers = list(pool.map(query, users[:200]))
+        https_wall = time.perf_counter() - t0
+        for status, _, body, _ in answers:
+            if status != 200:
+                raise AssertionError(f"an HTTPS query with the key answered {status}: {body}")
+            _check_result(body, 10, n_items)
+        status, _, body, _ = _one_call(port, tls, "POST", "/queries.json", {"user": users[0]})
+        if (status, body) != (401, {"message": "Invalid accessKey."}):
+            raise AssertionError(f"a query without the key answered {status} {body}")
+        status, _, body, _ = _one_call(port, tls, "POST", qpath, {"num": 3})
+        if (status, body) != (400, {"message": "'user'"}):
+            raise AssertionError(f"a query that fails in serving answered {status} {body}")
+        steps["remote_log_s"] = _wait(lambda: collector.bodies, 10, "the remote log")
+        time.sleep(0.5)
+        if len(collector.bodies) != 1 or not collector.bodies[0].startswith(prefix.encode()):
+            raise AssertionError(f"remote log: {len(collector.bodies)} bodies, {collector.bodies[:1]}")
+        logged = json.loads(collector.bodies[0][len(prefix):])
+        if not (logged["message"].startswith("Query:\n{'num': 3}\n\nStack Trace:\n")
+                and "KeyError: 'user'" in logged["message"]):
+            raise AssertionError(f"remote log body: {logged}")
+
+        es = _Conn(es_port)
+
+        def landed():
+            status, _, events, _ = es.call("GET", f"/events.json?accessKey={fb_key}&event=predict&limit=-1")
+            return events if status == 200 else []
+
+        steps["feedback_landed_s"] = _wait(lambda: len(landed()) >= len(answers), 60, "the predict events")
+        events = landed()
+        es.close()
+        want = {u: body for u, (_, _, body, _) in zip(users[:200], answers)}
+        got = {e["properties"]["query"]["user"]: e for e in events}
+        if len(events) != len(answers) or set(got) != set(want):
+            raise AssertionError(f"{len(events)} predict events for {len(answers)} answered queries")
+        for u, e in got.items():
+            if (e["entityType"], e["entityId"]) != ("pio_pr", "smoke-rest") or \
+                    e["properties"] != {"query": {"user": u, "num": 10}, "prediction": want[u]}:
+                raise AssertionError(f"predict event of {u}: {e}")
+
+        with socket_mod.create_connection(("127.0.0.1", port), timeout=5):  # sends no ClientHello
+            status, _, _, silent_s = _one_call(port, tls, "POST", qpath, {"user": users[1]}, timeout=5)
+        if status != 200 or silent_s > 1.0:
+            raise AssertionError(f"beside a silent client an HTTPS query took {silent_s} s ({status})")
+
+        # SIGTERM amid a burst: a query held in flight (its body half sent)
+        # keeps the drain open while /healthz is read on a keep-alive connection
+        health = _Conn(port, tls)
+        if health.call("GET", "/healthz")[0] != 200:
+            raise AssertionError("/healthz not ready before SIGTERM")
+        body = json.dumps({"user": users[2], "num": 10}).encode()
+        hold = tls.wrap_socket(socket_mod.create_connection(("127.0.0.1", port), timeout=10),
+                               server_hostname="127.0.0.1")
+        hold.sendall((f"POST {qpath} HTTP/1.1\r\nHost: 127.0.0.1\r\nContent-Type: application/json\r\n"
+                      f"Content-Length: {len(body)}\r\n\r\n").encode() + body[:5])
+        time.sleep(0.2)  # the server has read the headers: the query is in flight
+
+        def burst_one(u):
+            conn = _Conn(port, tls, timeout=10)
+            try:
+                conn.conn.connect()
+            except OSError:
+                return "refused"
+            try:
+                return conn.call("POST", qpath, {"user": u, "num": 10})[0]
+            finally:
+                conn.close()
+
+        with concurrent.futures.ThreadPoolExecutor(32) as pool:
+            burst = [pool.submit(burst_one, u) for u in users[:32]]
+            time.sleep(0.01)
+            t_term = time.perf_counter()
+            proc.send_signal(signal.SIGTERM)
+            outcomes = [f.result(timeout=30) for f in burst]
+        draining = health.call("GET", "/healthz")
+        health.close()
+        hold.sendall(body[5:])
+        held = hold.recv(65536).decode()
+        hold.close()
+        code = proc.wait(timeout=10)
+        steps["sigterm_exit_s"] = time.perf_counter() - t_term
+        if draining[0] != 503 or draining[2].get("draining") is not True:
+            raise AssertionError(f"/healthz while draining: {draining[:3]}")
+        if not held.startswith("HTTP/1.1 200"):
+            raise AssertionError(f"the held query answered {held[:60]!r}")
+        if set(outcomes) - {200, "refused"}:
+            raise AssertionError(f"burst outcomes during the drain: {outcomes}")
+        if code != 0 or steps["sigterm_exit_s"] > 5.0:
+            raise AssertionError(f"deploy exited {code} {steps['sigterm_exit_s']} s after SIGTERM")
+        burst_answered = outcomes.count(200)
+        _, port2, _ = ready(*second)
+        status, _, body, _ = _one_call(port2, tls, "POST", "/queries.json", {"user": users[3], "num": 10})
+        if status != 200:
+            raise AssertionError(f"the second deploy answered {status}")
+        _check_result(body, 10, n_items)
+        run("undeploy", "--ip", "127.0.0.1", "--port", str(port2), "--ssl")
+        if proc2.wait(timeout=10) != 0:
+            raise AssertionError(f"the undeployed server exited {proc2.returncode}")
+        passed = True
+    finally:
+        for p in (proc, proc2) if passed else (proc, proc2, retrain):
+            if p.poll() is None:
+                _stop(p)
+        collector.close()
+    if retrain.wait(timeout=600) != 0:
+        raise AssertionError(f"cli train failed ({retrain.returncode}):\n{retrain.stderr.read()}")
+    with open(retrain_report) as fh:
+        retrain_launches = json.load(fh)["launches"]["spd_cg"]
+    if retrain_launches != train_launches:
+        raise AssertionError(f"the retrain launched B1 {retrain_launches} times, the train {train_launches}")
+    q_ms = np.asarray([dt_s for _, _, _, dt_s in answers]) * 1e3
+    result = {
+        "host_numbers": True, **steps,
+        "https_queries": len(answers), "https_query_p50_ms": float(np.percentile(q_ms, 50)),
+        "https_qps": len(answers) / https_wall, "no_key_status": 401, "failing_query_status": 400,
+        "remote_log_bodies": 1, "predict_events": len(events), "silent_client_query_s": silent_s,
+        "burst_answered": burst_answered, "burst_refused": outcomes.count("refused"),
+        "healthz_while_draining": draining[0], "retrain_spd_cg_launches": retrain_launches,
+    }
+    emit(phase="serving_contract_cli", **result)
+    return retrain_launches
+
+
+def _tensor_bytes(torch) -> int:
+    """Card memory held by tensors. The cuBLAS workspaces are freed first:
+    each cuBLAS handle keeps one (32 MiB on this card), and a thread that
+    replaces a walked-away one may take a new handle; that scratch is not a
+    batch's tensors, and the next product allocates it again."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch._C._cuda_clearCublasWorkspaces()
+    return torch.cuda.memory_allocated()
+
+
+def _blocked_answer(scores, ids, vocab, banned: frozenset, keep: int):
+    """What the smoke's output blocker leaves of serve_batch's top-k: the
+    items not banned, the first ``keep``."""
+    return [(vocab[int(i)], float(s)) for s, i in zip(scores, ids) if vocab[int(i)] not in banned][:keep]
+
+
+def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 2_000, burst: int = 512) -> dict:
+    """The serving contract at full width: the ML-20M model the fold-in
+    published as stable (138,000 users x 27,000 items, rank 32) in a
+    QueryServer on the card with TLS, an access key, feedback into an
+    in-process event server on the fold-in's sqlite store, a remote log,
+    an output blocker (drops banned items, keeps 5) and a sniffer,
+    request_timeout_s 1, queue_high_water 64, breaker_threshold 2,
+    breaker_recovery_s 1. 2,000 queries from 16 clients: every answer is
+    serve_batch's after the blocker's rewrite, and the sniffer saw every
+    one; the same queries on a server without any of it, for p50 and qps.
+    predict_batch_dispatch hung through a FaultInjector: 503 with
+    Retry-After within timeout + 0.5 s, watchdog trips counted, the breaker
+    open and /healthz 503 ``open``; faults cleared: half-open, then closed,
+    answers equal again. A burst of 512 concurrent queries: each shed one
+    503 with Retry-After, every other 200 and equal, no 500 and no reset.
+    Card memory held by tensors after the chaos within 10 % of before."""
+    from predictionio_tpu_torch.data.api.event_server import EventServer, EventServerConfig
+    from predictionio_tpu_torch.data.storage.base import AccessKey, App
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.ops import spd_solve
+    from predictionio_tpu_torch.resilience import FaultInjector
+    from predictionio_tpu_torch.workflow import model_io, server_plugins as sp
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.create_server import QueryServer, ServerConfig
+    from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
+
+    spd_solve.batched_spd_solve_fused.launches = 0
+    storage = foldin["storage"]
+    work = tempfile.mkdtemp(prefix="pio_smoke_contract_")
+    cert, key = _make_cert(work)
+    tls = _tls_context(cert)
+    engine = rec.engine_factory()
+    ep = engine.engine_params_from_variant({"algorithms": [{"name": "als", "params": {"rank": 32}}]})
+    ctx = WorkflowContext(mode="serving", device="cuda", _storage=storage)
+    (model,) = engine.prepare_deploy(ctx, ep, model_io.deserialize_models(foldin["stable_blob"]))
+    vocab = model.item_vocab
+    banned = frozenset(vocab[i] for i in range(0, len(vocab), 3))
+    sniffed: list[int] = []
+    sniff_lock = threading.Lock()
+
+    class DropBanned(sp.EngineServerPlugin):
+        plugin_name = "drop-banned"
+        plugin_type = sp.OUTPUT_BLOCKER
+
+        def process(self, variant, query, prediction, context):
+            kept = tuple(s for s in prediction.item_scores if s.item not in banned)[:5]
+            return rec.PredictedResult(kept)
+
+    class Count(sp.EngineServerPlugin):
+        plugin_name = "count"
+
+        def process(self, variant, query, prediction, context):
+            with sniff_lock:
+                sniffed.append(len(prediction.item_scores))
+
+    app_id = storage.get_meta_data_apps().insert(App(0, "contractapp"))
+    fb_key = storage.get_meta_data_access_keys().insert(AccessKey("", app_id, ()))
+    es = EventServer(storage=storage, config=EventServerConfig(ip="127.0.0.1", port=0))
+    es_port = es.start()
+    collector = _Collector()
+    qkey = "smoke-query-key"
+    manifest = EngineManifest("smoke-contract", "1", "engine.json", REC_FACTORY)
+    on = QueryServer(engine, ep, [model], ctx, ServerConfig(
+        ip="127.0.0.1", port=0, accesskey=qkey, feedback=True, event_server_url=f"http://127.0.0.1:{es_port}",
+        feedback_access_key=fb_key, ssl_certfile=cert, ssl_keyfile=key, log_url=collector.url,
+        log_prefix="SMOKE ", request_timeout_s=1.0, queue_high_water=64, breaker_threshold=2,
+        breaker_recovery_s=1.0), "contract-on", manifest=manifest,
+        plugin_context=sp.EngineServerPluginContext([DropBanned(), Count()]))
+    off = QueryServer(engine, ep, [model], ctx, ServerConfig(ip="127.0.0.1", port=0), "contract-off",
+                      manifest=manifest, plugin_context=sp.EngineServerPluginContext([]))
+    on_port, off_port = on.start(), off.start()
+    qpath = f"/queries.json?accessKey={qkey}"
+    users = [f"u{i}" for i in range(n_queries)]
+    uidx = np.asarray([model.user_index(u) for u in users], dtype=np.int32)
+    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 10)
+    expected = {u: _blocked_answer(ref_scores[j], ref_ids[j], vocab, banned, 5) for j, u in enumerate(users)}
+
+    def held(u, body, what):
+        got = [(s["item"], s["score"]) for s in body["itemScores"]]
+        want = expected[u]
+        if [g[0] for g in got] != [w[0] for w in want] or not np.allclose(
+                [g[1] for g in got], [w[1] for w in want], rtol=1e-5):
+            raise AssertionError(f"{what}: {u} answered {got}, serve_batch after the blocker {want}")
+
+    def drive(port, client_tls, path, us, clients=16):
+        local = threading.local()
+
+        def one(u):
+            if not hasattr(local, "conn"):
+                local.conn = _Conn(port, client_tls)
+            return local.conn.call("POST", path, {"user": u, "num": 10})
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+            outs = list(pool.map(one, us))
+        return outs, time.perf_counter() - t0
+
+    steps = {}
+    answered_on = 0
+    try:
+        drive(on_port, tls, qpath, users[:64])  # warm both paths
+        drive(off_port, None, "/queries.json", users[:64])
+        answered_on += 64
+        base = len(sniffed)
+        outs_on, wall_on = drive(on_port, tls, qpath, users)
+        for u, (status, _, body, _) in zip(users, outs_on):
+            if status != 200:
+                raise AssertionError(f"{u} answered {status} with the contract on: {body}")
+            held(u, body, "contract on")
+        answered_on += len(users)
+        _wait(lambda: len(sniffed) - base >= n_queries, 30, "the sniffer")
+        if len(sniffed) - base != n_queries:
+            raise AssertionError(f"the sniffer saw {len(sniffed) - base} of {n_queries} answers")
+        outs_off, wall_off = drive(off_port, None, "/queries.json", users)
+        for u, (status, _, body, _) in zip(users, outs_off):
+            if status != 200:
+                raise AssertionError(f"{u} answered {status} with the contract off: {body}")
+        _same_topk(np.asarray([[model.item_index(x["item"]) for x in b["itemScores"]] for _, _, b, _ in outs_off]),
+                   np.asarray([[x["score"] for x in b["itemScores"]] for _, _, b, _ in outs_off]),
+                   ref_ids, ref_scores, 1e-5, "answers with the contract off")
+        on.config.feedback = False  # the same server, its feedback POSTs alone off
+        outs_nofb, wall_nofb = drive(on_port, tls, qpath, users)
+        on.config.feedback = True
+        for u, (status, _, body, _) in zip(users, outs_nofb):
+            if status != 200:
+                raise AssertionError(f"{u} answered {status} with feedback off: {body}")
+            held(u, body, "contract on, feedback off")
+        steps.update(
+            p50_on_ms=_p50_ms([o[3] for o in outs_on]), qps_on=n_queries / wall_on,
+            p50_on_no_feedback_ms=_p50_ms([o[3] for o in outs_nofb]), qps_on_no_feedback=n_queries / wall_nofb,
+            p50_off_ms=_p50_ms([o[3] for o in outs_off]), qps_off=n_queries / wall_off)
+
+        mem_before = _tensor_bytes(torch)
+        lane = on._active
+        real = lane.algorithms[0]
+        injector = FaultInjector(real)
+        injector.inject("predict_batch_dispatch", latency_s=2.5)
+        lane.algorithms[0] = injector
+        chaos = []
+        t_fault = time.perf_counter()
+        for u in users[:2]:
+            status, retry_after, body, dt_s = _one_call(on_port, tls, "POST", qpath, {"user": u, "num": 10})
+            chaos.append((status, retry_after, body["message"], dt_s))
+        steps["breaker_open_s"] = time.perf_counter() - t_fault
+        status, retry_after, body, dt_s = _one_call(on_port, tls, "POST", qpath, {"user": users[2], "num": 10})
+        chaos.append((status, retry_after, body["message"], dt_s))
+        hz_status, _, hz, _ = _one_call(on_port, tls, "GET", "/healthz")
+        for status, retry_after, _, dt_s in chaos:
+            if status != 503 or retry_after is None or dt_s > 1.0 + 0.5:
+                raise AssertionError(f"under a hung dispatch: {chaos}")
+        if [m for _, _, m, _ in chaos] != ["micro-batch dispatch: deadline exceeded"] * 2 + [
+                "serving temporarily unavailable (dispatch circuit open)"]:
+            raise AssertionError(f"under a hung dispatch: {chaos}")
+        if on.batcher.watchdog_trips != 2 or hz_status != 503 or hz["breakers"]["dispatch"]["state"] != "open":
+            raise AssertionError(f"trips {on.batcher.watchdog_trips}, /healthz {hz_status} {hz}")
+        injector.clear()
+        lane.algorithms[0] = real
+        t_clear = time.perf_counter()
+        _wait(lambda: on.dispatch_breaker.state == "half-open", 5, "half-open")
+        steps["half_open_s"] = time.perf_counter() - t_clear
+        probe = _one_call(on_port, tls, "POST", qpath, {"user": users[0], "num": 10})
+        steps["breaker_closed_s"] = time.perf_counter() - t_clear
+        if probe[0] != 200 or on.dispatch_breaker.state != "closed":
+            raise AssertionError(f"the half-open probe: {probe[:3]}, breaker {on.dispatch_breaker.state}")
+        outs, _ = drive(on_port, tls, qpath, users[:64], clients=1)
+        if any(o[0] != 200 for o in outs):
+            raise AssertionError("a query after the breaker closed was not answered 200")
+        for u, (_, _, body, _) in zip(users, outs):
+            held(u, body, "after the breaker closed")
+        answered_on += 1 + len(outs)
+
+        def burst_round(dispatch_s: float) -> int:
+            """Every client connected first, then all send at once; with
+            ``dispatch_s`` each dispatch takes that much longer (a slower
+            device), so the queue reaches high water. Returns the shed."""
+            conns = []
+            with concurrent.futures.ThreadPoolExecutor(32) as pool:
+                conns = list(pool.map(lambda _: _Conn(on_port, tls), range(burst)))
+                list(pool.map(lambda c: c.conn.connect(), conns))
+            gate = threading.Barrier(burst)
+
+            def fire(j):
+                gate.wait()
+                try:
+                    return conns[j].call("POST", qpath, {"user": users[j], "num": 10})
+                except OSError as exc:
+                    return ("error", None, repr(exc), 0.0)
+
+            slow = FaultInjector(real)
+            if dispatch_s:
+                slow.inject("predict_batch_dispatch", latency_s=dispatch_s)
+                lane.algorithms[0] = slow
+            try:
+                with concurrent.futures.ThreadPoolExecutor(burst) as pool:
+                    fired = list(pool.map(fire, range(burst)))
+            finally:
+                lane.algorithms[0] = real
+            for c in conns:
+                c.close()
+            shed = [f for f in fired if f[0] == 503]
+            ok = [(j, f) for j, f in enumerate(fired) if f[0] == 200]
+            if len(shed) + len(ok) != burst or any(
+                    f[1] is None or not f[2]["message"].startswith("admission queue over high water")
+                    for f in shed):
+                raise AssertionError(f"burst: {sorted({str(f[0]) for f in fired})}, e.g. "
+                                     f"{[f for f in fired if f[0] not in (200, 503)][:3]} {shed[:2]}")
+            for j, (_, _, body, _) in ok:
+                held(users[j], body, "the burst")
+            nonlocal answered_on
+            answered_on += len(ok)
+            return len(shed)
+
+        shed_fast = burst_round(0.0)
+        shed_slow = burst_round(0.2)
+        if not shed_slow:
+            raise AssertionError("a burst on a dispatch 0.2 s slower shed nothing")
+        steps.update(burst=burst, burst_shed=shed_fast, burst_shed_share=shed_fast / burst,
+                     slow_burst_shed=shed_slow, slow_burst_shed_share=shed_slow / burst,
+                     burst_500s=0, burst_resets=0, shed_count=on.batcher.shed_count)
+
+        time.sleep(2.6)  # the calls walked away from return, unread
+        mem_after = _tensor_bytes(torch)
+        if mem_after > 1.1 * mem_before:
+            raise AssertionError(f"card memory grew over the chaos: {mem_before} -> {mem_after}")
+        def app_events():
+            return len(list(storage.get_l_events().find(app_id, entity_type="pio_pr")))
+
+        steps["feedback_landed_s"] = _wait(lambda: app_events() >= answered_on, 120, "the predict events")
+        if app_events() != answered_on:
+            raise AssertionError(f"{app_events()} predict events for {answered_on} answered queries")
+    finally:
+        on.shutdown()
+        off.shutdown()
+        es.shutdown()
+        collector.close()
+        shutil.rmtree(work, ignore_errors=True)
+    result = {"host_numbers": True, **steps, "queries": n_queries, "watchdog_trips": 2,
+              "chaos_503_s": [round(c[3], 4) for c in chaos], "memory_allocated": [mem_before, mem_after],
+              "predict_events": answered_on, "spd_cg_launches": spd_solve.batched_spd_solve_fused.launches}
+    emit(phase="serving_contract_inprocess", shape=[len(model.user_vocab), len(vocab), 32], **result)
+    return result
+
+
 def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new_users: int = 500,
                        n_new: int = 5_000) -> dict:
     """The registry path as a user drives it, each verb a process of the
@@ -4156,6 +4742,7 @@ def main() -> int:
         foldin = stream_foldin_phase(torch, home, model)
         del td, model
         rollout_lanes_phase(torch, home, foldin)
+        serving_contract_inprocess_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
         del foldin
         offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)

@@ -5,6 +5,7 @@ Port of the data routes of ``predictionio_tpu/data/api/event_server.py``
 (ref ``data/.../api/EventServer.scala:54-663``)::
 
   GET  /                       -> {"status": "alive"}
+  GET  /healthz                -> readiness: the storage breaker (503 open)
   POST /events.json            -> 201 {"eventId": ...} (single event)
   GET  /events.json            -> filtered query (default limit 20)
   GET  /events/<id>.json       -> one event
@@ -26,13 +27,22 @@ answers 404 and a method a path does not take answers 405, with aiohttp's
 plain-text bodies.
 
 Each connection is served on its own thread and storage calls run on it;
-the sqlite backend serialises them on its connection lock. A batch request
+the sqlite backend serialises them on its connection lock. With TLS, the
+handshake runs on that thread too, never in the serve thread's
+``accept()`` (``utils/tls.py``).
+
+Every storage call (the access-key and channel lookups included) runs
+through one :class:`ResiliencePolicy`: a transient failure is retried with
+backoff, ``breaker_threshold`` consecutive failures open the storage
+breaker, and while it is open a request answers 503 ``"storage
+unavailable: ..."`` with ``Retry-After`` without touching storage. A
+storage failure that is not the breaker's answers 500, on reads as on
+writes; a 400 is only ever the client's fault. A batch request
 inserts its events one by one, each with its own status, as the JAX server
 does. A client's ``creationTime`` is ignored, as in the JAX server: an
 event's creation time is when this server accepted it, the key of the
-store's tail order. Not ported yet: ``/metrics``, ``/slo``, ``/traces/recent`` and ``/profile/*``
-(observability) and the storage breaker's 503s and ``/healthz``
-(resilience).
+store's tail order. Not ported yet: ``/metrics``, ``/slo``,
+``/traces/recent`` and ``/profile/*`` (observability).
 """
 
 from __future__ import annotations
@@ -42,7 +52,6 @@ import dataclasses
 import json
 import logging
 import re
-import ssl
 import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -58,6 +67,12 @@ from predictionio_tpu_torch.data.webhooks import (
     form_connector,
     json_connector,
 )
+from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+from predictionio_tpu_torch.obs.web import BreakerInstruments
+from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
+from predictionio_tpu_torch.resilience.policy import ResiliencePolicy
+from predictionio_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
+from predictionio_tpu_torch.utils.tls import HandshakeOnHandlerThread, server_ssl_context
 
 logger = logging.getLogger(__name__)
 
@@ -73,17 +88,17 @@ class EventServerConfig:
     # TLS (ref common/SSLConfiguration.scala): PEM cert + key paths
     ssl_certfile: str | None = None
     ssl_keyfile: str | None = None
+    # transient storage failures retry with exponential backoff before the
+    # request fails; <= 1 disables retries
+    storage_retries: int = 3
+    storage_backoff_s: float = 0.05
+    # consecutive storage failures that open the breaker: requests then
+    # answer 503 "storage unavailable" + Retry-After without touching storage
+    breaker_threshold: int = 5
+    breaker_recovery_s: float = 5.0
 
-    def ssl_context(self) -> ssl.SSLContext | None:
-        """SSLContext from the cert/key pair; None when TLS is off. Exactly
-        one of the pair set is an error, never a silent plaintext server."""
-        if bool(self.ssl_certfile) != bool(self.ssl_keyfile):
-            raise ValueError("TLS misconfigured: both ssl_certfile and ssl_keyfile are required")
-        if not self.ssl_certfile:
-            return None
-        ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
-        ctx.load_cert_chain(self.ssl_certfile, self.ssl_keyfile)
-        return ctx
+    def ssl_context(self):
+        return server_ssl_context(self.ssl_certfile, self.ssl_keyfile)
 
 
 class BlockedEvent(Exception):
@@ -111,11 +126,17 @@ class Request:
     body: bytes = b""
 
 
-Response = tuple[int, Any]  # status, JSON body (a str body is sent as text)
+# status, JSON body (a str body is sent as text), and optionally headers
+Response = tuple[int, Any] | tuple[int, Any, dict[str, str]]
 
 
 def _error(status: int, message: str) -> Response:
     return status, {"message": message}
+
+
+def _storage_unavailable(exc: CircuitOpenError) -> Response:
+    return (503, {"message": f"storage unavailable: {exc}"},
+            {"Retry-After": str(max(1, round(exc.retry_after_s)))})
 
 
 def _decode_event(item: Any) -> Event:
@@ -146,6 +167,25 @@ class EventServer:
         self.channels = self.storage.get_meta_data_channels()
         self.stats = StatsCollector()
         self.plugin_context = plugin_context or EventServerPluginContext()
+        self.metrics = MetricsRegistry()
+        self._m_retries = self.metrics.counter(
+            "pio_storage_retries_total", "storage calls replayed by the retry policy"
+        )
+        self._breaker_instruments = BreakerInstruments(self.metrics)
+        self.metrics.register_collector(self._breaker_instruments.collect)
+        self.storage_policy = ResiliencePolicy(
+            retry=RetryPolicy(
+                max_attempts=max(1, self.config.storage_retries),
+                backoff_base_s=self.config.storage_backoff_s,
+                budget=RetryBudget(),
+                on_retry=lambda exc: self._m_retries.inc(),
+            ),
+            breaker=self._breaker_instruments.watch(CircuitBreaker(
+                name="eventdata",
+                failure_threshold=self.config.breaker_threshold,
+                recovery_timeout_s=self.config.breaker_recovery_s,
+            )),
+        )
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
 
@@ -163,12 +203,13 @@ class EventServer:
                     return _error(401, "Invalid accessKey.")
             else:
                 return _error(401, "Missing accessKey.")
-        key = self.access_keys.get(access_key)
+        key = self.storage_policy.call(self.access_keys.get, access_key)
         if key is None:
             return _error(401, "Invalid accessKey.")
         channel_id = None
         if channel_name is not None:
-            channel_map = {c.name: c.id for c in self.channels.get_by_app_id(key.appid)}
+            channels = self.storage_policy.call(self.channels.get_by_app_id, key.appid)
+            channel_map = {c.name: c.id for c in channels}
             if channel_name not in channel_map:
                 return _error(401, f"Invalid channel '{channel_name}'.")
             channel_id = channel_map[channel_name]
@@ -176,15 +217,17 @@ class EventServer:
 
     def _insert_one(self, auth: AuthData, event: Event) -> Response:
         """Blocker -> insert -> sniffer. Raises BlockedEvent when an input
-        blocker rejects (-> 403); any other exception is a storage failure
-        (-> 500)."""
+        blocker rejects (-> 403), CircuitOpenError while the storage breaker
+        is open (-> 503); any other exception is a storage failure (-> 500).
+        Blockers run outside the storage policy: a rejection is the
+        client's, neither retried nor counted against the breaker."""
         info = EventInfo(auth.app_id, auth.channel_id, event)
         for blocker in self.plugin_context.input_blockers.values():
             try:
                 blocker.process(info, self.plugin_context)
             except Exception as exc:
                 raise BlockedEvent(str(exc)) from exc
-        event_id = self.levents.insert(event, auth.app_id, auth.channel_id)
+        event_id = self.storage_policy.call(self.levents.insert, event, auth.app_id, auth.channel_id)
         for sniffer in self.plugin_context.input_sniffers.values():
             try:
                 sniffer.process(info, self.plugin_context)
@@ -200,6 +243,8 @@ class EventServer:
             status, body = self._insert_one(auth, event)
         except BlockedEvent as exc:
             return _error(403, str(exc))
+        except CircuitOpenError as exc:
+            return _storage_unavailable(exc)
         except Exception as exc:
             logger.exception("event insert failed")
             return _error(500, str(exc))
@@ -243,7 +288,9 @@ class EventServer:
         except Exception as exc:
             return _error(400, str(exc))  # parameter errors only
         try:
-            events = list(self.levents.find(**kwargs))
+            events = self.storage_policy.call(lambda: list(self.levents.find(**kwargs)))
+        except CircuitOpenError as exc:
+            return _storage_unavailable(exc)
         except Exception as exc:
             # a storage failure is a server-side outage (500), never a 400
             logger.exception("event find failed")
@@ -253,13 +300,13 @@ class EventServer:
         return 200, [e.to_json_dict() for e in events]
 
     def handle_get_event(self, request: Request, auth: AuthData, event_id: str) -> Response:
-        event = self.levents.get(event_id, auth.app_id, auth.channel_id)
+        event = self.storage_policy.call(self.levents.get, event_id, auth.app_id, auth.channel_id)
         if event is None:
             return _error(404, "Not Found")
         return 200, event.to_json_dict()
 
     def handle_delete_event(self, request: Request, auth: AuthData, event_id: str) -> Response:
-        if not self.levents.delete(event_id, auth.app_id, auth.channel_id):
+        if not self.storage_policy.call(self.levents.delete, event_id, auth.app_id, auth.channel_id):
             return _error(404, "Not Found")
         return 200, {"message": "Found"}
 
@@ -294,6 +341,8 @@ class EventServer:
                 status, body = self._insert_one(auth, event)
             except BlockedEvent as exc:
                 status, body = 403, {"message": str(exc)}
+            except CircuitOpenError as exc:
+                status, body = 503, {"message": f"storage unavailable: {exc}"}
             except Exception as exc:
                 status, body = 500, {"message": str(exc)}
             results[slot] = {"status": status, **body}
@@ -341,12 +390,29 @@ class EventServer:
             return _error(400, str(exc))
         return self._ingest(auth, event)
 
+    def handle_healthz(self) -> Response:
+        """Readiness, distinct from ``/`` liveness: not ready while the
+        storage breaker is open, so a load balancer routes around us."""
+        snap = self.storage_policy.snapshot()
+        ready = snap["breaker"]["state"] != OPEN
+        return (200 if ready else 503), {"ready": ready, **snap}
+
     # -------------------------------------------------------------- dispatch
     def handle(self, request: Request) -> Response:
-        """Route one request; returns (status, body)."""
+        """Route one request; returns (status, body[, headers]). An open
+        storage breaker met outside a route's own mapping (the access-key
+        lookup, a single-event get or delete) answers 503 too."""
+        try:
+            return self._route(request)
+        except CircuitOpenError as exc:
+            return _storage_unavailable(exc)
+
+    def _route(self, request: Request) -> Response:
         method, path = request.method, request.path
         if path == "/":
             return (200, {"status": "alive"}) if method == "GET" else (405, "405: Method Not Allowed")
+        if path == "/healthz":
+            return self.handle_healthz() if method == "GET" else (405, "405: Method Not Allowed")
         if path == "/plugins.json":
             if method != "GET":
                 return 405, "405: Method Not Allowed"
@@ -418,13 +484,13 @@ class EventServer:
                     body=body,
                 )
                 try:
-                    status, out = server.handle(request)
+                    status, out, *headers = server.handle(request)
                 except Exception as exc:
                     logger.exception("event server request failed")
-                    status, out = 500, {"message": str(exc)}
-                self._reply(status, out)
+                    status, out, headers = 500, {"message": str(exc)}, []
+                self._reply(status, out, *headers)
 
-            def _reply(self, status: int, out: Any) -> None:
+            def _reply(self, status: int, out: Any, headers: dict[str, str] | None = None) -> None:
                 if isinstance(out, str):
                     data, ctype = out.encode(), "text/plain; charset=utf-8"
                 else:
@@ -432,6 +498,8 @@ class EventServer:
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)
                 self.send_header("Content-Length", str(len(data)))
+                for k, v in (headers or {}).items():
+                    self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
 
@@ -442,9 +510,7 @@ class EventServer:
     def start(self) -> int:
         """Bind and serve on a background thread; returns the bound port."""
         httpd = _HTTPServer((self.config.ip, self.config.port), self._handler())
-        tls = self.config.ssl_context()
-        if tls is not None:
-            httpd.socket = tls.wrap_socket(httpd.socket, server_side=True)
+        httpd.ssl_context = self.config.ssl_context()
         self._httpd = httpd
         self._thread = threading.Thread(target=httpd.serve_forever, name="pio-events", daemon=True)
         self._thread.start()
@@ -460,7 +526,7 @@ class EventServer:
             self._httpd = None
 
 
-class _HTTPServer(ThreadingHTTPServer):
+class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
     daemon_threads = True
     request_queue_size = 256  # a burst of new connections must not overflow the backlog
 

@@ -1,20 +1,37 @@
-"""Resilience: retry policy, circuit breaker, deadlines and the policy
-that composes them, guarding the offline pipeline's event-store writeback
-and the stream tailer (port of ``predictionio_tpu/resilience/``; the
-fault injector and the servers' load shedding come later)."""
+"""Resilience: retry policy, circuit breaker, deadlines, the policy that
+composes them and the proxy that applies it to a DAO, and the fault
+injector of the chaos tests (port of ``predictionio_tpu/resilience/``).
+They guard the event server's storage, the query server's dispatch, the
+offline pipeline's event-store writeback and the stream tailer."""
 
-from predictionio_tpu_torch.resilience.breaker import CircuitBreaker, CircuitOpenError
+from predictionio_tpu_torch.resilience.breaker import (
+    CLOSED,
+    HALF_OPEN,
+    OPEN,
+    CircuitBreaker,
+    CircuitOpenError,
+)
 from predictionio_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from predictionio_tpu_torch.resilience.fault import FaultInjector, FaultSpec, InjectedFault
 from predictionio_tpu_torch.resilience.policy import ResiliencePolicy
 from predictionio_tpu_torch.resilience.retry import RetryBudget, RetryPolicy, is_transient
+from predictionio_tpu_torch.resilience.wrappers import ResilientProxy, wrap_dao
 
 __all__ = [
+    "CLOSED",
+    "HALF_OPEN",
+    "OPEN",
     "CircuitBreaker",
     "CircuitOpenError",
     "Deadline",
     "DeadlineExceeded",
+    "FaultInjector",
+    "FaultSpec",
+    "InjectedFault",
     "ResiliencePolicy",
+    "ResilientProxy",
     "RetryBudget",
     "RetryPolicy",
     "is_transient",
+    "wrap_dao",
 ]

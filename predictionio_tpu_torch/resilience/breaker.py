@@ -1,11 +1,12 @@
 """Circuit breaker (port of ``predictionio_tpu/resilience/breaker.py``
-without transition listeners).
+without ``force_open``).
 
 closed: consecutive failures are counted; at ``failure_threshold`` the
 circuit opens and every call is refused with :class:`CircuitOpenError`.
 After ``recovery_timeout_s`` it is half-open: a bounded number of probes go
 through, one success closes it, one failure opens it again. Thread-safe;
-the clock is injectable.
+the clock is injectable. A ``listener`` sees each transition as
+``(name, old_state, new_state)``, called outside the lock.
 """
 
 from __future__ import annotations
@@ -37,12 +38,14 @@ class CircuitBreaker:
         recovery_timeout_s: float = 5.0,
         half_open_max_probes: int = 1,
         clock: Callable[[], float] = time.monotonic,
+        listener: Callable[[str, str, str], None] | None = None,
     ):
         self.name = name or "breaker"
         self.failure_threshold = max(1, failure_threshold)
         self.recovery_timeout_s = recovery_timeout_s
         self.half_open_max_probes = max(1, half_open_max_probes)
         self._clock = clock
+        self.listener = listener
         self._lock = threading.Lock()
         self._state = CLOSED
         self._consecutive_failures = 0
@@ -56,27 +59,46 @@ class CircuitBreaker:
         self._probes_inflight = 0
         self.trips += 1
 
+    def _notify(self, transition: tuple[str, str] | None) -> None:
+        if transition is not None and self.listener is not None:
+            try:
+                self.listener(self.name, *transition)
+            except Exception:
+                pass  # monitoring must never break the state machine
+
     def allow(self) -> None:
         """Gate one call; pair a return with record_success/record_failure."""
+        transition = None
+        err = None
         with self._lock:
             if self._state == CLOSED:
                 return
             elapsed = self._clock() - self._opened_at
             if self._state == OPEN:
                 if elapsed < self.recovery_timeout_s:
-                    raise CircuitOpenError(self.name, self.recovery_timeout_s - elapsed)
-                self._state = HALF_OPEN
-                self._probes_inflight = 0
-            if self._probes_inflight >= self.half_open_max_probes:
-                raise CircuitOpenError(self.name, self.recovery_timeout_s)
-            self._probes_inflight += 1
+                    err = CircuitOpenError(self.name, self.recovery_timeout_s - elapsed)
+                else:
+                    self._state = HALF_OPEN
+                    self._probes_inflight = 0
+                    transition = (OPEN, HALF_OPEN)
+            if err is None:
+                if self._probes_inflight >= self.half_open_max_probes:
+                    err = CircuitOpenError(self.name, self.recovery_timeout_s)
+                else:
+                    self._probes_inflight += 1
+        self._notify(transition)
+        if err is not None:
+            raise err
 
     def record_success(self) -> None:
+        transition = None
         with self._lock:
             self._consecutive_failures = 0
             if self._state == HALF_OPEN:
                 self._state = CLOSED
                 self._probes_inflight = 0
+                transition = (HALF_OPEN, CLOSED)
+        self._notify(transition)
 
     def release_probe(self) -> None:
         """Un-claim a half-open probe slot whose call never ran."""
@@ -85,13 +107,42 @@ class CircuitBreaker:
                 self._probes_inflight -= 1
 
     def record_failure(self) -> None:
+        transition = None
         with self._lock:
             if self._state == HALF_OPEN:
                 self._trip()
-                return
-            self._consecutive_failures += 1
-            if self._state == CLOSED and self._consecutive_failures >= self.failure_threshold:
-                self._trip()
+                transition = (HALF_OPEN, OPEN)
+            else:
+                self._consecutive_failures += 1
+                if self._state == CLOSED and self._consecutive_failures >= self.failure_threshold:
+                    self._trip()
+                    transition = (CLOSED, OPEN)
+        self._notify(transition)
+
+    def chain_listener(self, fn: Callable[[str, str, str], None]) -> None:
+        """Add a transition observer after the existing one; each runs
+        isolated from the other's exceptions."""
+        previous = self.listener
+
+        def chained(name: str, old: str, new: str) -> None:
+            if previous is not None:
+                try:
+                    previous(name, old, new)
+                except Exception:
+                    pass
+            fn(name, old, new)
+
+        self.listener = chained
+
+    def reset(self) -> None:
+        transition = None
+        with self._lock:
+            if self._state != CLOSED:
+                transition = (self._state, CLOSED)
+            self._state = CLOSED
+            self._consecutive_failures = 0
+            self._probes_inflight = 0
+        self._notify(transition)
 
     def call(
         self,

@@ -7,6 +7,7 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
     app channel-new APP CHANNEL | channel-delete APP CHANNEL -f
     accesskey new APP [--key KEY] [--event NAME ...] | list [APP] | delete KEY
     eventserver [--ip IP] [--port N] [--stats] [--ssl-certfile F --ssl-keyfile F]
+                [--storage-retries N] [--breaker-threshold N] [--breaker-recovery S]
     import --appname NAME --input FILE [--channel C]
     export --appname NAME --output FILE [--channel C] [--format json|parquet|npz]
     train  --engine-dir DIR [--variant FILE] [--device cuda|cpu]
@@ -15,6 +16,10 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
            [--interval S] [--batch-limit N] [--publish-min-events N]
            [--mode canary|shadow] [--fraction F] [--notify-url URL] ...
     deploy --engine-dir DIR [--variant FILE] [--ip IP] [--port N] [--device cuda|cpu]
+           [--accesskey K] [--feedback --event-server-url U --feedback-access-key K]
+           [--ssl-certfile F --ssl-keyfile F] [--log-url U] [--log-prefix P]
+           [--request-timeout S] [--queue-high-water N] [--breaker-threshold N]
+           [--breaker-recovery S] [--drain-grace S]
            [--registry-dir R] [--registry-sync-interval S] [--bake-window S] ...
     models list | show [V] | promote [V] | rollback | stage V --url U | diff A B
     undeploy [--ip IP] [--port N] [--ssl]
@@ -67,12 +72,20 @@ def _die(msg: str, code: int = 1) -> int:
     return code
 
 
-def _wait_for_signal(stop: threading.Event | None = None) -> None:
-    """Block until SIGINT, SIGTERM or ``stop`` is set."""
+def _wait_for_signal(stop: threading.Event | None = None) -> int | None:
+    """Block until SIGINT, SIGTERM or ``stop`` is set; returns the signal
+    that ended the wait, None for ``stop``."""
     stop = stop or threading.Event()
+    got: list[int] = []
+
+    def handler(signum, frame):
+        got.append(signum)
+        stop.set()
+
     for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, lambda *_: stop.set())
+        signal.signal(sig, handler)
     stop.wait()
+    return got[0] if got else None
 
 
 # ---------------------------------------------------------------------------
@@ -256,6 +269,9 @@ def cmd_eventserver(args) -> int:
             stats=args.stats,
             ssl_certfile=args.ssl_certfile,
             ssl_keyfile=args.ssl_keyfile,
+            storage_retries=args.storage_retries,
+            breaker_threshold=args.breaker_threshold,
+            breaker_recovery_s=args.breaker_recovery,
         ),
     )
     port = server.start()
@@ -479,6 +495,19 @@ def cmd_deploy(args) -> int:
     config = ServerConfig(
         ip=args.ip,
         port=args.port,
+        accesskey=args.accesskey,
+        feedback=args.feedback,
+        event_server_url=args.event_server_url,
+        feedback_access_key=args.feedback_access_key,
+        ssl_certfile=args.ssl_certfile,
+        ssl_keyfile=args.ssl_keyfile,
+        log_url=args.log_url,
+        log_prefix=args.log_prefix or "",
+        request_timeout_s=args.request_timeout,
+        queue_high_water=args.queue_high_water,
+        breaker_threshold=args.breaker_threshold,
+        breaker_recovery_s=args.breaker_recovery,
+        drain_grace_s=args.drain_grace,
         registry_dir=args.registry_dir,
         sticky_key_field=args.sticky_key,
         candidate_breaker_threshold=args.candidate_breaker_threshold,
@@ -489,12 +518,16 @@ def cmd_deploy(args) -> int:
     )
     server = create_query_server(args.engine_dir, ctx, config, args.variant)
     port = server.start()
+    scheme = "https" if args.ssl_certfile else "http"
     print(
         f"Engine instance {server.instance_id} (model {server.model_version}) deployed at "
-        f"http://{args.ip}:{port} on {ctx.device}",
+        f"{scheme}://{args.ip}:{port} on {ctx.device}",
         flush=True,
     )
-    _wait_for_signal(server.stop_requested)  # a signal or POST /stop
+    # SIGTERM drains (a supervised restart answers what it accepted);
+    # SIGINT and POST /stop stop at once
+    if _wait_for_signal(server.stop_requested) == signal.SIGTERM:
+        server.drain()
     server.shutdown()
     return 0
 
@@ -990,6 +1023,13 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--stats", action="store_true")
     x.add_argument("--ssl-certfile")
     x.add_argument("--ssl-keyfile")
+    x.add_argument("--storage-retries", type=int, default=3,
+                   help="attempts per storage call for transient failures (<= 1 disables)")
+    x.add_argument("--breaker-threshold", type=int, default=5,
+                   help="consecutive storage failures that open the circuit breaker "
+                        "(requests then answer 503 'storage unavailable')")
+    x.add_argument("--breaker-recovery", type=float, default=5.0,
+                   help="seconds an open storage breaker waits before probing again")
     x.set_defaults(fn=cmd_eventserver)
 
     x = sub.add_parser("import")
@@ -1066,6 +1106,30 @@ def build_parser() -> argparse.ArgumentParser:
     engine_args(x)
     x.add_argument("--ip", default="0.0.0.0")
     x.add_argument("--port", type=int, default=8000)
+    x.add_argument("--accesskey", help="access key /queries.json requires "
+                                       "(accessKey parameter or Authorization: Bearer)")
+    x.add_argument("--feedback", action="store_true",
+                   help="POST a predict event per answered query to the event server")
+    x.add_argument("--event-server-url", help="event server receiving feedback, e.g. http://localhost:7070")
+    x.add_argument("--feedback-access-key", help="access key of the app receiving feedback")
+    x.add_argument("--ssl-certfile")
+    x.add_argument("--ssl-keyfile")
+    x.add_argument("--log-url", help="POST serving errors to this collector URL")
+    x.add_argument("--log-prefix", help="prefix prepended to each remote log body")
+    x.add_argument("--request-timeout", type=float, default=10.0,
+                   help="per-request deadline in seconds for /queries.json "
+                        "(503 instead of hanging; <= 0 disables)")
+    x.add_argument("--queue-high-water", type=int, default=256,
+                   help="shed load with 503 + Retry-After when this many queries are "
+                        "already queued (0 = unbounded)")
+    x.add_argument("--breaker-threshold", type=int, default=3,
+                   help="consecutive deadline-blown device calls that open the "
+                        "dispatch circuit breaker")
+    x.add_argument("--breaker-recovery", type=float, default=5.0,
+                   help="seconds an open dispatch breaker waits before probing again")
+    x.add_argument("--drain-grace", type=float, default=15.0,
+                   help="seconds a SIGTERM'd server waits for in-flight queries to "
+                        "answer after closing its listener (graceful drain)")
     x.add_argument("--registry-dir",
                    help="serve the registry's stable version and expose the /models rollout "
                         "routes (default: registry disabled)")

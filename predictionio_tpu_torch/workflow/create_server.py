@@ -1,21 +1,33 @@
-"""The query server: ``GET /``, ``POST /queries.json``, ``POST``/``GET
-/stop``, ``POST /reload`` and the rollout routes over the standard
-library's ``ThreadingHTTPServer``, with a micro-batcher.
+"""The query server: ``GET /``, ``GET /healthz``, ``GET /plugins.json``,
+``POST /queries.json``, ``POST``/``GET /stop``, ``POST /reload`` and the
+rollout routes over the standard library's ``ThreadingHTTPServer``, with a
+micro-batcher.
 
 Port of ``predictionio_tpu/workflow/create_server.py``: the serving core
-(``_MicroBatcher``, ``_dispatch_query_batch``) and its rollout half
+(``_MicroBatcher``, the dispatch of a query batch), its rollout half
 (stable and candidate lanes, sticky canary routing, shadow scoring, the
-bake loop, registry sync, ``/reload`` and ``/models``) and the ANN
-attach of a lane loaded from the registry (with the ``pio_ann_*``
-instruments), without the result cache, the bandit, load shedding and
-observability, which later slices add. Each handler thread submits its query to the batcher and
-waits. One dispatch thread takes everything queued (up to ``max_batch``),
-decodes and supplements it, and calls every algorithm's
-``predict_batch_dispatch``, which launches the device work without
-waiting; the returned finalize runs on a fetch thread, so batch n+1
-dispatches while batch n is fetched. ``/stop`` (what ``pio undeploy``
-calls) answers ``{"message": "Stopping."}`` and sets
-:attr:`QueryServer.stop_requested`.
+bake loop, registry sync, ``/reload`` and ``/models``), the ANN attach of
+a lane loaded from the registry (with the ``pio_ann_*`` instruments) and
+its serving contract: the access key, TLS, output blockers and sniffers,
+the feedback loop, the remote log, per-request deadlines, load shedding,
+the dispatch watchdog and breaker, ``/healthz`` and a graceful drain. The
+result cache, the bandit and observability (``/metrics``, ``/slo``,
+``/traces/recent``, profiling) come in later slices.
+
+Each handler thread submits its query to the batcher and waits. One
+collect thread takes everything queued (up to ``max_batch``), drops what
+expired in the queue, and hands the batch to a one-thread dispatch pool,
+which decodes and supplements it and calls every algorithm's
+``predict_batch_dispatch`` (launching the device work without waiting);
+the returned finalize runs on a fetch pool, so batch n+1 dispatches while
+batch n is fetched (a solo query on an idle server, with nothing to
+overlap, dispatches and fetches in one hop). Both waits are bounded by the batch's tightest
+deadline: a call that blows it fails its batch with 503s, counts a
+watchdog trip against the dispatch breaker, and is walked away from (its
+pool replaced; a thread stuck in a device call cannot be interrupted).
+``/stop`` (what ``pio undeploy`` calls) answers ``{"message":
+"Stopping."}`` and sets :attr:`QueryServer.stop_requested`; SIGTERM drains
+(:meth:`QueryServer.drain`).
 
 Rollout: the stable lane, the candidate lane, the routing plan and the
 rollout generation change together under one lock, and the dispatch
@@ -23,7 +35,8 @@ thread reads all four at once (:meth:`QueryServer.lanes`) per
 micro-batch: an in-flight batch finishes on the lanes it read, whatever a
 concurrent promote, rollback or ``/reload`` swaps in. Where the reference
 runs an asyncio task (the bake loop, registry sync), the port runs a
-daemon thread; shadow scoring runs on a one-thread pool off the serving
+daemon thread; shadow scoring, output sniffers and the background HTTP of
+the feedback loop and the remote log run on bounded pools off the serving
 path. A retired lane is dropped from every reference, so its device
 tables are freed once its last in-flight batch is done.
 """
@@ -37,13 +50,19 @@ import logging
 import queue
 import threading
 import time
+import traceback
+import urllib.parse
+import urllib.request
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
+
+import torch
 
 from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
 from predictionio_tpu_torch.ann.metrics import AnnInstruments
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+from predictionio_tpu_torch.obs.web import BreakerInstruments
 from predictionio_tpu_torch.registry.controller import (
     VERDICT_PROMOTE,
     VERDICT_ROLLBACK,
@@ -62,19 +81,41 @@ from predictionio_tpu_torch.registry.router import (
     routing_key,
 )
 from predictionio_tpu_torch.registry.store import MODE_CANARY, MODE_SHADOW, ArtifactStore
-from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker
+from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
+from predictionio_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from predictionio_tpu_torch.utils.tls import HandshakeOnHandlerThread, server_ssl_context
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.core_workflow import load_models_for_instance
 from predictionio_tpu_torch.workflow.engine_loader import EngineManifest, load_engine
+from predictionio_tpu_torch.workflow.server_plugins import EngineServerPluginContext
 
 logger = logging.getLogger(__name__)
 
 
 MAX_INFLIGHT = 4  # batches dispatched but not yet fetched
-REQUEST_TIMEOUT_S = 10.0  # a query not answered by then gets 503
-MAX_PAYLOAD_BYTES = 1 << 20
+BACKGROUND_HTTP_THREADS = 4  # feedback and remote-log POSTs in flight at once
 VERSION_HEADER = "X-Pio-Model-Version"  # the lane version that answered
+
+
+class LoadShedError(RuntimeError):
+    """Admission control rejected the query (queue at high water): the
+    client is told to back off (``Retry-After``)."""
+
+    transient = False
+
+    def __init__(self, message: str, retry_after_s: float):
+        super().__init__(message)
+        self.retry_after_s = retry_after_s
+
+
+class ShuttingDownError(RuntimeError):
+    """The server is stopping; new and queued queries answer 503."""
+
+    transient = False
+
+    def __init__(self):
+        super().__init__("query server is shutting down")
 
 
 @dataclasses.dataclass
@@ -82,6 +123,33 @@ class ServerConfig:
     ip: str = "0.0.0.0"
     port: int = 8000
     max_batch: int = 64
+    accesskey: str | None = None  # required on /queries.json when set
+    # feedback loop: a `predict` event per answered query, POSTed to the
+    # event server's /events.json with feedback_access_key
+    feedback: bool = False
+    event_server_url: str | None = None  # e.g. http://localhost:7070
+    feedback_access_key: str | None = None
+    # TLS (ref common/SSLConfiguration.scala): PEM cert + key paths
+    ssl_certfile: str | None = None
+    ssl_keyfile: str | None = None
+    # remote log of serving errors: POST log_prefix + JSON{engineInstance,
+    # message} to log_url (ref CreateServer.scala:423-434)
+    log_url: str | None = None
+    log_prefix: str = ""
+    # a /queries.json answer is due within this many seconds, else 503;
+    # <= 0 disables (a wedged device call then blocks its clients forever)
+    request_timeout_s: float = 10.0
+    # admission control: with this many queries queued, new ones answer
+    # 503 + Retry-After instead of growing the queue; 0 = unbounded
+    queue_high_water: int = 256
+    shed_retry_after_s: float = 1.0  # Retry-After on load-shed and deadline 503s
+    max_payload_bytes: int = 1 << 20  # larger bodies answer 413 unread
+    # timeout of each feedback or remote-log POST
+    http_timeout_s: float = 10.0
+    # dispatch breaker: this many consecutive watchdog trips open it, and
+    # /queries.json answers 503 at once for breaker_recovery_s
+    breaker_threshold: int = 3
+    breaker_recovery_s: float = 5.0
     # -- model registry / progressive rollout ----------------------------
     # artifact registry base dir; None: the metadata store's latest
     # COMPLETED instance is the only source of what serves
@@ -102,35 +170,101 @@ class ServerConfig:
     # poll the registry's state generation on this cadence and adopt the
     # stage/promote/rollback/stable moves other processes made; 0 disables
     registry_sync_interval_s: float = 0.0
+    # graceful drain (SIGTERM): how long queued and in-flight queries have
+    # to answer after the listener closes
+    drain_grace_s: float = 15.0
+
+    def ssl_context(self):
+        return server_ssl_context(self.ssl_certfile, self.ssl_keyfile)
 
 
-class BadQuery(ValueError):
-    """The payload did not decode into the engine's query (HTTP 400)."""
+@dataclasses.dataclass
+class _QItem:
+    payload: Any
+    fut: concurrent.futures.Future
+    deadline: Deadline
+
+
+def _settle(fut: concurrent.futures.Future, result: Any = None, exc: BaseException | None = None) -> None:
+    """Give a query its outcome unless it has one: a batch the watchdog
+    failed can still come back from the thread it walked away from."""
+    try:
+        if exc is not None:
+            fut.set_exception(exc)
+        else:
+            fut.set_result(result)
+    except concurrent.futures.InvalidStateError:
+        pass
 
 
 class _MicroBatcher:
-    def __init__(self, server: "QueryServer", max_batch: int, max_inflight: int):
+    """Coalesces concurrent queries into batched dispatches, with
+    admission control, queue deadlines and the dispatch/fetch watchdogs
+    (see the module docstring)."""
+
+    def __init__(
+        self,
+        server: "QueryServer",
+        max_batch: int,
+        max_inflight: int,
+        high_water: int = 0,
+        shed_retry_after_s: float = 1.0,
+    ):
         self._server = server
         self.max_batch = max(1, max_batch)
+        self.high_water = max(0, high_water)
+        self.shed_retry_after_s = shed_retry_after_s
         self._queue: queue.Queue = queue.Queue()
+        self._admit_lock = threading.Lock()
         self._inflight = threading.Semaphore(max(1, max_inflight))
-        self._fetch_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=max(1, max_inflight), thread_name_prefix="pio-fetch"
+        self._max_fetch_workers = max(1, max_inflight)
+        self._pool_lock = threading.Lock()
+        self._dispatch_pool = self._pool(1, "pio-dispatch")
+        self._fetch_pool = self._pool(self._max_fetch_workers, "pio-fetch")
+        # one waiter per batch in flight: it runs the fetch watchdog
+        self._finish_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=self._max_fetch_workers, thread_name_prefix="pio-finish"
         )
+        self._count_lock = threading.Lock()
         self._closed = False
-        self._thread = threading.Thread(target=self._run, name="pio-dispatch", daemon=True)
-        self._thread.start()
         self.batches_dispatched = 0
         self.queries_dispatched = 0
         self.largest_batch = 0
+        self.batches_in_flight = 0  # dispatched, not yet answered
+        self.watchdog_trips = 0  # batches failed for blowing their deadline
+        self.shed_count = 0  # queries rejected by admission control
+        self._thread = threading.Thread(target=self._run, name="pio-collect", daemon=True)
+        self._thread.start()
 
-    def submit(self, payload: Any) -> concurrent.futures.Future:
-        fut: concurrent.futures.Future = concurrent.futures.Future()
+    def _pool(self, workers: int, prefix: str) -> concurrent.futures.ThreadPoolExecutor:
+        # a CUDA current device is per thread: every (replacement) worker
+        # takes the server's device before it launches anything
+        return concurrent.futures.ThreadPoolExecutor(
+            max_workers=workers, thread_name_prefix=prefix, initializer=self._server.bind_device
+        )
+
+    @property
+    def queue_depth(self) -> int:
+        return self._queue.qsize()
+
+    def submit(self, payload: Any, deadline: Deadline | None = None) -> concurrent.futures.Future:
+        """Enqueue one query; the future resolves to ``(encoded body,
+        version)`` or the query's error. Raises ``ShuttingDownError`` once
+        closed and ``LoadShedError`` at high water."""
         if self._closed:
-            fut.set_exception(RuntimeError("server is shutting down"))
-            return fut
-        self._queue.put((payload, fut))
-        return fut
+            raise ShuttingDownError()
+        item = _QItem(payload, concurrent.futures.Future(), deadline or Deadline.never())
+        with self._admit_lock:
+            depth = self._queue.qsize()
+            if self.high_water and depth >= self.high_water:
+                self.shed_count += 1
+                self._server._m_shed.inc()
+                raise LoadShedError(
+                    f"admission queue over high water ({depth}/{self.high_water})",
+                    self.shed_retry_after_s,
+                )
+            self._queue.put(item)
+        return item.fut
 
     def _run(self) -> None:
         while True:
@@ -148,56 +282,152 @@ class _MicroBatcher:
                     stop = True
                     break
                 batch.append(nxt)
-            self._inflight.acquire()
-            try:
-                finalize = self._server.dispatch_batch([p for p, _ in batch])
-            except Exception as exc:  # the whole batch failed to dispatch
-                logger.exception("micro-batch dispatch failed")
-                self._inflight.release()
-                for _, fut in batch:
-                    fut.set_exception(exc)
-            else:
-                self.batches_dispatched += 1
-                self.queries_dispatched += len(batch)
-                self.largest_batch = max(self.largest_batch, len(batch))
-                fetch = self._fetch_pool.submit(finalize)
-                fetch.add_done_callback(lambda f, batch=batch: self._finish(batch, f))
-                # drop this batch's lanes here, not when the next batch comes:
-                # a retired lane's device tables go with its last batch
-                del finalize, fetch
+            self._inflight.acquire()  # bound the batches in flight
+            self._dispatch(batch)
             if stop:
                 return
 
-    def _finish(self, batch, fetch: concurrent.futures.Future) -> None:
-        self._inflight.release()
+    def _dispatch(self, batch: list[_QItem]) -> None:
+        """Dispatch one collected batch under the dispatch watchdog and
+        hand it to a finish waiter; holds one in-flight slot on entry."""
+        live = []
+        for item in batch:
+            if item.fut.done():  # its probe slot, if it held one, can never be recorded
+                self._server.dispatch_breaker.release_probe()
+            elif item.deadline.expired:
+                # expired while queued: no device work for an answer nobody awaits
+                _settle(item.fut, exc=DeadlineExceeded("query expired in admission queue"))
+            else:
+                live.append(item)
+        if not live:
+            self._inflight.release()
+            return
+        deadline = Deadline.min_of([it.deadline for it in live])
+        with self._count_lock:
+            # idle fast path: a batch of one with nothing queued behind it
+            # and nothing in flight has nothing to overlap its fetch with,
+            # so dispatch and fetch run in one hop under the dispatch watchdog
+            combined = len(live) == 1 and self._queue.empty() and self.batches_in_flight == 0
+            self.batches_in_flight += 1
+        fn = self._dispatch_combined if combined else self._server.dispatch_batch
+        call = self._dispatch_pool.submit(fn, [it.payload for it in live])
+        done, _ = concurrent.futures.wait([call], timeout=deadline.remaining())
+        if not done:
+            self._walk_away(live, "dispatch")
+            return
+        try:
+            # the outcomes in the combined hop, else the finalize that fetches them
+            result = call.result()
+        except Exception as exc:  # the whole batch failed to dispatch
+            logger.exception("micro-batch dispatch failed")
+            self._server.dispatch_breaker.record_failure()
+            self._end_batch(live, [(exc, "")] * len(live))
+            return
+        self.batches_dispatched += 1
+        self.queries_dispatched += len(live)
+        self.largest_batch = max(self.largest_batch, len(live))
+        if combined:
+            self._server.dispatch_breaker.record_success()
+            self._end_batch(live, result)
+        else:
+            self._finish_pool.submit(self._finish, live, result, deadline)
+
+    def _dispatch_combined(self, payloads: list[Any]) -> list[tuple[Any, str]]:
+        return self._server.dispatch_batch(payloads)()
+
+    def _finish(self, batch: list[_QItem], finalize, deadline: Deadline) -> None:
+        with self._pool_lock:
+            fetch = self._fetch_pool.submit(finalize)
+        del finalize  # the lanes it holds go with the fetch
+        done, _ = concurrent.futures.wait([fetch], timeout=deadline.remaining())
+        if not done:
+            self._walk_away(batch, "fetch")
+            return
         try:
             outs = fetch.result()
         except Exception as exc:
+            # a finalize that raised as a whole counts like a failed dispatch
             logger.exception("micro-batch finalize failed")
+            self._server.dispatch_breaker.record_failure()
             outs = [(exc, "")] * len(batch)
-        for (_, fut), (out, version) in zip(batch, outs):
-            if isinstance(out, BaseException):
-                fut.set_exception(out)
+        else:
+            self._server.dispatch_breaker.record_success()
+        self._end_batch(batch, outs)
+
+    def _walk_away(self, batch: list[_QItem], stage: str) -> None:
+        """Watchdog trip: fail the batch, replace the pool whose thread is
+        stuck (the call cannot be interrupted; it runs on, unread), and
+        count a failure against the dispatch breaker."""
+        with self._count_lock:
+            self.watchdog_trips += 1
+        self._server._m_watchdog.inc()
+        fresh = self._pool(1 if stage == "dispatch" else self._max_fetch_workers, f"pio-{stage}")
+        with self._pool_lock:
+            if stage == "dispatch":
+                old, self._dispatch_pool = self._dispatch_pool, fresh
             else:
-                fut.set_result((out, version))
+                old, self._fetch_pool = self._fetch_pool, fresh
+        old.shutdown(wait=False)
+        self._server.dispatch_breaker.record_failure()
+        exc = DeadlineExceeded(f"micro-batch {stage}: deadline exceeded")
+        self._end_batch(batch, [(exc, "")] * len(batch))
+
+    def _end_batch(self, batch: list[_QItem], outs: list[tuple[Any, str]]) -> None:
+        """Release the batch's in-flight slot (once per batch) and answer
+        its queries."""
+        with self._count_lock:
+            self.batches_in_flight -= 1
+        self._inflight.release()
+        for item, (out, version) in zip(batch, outs):
+            if isinstance(out, BaseException):
+                _settle(item.fut, exc=out)
+            else:
+                _settle(item.fut, (out, version))
 
     def close(self) -> None:
+        """Stop admitting, let the batches in flight answer, and fail what
+        is still queued with ``ShuttingDownError``."""
         self._closed = True
         self._queue.put(None)
         self._thread.join(timeout=10)
-        self._fetch_pool.shutdown(wait=True)
         while True:  # anything queued behind the stop marker
             try:
                 item = self._queue.get_nowait()
             except queue.Empty:
                 break
             if item is not None:
-                item[1].set_exception(RuntimeError("server is shutting down"))
+                _settle(item.fut, exc=ShuttingDownError())
+        self._finish_pool.shutdown(wait=True)
+        with self._pool_lock:
+            pools = (self._dispatch_pool, self._fetch_pool)
+        for pool in pools:
+            pool.shutdown(wait=True)
 
 
-class _HTTPServer(ThreadingHTTPServer):
+class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
+    """Counts the connections accepted whose first request has not yet
+    been answered, so a drain does not close the process on a connection
+    it accepted (see :meth:`QueryServer.drain`)."""
+
     daemon_threads = True
-    request_queue_size = 256  # a burst of new connections must not overflow the backlog
+    # a burst of new connections must not overflow the backlog: a client
+    # past it would see a reset, not a 503
+    request_queue_size = 1024
+
+    def __init__(self, address, handler, owner: "QueryServer"):
+        self.owner = owner
+        super().__init__(address, handler)
+
+    def process_request(self, request, client_address) -> None:
+        self.owner._connection_accepted()
+        super().process_request(request, client_address)
+
+    def finish_request(self, request, client_address) -> None:
+        self.owner._first_request.pending = True
+        try:
+            super().finish_request(request, client_address)
+        finally:
+            self.owner._first_request_done()
 
 
 def _canonical_json(body: Any) -> str:
@@ -226,6 +456,7 @@ class QueryServer:
         manifest: EngineManifest | None = None,
         registry_store: ArtifactStore | None = None,
         model_version: str | None = None,
+        plugin_context: EngineServerPluginContext | None = None,
     ):
         self.engine = engine
         self.engine_params = engine_params
@@ -234,6 +465,12 @@ class QueryServer:
         self.instance_id = instance_id
         self.manifest = manifest or EngineManifest(
             engine_id="", version="", variant="", engine_factory=""
+        )
+        self.plugin_context = plugin_context or EngineServerPluginContext()
+        # the card a replacement worker thread must take (current device is per thread)
+        self._device_index = (
+            torch.cuda.current_device()
+            if self.ctx.device.type == "cuda" and self.ctx.device.index is None else self.ctx.device.index
         )
         self.registry_store = registry_store or (
             ArtifactStore(self.config.registry_dir) if self.config.registry_dir else None
@@ -244,6 +481,33 @@ class QueryServer:
         # and the collector retires a reloaded lane's version gauges
         self.ann_instruments = AnnInstruments(self.metrics)
         self.metrics.register_collector(self._collect_ann_indexes)
+        m = self.metrics
+        self._m_shed = m.counter(
+            "pio_load_shed_total", "requests rejected by admission control (503 + Retry-After)"
+        )
+        self._m_deadline = m.counter(
+            "pio_deadline_exceeded_total", "requests failed for blowing their deadline (queued or in flight)"
+        )
+        self._m_watchdog = m.counter(
+            "pio_watchdog_trips_total", "batches abandoned because a device call blew its deadline"
+        )
+        self._m_breaker_rejected = m.counter(
+            "pio_breaker_rejections_total", "requests shed at the door because the dispatch circuit was open"
+        )
+        queue_depth = m.gauge("pio_queue_depth", "queries waiting in the micro-batch queue")
+        m.gauge("pio_queue_high_water", "admission-control shed threshold (0 = unbounded)").set(
+            self.config.queue_high_water
+        )
+        m.register_collector(lambda: queue_depth.set(self.batcher.queue_depth))
+        self._breaker_instruments = BreakerInstruments(m)
+        m.register_collector(self._breaker_instruments.collect)
+        # consecutive watchdog trips open it; while open /queries.json
+        # answers 503 + Retry-After instead of feeding a wedged device
+        self.dispatch_breaker = self._breaker_instruments.watch(CircuitBreaker(
+            name="dispatch",
+            failure_threshold=self.config.breaker_threshold,
+            recovery_timeout_s=self.config.breaker_recovery_s,
+        ))
         self._candidate: Lane | None = None
         _, _, algorithms, serving = engine.make_components(engine_params)
         self._warmup_components(algorithms, models)
@@ -272,11 +536,32 @@ class QueryServer:
         )
         self.candidate_breaker = self._new_candidate_breaker()
         self._shadow_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="pio-shadow"
+            max_workers=1, thread_name_prefix="pio-shadow", initializer=self.bind_device
         )
         self._shadow_lock = threading.Lock()
         self._shadow_pending = 0
-        self.batcher = _MicroBatcher(self, self.config.max_batch, MAX_INFLIGHT)
+        # sniffers observe off the serving path; feedback and remote-log
+        # POSTs are fire-and-forget, each bounded by http_timeout_s
+        self._sniffer_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="pio-sniffer", initializer=self.bind_device
+        )
+        self._http_pool = concurrent.futures.ThreadPoolExecutor(
+            max_workers=BACKGROUND_HTTP_THREADS, thread_name_prefix="pio-bg-http"
+        )
+        self._http = urllib.request.build_opener(urllib.request.ProxyHandler({}))
+        self._background_lock = threading.Lock()
+        self._background_closed = False
+        # drain accounting: /queries.json requests in flight, and accepted
+        # connections whose first request is not answered yet
+        self._drain_lock = threading.Lock()
+        self._inflight_requests = 0
+        self._unanswered_connections = 0
+        self._first_request = threading.local()
+        self._draining = False
+        self.batcher = _MicroBatcher(
+            self, self.config.max_batch, MAX_INFLIGHT,
+            high_water=self.config.queue_high_water, shed_retry_after_s=self.config.shed_retry_after_s,
+        )
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
         self._loops: list[threading.Thread] = []
@@ -305,6 +590,11 @@ class QueryServer:
     def models(self) -> list[Any]:
         return self._active.models
 
+    def bind_device(self) -> None:
+        """Make this server's card the calling thread's current device."""
+        if self._device_index is not None:
+            torch.cuda.set_device(self._device_index)
+
     def _collect_ann_indexes(self) -> None:
         stable, candidate, _, _ = self.lanes()
         self.ann_instruments.sync_indexes(ann_lifecycle.pinned_indexes(
@@ -326,7 +616,8 @@ class QueryServer:
         return the finalize that fetches, serves and encodes one
         ``(result or exception, version)`` per payload. A candidate-lane
         failure never reaches the client: it feeds the candidate breaker
-        and the query is answered again on the stable lane."""
+        and the query is answered again on the stable lane. Any other
+        per-query failure is that query's result alone."""
         stable, cand, plan, gen = self.lanes()
         canary = cand is not None and plan.mode == MODE_CANARY and plan.fraction > 0
         shadow = cand is not None and plan.mode == MODE_SHADOW
@@ -341,9 +632,9 @@ class QueryServer:
         for i, payload in enumerate(payloads):
             try:
                 q = self.engine.decode_query(payload)
-            except (AttributeError, KeyError, TypeError, ValueError) as exc:
-                # a payload of the wrong JSON type (a list, null) fails alone
-                outs[i] = BadQuery(f"bad query: {exc!r}")
+            except Exception as exc:
+                # a bad payload (a list, null, a missing field) fails alone
+                outs[i] = exc
                 continue
             queries[i] = q
             lane = stable
@@ -359,10 +650,10 @@ class QueryServer:
             if lane is stable:
                 try:
                     supplemented[i] = stable.serving.supplement(q)
-                except (AttributeError, KeyError, TypeError, ValueError) as exc:
+                except Exception as exc:
                     inst.requests.inc(version=stable.version, lane=LANE_STABLE)
                     inst.errors.inc(version=stable.version, lane=LANE_STABLE)
-                    outs[i] = BadQuery(f"bad query: {exc!r}")
+                    outs[i] = exc
                     continue
                 stable_idx.append(i)
             else:
@@ -385,6 +676,7 @@ class QueryServer:
             dispatched.append((lane, lane_name, idxs, sup, fins))
 
         def finalize() -> list[tuple[Any, str]]:
+            sniffed: list[tuple[Any, Any]] = []
             for lane, lane_name, idxs, sup, fins in dispatched:
                 t0 = time.perf_counter()
                 preds_per_algo = self._lane_predictions(lane, sup, fins)
@@ -393,13 +685,13 @@ class QueryServer:
                     if lane_name != LANE_CANDIDATE or gen == self._rollout_gen:
                         inst.requests.inc(version=lane.version, lane=lane_name)
                     try:
-                        outs[i] = self._serve_one(lane, queries[i], [p[row] for p in preds_per_algo])
+                        outs[i] = self._serve_one(lane, queries[i], [p[row] for p in preds_per_algo], sniffed)
                         if lane_name == LANE_CANDIDATE and gen == self._rollout_gen:
                             self.candidate_breaker.record_success()
                     except Exception as exc:
                         if lane_name == LANE_CANDIDATE:
                             self._record_candidate_failure(lane.version, gen)
-                            outs[i], versions[i] = self._stable_retry(stable, queries[i])
+                            outs[i], versions[i] = self._stable_retry(stable, queries[i], sniffed)
                         else:
                             logger.exception("serving a query failed")
                             inst.errors.inc(version=lane.version, lane=lane_name)
@@ -410,6 +702,10 @@ class QueryServer:
                 ]
                 if pairs:
                     self._submit_shadow(cand, pairs, gen)
+            if sniffed and self.plugin_context.output_sniffers:
+                # a slow or failing sniffer must neither delay the batch's
+                # answers nor change one
+                self._background(self._sniffer_pool, self._notify_sniffers, sniffed)
             return list(zip(outs, versions))
 
         return finalize
@@ -435,20 +731,29 @@ class QueryServer:
             preds_per_algo.append(preds)
         return preds_per_algo
 
-    def _serve_one(self, lane: Lane, query: Any, plist: list[Any]) -> Any:
+    def _serve_one(self, lane: Lane, query: Any, plist: list[Any], sniffed: list) -> Any:
+        """Serve, the output blockers (which may rewrite or veto), encode;
+        raises the first per-query prediction failure."""
         for p in plist:
             if isinstance(p, BaseException):
                 raise p
-        return self.engine.encode_result(lane.serving.serve(query, plist))
+        result = lane.serving.serve(query, plist)
+        result = self.plugin_context.apply_output_blockers(self.manifest.variant, query, result)
+        sniffed.append((query, result))
+        return self.engine.encode_result(result)
 
-    def _stable_retry(self, stable: Lane, query: Any) -> tuple[Any, str]:
+    def _notify_sniffers(self, sniffed: list) -> None:
+        for query, result in sniffed:
+            self.plugin_context.notify_output_sniffers(self.manifest.variant, query, result)
+
+    def _stable_retry(self, stable: Lane, query: Any, sniffed: list) -> tuple[Any, str]:
         """Answer a candidate-lane query again on the stable lane."""
         inst = self._rollout_instruments
         inst.requests.inc(version=stable.version, lane=LANE_STABLE)
         try:
             s = stable.serving.supplement(query)
             plist = [algo.predict(model, s) for algo, model in zip(stable.algorithms, stable.models)]
-            return self._serve_one(stable, query, plist), stable.version
+            return self._serve_one(stable, query, plist, sniffed), stable.version
         except Exception as exc:
             logger.exception("stable retry after candidate failure failed")
             inst.errors.inc(version=stable.version, lane=LANE_STABLE)
@@ -489,7 +794,7 @@ class QueryServer:
                     t0 = time.perf_counter()
                     s = cand.serving.supplement(query)
                     plist = [algo.predict(model, s) for algo, model in zip(cand.algorithms, cand.models)]
-                    body = self._serve_one(cand, query, plist)
+                    body = self._serve_one(cand, query, plist, [])
                     scored_s = time.perf_counter() - t0
                     if gen != self._rollout_gen:
                         return
@@ -767,15 +1072,110 @@ class QueryServer:
         return out
 
     def status(self) -> dict[str, Any]:
+        b = self.batcher
         return {
             "status": "alive",
             "engineInstanceId": self.instance_id,
             "modelVersion": self.model_version,
             "device": str(self.ctx.device),
-            "batches": self.batcher.batches_dispatched,
-            "queries": self.batcher.queries_dispatched,
-            "largestBatch": self.batcher.largest_batch,
+            "batches": b.batches_dispatched,
+            "queries": b.queries_dispatched,
+            "largestBatch": b.largest_batch,
+            "batching": {
+                "batches": b.batches_dispatched,
+                "queries": b.queries_dispatched,
+                "avgBatchSize": b.queries_dispatched / max(1, b.batches_dispatched),
+            },
+            "resilience": self._resilience_snapshot(),
         }
+
+    def _resilience_snapshot(self) -> dict[str, Any]:
+        b = self.batcher
+        return {
+            "queueDepth": b.queue_depth,
+            "queueHighWater": b.high_water,
+            "watchdogTrips": b.watchdog_trips,
+            "loadShedCount": b.shed_count,
+            "breakers": {"dispatch": self.dispatch_breaker.snapshot()},
+        }
+
+    def healthz(self) -> tuple[int, dict[str, Any]]:
+        """Readiness, distinct from the ``/`` status page: not ready while
+        draining, closed, at high water or with the dispatch circuit open,
+        so a load balancer routes around this replica."""
+        snap = self._resilience_snapshot()
+        shedding = snap["queueHighWater"] > 0 and snap["queueDepth"] >= snap["queueHighWater"]
+        ready = (
+            not self._draining
+            and not self.batcher._closed
+            and not shedding
+            and snap["breakers"]["dispatch"]["state"] != OPEN
+        )
+        return (200 if ready else 503), {"ready": ready, "draining": self._draining, **snap}
+
+    # -- background work -------------------------------------------------------
+    def _background(self, pool: concurrent.futures.ThreadPoolExecutor, fn, *args) -> None:
+        """Fire and forget on ``pool``; dropped (logged) once shut down."""
+        with self._background_lock:
+            if self._background_closed:
+                logger.warning("server shutting down: %s dropped", getattr(fn, "__name__", fn))
+                return
+            pool.submit(fn, *args)
+
+    def _post(self, url: str, data: bytes, content_type: str, what: str) -> None:
+        req = urllib.request.Request(url, data=data, method="POST", headers={"Content-Type": content_type})
+        try:
+            with self._http.open(req, timeout=self.config.http_timeout_s) as resp:
+                resp.read()
+        except Exception:
+            logger.exception("%s POST to %s failed", what, url)
+
+    def _remote_log(self, payload: Any, exc: BaseException) -> None:
+        """Ship a serving error to the collector: ``log_prefix`` + JSON of
+        {engineInstance, message} (ref ``CreateServer.remoteLog``)."""
+        tb = "".join(traceback.format_exception(exc))
+        message = f"Query:\n{payload}\n\nStack Trace:\n{tb}\n\n"
+        body = self.config.log_prefix + json.dumps({"engineInstance": self.instance_id, "message": message})
+        self._background(self._http_pool, self._post, self.config.log_url, body.encode(),
+                         "text/plain; charset=utf-8", "remote log")
+
+    def _send_feedback(self, query: Any, prediction: Any) -> None:
+        """A ``predict`` event back to the event server
+        (ref CreateServer.scala:500-570)."""
+        url, key = self.config.event_server_url, self.config.feedback_access_key
+        if not url or not key:
+            return
+        event = {
+            "event": "predict",
+            "entityType": "pio_pr",
+            "entityId": self.manifest.engine_id,
+            "properties": {"query": query, "prediction": prediction},
+        }
+        target = f"{url}/events.json?" + urllib.parse.urlencode({"accessKey": key})
+        self._background(self._http_pool, self._post, target, json.dumps(event).encode(),
+                         "application/json", "feedback")
+
+    # -- drain accounting ------------------------------------------------------
+    def _connection_accepted(self) -> None:
+        with self._drain_lock:
+            self._unanswered_connections += 1
+
+    def _first_request_done(self) -> None:
+        """The calling handler thread's connection has had its first
+        request answered (or closed without one); later requests on a
+        keep-alive connection count only while they are in flight."""
+        if getattr(self._first_request, "pending", False):
+            self._first_request.pending = False
+            with self._drain_lock:
+                self._unanswered_connections -= 1
+
+    def _request_began(self) -> None:
+        with self._drain_lock:
+            self._inflight_requests += 1
+
+    def _request_ended(self) -> None:
+        with self._drain_lock:
+            self._inflight_requests -= 1
 
     # -- HTTP ------------------------------------------------------------------
     def _handler(self):
@@ -790,6 +1190,10 @@ class QueryServer:
             def log_message(self, fmt, *args):  # quiet: one line per request is noise
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
+            def handle_one_request(self):
+                super().handle_one_request()
+                server._first_request_done()
+
             def _reply(self, code: int, body: Any, headers: dict[str, str] | None = None) -> None:
                 data = json.dumps(body).encode()
                 self.send_response(code)
@@ -799,6 +1203,10 @@ class QueryServer:
                     self.send_header(k, v)
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _unavailable(self, message: str, retry_after_s: float) -> None:
+                """503 with the Retry-After clients and load balancers back off by."""
+                self._reply(503, {"message": message}, {"Retry-After": str(max(1, round(retry_after_s)))})
 
             def _stop(self) -> None:
                 self._reply(200, {"message": "Stopping."})
@@ -817,6 +1225,10 @@ class QueryServer:
                 path = self.path.split("?")[0]
                 if path == "/":
                     self._reply(200, server.status())
+                elif path == "/healthz":
+                    self._reply(*server.healthz())
+                elif path == "/plugins.json":
+                    self._reply(200, server.plugin_context.to_json_dict())
                 elif path == "/stop":
                     self._stop()
                 elif path == "/models":
@@ -828,13 +1240,20 @@ class QueryServer:
                     self._reply(404, {"message": "not found"})
 
             def do_POST(self):
+                path = self.path.split("?")[0]
+                if path == "/queries.json":
+                    server._request_began()
+                    try:
+                        self._queries()
+                    finally:
+                        server._request_ended()
+                    return
                 length = int(self.headers.get("Content-Length") or 0)
-                if length > MAX_PAYLOAD_BYTES:
+                if length > server.config.max_payload_bytes:
                     self.close_connection = True
                     self._reply(413, {"message": "payload too large"})
                     return
                 body = self.rfile.read(length)
-                path = self.path.split("?")[0]
                 routes = {
                     "/stop": self._stop,
                     "/reload": self._reload,
@@ -844,25 +1263,63 @@ class QueryServer:
                 }
                 if path in routes:
                     routes[path]()
-                    return
-                if path != "/queries.json":
-                    self._reply(404, {"message": "not found"})
-                    return
-                try:
-                    payload = json.loads(body or b"null")
-                except ValueError as exc:
-                    self._reply(400, {"message": f"invalid JSON: {exc}"})
-                    return
-                fut = server.batcher.submit(payload)
-                try:
-                    out, version = fut.result(timeout=REQUEST_TIMEOUT_S)
-                except concurrent.futures.TimeoutError:
-                    self._reply(503, {"message": "query deadline exceeded"})
-                except BadQuery as exc:
-                    self._reply(400, {"message": str(exc)})
-                except Exception as exc:
-                    self._reply(500, {"message": f"{type(exc).__name__}: {exc}"})
                 else:
+                    self._reply(404, {"message": "not found"})
+
+            def _queries(self) -> None:
+                """The JAX handler's order: access key, size, JSON, the
+                dispatch breaker, then the batcher under the deadline."""
+                cfg = server.config
+                if cfg.accesskey:
+                    query = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
+                    supplied = (query.get("accessKey") or [""])[0] or (
+                        self.headers.get("Authorization", "").removeprefix("Bearer ").strip()
+                    )
+                    if supplied != cfg.accesskey:
+                        self.close_connection = True  # the body stays unread
+                        self._reply(401, {"message": "Invalid accessKey."})
+                        return
+                length = int(self.headers.get("Content-Length") or 0)
+                if cfg.max_payload_bytes and length > cfg.max_payload_bytes:
+                    self.close_connection = True
+                    self._reply(413, {"message": f"query payload too large ({length} > {cfg.max_payload_bytes} bytes)"})
+                    return
+                body = self.rfile.read(length)
+                try:
+                    payload = json.loads(body.decode("utf-8"))
+                except ValueError as exc:
+                    self._reply(400, {"message": str(exc)})
+                    return
+                try:
+                    server.dispatch_breaker.allow()
+                except CircuitOpenError as exc:
+                    server._m_breaker_rejected.inc()
+                    self._unavailable("serving temporarily unavailable (dispatch circuit open)", exc.retry_after_s)
+                    return
+                try:
+                    out, version = server.batcher.submit(payload, Deadline.after(cfg.request_timeout_s)).result()
+                except LoadShedError as exc:
+                    # it died before any dispatch could record against the
+                    # breaker: free its half-open probe slot (else the probe
+                    # stays unresolved and the circuit half-open)
+                    server.dispatch_breaker.release_probe()
+                    self._unavailable(str(exc), exc.retry_after_s)
+                except DeadlineExceeded as exc:
+                    server.dispatch_breaker.release_probe()
+                    server._m_deadline.inc()
+                    logger.warning("query deadline exceeded: %s", exc)
+                    self._unavailable(str(exc), cfg.shed_retry_after_s)
+                except ShuttingDownError as exc:
+                    server.dispatch_breaker.release_probe()
+                    self._unavailable(str(exc), cfg.shed_retry_after_s)
+                except Exception as exc:
+                    logger.exception("query failed")
+                    if cfg.log_url:
+                        server._remote_log(payload, exc)
+                    self._reply(400, {"message": str(exc)})
+                else:
+                    if cfg.feedback:
+                        server._send_feedback(payload, out)
                     self._reply(200, out, {VERSION_HEADER: version})
 
             def _models_candidate(self, body: bytes) -> None:
@@ -920,12 +1377,13 @@ class QueryServer:
         return Handler
 
     def start(self) -> int:
-        """Bind and serve on a background thread, start the bake loop (and
-        registry sync when configured); returns the bound port."""
-        self._httpd = _HTTPServer((self.config.ip, self.config.port), self._handler())
-        self._thread = threading.Thread(
-            target=self._httpd.serve_forever, name="pio-http", daemon=True
-        )
+        """Bind and serve on a background thread (TLS when configured, the
+        handshake on each connection's own thread), start the bake loop
+        (and registry sync when configured); returns the bound port."""
+        httpd = _HTTPServer((self.config.ip, self.config.port), self._handler(), self)
+        httpd.ssl_context = self.config.ssl_context()
+        self._httpd = httpd
+        self._thread = threading.Thread(target=httpd.serve_forever, name="pio-http", daemon=True)
         self._thread.start()
         loops = [("pio-rollout", self.config.bake_check_interval_s, self._rollout_tick)]
         if self.registry_store is not None and self.config.registry_sync_interval_s > 0:
@@ -934,19 +1392,52 @@ class QueryServer:
             t = threading.Thread(target=self._loop, args=(interval, tick), name=name, daemon=True)
             t.start()
             self._loops.append(t)
-        return self._httpd.server_address[1]
+        return httpd.server_address[1]
 
-    def shutdown(self) -> None:
-        self._closing.set()
-        for t in self._loops:
-            t.join(timeout=10)
-        self._loops = []
+    def drain(self) -> None:
+        """Graceful drain (the SIGTERM path): mark draining, so /healthz
+        answers 503 and a load balancer routes around us; close the
+        listener, so new connections are refused (not a 5xx); then wait,
+        at most ``drain_grace_s``, for the queue, the batches in flight and
+        every accepted connection's request to be answered. The batcher
+        runs on the whole time. Call :meth:`shutdown` after it."""
+        if self._draining:
+            return
+        self._draining = True
+        logger.info("drain: closing the listener, answering what was accepted")
+        self._close_listener()
+        until = time.monotonic() + max(0.0, self.config.drain_grace_s)
+        b = self.batcher
+        while time.monotonic() < until:
+            with self._drain_lock:
+                pending = self._inflight_requests + self._unanswered_connections
+            if pending == 0 and b.queue_depth == 0 and b.batches_in_flight == 0:
+                logger.info("drain complete: nothing in flight")
+                return
+            time.sleep(0.02)
+        logger.warning("drain grace (%.1f s) expired with %d requests in flight",
+                       self.config.drain_grace_s, self._inflight_requests)
+
+    def _close_listener(self) -> None:
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
             self._thread.join(timeout=10)
             self._httpd = None
+
+    def shutdown(self) -> None:
+        """Stop the loops and the listener, answer the batches in flight,
+        fail what is queued, and close every pool."""
+        self._closing.set()
+        for t in self._loops:
+            t.join(timeout=10)
+        self._loops = []
+        self._close_listener()
         self.batcher.close()
+        with self._background_lock:
+            self._background_closed = True
+        self._sniffer_pool.shutdown(wait=True)
+        self._http_pool.shutdown(wait=True, cancel_futures=True)
         self._shadow_pool.shutdown(wait=True)
 
 

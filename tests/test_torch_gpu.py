@@ -17,7 +17,9 @@ Past rank 128 B1 runs one block per system, and the limit is row-relative
 1e-4; past rank 11,619 the whole grid solves each system (f = 11,700, A of
 548 MB), held to row-relative 1e-3 over its 11,704 CG steps. ``FusedAttention``'s gradient is the f32 reference's, as explicit
 matrix products on the card against CPU autograd: atol 1e-4 (f32 sums in
-another order over 256-key softmax rows).
+another order over 256-key softmax rows). The query server's watchdog: a
+dispatch thread that replaces one walked away from takes the server's card
+and answers as ``serve_batch`` (rtol 1e-5).
 """
 
 import numpy as np
@@ -613,3 +615,68 @@ def test_ann_build_on_the_card_is_byte_identical_across_runs(cuda):
     vecs, _ = _ann_corpus(30_000, 32, seed=5)
     blobs = {serialize_index(build_index(vecs, AnnConfig(min_items=0), device=cuda)) for _ in range(2)}
     assert len(blobs) == 1
+
+
+def test_a_replacement_dispatch_thread_answers_on_the_servers_card(cuda):
+    """A dispatch hung past its deadline is walked away from (503, one
+    watchdog trip); the next query runs on a fresh dispatch thread that took
+    the server's card as its current device, and answers as serve_batch."""
+    import json
+    import urllib.error
+    import urllib.request
+
+    from predictionio_tpu_torch import convert
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.resilience import FaultInjector
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.create_server import QueryServer, ServerConfig
+
+    rng = np.random.default_rng(5)
+    model = convert.als_model_from_numpy(rng.normal(size=(300, 16)), rng.normal(size=(500, 16)),
+                                         [f"u{i}" for i in range(300)], [f"i{i}" for i in range(500)])
+    ctx = WorkflowContext(mode="serving", device=cuda)
+    engine = rec.engine_factory()
+    ep = engine.engine_params_from_variant({"algorithms": [{"name": "als", "params": {}}]})
+    models = engine.prepare_deploy(ctx, ep, [model])
+    server = QueryServer(engine, ep, models, ctx,
+                         ServerConfig(ip="127.0.0.1", port=0, request_timeout_s=1.0, breaker_threshold=100),
+                         "inst-gpu")
+    seen = []
+
+    class Recording:
+        def __init__(self, algo):
+            self.algo = algo
+
+        def predict_batch_dispatch(self, model, queries):
+            seen.append((torch.cuda.current_device(), torch.empty(1, device="cuda").device.index))
+            return self.algo.predict_batch_dispatch(model, queries)
+
+        def __getattr__(self, name):
+            return getattr(self.algo, name)
+
+    algo = FaultInjector(Recording(server._active.algorithms[0]))
+    algo.inject("predict_batch_dispatch", fail_count=1, hang_s=2.0)
+    server._active.algorithms[0] = algo
+
+    def post(user):
+        req = urllib.request.Request(f"http://127.0.0.1:{port}/queries.json", method="POST",
+                                     data=json.dumps({"user": user, "num": 10}).encode())
+        try:
+            with urllib.request.urlopen(req, timeout=10) as resp:
+                return resp.status, json.loads(resp.read())
+        except urllib.error.HTTPError as exc:
+            return exc.code, json.loads(exc.read())
+
+    port = server.start()
+    try:
+        assert post("u3")[0] == 503
+        assert server.batcher.watchdog_trips == 1
+        status, body = post("u7")
+    finally:
+        server.shutdown()
+    assert status == 200
+    assert seen == [(server._device_index, server._device_index)]
+    served = models[0]
+    scores, items = served.serving_index().serve_batch(np.asarray([served.user_index("u7")]), 10)
+    assert [s["item"] for s in body["itemScores"]] == [served.item_vocab[int(i)] for i in items[0]]
+    np.testing.assert_allclose([s["score"] for s in body["itemScores"]], scores[0], rtol=1e-5)

@@ -544,6 +544,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "ann", "ann.index", "ann.search", "ann.metrics", "ann.lifecycle",
     )} <= set(modules)
+    # the serving contract's modules are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "resilience.fault", "resilience.wrappers", "utils.tls", "workflow.server_plugins", "obs.web",
+    )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
