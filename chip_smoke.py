@@ -19,7 +19,11 @@ The recommendation template (ALS, kernel B1):
    real user-side and item-side systems of that model and on 138,001
    rank-10 systems, each timed beside the plain version and a library
    Cholesky solve, eager (``ms``) and as a replayed CUDA graph
-   (``graph_ms``);
+   (``graph_ms``); then pio doctor in three processes (beside the serve
+   phase): the inventory names
+   the card, --capacity 138000 27000 32 --ann 2048,16 beside that train's
+   measured torch.cuda.max_memory_allocated, and --roofline's B1/B2/B3
+   bounds equal to PERF.md's kernel table;
 3. serve phase: the port's CLI in subprocesses (app new, import of an
    ML-100K-shape event file, train, deploy) answering POST /queries.json;
    then the ingest path: app new, accesskey new and eventserver on one
@@ -37,7 +41,9 @@ The recommendation template (ALS, kernel B1):
    one predict event per answered query in the store, a silent TCP client
    delaying nobody, SIGTERM amid a burst of 32 (/healthz 503 while
    draining, every accepted query 200, exit 0 within the grace), a retrain
-   through B1 and pio undeploy --ssl of its deploy; then the ML-20M model
+   through B1 and pio undeploy --ssl of its deploy; pio profile train of the
+   same retrain (its torch.profiler trace holds spd_cg_registers exactly as
+   often as B1's wrapper counted); then the ML-20M model
    served in-process through
    ServingIndex.serve_batch and checked against a plain torch.topk;
 3a. batchpredict: that model through the offline pipeline (run_pipeline), a
@@ -80,7 +86,19 @@ The recommendation template (ALS, kernel B1):
    trips, the breaker open and /healthz 503, then half-open and closed,
    answers equal again); a burst of 512 concurrent queries (each shed one
    503 + Retry-After, the rest 200 and equal, no 500 and no reset); card
-   memory within 10 % across the chaos;
+   memory within 10 % across the chaos (the result cache off: the phase
+   counts dispatched work);
+3g. observability in-process at full width: that model in a QueryServer on
+   the card with the result cache (1,024 entries, 10 s TTL): 1,000 users
+   from 16 clients, then the same 1,000 again, each query with its own
+   X-Pio-Trace-Id; every answer serve_batch's, cache hits and misses 1,000
+   each, every id echoed and in /traces/recent, the misses' phase means
+   within 10 % of their mean pio_request_seconds, every contract family on
+   /metrics, OpenMetrics exemplars resolving in /traces/recent, /slo's
+   three objectives; two 500 ms torch.profiler captures amid traffic (a
+   third during the first answers 409); card memory flat; p50 and qps of
+   misses and hits beside 3f's contract-off server, the sampler's own
+   overhead share;
 3e. the registry CLI on the event server's store, every process with
    PIO_ANN_MIN_ITEMS=0: train --registry-dir (its version pins an index),
    models list, deploy --registry-dir --registry-sync-interval 0.5, 5,000
@@ -88,8 +106,11 @@ The recommendation template (ALS, kernel B1):
    --notify-url (its own process, B1 twice an absorb; its candidate pins a
    refreshed index), 200 queries, models
    promote and rollback (the server adopts both), eval --publish (the
-   winner lands as the candidate); B1 held and timed on a rank-10
-   fold-in's systems;
+   winner lands as the candidate); stream --obs-dir over 900 ratings by
+   existing users drawn with replacement (the drift guard suppresses the
+   publish: one drift line on the telemetry ring, one stream-drift bundle
+   pio incidents list reads); B1 held and timed on a rank-10 fold-in's
+   systems;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -118,7 +139,12 @@ The sequential template (attention scorer, kernels B1, B2 and B3):
    mega-batch, every answer equal to predict_batch_dispatch's in batches
    of 64, each kernel timed at the mega-batch shape;
 8. CLI phase: app new, import of an ML-100K-shape view file, train and
-   deploy of the attention algorithm, then POST /queries.json.
+   deploy of the attention algorithm, then POST /queries.json; then the
+   same model deployed at context 200 and 1024, each captured by pio
+   profile serve --ms 500 while it answers: pio profile show lists
+   attention_block_kernel / flash_attention_kernel within 1 of the
+   launches B2's / B3's wrapper counted over the capture (a second capture
+   during the first answers 409).
 
 The two-tower template (its history encoder through B2, forward in
 training and serving):
@@ -188,6 +214,7 @@ import concurrent.futures
 import itertools
 import json
 import os
+import re
 import shutil
 import signal
 import socket
@@ -201,17 +228,31 @@ import urllib.request
 
 import numpy as np
 
-H100_BYTES_PER_S = 3.35e12  # HBM3, H100 SXM data sheet
-H100_F32_FLOPS = 67e12  # f32 outside the tensor cores, H100 SXM data sheet
-H100_BF16_FLOPS = 989e12  # dense bf16 tensor cores, H100 SXM data sheet
-# special-function (exp) rate, the figure FlashAttention-3 uses (Shah et al. 2024)
-H100_EXP_PER_S = 3.9e12
 SOURCE = "predictionio_tpu_torch/ops/csrc/spd_cg.cu"
 REPLACES = "predictionio_tpu/ops/spd_solve.py:76"
 KERNELS = ["spd_cg", "attention_block", "flash_attention"]
 
 
 _T0 = time.perf_counter()
+# nvidia-smi's name and power limit of the card, beside every number printed
+GPU = ""
+# card-memory peaks of the main path, read by pio doctor's check
+PEAKS: dict[str, int] = {}
+# PERF.md's kernel table: (kernel, shape) -> (bound ms as printed, decimals)
+TABLE_BOUNDS = {
+    ("spd_cg", (("f", 32), ("n", 138001))): (0.183, 3),
+    ("spd_cg", (("f", 32), ("n", 27001))): (0.036, 3),
+    ("spd_cg", (("f", 10), ("n", 138001))): (0.0198, 4),
+    ("spd_cg", (("f", 160), ("n", 6041))): (0.788, 3),
+    ("attention_block", (("batch", 4096), ("causal", False), ("d", 32), ("heads", 2), ("lk", 256),
+                         ("lq", 256), ("shared_qkv", False))): (0.321, 3),
+    ("attention_block", (("batch", 64), ("causal", False), ("d", 32), ("heads", 2), ("lk", 256),
+                         ("lq", 256), ("shared_qkv", False))): (0.0050, 4),
+    ("attention_block", (("batch", 64), ("causal", True), ("d", 32), ("heads", 1), ("lk", 200),
+                         ("lq", 200), ("shared_qkv", True))): (0.00098, 5),
+    ("flash_attention", (("batch", 64), ("causal", True), ("d", 32), ("heads", 1), ("lk", 1024),
+                         ("lq", 1024), ("shared_qkv", True))): (0.0086, 4),
+}
 
 
 def emit(**fields) -> None:
@@ -256,13 +297,83 @@ def spd_batch(torch, n: int, f: int, seed: int, reg: float = 0.05):
 
 def cg_bound_ms(n: int, f: int) -> tuple[float, str]:
     """Least time for B1's work: A and b read once, x written once, against
-    the f32 operations of f+4 preconditioned CG steps."""
-    iters = f + 4
-    nbytes = n * (f * f + 2 * f) * 4
-    flops = n * (2 * f * f + 6 * f + iters * (2 * f * f + 11 * f))
-    t_bytes = nbytes / H100_BYTES_PER_S * 1e3
-    t_ops = flops / H100_F32_FLOPS * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+    the f32 operations of f+4 preconditioned CG steps (the port's analytic
+    cost model, which ``pio doctor --roofline`` prints)."""
+    from predictionio_tpu_torch.obs import costmodel
+
+    ms, bound_by, _ = costmodel.bound_ms(costmodel.spd_cg_cost(n, f))
+    return ms, bound_by
+
+
+def profiler_warm_up(torch, home: str) -> None:
+    """CUPTI's one-time set-up for this process, on its main thread while
+    the card is idle (a first trace started on a serving thread under load
+    took tens of seconds, and one started on a server's thread late in a
+    long run recorded no kernel at all): every in-process server of the run
+    then captures at once. A deploy process pays the set-up in its first
+    capture (``sequential_captures``: the set-up runs while no query is
+    sent)."""
+    from predictionio_tpu_torch.obs.profiler import ProfileSession, ProfileStore
+
+    session = ProfileSession(ProfileStore(os.path.join(home, "warmup_profiles")), device="cuda")
+    t0 = time.perf_counter()
+    session.warm_up()
+    if not session.ready:
+        raise AssertionError("torch.profiler's warm-up recorded no kernel on the card")
+    emit_numbers("profiler_warm_up", seconds=time.perf_counter() - t0)
+
+
+def doctor_start(home: str) -> dict:
+    """Start ``pio doctor`` in three processes (they run beside the next
+    phase; :func:`doctor_phase` reads them)."""
+    cli, env, _ = _cli(home)
+    argvs = {"inventory": ["doctor"],
+             "capacity": ["doctor", "--capacity", "138000", "27000", "32", "--ann", "2048,16"],
+             "roofline": ["doctor", "--roofline"]}
+    return {k: subprocess.Popen([*cli, *a], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for k, a in argvs.items()}
+
+
+def doctor_phase(torch, procs: dict) -> dict:
+    """``pio doctor``'s three processes: the inventory names the card;
+    ``--capacity 138000 27000 32 --ann 2048,16`` prices the ML-20M train
+    beside the train's measured torch.cuda.max_memory_allocated;
+    ``--roofline`` prints B1/B2/B3's bounds at PERF.md's shapes, equal to
+    the kernel table's."""
+    t0 = time.perf_counter()
+    outs = {}
+    for k, proc in procs.items():
+        out, err = proc.communicate(timeout=300)
+        if proc.returncode != 0:
+            raise AssertionError(f"pio doctor {k} exited {proc.returncode}: {err[-2000:]}")
+        outs[k] = out
+    wait = time.perf_counter() - t0
+    name = torch.cuda.get_device_name(0)
+    if name not in outs["inventory"]:
+        raise AssertionError(f"pio doctor's inventory does not name {name}:\n{outs['inventory']}")
+    capacity = json.loads(outs["capacity"])
+    bounds = {}
+    for line in outs["roofline"].splitlines():
+        if line.startswith("bound "):
+            _, kernel, rest = line.split(None, 2)
+            shape, _, tail = rest.partition("}")
+            ms = float(tail.split()[0])
+            bounds[(kernel, tuple(sorted(json.loads(shape + "}").items())))] = ms
+    wrong = {k: (bounds.get(k), v) for k, v in TABLE_BOUNDS.items()
+             if k not in bounds or round(bounds[k], v[1]) != v[0]}
+    if wrong:
+        raise AssertionError(f"pio doctor --roofline against the kernel table: {wrong}")
+    measured = PEAKS["als_train_ml20m"]
+    steps = {"capacity_factor_bytes": capacity["capacity"]["factor_bytes"],
+             "capacity_workspace_bytes": capacity["capacity"]["workspace_bytes"],
+             "capacity_per_device_bytes": capacity["capacity"]["per_device_bytes"],
+             "ann_index_bytes": capacity["ann"]["perDeviceBytes"],
+             "capacity_total_bytes": capacity["perDeviceBytesTotal"],
+             "measured_train_peak_bytes": measured,
+             "estimate_over_measured": capacity["capacity"]["per_device_bytes"] / measured,
+             "roofline_bounds_checked": len(TABLE_BOUNDS), "doctor_wait_s": wait}
+    emit_numbers("doctor", **steps)
+    return steps
 
 
 def kernel_phase(torch) -> None:
@@ -363,9 +474,11 @@ def train_phase(torch, home: str):
     algo.timings = {}
     ctx = WorkflowContext(device="cuda", _storage=smoke_storage(home))
     batched_spd_solve_fused.launches = 0
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = algo.train(ctx, td)
     train_wall_s = time.perf_counter() - t0
+    PEAKS["als_train_ml20m"] = torch.cuda.max_memory_allocated()
     launches = batched_spd_solve_fused.launches
     pred = np.sum(model.user_factors[users[test_mask]] * model.item_factors[items[test_mask]], 1)
     rmse = float(np.sqrt(np.mean((pred - vals[test_mask]) ** 2)))
@@ -701,19 +814,19 @@ def _cli(home: str):
     return cli, env, run
 
 
-def _start_deploy(cli, env, engine_dir, work, device):
+def _start_deploy(cli, env, engine_dir, work, device, name="deploy", extra=()):
     port = _free_port()
-    with open(os.path.join(work, "deploy.err"), "w") as err:  # the child keeps its own copy
+    with open(os.path.join(work, f"{name}.err"), "w") as err:  # the child keeps its own copy
         server = subprocess.Popen(
             [*cli, "deploy", "--engine-dir", engine_dir, "--device", device,
-             "--ip", "127.0.0.1", "--port", str(port)],
+             "--ip", "127.0.0.1", "--port", str(port), *extra],
             env=env, stdout=subprocess.DEVNULL, stderr=err,
         )
     base = f"http://127.0.0.1:{port}"
     t0 = time.perf_counter()
     while True:
         if server.poll() is not None:
-            with open(os.path.join(work, "deploy.err")) as fh:
+            with open(os.path.join(work, f"{name}.err")) as fh:
                 raise AssertionError(f"deploy exited {server.returncode}: {fh.read()}")
         try:
             status, _, _ = _http(base + "/", timeout=2)
@@ -1006,6 +1119,7 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
         contract_launches = serving_contract_cli_phase(
             work, argv, reports, run, es_port, engine_dir,
             [f"u{u}" for u in np.unique(users)[:200].tolist()], n_items, train_launches, device)
+        profiled = profiled_train(work, run, reports, engine_dir, device)
     finally:
         for proc in (deploy, server):
             if proc is not None:
@@ -1046,7 +1160,8 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
         "queries_all_200": True,
     }
     emit(phase="eventserver", shape=[n_users, n_items, n_batch + n_single], **result)
-    return {"launches": {"eventserver_train": train_launches, "serving_contract_cli": contract_launches},
+    return {"launches": {"eventserver_train": train_launches, "serving_contract_cli": contract_launches,
+                         "profile_train": profiled},
             "rows": kernel_rows,
             "variant": variant, "user_ids": sorted({f"u{u}" for u in users.tolist()} | {"tz-user"}),
             "access_key": key}
@@ -1133,18 +1248,15 @@ def attention_bound_ms(q, k, v, causal: bool):
     these lengths: all of them, or under the causal mask sum_i min(i + 1, Lk).
     Returns the bound, what binds it ("bytes" or "operations") and each
     term."""
+    from predictionio_tpu_torch.obs import costmodel
+
     B, H, Lq, D = q.shape
-    Lk = k.shape[2]
     inputs = {t.data_ptr(): t.numel() * t.element_size() for t in (q, k, v)}
-    nbytes = sum(inputs.values()) + q.numel() * q.element_size()
-    pairs = sum(min(i + 1, Lk) for i in range(Lq)) if causal else Lq * Lk
-    terms = {
-        "bytes": nbytes / H100_BYTES_PER_S * 1e3,
-        "tensor_operations": 4 * B * H * pairs * D / H100_BF16_FLOPS * 1e3,
-        "exponentials": B * H * pairs / H100_EXP_PER_S * 1e3,
-    }
-    binding = max(terms, key=terms.get)
-    return terms[binding], "bytes" if binding == "bytes" else "operations", terms
+    cost = costmodel.attention_cost(B, H, Lq, k.shape[2], D, causal, elem_bytes=q.element_size(),
+                                    arg_bytes=sum(inputs.values()))
+    ms, bound_by, terms = costmodel.bound_ms(cost)
+    return ms, bound_by, {"bytes": terms["bytes"], "tensor_operations": terms["operations"],
+                          "exponentials": terms["exponentials"]}
 
 
 def attention_kernels(A) -> dict:
@@ -1511,11 +1623,15 @@ def sequential_cli_phase(home: str, device: str = "cuda") -> dict:
                 break
         if largest < 2:
             raise AssertionError("the micro-batcher never batched a concurrent burst")
-    finally:
         _stop(server)
+        server = None
+        captures = sequential_captures(cli, env, engine_dir, work, device, sessions)
+    finally:
+        if server is not None:
+            _stop(server)
         shutil.rmtree(work, ignore_errors=True)
     lat_ms = np.asarray(latencies) * 1e3
-    result = {**steps, "requests": len(latencies), "all_200": True,
+    result = {**steps, "requests": len(latencies), "all_200": True, "captures": captures,
               "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
               "largest_batch": largest, "batches": st["batches"], "queries": st["queries"]}
     emit(phase="sequential_cli", shape=[n_users, n_items, n_events], **result)
@@ -3752,9 +3868,10 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 2_000
         ip="127.0.0.1", port=0, accesskey=qkey, feedback=True, event_server_url=f"http://127.0.0.1:{es_port}",
         feedback_access_key=fb_key, ssl_certfile=cert, ssl_keyfile=key, log_url=collector.url,
         log_prefix="SMOKE ", request_timeout_s=1.0, queue_high_water=64, breaker_threshold=2,
-        breaker_recovery_s=1.0), "contract-on", manifest=manifest,
+        breaker_recovery_s=1.0, result_cache_size=0), "contract-on", manifest=manifest,
         plugin_context=sp.EngineServerPluginContext([DropBanned(), Count()]))
-    off = QueryServer(engine, ep, [model], ctx, ServerConfig(ip="127.0.0.1", port=0), "contract-off",
+    off = QueryServer(engine, ep, [model], ctx, ServerConfig(ip="127.0.0.1", port=0, result_cache_size=0),
+                      "contract-off",
                       manifest=manifest, plugin_context=sp.EngineServerPluginContext([]))
     on_port, off_port = on.start(), off.start()
     qpath = f"/queries.json?accessKey={qkey}"
@@ -3928,6 +4045,405 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 2_000
     emit(phase="serving_contract_inprocess", shape=[len(model.user_vocab), len(vocab), 32], **result)
     return result
 
+# the families the JAX package's query server registers
+# (tests/test_resilience.py's factory) less the port's written exemptions:
+# the five jit/XLA families (no jit cache in eager PyTorch) and the twelve
+# bandit families (not ported); tests/test_torch_obs.py holds this list to
+# that difference
+CONTRACT_FAMILIES = (
+    "pio_ann_candidates_frac", "pio_ann_candidates_total", "pio_ann_fallback_total",
+    "pio_ann_index_clusters", "pio_ann_index_items", "pio_ann_probes_total", "pio_ann_queries_total",
+    "pio_ann_rebuilds_total", "pio_ann_recall_sampled", "pio_ann_recall_samples_total",
+    "pio_ann_refreshes_total", "pio_breaker_rejections_total", "pio_breaker_state",
+    "pio_breaker_transitions_total", "pio_cache_evictions_total", "pio_cache_hits_total",
+    "pio_cache_invalidations_total", "pio_cache_misses_total", "pio_deadline_exceeded_total",
+    "pio_device_stall_seconds_total", "pio_dispatch_seconds", "pio_fetch_seconds", "pio_load_shed_total",
+    "pio_model_errors_total", "pio_model_predict_seconds", "pio_model_requests_total", "pio_phase_seconds",
+    "pio_profile_bundles", "pio_profile_capture_busy_total", "pio_profile_capture_errors_total",
+    "pio_profile_captures_total", "pio_profile_last_capture_ms", "pio_profile_sampler_overhead_frac",
+    "pio_profile_sampler_samples_total", "pio_profile_sampler_stacks", "pio_promotions_total",
+    "pio_queue_depth", "pio_queue_high_water", "pio_queue_wait_seconds", "pio_registry_lease_acquires_total",
+    "pio_registry_lease_generation", "pio_registry_lease_lost_total", "pio_registry_lease_steals_total",
+    "pio_registry_lease_waits_total", "pio_request_seconds", "pio_requests_total", "pio_rollbacks_total",
+    "pio_rollout_fraction", "pio_rollout_mode", "pio_shadow_divergence_total", "pio_shadow_dropped_total",
+    "pio_shadow_scored_total", "pio_slo_alerting", "pio_slo_bad_ratio", "pio_slo_burn_rate",
+    "pio_slo_objective", "pio_watchdog_trips_total",
+)
+PHASES = ("ingress_parse", "cache", "queue_wait", "batch_assembly", "dispatch", "device_compute", "fetch",
+          "serve", "respond")
+_SAMPLE = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(\{[^}]*\})? (\S+)(?: # \{trace_id="([0-9a-f]+)"\} \S+)?$')
+
+
+def parse_metrics(text: str) -> dict:
+    """Family -> [(labels, value, exemplar trace id or None)] of a
+    Prometheus or OpenMetrics scrape; a family declared by ``# TYPE`` with
+    no sample is present with no samples. Raises on a line it cannot read."""
+    out: dict[str, list] = {}
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            out.setdefault(line.split()[2], [])
+            continue
+        if not line or line.startswith("#"):
+            continue
+        m = _SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"unparsable metrics line: {line!r}")
+        labels = dict(re.findall(r'([a-zA-Z_]\w*)="((?:[^"\\]|\\.)*)"', m.group(2) or ""))
+        name = m.group(1)
+        for suffix in ("_bucket", "_sum", "_count"):
+            if name.endswith(suffix) and name[: -len(suffix)] in out:
+                name = name[: -len(suffix)]
+        out.setdefault(name, []).append((labels, float(m.group(3)), m.group(4)))
+    return out
+
+
+def emit_numbers(phase: str, **numbers) -> None:
+    """One line per number, with the card's name and power limit."""
+    for name, value in numbers.items():
+        emit(phase=phase, metric=name, value=value, gpu=GPU)
+
+
+class _TracedConn:
+    """A keep-alive client that sends X-Pio-Trace-Id and returns (status,
+    echoed trace id, decoded body, seconds)."""
+
+    def __init__(self, port: int):
+        import http.client
+
+        self.conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+
+    def call(self, path: str, payload, trace_id: str):
+        t0 = time.perf_counter()
+        self.conn.request("POST", path, body=json.dumps(payload).encode(),
+                          headers={"Content-Type": "application/json", "X-Pio-Trace-Id": trace_id})
+        resp = self.conn.getresponse()
+        body = json.loads(resp.read())
+        return resp.status, resp.getheader("X-Pio-Trace-Id"), body, time.perf_counter() - t0
+
+
+def _profiler_ready(base: str, timeout: float = 120.0) -> float:
+    """Wait until the server's profiler has set CUPTI up (``GET /``);
+    returns the seconds waited."""
+    return _wait(lambda: _http(base + "/")[1]["profiling"]["ready"], timeout, "the profiler's warm-up")
+
+
+def _conflicting_capture(base: str, out: list) -> None:
+    """Wait until the server reports a capture in flight (``GET /``), then
+    POST another: ``out`` receives its status."""
+    t0 = time.perf_counter()
+    while not _http(base + "/")[1]["profiling"]["captureInFlight"]:
+        if time.perf_counter() - t0 > 60:
+            out.append("no capture in flight within 60 s")
+            return
+        time.sleep(0.01)
+    try:
+        _http(base + "/profile/capture?ms=0", {})
+        out.append(200)
+    except urllib.error.HTTPError as exc:
+        out.append(exc.code)
+
+
+def _get(base: str, path: str, headers=None):
+    req = urllib.request.Request(base + path, headers=headers or {})
+    with urllib.request.urlopen(req, timeout=60) as resp:
+        return resp.status, resp.headers.get("Content-Type", ""), resp.read().decode()
+
+
+def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_000, clients: int = 16) -> dict:
+    """Observability at full width: the ML-20M model the fold-in published
+    as stable (138,000 x 27,000, rank 32) in a QueryServer on the card with
+    the result cache at 1,024 entries and a 10 s TTL. 1,000 distinct users
+    from 16 clients, then the same 1,000 again once every first answer is
+    in, each query with its own X-Pio-Trace-Id: every answer serve_batch's,
+    hits and misses 1,000 each, every id echoed and in /traces/recent, the
+    misses' phase means summing to within 10 % of their mean
+    pio_request_seconds, /metrics parsed with every contract family, an
+    OpenMetrics scrape whose exemplars resolve in /traces/recent, /slo's
+    three objectives. Then two 500 ms captures, one after the other, while
+    other users' queries flow (a third capture POSTed during the first
+    answers 409), each trace holding more kernels than the capture's own
+    marker; card memory held by tensors flat across all of it."""
+    import uuid
+
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.obs.tracing import Tracer
+    from predictionio_tpu_torch.workflow import model_io
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.create_server import QueryServer, ServerConfig
+    from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
+
+    engine = rec.engine_factory()
+    ep = engine.engine_params_from_variant({"algorithms": [{"name": "als", "params": {"rank": 32}}]})
+    ctx = WorkflowContext(mode="serving", device="cuda", _storage=foldin["storage"])
+    (model,) = engine.prepare_deploy(ctx, ep, model_io.deserialize_models(foldin["stable_blob"]))
+    work = tempfile.mkdtemp(prefix="pio_smoke_obs_")
+    server = QueryServer(engine, ep, [model], ctx, ServerConfig(
+        ip="127.0.0.1", port=0, result_cache_size=1024, result_cache_ttl_s=10.0,
+        profile_dir=os.path.join(work, "profiles")), "obs",
+        manifest=EngineManifest("smoke-obs", "1", "engine.json", REC_FACTORY))
+    # a ring that holds the whole run's spans (two a query)
+    server.tracer = Tracer(ring_size=16_384)
+    port = server.start()
+    base = f"http://127.0.0.1:{port}"
+    users = [f"u{i}" for i in range(n_users)]
+    uidx = np.asarray([model.user_index(u) for u in users], dtype=np.int32)
+    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 10)
+
+    def drive(us):
+        local = threading.local()
+
+        def one(j):
+            if not hasattr(local, "conn"):
+                local.conn = _TracedConn(port)
+            tid = uuid.uuid4().hex[:16]
+            return (j, tid, *local.conn.call("/queries.json", {"user": us[j], "num": 10}, tid))
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+            outs = list(pool.map(one, range(len(us))))
+        wall = time.perf_counter() - t0
+        for j, tid, status, echoed, body, _ in outs:
+            if status != 200 or echoed != tid:
+                raise AssertionError(f"{us[j]}: status {status}, trace id {tid} echoed as {echoed}")
+            got_ids = [model.item_index(x["item"]) for x in body["itemScores"]]
+            if got_ids != ref_ids[j].tolist() or not np.allclose(
+                    [x["score"] for x in body["itemScores"]], ref_scores[j], rtol=1e-5):
+                raise AssertionError(f"{us[j]}: answered {body['itemScores'][:3]}..., not serve_batch's")
+        return outs, wall
+
+    def in_ring(outs, what):
+        _, _, text = _get(base, "/traces/recent?limit=16384")
+        ring = {s["traceId"] for s in json.loads(text)["spans"]}
+        missing = [tid for _, tid, *_ in outs if tid not in ring]
+        if missing:
+            raise AssertionError(f"{what}: {len(missing)} trace ids not in /traces/recent, e.g. {missing[:3]}")
+
+    steps = {}
+    try:
+        mem_before = _tensor_bytes(torch)
+        first = users
+        misses, wall_miss = drive(first)
+        in_ring(misses, "misses")
+        hist, lat = server.waterfall.hist, server._m_latency
+        phase_means = {p: hist.summary(phase=p)["mean"] for p in PHASES}
+        request_mean = lat.summary(endpoint="/queries.json")["mean"]
+        tiling = sum(phase_means.values()) / request_mean
+        if not 0.9 <= tiling <= 1.1:
+            raise AssertionError(f"phase means sum to {tiling:.4f} of the mean request time: {phase_means}")
+        hits, wall_hit = drive(first)
+        in_ring(hits, "hits")
+        cache = server._result_cache
+        if (cache.hits, cache.misses) != (n_users, n_users):
+            raise AssertionError(f"cache hits {cache.hits}, misses {cache.misses}; expected {n_users} each")
+        _, ctype, text = _get(base, "/metrics")
+        parsed = parse_metrics(text)
+        if not ctype.startswith("text/plain") or "trace_id" in text:
+            raise AssertionError(f"the default scrape is not plain Prometheus text: {ctype}")
+        missing = [f for f in CONTRACT_FAMILIES if f not in parsed]
+        if missing:
+            raise AssertionError(f"/metrics lacks contract families {missing}")
+        if parsed["pio_cache_hits_total"][0][1] != n_users or parsed["pio_cache_misses_total"][0][1] != n_users:
+            raise AssertionError(f"/metrics cache counters {parsed['pio_cache_hits_total']} "
+                                 f"{parsed['pio_cache_misses_total']}")
+        _, ctype, text = _get(base, "/metrics", {"Accept": "application/openmetrics-text"})
+        exemplars = {labels.get("phase"): tid for labels, _, tid in parse_metrics(text)["pio_phase_seconds"]
+                     if tid is not None}
+        _, _, ring_text = _get(base, "/traces/recent?limit=16384")
+        ring = {sp["traceId"] for sp in json.loads(ring_text)["spans"]}
+        if not ctype.startswith("application/openmetrics-text") or set(exemplars) != set(PHASES) \
+                or not set(exemplars.values()) <= ring:
+            raise AssertionError(f"OpenMetrics exemplars {exemplars} ({ctype}) do not resolve in the ring")
+        _, _, slo_text = _get(base, "/slo")
+        slo = json.loads(slo_text)
+        if [o["name"] for o in slo["slos"]] != ["latency", "availability", "shed"]:
+            raise AssertionError(f"/slo: {slo['slos']}")
+
+        # two captures, one after the other, while other users' queries flow
+        warmup_wait_s = _profiler_ready(base)
+        captures, conflict, done = [], [], threading.Event()
+
+        def capture_twice():
+            try:
+                for _ in range(2):
+                    t0 = time.perf_counter()
+                    status, body, _ = _http(base + "/profile/capture?ms=500", {}, timeout=120)
+                    captures.append((status, body, time.perf_counter() - t0))
+            finally:
+                done.set()
+
+        def pump(k):
+            conn, u = _TracedConn(port), 2_000 + k
+            while not done.is_set():
+                status, *_ = conn.call("/queries.json", {"user": f"u{u}", "num": 10}, uuid.uuid4().hex[:16])
+                if status != 200:
+                    raise AssertionError(f"u{u} answered {status} during a capture")
+                u += clients
+
+        threads = [threading.Thread(target=capture_twice),
+                   threading.Thread(target=_conflicting_capture, args=(base, conflict))]
+        for t in threads:
+            t.start()
+        with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+            list(pool.map(pump, range(clients)))
+        for t in threads:
+            t.join(60)
+        if [c[0] for c in captures] != [200, 200] or conflict != [409]:
+            raise AssertionError(f"captures {[c[:1] for c in captures]}, the concurrent one {conflict}")
+        kernels = [sum(c[1]["kernels"].values()) for c in captures]
+        if min(kernels) < 2:  # the capture's own marker is one
+            raise AssertionError(f"a capture during serving recorded {kernels} kernels")
+        mem_after = _tensor_bytes(torch)
+        if mem_after - mem_before > max(4 << 20, 0.01 * mem_before):
+            raise AssertionError(f"card memory grew across the queries and captures: {mem_before} -> {mem_after}")
+        miss_lat = [o[5] for o in misses]
+        hit_lat = [o[5] for o in hits]
+        steps = {
+            "queries_miss": n_users, "queries_hit": n_users, "clients": clients,
+            "miss_p50_ms": _p50_ms(miss_lat), "miss_qps": n_users / wall_miss,
+            "hit_p50_ms": _p50_ms(hit_lat), "hit_qps": n_users / wall_hit,
+            "contract_off_p50_ms": contract["p50_off_ms"], "contract_off_qps": contract["qps_off"],
+            "phase_tiling": tiling, "request_mean_ms": request_mean * 1e3,
+            **{f"phase_{p}_mean_ms": v * 1e3 for p, v in phase_means.items()},
+            "cache_hit_phase_mean_ms": hist.summary(phase="cache")["mean"] * 1e3,
+            "sampler_overhead_frac": server.sampler.overhead_frac(),
+            "sampler_samples": server.sampler.snapshot()["samples"],
+            "capture_kernels": kernels, "capture_wall_s": [c[2] for c in captures],
+            "profiler_warmup_wait_s": warmup_wait_s,
+            "capture_timings_s": [json.load(open(os.path.join(c[1]["path"], "manifest.json")))["context"][
+                "captureTimingsS"] for c in captures],
+            "capture_trace_bytes": [sum(e["bytes"] for e in
+                                        json.load(open(os.path.join(c[1]["path"], "manifest.json")))["trace"])
+                                    for c in captures],
+            "memory_allocated_before": mem_before, "memory_allocated_after": mem_after,
+            "slo_alerting": {o["name"]: o["alerting"] for o in slo["slos"]},
+            "slo_burn_rates": {o["name"]: [w["burn_rate"] for w in o["windows"]] for o in slo["slos"]},
+            "contract_families": len(CONTRACT_FAMILIES), "families_scraped": len(parsed),
+        }
+    finally:
+        server.shutdown()
+        shutil.rmtree(work, ignore_errors=True)
+    emit_numbers("obs_inprocess", **steps)
+    return steps
+
+
+
+def profiled_train(work: str, run, reports: list, engine_dir: str, device: str) -> int:
+    """``pio profile train`` of the ML-100K retrain: its bundle's
+    torch.profiler trace holds B1's register-plan kernel
+    (``spd_cg_registers``) exactly as often as the wrapper counted its
+    launches, both in the process's report and over the trace's window
+    (``launchesCounted``). Returns the launches."""
+    from predictionio_tpu_torch.obs.profiler import ProfileStore, kernel_launches, trace_kernels
+
+    prof_dir = os.path.join(work, "train_profiles")
+    t0 = time.perf_counter()
+    run("profile", "train", "--profile-dir", prof_dir, "--", "--engine-dir", engine_dir, "--device", device)
+    wall = time.perf_counter() - t0
+    with open(reports[-1]) as fh:
+        counted = json.load(fh)["launches"]["spd_cg"]
+    (ref,) = ProfileStore(prof_dir).list()
+    with open(os.path.join(ref.path, "manifest.json")) as fh:
+        manifest = json.load(fh)
+    kernels = trace_kernels(os.path.join(ref.path, "trace"))
+    traced = kernel_launches(kernels, "spd_cg_registers")
+    window = manifest["context"].get("launchesCounted", {}).get("spd_cg")
+    if not counted or traced != counted or window != counted:
+        raise AssertionError(f"profiled train: B1 counted {counted} (window {window}), traced {traced}: "
+                             f"{sorted(kernels.items(), key=lambda kv: -kv[1])[:8]}")
+    emit_numbers("profile_train", spd_cg_launches_counted=counted, spd_cg_registers_traced=traced,
+                 kernel_events=sum(kernels.values()), distinct_kernels=len(kernels), wall_s=wall,
+                 trace_bytes=sum(e["bytes"] for e in manifest["trace"]))
+    return counted
+
+
+def _seq_pump(base: str, sessions, stop: threading.Event) -> list:
+    """One client sending distinct session windows, one at a time, while
+    the server reports a capture window open (``profiling.capturing``),
+    until ``stop``; returns the statuses. So every launch falls inside the
+    window the wrapper's count covers, and at most one query is under way
+    at either edge."""
+    statuses, n = [], 0
+    while not stop.is_set():
+        if not _http(base + "/")[1]["profiling"]["capturing"]:
+            time.sleep(0.002)
+            continue
+        tail = sessions[n % len(sessions)][-(5 + n % 40):]
+        status, _, _ = _http(base + "/queries.json", {"recentItems": [f"i{i}" for i in tail], "num": 10})
+        statuses.append(status)
+        n += 1
+    return statuses
+
+
+def sequential_captures(cli, env, engine_dir: str, work: str, device: str, sessions) -> dict:
+    """The trained attention model deployed twice more from variants at
+    context 200 (B2) and 1024 (B3); while each answers queries, ``pio
+    profile serve --ms 500`` captures it and ``pio profile show`` lists the
+    trace's kernels: the wrapper's symbol (``attention_block_kernel`` /
+    ``flash_attention_kernel``) appears within 1 of the launches the
+    wrapper counted over the capture's window (one client queries only
+    while that window is open). A capture POSTed during the first answers
+    409."""
+    with open(os.path.join(engine_dir, "engine.json")) as fh:
+        variant = json.load(fh)
+    servers, out = {}, {}
+    try:
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            futs = {}
+            for context, kernel in ((200, "attention_block"), (1024, "flash_attention")):
+                # the same engine id, version and variant name: the deploy
+                # finds the trained instance and serves at this context
+                ctx_dir = os.path.join(work, f"engine_{context}")
+                os.makedirs(ctx_dir)
+                with open(os.path.join(ctx_dir, "engine.json"), "w") as fh:
+                    json.dump({**variant, "algorithms": [{"name": "attention", "params": {
+                        **variant["algorithms"][0]["params"], "context": context}}]}, fh)
+                prof = os.path.join(work, f"profiles_{context}")
+                futs[context] = (kernel, prof, pool.submit(
+                    _start_deploy, cli, env, ctx_dir, work, device, name=f"deploy_{context}",
+                    extra=("--profile-dir", prof)))
+            for context, (kernel, prof, fut) in futs.items():
+                servers[context] = (kernel, prof, *fut.result())
+        for context, (kernel, prof, server, base, ready_s) in servers.items():
+            stop = threading.Event()
+            pumped = concurrent.futures.ThreadPoolExecutor(1).submit(_seq_pump, base, sessions, stop)
+            conflict = []
+            poker = threading.Thread(target=_conflicting_capture, args=(base, conflict))
+            if context == 200:
+                poker.start()
+            t0 = time.perf_counter()
+            try:
+                proc = subprocess.run([*cli, "profile", "serve", "--url", base, "--ms", "500"], env=env,
+                                      capture_output=True, text=True, timeout=120)
+            finally:
+                stop.set()
+            serve_s = time.perf_counter() - t0
+            statuses = pumped.result(60)
+            if context == 200:
+                poker.join(30)
+                if conflict != [409]:
+                    raise AssertionError(f"a capture during a capture answered {conflict}")
+            if proc.returncode != 0 or any(st != 200 for st in statuses):
+                raise AssertionError(f"profile serve at context {context}: {proc.returncode} {proc.stderr[-2000:]}")
+            body = json.loads(proc.stdout)
+            show = subprocess.run([*cli, "profile", "show", body["bundle"], "--profile-dir", prof], env=env,
+                                  capture_output=True, text=True, timeout=120)
+            symbol = f"{kernel}_kernel"
+            traced = sum(int(line.split()[1]) for line in show.stdout.splitlines()
+                         if line.startswith("kernel ") and f"::{symbol}<" in line)
+            counted = body["launchesCounted"][kernel]
+            if show.returncode != 0 or not counted or abs(traced - counted) > 1:
+                raise AssertionError(f"context {context}: {symbol} traced {traced}, counted {counted}:\n"
+                                     f"{show.stdout[-3000:]}")
+            out[context] = {"kernel": symbol, "traced": traced, "counted": counted, "queries": len(statuses),
+                            "profile_serve_s": serve_s, "deploy_ready_s": ready_s,
+                            "kernel_events": sum(body["kernels"].values())}
+    finally:
+        for _, _, server, *_ in servers.values():
+            _stop(server)
+    for context, row in out.items():
+        emit_numbers(f"sequential_capture_{context}", **{k: v for k, v in row.items() if k != "kernel"})
+    return out
+
 
 def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new_users: int = 500,
                        n_new: int = 5_000) -> dict:
@@ -4041,7 +4557,8 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
                 raise AssertionError(f"batch at {lo}: {status} {results[:2]}")
         steps["post_events_s"] = time.perf_counter() - t0
         time.sleep(1.0)  # past the stream's safety lag
-        stdout, counts = run("stream", *stream, "--cycles", "3", "--notify-url", base)
+        obs = os.path.join(work, "obs")
+        stdout, counts = run("stream", *stream, "--cycles", "3", "--notify-url", base, "--obs-dir", obs)
         launches["stream"] = counts["spd_cg"]
         absorbs = -(-len(events) // 500)
         if launches["stream"] != 2 * absorbs or "1 published" not in stdout:
@@ -4080,6 +4597,7 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
         if f"candidate {winner}" not in stdout or not store.get_manifest("smoke-registry", winner).eval_evidence:
             raise AssertionError(f"eval --publish landed no candidate:\n{stdout}")
         steps["adopt_winner_s"] = wait_for(base, "the grid winner", lambda s: (s["candidate"] or {}).get("version") == winner)
+        steps.update(stream_drift(run, stream, es, key, model, obs))
     finally:
         for proc in procs:
             if proc.poll() is None:
@@ -4097,6 +4615,41 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
               "ann_indexes": indexes}
     emit(phase="registry_cli", **result)
     return {"launches": {"registry_cli": sum(launches.values())}}
+
+
+def stream_drift(run, stream: list, es: str, key: str, model, obs: str, n_events: int = 900) -> dict:
+    """``pio stream --obs-dir``'s drift signal: 900 ratings by existing
+    users drawn with replacement from the first 900 (each re-solved from
+    its one or few stream ratings regresses, and a held-out rating of a
+    re-solved user shows it, so the drift guard suppresses the publish, as
+    tests/test_torch_stream.py shows in both packages; a rating each by 900
+    distinct users would hold out only untouched users) through POST
+    /batch/events.json, then ``pio stream --cycles 1 --obs-dir``: a
+    ``kind="drift"`` line on the telemetry ring and a ``stream-drift``
+    bundle that ``pio incidents list`` reads."""
+    import datetime as dt
+
+    from predictionio_tpu_torch.obs.tsring import TelemetryRing
+
+    rng = np.random.default_rng(41)
+    events = _rating_events(model, rng, rng.integers(0, n_events, n_events), ["none"], np.zeros(1, np.int64), 0,
+                            dt.datetime.now(tz=dt.timezone.utc))
+    for lo in range(0, len(events), 50):
+        status, results, _ = _http(f"{es}/batch/events.json?accessKey={key}",
+                                   [{k: v for k, v in e.to_json_dict().items() if k != "eventId"}
+                                    for e in events[lo:lo + 50]])
+        if status != 200 or any(r.get("status") != 201 for r in results):
+            raise AssertionError(f"drift batch at {lo}: {status} {results[:2]}")
+    time.sleep(1.0)  # past the stream's safety lag
+    stdout, _ = run("stream_drift", *stream, "--cycles", "1", "--obs-dir", obs)
+    drift = [r for r in TelemetryRing(os.path.join(obs, "telemetry"), writer_id="stream").records()
+             if r.get("kind") == "drift"]
+    listed, _ = run("incidents_list", "incidents", "list", "--obs-dir", obs)
+    if len(drift) != 1 or "stream-drift" not in listed:
+        raise AssertionError(f"the drift signal: ring {drift}, stream:\n{stdout}\nincidents:\n{listed}")
+    emit_numbers("stream_obs_dir", ring_drift_lines=len(drift), drift_measured=drift[0]["measured"],
+                 drift_threshold=drift[0]["threshold"], incident_bundles=listed.count("stream-drift"))
+    return {"drift_signal": {k: drift[0][k] for k in ("guard", "measured", "threshold")}}
 
 
 _REGISTRY_GRID = """
@@ -4467,7 +5020,10 @@ def similarproduct_ann_phase(torch, home: str, n_queries: int = 2_000, n_users: 
     try:
         ctx = WorkflowContext(mode="serving", device="cuda", _storage=smoke_storage(work))
         t0 = time.perf_counter()
-        server = create_query_server(engine_dir, ctx, ServerConfig(ip="127.0.0.1", port=0, registry_dir=registry))
+        # the cache off: the phase counts index searches and compares the
+        # exact path with the index's on the same payloads
+        server = create_query_server(engine_dir, ctx, ServerConfig(ip="127.0.0.1", port=0, registry_dir=registry,
+                                                                   result_cache_size=0))
         deploy_s = time.perf_counter() - t0
     finally:
         if recall_every is None:
@@ -4719,7 +5275,8 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     from predictionio_tpu_torch.ops import _build
 
-    smi = subprocess.run(
+    global GPU
+    smi = GPU = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
@@ -4730,11 +5287,14 @@ def main() -> int:
                        if "registers" in ln or "spill" in ln] for name in KERNELS})
     home = tempfile.mkdtemp(prefix="pio_smoke_home_")
     try:
+        profiler_warm_up(torch, home)
         kernel_phase(torch)
         grid_row = kernel_grid_phase(torch)
         td, model, params, launches = train_phase(torch, home)
         _, kernel = real_system_check(torch, td, model, params, launches)
+        doctor = doctor_start(os.path.join(home, "doctor"))
         cli_serve_phase(os.path.join(home, "cli"))
+        doctor_phase(torch, doctor)
         rest = eventserver_phase(torch, os.path.join(home, "rest"))
         inprocess_serve_phase(torch, model)
         batchpredict_als_phase(torch, model)
@@ -4742,7 +5302,8 @@ def main() -> int:
         foldin = stream_foldin_phase(torch, home, model)
         del td, model
         rollout_lanes_phase(torch, home, foldin)
-        serving_contract_inprocess_phase(torch, foldin)
+        contract = serving_contract_inprocess_phase(torch, foldin)
+        obs_inprocess_phase(torch, foldin, contract)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
         del foldin
         offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)

@@ -6,6 +6,11 @@ Port of the data routes of ``predictionio_tpu/data/api/event_server.py``
 
   GET  /                       -> {"status": "alive"}
   GET  /healthz                -> readiness: the storage breaker (503 open)
+  GET  /metrics                -> Prometheus text exposition (obs registry)
+  GET  /slo                    -> the ingestion availability SLO's burn rates
+  GET  /traces/recent          -> recent request spans (ring buffer)
+  POST /profile/capture?ms=    -> one bounded torch.profiler capture (409 busy)
+  GET  /profile/stacks         -> the host sampler's folded stacks
   POST /events.json            -> 201 {"eventId": ...} (single event)
   GET  /events.json            -> filtered query (default limit 20)
   GET  /events/<id>.json       -> one event
@@ -41,8 +46,17 @@ writes; a 400 is only ever the client's fault. A batch request
 inserts its events one by one, each with its own status, as the JAX server
 does. A client's ``creationTime`` is ignored, as in the JAX server: an
 event's creation time is when this server accepted it, the key of the
-store's tail order. Not ported yet: ``/metrics``, ``/slo``,
-``/traces/recent`` and ``/profile/*`` (observability).
+store's tail order.
+
+Observability, as in the JAX server: every request accepts or mints an
+``X-Pio-Trace-Id`` (echoed), records an ``http.event`` ingress span, and
+counts into ``pio_requests_total{endpoint,status}`` and
+``pio_request_seconds{endpoint}`` under its route pattern (the JAX
+server's canonical aiohttp resource, ``/events/{event_id}.json``, not the
+raw path). Storage calls go through traced DAOs (``storage.<dao>.<method>``
+spans on the same trace). The availability SLO rates the collection
+routes only. Captures on the event server record the CPU: it launches no
+kernel.
 """
 
 from __future__ import annotations
@@ -53,6 +67,7 @@ import json
 import logging
 import re
 import threading
+import time
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Any
@@ -67,8 +82,25 @@ from predictionio_tpu_torch.data.webhooks import (
     form_connector,
     json_connector,
 )
+from predictionio_tpu_torch.data.storage.traced import trace_dao
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
-from predictionio_tpu_torch.obs.web import BreakerInstruments
+from predictionio_tpu_torch.obs.profiler import ProfileBusyError, ProfileSession, ProfileStore
+from predictionio_tpu_torch.obs.sampler import HostSampler
+from predictionio_tpu_torch.obs.slo import SLOEngine, counter_ratio_source
+from predictionio_tpu_torch.obs.tracing import (
+    TRACE_HEADER,
+    Tracer,
+    get_tracer,
+    mint_trace_id,
+    reset_trace_id,
+    set_trace_id,
+)
+from predictionio_tpu_torch.obs.web import (
+    BreakerInstruments,
+    metrics_response,
+    slo_response,
+    traces_response,
+)
 from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
 from predictionio_tpu_torch.resilience.policy import ResiliencePolicy
 from predictionio_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
@@ -78,6 +110,21 @@ logger = logging.getLogger(__name__)
 
 MAX_EVENTS_PER_BATCH_REQUEST = 50  # ref EventServer.scala:70
 MAX_BODY_BYTES = 16 << 20
+
+# the routes that ARE the collection API: the availability SLO rates these
+# and only these (health checks and scrapes must not mask an outage)
+COLLECTION_ENDPOINTS = frozenset({
+    "/events.json",
+    "/events/{event_id}.json",
+    "/batch/events.json",
+    "/webhooks/{name}.json",
+    "/webhooks/{name}",
+})
+# fixed routes, labelled as themselves
+_FIXED_ROUTES = frozenset({
+    "/", "/healthz", "/metrics", "/slo", "/traces/recent", "/profile/capture",
+    "/profile/stacks", "/events.json", "/batch/events.json", "/stats.json", "/plugins.json",
+})
 
 
 @dataclasses.dataclass
@@ -96,9 +143,25 @@ class EventServerConfig:
     # answer 503 "storage unavailable" + Retry-After without touching storage
     breaker_threshold: int = 5
     breaker_recovery_s: float = 5.0
+    # ingestion availability SLO: non-5xx fraction of collection-API answers
+    slo_availability_objective: float = 0.999
+    # POST /profile/capture and GET /profile/stacks, as on the query server
+    profile_dir: str = "pio_obs/profiles"
+    profile_max_bundles: int = 20
+    profile_default_ms: int = 500
+    profile_max_ms: int = 10_000
+    sampler_period_s: float = 0.05
 
     def ssl_context(self):
         return server_ssl_context(self.ssl_certfile, self.ssl_keyfile)
+
+
+@dataclasses.dataclass
+class _Raw:
+    """A body already encoded, with its content type (the obs answers)."""
+
+    data: bytes
+    content_type: str
 
 
 class BlockedEvent(Exception):
@@ -159,15 +222,26 @@ class EventServer:
         storage: Storage | None = None,
         config: EventServerConfig | None = None,
         plugin_context: EventServerPluginContext | None = None,
+        tracer: Tracer | None = None,
     ):
         self.storage = storage or Storage.instance()
         self.config = config or EventServerConfig()
-        self.levents = self.storage.get_l_events()
-        self.access_keys = self.storage.get_meta_data_access_keys()
-        self.channels = self.storage.get_meta_data_channels()
-        self.stats = StatsCollector()
-        self.plugin_context = plugin_context or EventServerPluginContext()
+        # DAO calls record storage.<dao>.<method> spans on the ingress trace
+        self.tracer = tracer or get_tracer()
+        self.levents = trace_dao(self.storage.get_l_events(), "l_events", tracer=self.tracer)
+        self.access_keys = trace_dao(
+            self.storage.get_meta_data_access_keys(), "access_keys", tracer=self.tracer
+        )
+        self.channels = trace_dao(self.storage.get_meta_data_channels(), "channels", tracer=self.tracer)
         self.metrics = MetricsRegistry()
+        self.stats = StatsCollector(registry=self.metrics)
+        self.plugin_context = plugin_context or EventServerPluginContext()
+        self._m_requests = self.metrics.counter(
+            "pio_requests_total", "HTTP requests served, by route and status", labelnames=("endpoint", "status")
+        )
+        self._m_latency = self.metrics.histogram(
+            "pio_request_seconds", "HTTP request wall time, by route", labelnames=("endpoint",)
+        )
         self._m_retries = self.metrics.counter(
             "pio_storage_retries_total", "storage calls replayed by the retry policy"
         )
@@ -185,6 +259,30 @@ class EventServer:
                 failure_threshold=self.config.breaker_threshold,
                 recovery_timeout_s=self.config.breaker_recovery_s,
             )),
+        )
+        self.slo = SLOEngine(self.metrics)
+        self.slo.add(
+            "availability",
+            "collection API answered without a 5xx",
+            self.config.slo_availability_objective,
+            counter_ratio_source(
+                self._m_requests,
+                bad=lambda lab: lab.get("status", "").startswith("5"),
+                match=lambda lab: lab.get("endpoint") in COLLECTION_ENDPOINTS,
+            ),
+        )
+        self.metrics.register_collector(self.slo.collect)
+        self.sampler = HostSampler(
+            period_s=self.config.sampler_period_s if self.config.sampler_period_s > 0 else 0.05,
+            metrics=self.metrics,
+        )
+        self.profiler = ProfileSession(
+            ProfileStore(self.config.profile_dir, self.config.profile_max_bundles),
+            device="cpu",  # the event server launches no kernel
+            default_ms=self.config.profile_default_ms,
+            max_ms=self.config.profile_max_ms,
+            context_fn=lambda: {"server": "event", "port": self.config.port},
+            metrics=self.metrics,
         )
         self._httpd: ThreadingHTTPServer | None = None
         self._thread: threading.Thread | None = None
@@ -397,15 +495,72 @@ class EventServer:
         ready = snap["breaker"]["state"] != OPEN
         return (200 if ready else 503), {"ready": ready, **snap}
 
+    def handle_profile_capture(self, request: Request) -> Response:
+        raw = request.query.get("ms")
+        try:
+            ms = int(raw) if raw is not None else None
+        except ValueError:
+            return _error(400, "ms must be an integer")
+        try:
+            path = self.profiler.capture(ms=ms, trigger="manual", parts={"stacks": self.sampler.snapshot()})
+        except ProfileBusyError:
+            return _error(409, "a profile capture is already in flight")
+        except Exception as exc:
+            logger.exception("profile capture failed")
+            return _error(500, f"capture failed: {exc}")
+        return 200, {"bundle": path.rsplit("/", 1)[-1], "path": path,
+                     "durationMs": self.profiler.clamp_ms(ms)}
+
+    def handle_profile_stacks(self, request: Request) -> Response:
+        if request.query.get("format") == "json":
+            body = self.sampler.snapshot()
+            body["hotspots"] = self.sampler.hotspots()
+            return 200, body
+        return 200, self.sampler.folded()
+
+    @staticmethod
+    def route_label(path: str) -> str:
+        """The route pattern a request counts under (the JAX server's
+        canonical resource), never the raw path: raw paths would blow up
+        the label cardinality."""
+        if path in _FIXED_ROUTES:
+            return path
+        if _EVENT_ID.match(path):
+            return "/events/{event_id}.json"
+        if _WEBHOOK_JSON.match(path):
+            return "/webhooks/{name}.json"
+        if _WEBHOOK_FORM.match(path):
+            return "/webhooks/{name}"
+        if (m := _PLUGIN.match(path)) and m.group(1):
+            return "/plugins/{tail}"
+        return "unmatched"
+
     # -------------------------------------------------------------- dispatch
     def handle(self, request: Request) -> Response:
-        """Route one request; returns (status, body[, headers]). An open
-        storage breaker met outside a route's own mapping (the access-key
-        lookup, a single-event get or delete) answers 503 too."""
+        """Route one request under its trace id and count it; returns
+        (status, body[, headers]), the trace id echoed in the headers. An
+        open storage breaker met outside a route's own mapping (the
+        access-key lookup, a single-event get or delete) answers 503 too."""
+        trace_id = request.headers.get(TRACE_HEADER.lower()) or mint_trace_id()
+        token = set_trace_id(trace_id)
+        endpoint = self.route_label(request.path)
+        status = 500  # an escaping exception is a 500 to the client
+        t0 = time.perf_counter()
         try:
-            return self._route(request)
-        except CircuitOpenError as exc:
-            return _storage_unavailable(exc)
+            with self.tracer.span("http.event", kind="ingress", endpoint=endpoint, method=request.method) as sp:
+                try:
+                    out = self._route(request)
+                except CircuitOpenError as exc:
+                    out = _storage_unavailable(exc)
+                status = out[0]
+                sp.tags["status"] = status
+        finally:
+            reset_trace_id(token)
+            self._m_requests.inc(endpoint=endpoint, status=str(status))
+            self._m_latency.observe(time.perf_counter() - t0, endpoint=endpoint)
+        headers = dict(out[2]) if len(out) > 2 else {}
+        headers[TRACE_HEADER] = trace_id
+        return out[0], out[1], headers
 
     def _route(self, request: Request) -> Response:
         method, path = request.method, request.path
@@ -417,6 +572,20 @@ class EventServer:
             if method != "GET":
                 return 405, "405: Method Not Allowed"
             return 200, self.plugin_context.to_json_dict()
+        if path in ("/metrics", "/slo", "/traces/recent", "/profile/stacks"):
+            if method != "GET":
+                return 405, "405: Method Not Allowed"
+            if path == "/metrics":
+                status, ctype, data = metrics_response(self.metrics, request.query, request.headers)
+            elif path == "/slo":
+                status, ctype, data = slo_response(self.slo)
+            elif path == "/traces/recent":
+                status, ctype, data = traces_response(self.tracer, request.query)
+            else:
+                return self.handle_profile_stacks(request)
+            return status, _Raw(data, ctype)
+        if path == "/profile/capture":
+            return self.handle_profile_capture(request) if method == "POST" else (405, "405: Method Not Allowed")
         routes: list[tuple[set[str], Any]] = []
         if path == "/events.json":
             routes = [
@@ -491,7 +660,9 @@ class EventServer:
                 self._reply(status, out, *headers)
 
             def _reply(self, status: int, out: Any, headers: dict[str, str] | None = None) -> None:
-                if isinstance(out, str):
+                if isinstance(out, _Raw):
+                    data, ctype = out.data, out.content_type
+                elif isinstance(out, str):
                     data, ctype = out.encode(), "text/plain; charset=utf-8"
                 else:
                     data, ctype = json.dumps(out).encode(), "application/json; charset=utf-8"
@@ -514,11 +685,14 @@ class EventServer:
         self._httpd = httpd
         self._thread = threading.Thread(target=httpd.serve_forever, name="pio-events", daemon=True)
         self._thread.start()
+        if self.config.sampler_period_s > 0:
+            self.sampler.start()
         port = httpd.server_address[1]
         logger.info("Event server started on %s:%d", self.config.ip, port)
         return port
 
     def shutdown(self) -> None:
+        self.sampler.stop()
         if self._httpd is not None:
             self._httpd.shutdown()
             self._httpd.server_close()
@@ -529,6 +703,11 @@ class EventServer:
 class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
     daemon_threads = True
     request_queue_size = 256  # a burst of new connections must not overflow the backlog
+
+    def process_request_thread(self, request, client_address) -> None:
+        # the host sampler attributes stacks by thread name
+        threading.current_thread().name = "pio-handler"
+        super().process_request_thread(request, client_address)
 
 
 def create_event_server(

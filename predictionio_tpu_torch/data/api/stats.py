@@ -10,10 +10,10 @@ derived by snapshotting counter values at hour boundaries and reporting the
 diff. The response shape (``currentHour`` / ``longLive`` / ``prevHour``) is
 the JAX package's.
 
-The port's own copy of ``predictionio_tpu/data/api/stats.py``. The JAX
-collector keeps its counters in the ``obs.metrics`` registry behind
-``/metrics``; the port has no ``/metrics`` yet, so it keeps its own minimal
-counter here.
+The port's own copy of ``predictionio_tpu/data/api/stats.py``: the
+counters (``pio_events_ingested_total`` / ``pio_events_by_type_total``)
+live in the event server's metrics registry, so a scrape of ``/metrics``
+and ``/stats.json`` read the same numbers.
 """
 
 from __future__ import annotations
@@ -23,28 +23,10 @@ import threading
 from typing import Any
 
 from predictionio_tpu_torch.data.event import UTC, Event, format_event_time
+from predictionio_tpu_torch.obs.metrics import Counter, MetricsRegistry
 
 # counters store label values as strings; None target_entity_type maps to ""
 _NONE_TARGET = ""
-
-
-class Counter:
-    """A monotonic float per tuple of label values (the part of the JAX
-    package's ``obs.metrics.Counter`` that the collector uses)."""
-
-    def __init__(self, labelnames: tuple[str, ...]):
-        self.labelnames = labelnames
-        self._series: dict[tuple[str, ...], float] = {}
-        self._lock = threading.Lock()
-
-    def inc(self, amount: float = 1.0, **labels: str) -> None:
-        key = tuple(str(labels[n]) for n in self.labelnames)
-        with self._lock:
-            self._series[key] = self._series.get(key, 0.0) + amount
-
-    def collect(self) -> list[tuple[tuple[str, ...], float]]:
-        with self._lock:
-            return sorted(self._series.items())
 
 
 def _snapshot_counter(counter: Counter) -> dict[tuple[str, ...], float]:
@@ -66,11 +48,19 @@ class StatsCollector:
     """Hourly + lifetime ingestion stats on top of the metrics registry
     (ref StatsActor hour-bucketing)."""
 
-    def __init__(self):
-        # events accepted by the collection API, by app and HTTP status
-        self._status = Counter(("app_id", "status"))
-        # ... and by app and (entityType, targetEntityType, event)
-        self._ete = Counter(("app_id", "entity_type", "target_entity_type", "event"))
+    def __init__(self, registry: MetricsRegistry | None = None):
+        self.registry = registry or MetricsRegistry()
+        self._status = self.registry.counter(
+            "pio_events_ingested_total",
+            "events accepted by the collection API, by app and HTTP status",
+            labelnames=("app_id", "status"),
+        )
+        self._ete = self.registry.counter(
+            "pio_events_by_type_total",
+            "events accepted by the collection API, by app and "
+            "(entityType, targetEntityType, event)",
+            labelnames=("app_id", "entity_type", "target_entity_type", "event"),
+        )
         now = _dt.datetime.now(tz=UTC)
         self._lock = threading.Lock()
         self._start_time = now

@@ -1,6 +1,7 @@
-"""The step profiler (port of ``TrainProfile`` and its context helpers in
-``predictionio_tpu/obs/xray.py``; the capacity planner and the sharding
-inspector are not ported).
+"""The step profiler, the card's memory readings and the capacity planner
+(port of ``TrainProfile`` and its context helpers, the device half and the
+capacity planner of ``predictionio_tpu/obs/xray.py``; the sharding
+inspector is not ported).
 
 A :class:`TrainProfile` records a run's phases with exclusive-time nesting
 and monotonic wall time; the phases tile the measured wall clock, which the
@@ -9,6 +10,14 @@ a contextvar (:func:`use_profile` / :func:`current_profile`), and the
 module-level :func:`phase` no-ops when nothing is recording. Where the JAX
 package fetches a derived scalar as its device barrier,
 :meth:`TrainProfile.device_barrier` synchronises the card.
+
+The device half reads the card's caching allocator: live tensor bytes are
+``torch.cuda.memory_allocated`` per card, and :func:`device_memory_stats`
+keeps the JAX package's keys (``bytes_in_use``, ``peak_bytes_in_use``,
+``bytes_limit``) over ``memory_allocated``, ``max_memory_allocated`` and
+``mem_get_info``. Nothing here initialises CUDA: without a card, or before
+anything touched one, the readings are empty. :func:`estimate_factors` and
+:func:`estimate_ann` are the JAX package's arithmetic, unchanged.
 """
 
 from __future__ import annotations
@@ -221,3 +230,196 @@ def phase(name: str) -> Iterator[None]:
         return
     with prof.phase(name):
         yield
+
+
+def device_fetch(x: Any, where: str = "train") -> Any:
+    """Profiled host copy of a tensor (plain ``.cpu()`` when nothing is
+    recording): the wait lands in the current profile's phase."""
+    prof = current_profile()
+    if prof is None or not isinstance(x, torch.Tensor):
+        return x.cpu() if isinstance(x, torch.Tensor) else x
+    t0 = prof._clock()
+    out = x.cpu()
+    prof.note_device_time(prof._clock() - t0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# live-memory accounting
+# ---------------------------------------------------------------------------
+
+
+def _cuda_live() -> bool:
+    """True only when CUDA is already initialised in this process: reading
+    a memory gauge must not be what creates a context on the card."""
+    try:
+        return torch.cuda.is_initialized()
+    except Exception:  # a torch built without CUDA
+        return False
+
+
+def live_bytes_per_device() -> dict[str, int]:
+    """Bytes of live tensors per card (``torch.cuda.memory_allocated``);
+    empty before CUDA is initialised."""
+    if not _cuda_live():
+        return {}
+    return {f"cuda:{i}": int(torch.cuda.memory_allocated(i)) for i in range(torch.cuda.device_count())}
+
+
+def live_array_bytes() -> int:
+    """Total bytes of live tensors over every card; 0 before CUDA is
+    initialised. The runtime cross-check for :func:`estimate_factors`."""
+    return sum(live_bytes_per_device().values())
+
+
+def device_memory_stats() -> dict[str, Any] | None:
+    """Allocator stats of the busiest card, under the JAX package's keys:
+    ``bytes_in_use`` (``memory_allocated``), ``peak_bytes_in_use``
+    (``max_memory_allocated``) and ``bytes_limit`` (the card's total from
+    ``mem_get_info``). None before CUDA is initialised."""
+    if not _cuda_live():
+        return None
+    best: dict[str, Any] | None = None
+    for i in range(torch.cuda.device_count()):
+        in_use = int(torch.cuda.memory_allocated(i))
+        if best is None or in_use > best["bytes_in_use"]:
+            _free, total = torch.cuda.mem_get_info(i)
+            best = {
+                "device": f"cuda:{i}",
+                "bytes_in_use": in_use,
+                "peak_bytes_in_use": int(torch.cuda.max_memory_allocated(i)),
+                "bytes_limit": int(total),
+            }
+    return best
+
+
+# ---------------------------------------------------------------------------
+# capacity planner (the JAX package's arithmetic)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class CapacityEstimate:
+    """Predicted ALS training footprint: what the formulation requires.
+
+    - ``factor_bytes``: both factor tables incl. the +1 padding row, and a
+      half-size copy of each for a bf16 ``gather_dtype``;
+    - ``workspace_bytes``: the larger half-solve's normal equations
+      ``A [E,k,k] + b [E,k] + counts [E]`` at f32, plus 4 CG vectors per
+      system;
+    - ``wire_bytes``: the rating tables for ``nnz`` ratings (9 B a slot,
+      both sides), 0 when ``nnz`` is unknown;
+    - ``per_device_bytes``: everything row-sharded over ``n_devices``, plus
+      one gathered opposite table when sharded.
+    """
+
+    users: int
+    items: int
+    rank: int
+    dtype: str
+    gather_dtype: str
+    n_devices: int
+    nnz: int | None
+    factor_bytes: int
+    workspace_bytes: int
+    wire_bytes: int
+    total_bytes: int
+    per_device_bytes: int
+
+    def to_json_dict(self) -> dict[str, Any]:
+        return dataclasses.asdict(self)
+
+    def fits(self, hbm_bytes_per_device: int | float) -> bool:
+        return self.per_device_bytes <= hbm_bytes_per_device
+
+
+def estimate_factors(
+    users: int,
+    items: int,
+    k: int,
+    dtype: str = "f32",
+    n_devices: int = 1,
+    *,
+    nnz: int | None = None,
+    gather_dtype: str = "f32",
+) -> CapacityEstimate:
+    """Predict the per-card footprint of an ALS train (see
+    :class:`CapacityEstimate`). Pure arithmetic: ``pio doctor`` calls it
+    without a card. ``n_devices`` stands where the JAX package takes a
+    mesh; the port trains on one card."""
+    if users < 0 or items < 0 or k <= 0:
+        raise ValueError(f"need users/items >= 0 and k > 0, got {users}/{items}/{k}")
+    bpe = 2 if dtype == "bf16" else 4
+    n_dev = max(1, int(n_devices))
+    user_table = (users + 1) * k * bpe
+    item_table = (items + 1) * k * bpe
+    factor = user_table + item_table
+    if gather_dtype == "bf16":
+        factor += (user_table + item_table) // 2
+    e = max(users, items) + 1
+    workspace = e * (k * k + k + 1) * 4 + 4 * e * k * 4
+    wire = 2 * int(nnz) * 9 if nnz else 0
+    total = factor + workspace + wire
+    per_device = -(-total // n_dev)
+    if n_dev > 1:
+        per_device += max(user_table, item_table)
+    return CapacityEstimate(
+        users=users,
+        items=items,
+        rank=k,
+        dtype=dtype,
+        gather_dtype=gather_dtype,
+        n_devices=n_dev,
+        nnz=nnz,
+        factor_bytes=factor,
+        workspace_bytes=workspace,
+        wire_bytes=wire,
+        total_bytes=total,
+        per_device_bytes=int(per_device),
+    )
+
+
+def estimate_ann(
+    items: int,
+    dim: int,
+    clusters: int = 0,
+    nprobe: int = 0,
+    *,
+    quantize_int8: bool = False,
+    batch: int = 64,
+) -> dict[str, Any]:
+    """Price a pinned ANN index's card memory next to the factor tables
+    (``pio doctor --capacity ... --ann clusters,nprobe``), with the
+    build's own sizing rules (``ann/index.py``): centroids ``[C, dim]``
+    f32, bucket ids ``[C, cap]`` int32 and vectors ``[C, cap, dim]`` (f32,
+    or int8 plus an f32 scale an item), and the search's per-batch
+    transient ``[batch, nprobe, cap, dim]`` with its scores."""
+    if items <= 0 or dim <= 0:
+        raise ValueError(f"need items > 0 and dim > 0, got {items}/{dim}")
+    from predictionio_tpu_torch.ann.index import bucket_capacity, default_clusters, default_nprobe
+
+    clusters = clusters or default_clusters(items)
+    clusters = max(1, min(clusters, items))
+    nprobe = min(nprobe or default_nprobe(clusters), clusters)
+    cap = bucket_capacity(items, clusters)
+    vec_elem = 1 if quantize_int8 else 4
+    centroid_bytes = clusters * dim * 4
+    bucket_bytes = clusters * cap * (dim * vec_elem + 4)
+    if quantize_int8:
+        bucket_bytes += clusters * cap * 4
+    search_transient = batch * nprobe * cap * (dim * 4 + 8)
+    total = centroid_bytes + bucket_bytes
+    return {
+        "items": items,
+        "dim": dim,
+        "clusters": clusters,
+        "nprobe": nprobe,
+        "bucketCap": cap,
+        "quantized": quantize_int8,
+        "centroidBytes": centroid_bytes,
+        "bucketBytes": bucket_bytes,
+        "searchTransientBytes": search_transient,
+        "perDeviceBytes": total,
+        "candidatesPerQuery": nprobe * cap,
+        "candidateFrac": round(min(1.0, nprobe * cap / max(1, items)), 4),
+    }

@@ -30,6 +30,9 @@ _lock = threading.Lock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build this process ran
 build_logs: dict[str, str] = {}
+# nvcc runs of this process: kernel name -> (builds, wall seconds of the
+# build() calls that ran them); obs/torchprof.py exports them
+build_counts: dict[str, tuple[int, float]] = {}
 
 
 class KernelBuildError(RuntimeError):
@@ -83,9 +86,13 @@ def build(names: list[str]) -> float:
             tmp.unlink(missing_ok=True)
         else:
             os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    elapsed = time.perf_counter() - t0
+    for name, *_ in jobs:
+        n, seconds = build_counts.get(name, (0, 0.0))
+        build_counts[name] = (n + 1, seconds + elapsed)
     if failed:
         raise KernelBuildError("kernel build failed: " + "\n".join(failed))
-    return time.perf_counter() - t0
+    return elapsed
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -20,11 +20,14 @@ Each candidate publish carries the stable version's ANN index forward
 (``ann.lifecycle.refresh_for_publish``, on the trainer's device) before it
 is staged.
 
-Port of ``predictionio_tpu/stream/pipeline.py``. Not carried over (not
-ported yet): tracing spans, the ``CompileWatcher``, the telemetry ring and
-incident bundles of a drift breach; the reference's "not configured"
-branch of each is taken. The step profiler records phases only.
-``publish_seconds`` times each publish's four parts (snapshot, serialize,
+Port of ``predictionio_tpu/stream/pipeline.py``, with its tracing spans
+(``stream.foldin`` per drain, ``stream.publish`` per publish attempt), the
+``pio_seq_*`` family bound to a sequential trainer, and its drift signal: a
+breached guard appends a ``kind="drift"`` record to the telemetry ring
+(``ring=``) and triggers a rate-limited ``stream-drift`` incident bundle
+(``incidents=``), which ``pio stream --obs-dir`` wires in. The JAX
+``CompileWatcher`` has no counterpart (eager PyTorch has no jit cache).
+The step profiler records phases only. ``publish_seconds`` times each publish's four parts (snapshot, serialize,
 the store's sha256 and write), ``ann_refreshes`` each index refresh's
 path, drift and seconds.
 """
@@ -40,6 +43,7 @@ from typing import Any, Callable
 
 from predictionio_tpu_torch.obs import xray
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
+from predictionio_tpu_torch.obs.tracing import get_tracer
 from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest
 from predictionio_tpu_torch.registry.store import MODE_CANARY, MODE_SHADOW
 from predictionio_tpu_torch.resilience import CircuitOpenError
@@ -121,8 +125,11 @@ class StreamInstruments:
         from predictionio_tpu_torch.ann.metrics import AnnInstruments
 
         self.ann = AnnInstruments(r)
-        # the pio_seq_* slot of the reference stays empty: the port has no
-        # sequential serving instruments yet
+        # the pio_seq_* family: the stream layer is where sessions fold in
+        # (the sequential trainer binds to this on pipeline construction)
+        from predictionio_tpu_torch.models.sequential.metrics import SeqInstruments
+
+        self.seq = SeqInstruments(r)
 
 
 class StreamPipeline:
@@ -137,8 +144,11 @@ class StreamPipeline:
         config: StreamConfig,
         *,
         instruments: StreamInstruments | None = None,
+        tracer=None,
         stage_hook: Callable[[str, str, float], None] | None = None,
         clock: Callable[[], float] = time.time,
+        ring=None,  # obs.tsring.TelemetryRing
+        incidents=None,  # obs.incidents.IncidentRecorder
     ):
         self.tailer = tailer
         self.trainer = trainer
@@ -146,11 +156,21 @@ class StreamPipeline:
         self.store = store
         self.config = config
         self.instruments = instruments or StreamInstruments()
+        # bind the pio_seq_* family to a sequential trainer that was built
+        # without one (only SequentialStreamTrainer carries the slot)
+        if getattr(trainer, "_instruments", False) is None:
+            trainer._instruments = self.instruments.seq
+        self.tracer = tracer or get_tracer()
         # stage_hook(version, mode, fraction) overrides direct registry
         # staging — `pio stream --notify-url` posts /models/candidate to a
         # live server so the candidate lane starts baking immediately
         self.stage_hook = stage_hook
         self._clock = clock
+        # drift breaches are structured signals, not just a counter: each
+        # lands on the telemetry ring (kind="drift") and fires a
+        # rate-limited incident bundle
+        self.ring = ring
+        self.incidents = incidents
         self.cursor = cursors.load(tailer.app_id, tailer.channel_id)
         # Restart rewind: events folded and checkpointed but never
         # PUBLISHED live only in the dead process's trainer, so resume
@@ -221,10 +241,17 @@ class StreamPipeline:
             # actually moved events (pio top derives drains/s from it)
             ins.drain_seconds.observe(time.perf_counter() - t0)
             ins.drains.inc()
-            t1 = time.perf_counter()
-            with prof.phase(xray.PHASE_SWEEP):
-                absorbed = self.trainer.absorb(result.events)
-            ins.foldin_seconds.observe(time.perf_counter() - t1)
+            with self.tracer.span("stream.foldin", kind="stream", trainer=self.trainer.name) as sp:
+                t1 = time.perf_counter()
+                with prof.phase(xray.PHASE_SWEEP):
+                    absorbed = self.trainer.absorb(result.events)
+                ins.foldin_seconds.observe(time.perf_counter() - t1)
+                sp.tags["events"] = len(result.events)
+                sp.tags["absorbed"] = absorbed
+                stats = getattr(self.trainer, "last_absorb_stats", None)
+                if stats:
+                    sp.tags["rows"] = stats.get("rows")
+                    sp.tags["entities"] = stats.get("entities")
             prof.add_rows(absorbed)
             drained += len(result.events)
             ins.events.inc(len(result.events))
@@ -308,7 +335,38 @@ class StreamPipeline:
                 return m
         return None
 
+    def _signal_drift(self, report) -> None:
+        """A breached guard: one ring record per suppressed publish
+        (engine, trainer, guard, measured against threshold) and a
+        rate-limited incident bundle. Never raises: the publish is already
+        suppressed and the stream loop must keep folding."""
+        detail = {
+            "engine": self.config.engine_id,
+            "trainer": self.trainer.name,
+            "guard": report.metric,
+            "measured": report.current,
+            "threshold": report.baseline,
+            "reason": report.reason,
+        }
+        if self.ring is not None:
+            try:
+                self.ring.append({"kind": "drift", **detail})
+            except Exception:
+                logger.exception("drift signal: ring append failed")
+        if self.incidents is not None:
+            self.incidents.trigger("stream-drift", context=detail)
+
     def _maybe_publish(self) -> tuple[str | None, bool]:
+        with self.tracer.span("stream.publish", kind="stream", engine_id=self.config.engine_id) as sp:
+            sp.tags["spanId"] = span_id_of(self._span_from, self.cursor.pos())
+            version, suppressed = self._publish()
+            if suppressed:
+                sp.status = "drift-suppressed"
+            elif version is not None:
+                sp.tags["version"] = version
+            return version, suppressed
+
+    def _publish(self) -> tuple[str | None, bool]:
         cfg = self.config
         span_to = self.cursor.pos()
         span_id = span_id_of(self._span_from, span_to)
@@ -318,6 +376,7 @@ class StreamPipeline:
         if not report.ok:
             self.instruments.drift_suppressed.inc()
             logger.warning("drift guard breached; publish suppressed: %s", report.reason)
+            self._signal_drift(report)
             return None, True
         existing = self._find_published_span(span_id)
         if existing is not None:

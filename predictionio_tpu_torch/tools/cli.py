@@ -21,6 +21,13 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
            [--request-timeout S] [--queue-high-water N] [--breaker-threshold N]
            [--breaker-recovery S] [--drain-grace S]
            [--registry-dir R] [--registry-sync-interval S] [--bake-window S] ...
+           [--result-cache-size N] [--result-cache-ttl S] [--slo-* ...]
+           [--profile-dir D] [--sampler-period S] [--no-profile-on-alert] ...
+    profile serve --url U [--ms N] | train [--profile-dir D] -- TRAIN ARGS
+            | list | show BUNDLE [--json] | export BUNDLE DEST
+    incidents list | show BUNDLE [--json] | export BUNDLE DEST  [--obs-dir D]
+    doctor [--capacity USERS ITEMS K [--ann C,P] [--hbm-bytes B] [--dtype f32|bf16]
+           [--nnz N]] [--registry-dir R] [--roofline [--families F]] [--device cuda|cpu]
     models list | show [V] | promote [V] | rollback | stage V --url U | diff A B
     undeploy [--ip IP] [--port N] [--ssl]
     batchpredict --engine-dir DIR [--input FILE | --from-events] [--output FILE]
@@ -38,7 +45,11 @@ without it, one sqlite file ``pio.db`` under the basedir (``--home``, else
 batchpredict and eval fail unless ``--device cpu``. The model registry is
 ``--registry-dir``, else ``$PIO_REGISTRY_DIR``, else ``registry/`` under
 the basedir; ``pio stream`` keeps its cursors under ``--cursor-dir``, else
-``$PIO_STREAM_DIR``, else ``stream/`` under the basedir.
+``$PIO_STREAM_DIR``, else ``stream/`` under the basedir. ``pio stream
+--obs-dir D`` appends drift signals to the telemetry ring under
+``D/telemetry`` and writes incident bundles under ``D/incidents``, which
+``pio incidents`` reads. ``pio profile`` and ``pio doctor`` read bundles
+and the card without importing anything of JAX.
 """
 
 from __future__ import annotations
@@ -451,8 +462,19 @@ def _run_stream(args, manifest) -> int:
             )
 
     instruments = StreamInstruments()
+    # --obs-dir: drift breaches land on the telemetry ring (kind=drift)
+    # and snapshot rate-limited incident bundles
+    ring = incidents = None
+    if getattr(args, "obs_dir", None):
+        from predictionio_tpu_torch.obs.incidents import IncidentRecorder
+        from predictionio_tpu_torch.obs.tsring import TelemetryRing
+
+        ring = TelemetryRing(os.path.join(args.obs_dir, "telemetry"), writer_id="stream")
+        incidents = IncidentRecorder(os.path.join(args.obs_dir, "incidents"), metrics=instruments.registry)
+        incidents.add_source("telemetry-ring", lambda: ring.tail(200))
     pipeline = StreamPipeline(
-        tailer, trainer, cursors, store, config, instruments=instruments, stage_hook=stage_hook
+        tailer, trainer, cursors, store, config, instruments=instruments, stage_hook=stage_hook,
+        ring=ring, incidents=incidents,
     )
     metrics_server = None
     if args.metrics_port:
@@ -515,6 +537,20 @@ def cmd_deploy(args) -> int:
         bake_min_requests=args.bake_min_requests,
         auto_promote=not args.no_auto_promote,
         registry_sync_interval_s=args.registry_sync_interval or 0.0,
+        slo_latency_threshold_s=args.slo_latency_threshold,
+        slo_latency_objective=args.slo_latency_objective,
+        slo_availability_objective=args.slo_availability_objective,
+        slo_shed_objective=args.slo_shed_objective,
+        result_cache_size=args.result_cache_size,
+        result_cache_ttl_s=args.result_cache_ttl,
+        profile_dir=args.profile_dir,
+        profile_max_bundles=args.profile_max_bundles,
+        profile_default_ms=args.profile_default_ms,
+        profile_max_ms=args.profile_max_ms,
+        sampler_period_s=args.sampler_period,
+        profile_on_alert=not args.no_profile_on_alert,
+        profile_alert_min_interval_s=args.profile_alert_min_interval,
+        profile_alert_trace_ms=args.profile_alert_trace_ms,
     )
     server = create_query_server(args.engine_dir, ctx, config, args.variant)
     port = server.start()
@@ -960,6 +996,353 @@ def cmd_run(args) -> int:
     return 0
 
 
+# ---------------------------------------------------------------------------
+# observability verbs: profile, incidents, doctor
+# ---------------------------------------------------------------------------
+
+
+def _print_bundles(directory: str, title: str, noun: str, empty_hint: str) -> int:
+    import time as _time
+
+    from predictionio_tpu_torch.obs.incidents import list_bundles
+
+    refs = list_bundles(directory)
+    if not refs:
+        print(f"No {noun} bundles under {directory} ({empty_hint})")
+        return 0
+    print(f"{title}: {directory}")
+    print(f"{'Bundle':<30} | {'Trigger':<14} | Captured")
+    for ref in refs:
+        when = _time.strftime("%Y-%m-%d %H:%M:%S", _time.localtime(ref.captured_at))
+        print(f"{ref.bundle_id:<30} | {ref.trigger:<14} | {when}")
+    return 0
+
+
+def _show_bundle(directory: str, args, tail_lines: int = 0) -> dict | None:
+    """Print one bundle's manifest, parts and texts (the JAX layout);
+    returns it, or None after printing the whole JSON (``--json``)."""
+    from predictionio_tpu_torch.obs.incidents import load_bundle
+
+    bundle = load_bundle(directory, args.bundle)
+    if args.json:
+        print(json.dumps(bundle, indent=2, sort_keys=True, default=repr))
+        return None
+    manifest = bundle["manifest"]
+    print(f"trigger   {manifest.get('trigger')}")
+    print(f"captured  {manifest.get('capturedAt')}")
+    print(f"sha256    {manifest.get('sha256')}")
+    context = manifest.get("context") or {}
+    if context:
+        print("context   " + json.dumps(context, sort_keys=True))
+    for name, part in sorted(bundle["parts"].items()):
+        print(f"part      {name}.json ({len(json.dumps(part))} bytes)")
+    for name, text in sorted(bundle["texts"].items()):
+        print(f"text      {name}.txt ({len(text)} bytes)")
+        for line in (text.strip().splitlines()[-tail_lines:] if tail_lines > 0 else []):
+            print(f"  | {line}")
+    return bundle
+
+
+def _export_bundle(directory: str, args) -> int:
+    from predictionio_tpu_torch.obs.incidents import export_bundle
+
+    try:
+        dest = export_bundle(directory, args.bundle, args.dest)
+    except (FileNotFoundError, ValueError, OSError) as exc:
+        return _die(str(exc))
+    print(f"Exported to {dest}")
+    return 0
+
+
+def _incidents_dir(args) -> str:
+    return os.path.join(args.obs_dir, "incidents")
+
+
+def cmd_incidents_list(args) -> int:
+    return _print_bundles(_incidents_dir(args), "Incidents", "incident",
+                          "pio stream --obs-dir writes them on a drift breach; --obs-dir points elsewhere")
+
+
+def cmd_incidents_show(args) -> int:
+    try:
+        _show_bundle(_incidents_dir(args), args, tail_lines=args.tail_lines)
+    except (FileNotFoundError, ValueError) as exc:
+        return _die(str(exc))
+    return 0
+
+
+def cmd_incidents_export(args) -> int:
+    return _export_bundle(_incidents_dir(args), args)
+
+
+def _profile_dir(args) -> str:
+    # the flag, else PIO_PROFILE_DIR (the training gate), else the deploy default
+    return args.profile_dir or os.environ.get("PIO_PROFILE_DIR") or "pio_obs/profiles"
+
+
+def cmd_profile_serve(args) -> int:
+    """``POST /profile/capture?ms=`` on a running server; the bundle lands
+    in the server's own store (``pio profile list --profile-dir``)."""
+    import urllib.error
+    import urllib.request
+
+    target = args.url.rstrip("/") + f"/profile/capture?ms={args.ms}"
+    req = urllib.request.Request(target, data=b"", method="POST")
+    try:
+        with urllib.request.urlopen(req, timeout=args.timeout) as resp:
+            body = json.loads(resp.read().decode("utf-8", errors="replace"))
+    except urllib.error.HTTPError as exc:
+        detail = exc.read().decode("utf-8", errors="replace")[:400]
+        if exc.code == 409:
+            return _die(f"capture already in flight on {args.url}: {detail}")
+        return _die(f"capture failed ({exc.code}): {detail}")
+    except OSError as exc:
+        return _die(f"server unreachable at {args.url}: {exc}")
+    print(json.dumps(body, indent=2, sort_keys=True))
+    return 0
+
+
+def cmd_profile_train(args) -> int:
+    """``pio train`` under the device tracer: sets ``PIO_PROFILE_DIR`` and
+    runs the train verb with the remaining arguments."""
+    rest = list(args.train_args)
+    if rest and rest[0] == "--":
+        rest = rest[1:]
+    os.environ["PIO_PROFILE_DIR"] = _profile_dir(args)
+    return main((["--home", args.home] if args.home else []) + ["train", *rest])
+
+
+def cmd_profile_list(args) -> int:
+    return _print_bundles(_profile_dir(args), "Profiles", "profile",
+                          "POST /profile/capture, `pio profile serve|train` or profile-on-alert "
+                          "write them; --profile-dir points elsewhere")
+
+
+def cmd_profile_show(args) -> int:
+    from predictionio_tpu_torch.obs.incidents import resolve_bundle
+    from predictionio_tpu_torch.obs.profiler import trace_kernels
+
+    directory = _profile_dir(args)
+    try:
+        bundle = _show_bundle(directory, args)
+    except (FileNotFoundError, ValueError) as exc:
+        return _die(str(exc))
+    if bundle is None:
+        return 0
+    for entry in bundle["manifest"].get("trace") or []:
+        print(f"trace     {entry.get('name')} ({entry.get('bytes')} bytes, "
+              f"sha256 {str(entry.get('sha256'))[:12]})")
+    trace_dir = os.path.join(resolve_bundle(directory, args.bundle), "trace")
+    if os.path.isdir(trace_dir):
+        for name, n in sorted(trace_kernels(trace_dir).items(), key=lambda kv: -kv[1]):
+            print(f"kernel    {n:>8}  {name}")
+    return 0
+
+
+def cmd_profile_export(args) -> int:
+    return _export_bundle(_profile_dir(args), args)
+
+
+def _parse_bytes(text: str) -> int:
+    """'16e9', '16000000000', '16GB', '16GiB' -> bytes."""
+    t = text.strip().lower()
+    for suffix, mult in (("gib", 1 << 30), ("mib", 1 << 20), ("kib", 1 << 10),
+                         ("gb", 10**9), ("mb", 10**6), ("kb", 10**3), ("b", 1)):
+        if t.endswith(suffix):
+            return int(float(t[: -len(suffix)]) * mult)
+    return int(float(t))
+
+
+def _doctor_roofline(args) -> int:
+    """``pio doctor --roofline``: the analytic roofline (obs/costmodel) of
+    every family, the three CUDA kernels at the main paths' shapes
+    included, against the card's data-sheet peaks."""
+    from predictionio_tpu_torch.obs import costmodel
+
+    families = [f.strip() for f in args.families.split(",") if f.strip()] if args.families else None
+    try:
+        report = costmodel.analyze(families=families)
+    except ValueError as exc:
+        return _die(str(exc))
+    print(json.dumps(report, indent=2, sort_keys=True))
+    for cost in report["families"].get("kernels", {}).get("kernels", []):
+        ms, what, _ = costmodel.bound_ms(cost)
+        print(f"bound     {cost['kernel']:<16} {json.dumps(cost['shape'], sort_keys=True)}  "
+              f"{ms:.6g} ms, {what}  ({cost.get('label', '')})")
+    return 0
+
+
+def _doctor_inventory(device: str) -> None:
+    """The card: name, memory and the allocator's readings (xray)."""
+    import torch
+
+    from predictionio_tpu_torch.obs import xray
+
+    if device == "cpu":
+        print("device: cpu (no card asked for)")
+        return
+    if not torch.cuda.is_available():
+        raise RuntimeError("no CUDA card (pass --device cpu for the planner alone)")
+    n = torch.cuda.device_count()
+    print(f"backend: cuda {torch.version.cuda}  torch {torch.__version__}  devices: {n}")
+    for i in range(n):
+        free, total = torch.cuda.mem_get_info(i)
+        print(f"  cuda:{i}  {torch.cuda.get_device_name(i)}  memory {total} B  free {free} B")
+    stats = xray.device_memory_stats()
+    if stats:
+        print("  busiest: " + json.dumps(stats, sort_keys=True))
+
+
+def _doctor_ann_inventory(registry_dir: str | None) -> None:
+    """Every ANN index pinned on a registry-stable version."""
+    registry_dir = registry_dir or os.environ.get("PIO_REGISTRY_DIR")
+    if not registry_dir or not os.path.isdir(registry_dir):
+        return
+    from predictionio_tpu_torch.registry import ArtifactStore
+
+    store = ArtifactStore(registry_dir)
+    lines = []
+    for key in store.engines():
+        state = store.state_by_key(key)
+        if not state.stable:
+            continue
+        manifest = {m.version: m for m in store.versions_by_key(key)}.get(state.stable)
+        if manifest is None or not manifest.ann_index:
+            continue
+        a = manifest.ann_index
+        lines.append(
+            f"  {key} {state.stable}: {a.get('items', '?')} items, {a.get('clusters', '?')} clusters "
+            f"x cap {a.get('bucketCap', '?')}, nprobe {a.get('nprobe', '?')}, "
+            f"{a.get('hbmBytes', 0)} B" + (" (int8)" if a.get("quantized") else "")
+        )
+    if lines:
+        print("ann indexes (registry-pinned stable):")
+        for line in lines:
+            print(line)
+
+
+def cmd_doctor(args) -> int:
+    """Preflight diagnostics. ``--capacity USERS ITEMS K`` prices an ALS
+    train's card memory (``xray.estimate_factors``), ``--ann C,P`` an ANN
+    index beside it; exit 1 past ``--hbm-bytes``. ``--roofline``: the
+    analytic roofline. Otherwise the inventory: the card and the indexes
+    pinned in the registry."""
+    from predictionio_tpu_torch.obs import xray
+
+    if args.roofline:
+        return _doctor_roofline(args)
+    if args.ann and not args.capacity:
+        return _die("--ann needs --capacity USERS ITEMS K (ITEMS and K size the index)")
+    if args.capacity:
+        users, items, k = (int(v) for v in args.capacity)
+        est = xray.estimate_factors(users, items, k, dtype=args.dtype, nnz=args.nnz)
+        budget = _parse_bytes(args.hbm_bytes) if args.hbm_bytes else None
+        need = est.per_device_bytes
+        ann_est = None
+        if args.ann:
+            try:
+                clusters_s, _, nprobe_s = args.ann.partition(",")
+                clusters, nprobe = int(clusters_s or 0), int(nprobe_s or 0)
+            except ValueError:
+                return _die(f"--ann expects 'clusters,nprobe' (0 = auto), got {args.ann!r}")
+            ann_est = xray.estimate_ann(items, k, clusters, nprobe, quantize_int8=args.ann_int8)
+            need += ann_est["perDeviceBytes"]
+        print(json.dumps({
+            "capacity": est.to_json_dict(),
+            "ann": ann_est,
+            "perDeviceBytesTotal": need,
+            "hbmBudgetBytes": budget,
+            "fits": (need <= budget) if budget is not None else None,
+        }, indent=2))
+        if budget is not None:
+            if need > budget:
+                print(f"EXCEEDS BUDGET: {need / 1e9:.2f} GB/device needed vs {budget / 1e9:.2f} GB "
+                      f"budget: lower k, bf16 the tables", file=sys.stderr)
+                return 1
+            print(f"fits: {need / 1e9:.2f} GB/device of {budget / 1e9:.2f} GB budget "
+                  f"({100.0 * need / budget:.1f}%)")
+        return 0
+    _doctor_inventory(args.device)
+    _doctor_ann_inventory(args.registry_dir)
+    return 0
+
+
+def _add_obs_verbs(sub) -> None:
+    prof = sub.add_parser(
+        "profile", help="on-demand torch.profiler captures of a live server, a traced train, "
+                        "and profile bundle inspection"
+    ).add_subparsers(dest="subcommand", required=True)
+
+    def profile_dir_arg(x):
+        x.add_argument("--profile-dir", default=None,
+                       help="profile bundle directory (default $PIO_PROFILE_DIR, else "
+                            "pio_obs/profiles, the deploy default)")
+
+    x = prof.add_parser("serve", help="POST /profile/capture?ms= on a running server")
+    x.add_argument("--url", default="http://127.0.0.1:8000")
+    x.add_argument("--ms", type=int, default=500,
+                   help="device-trace length (clamped server-side; 0 = host-only bundle)")
+    x.add_argument("--timeout", type=float, default=30.0)
+    x.set_defaults(fn=cmd_profile_serve)
+    x = prof.add_parser("train", help="run `train ...` under the device tracer; the trace "
+                                      "lands as a bundle under --profile-dir")
+    profile_dir_arg(x)
+    x.add_argument("train_args", nargs=argparse.REMAINDER,
+                   help="arguments of `train` (prefix with --)")
+    x.set_defaults(fn=cmd_profile_train)
+    x = prof.add_parser("list", help="bundles oldest first")
+    profile_dir_arg(x)
+    x.set_defaults(fn=cmd_profile_list)
+    x = prof.add_parser("show", help="manifest, parts, trace inventory and kernel launches of one bundle")
+    x.add_argument("bundle", help="bundle id (unique prefix accepted)")
+    profile_dir_arg(x)
+    x.add_argument("--json", action="store_true", help="full bundle as JSON")
+    x.set_defaults(fn=cmd_profile_show)
+    x = prof.add_parser("export", help="copy one bundle somewhere shippable")
+    x.add_argument("bundle")
+    x.add_argument("dest")
+    profile_dir_arg(x)
+    x.set_defaults(fn=cmd_profile_export)
+
+    inc = sub.add_parser("incidents", help="incident bundles (pio stream --obs-dir writes them "
+                                           "on a drift breach)").add_subparsers(dest="subcommand", required=True)
+    x = inc.add_parser("list", help="bundles oldest first")
+    x.add_argument("--obs-dir", default="pio_obs")
+    x.set_defaults(fn=cmd_incidents_list)
+    x = inc.add_parser("show", help="manifest, parts and text tails of one bundle")
+    x.add_argument("bundle", help="bundle id (unique prefix accepted)")
+    x.add_argument("--obs-dir", default="pio_obs")
+    x.add_argument("--json", action="store_true", help="full bundle as JSON")
+    x.add_argument("--tail-lines", type=int, default=20)
+    x.set_defaults(fn=cmd_incidents_show)
+    x = inc.add_parser("export", help="copy one bundle somewhere shippable")
+    x.add_argument("bundle")
+    x.add_argument("dest")
+    x.add_argument("--obs-dir", default="pio_obs")
+    x.set_defaults(fn=cmd_incidents_export)
+
+    x = sub.add_parser("doctor", help="preflight diagnostics: the card, capacity planning "
+                                      "(--capacity USERS ITEMS K) and the analytic roofline")
+    x.add_argument("--capacity", nargs=3, metavar=("USERS", "ITEMS", "K"),
+                   help="predict the card memory of an ALS train of this shape")
+    x.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
+    x.add_argument("--nnz", type=int, help="rating count (adds the rating tables)")
+    x.add_argument("--ann", metavar="CLUSTERS,NPROBE",
+                   help="price an ANN index (ITEMS items, dim K) beside the factor tables")
+    x.add_argument("--ann-int8", action="store_true", help="price the int8 index layout")
+    x.add_argument("--hbm-bytes", help="card memory budget (16e9 / 16GB / 16GiB); exit 1 past it")
+    x.add_argument("--registry-dir", help="registry to inventory pinned ANN indexes from "
+                                          "(default $PIO_REGISTRY_DIR)")
+    x.add_argument("--roofline", action="store_true",
+                   help="analytic roofline: operations, bytes, intensity and the floor of "
+                        "each family's kernels, the CUDA kernels' bounds included")
+    x.add_argument("--families", help="comma list for --roofline (default: all of "
+                                      "topk,ann,als,twotower,kernels)")
+    x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="the inventory's device (cpu: no card read)")
+    x.set_defaults(fn=cmd_doctor)
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(prog="pio-torch", description=__doc__.split("\n")[0])
     p.add_argument(
@@ -1076,6 +1459,9 @@ def build_parser() -> argparse.ArgumentParser:
                             "instead of writing registry rollout state directly")
         x.add_argument("--metrics-port", type=int, default=0,
                        help="serve the pipeline's pio_stream_* metrics at :PORT/metrics; 0 disables")
+        x.add_argument("--obs-dir", help="observability dir: drift-guard breaches land on its "
+                                         "telemetry ring (kind=drift) and snapshot rate-limited "
+                                         "incident bundles")
 
     x = sub.add_parser("train")
     engine_args(x)
@@ -1145,7 +1531,37 @@ def build_parser() -> argparse.ArgumentParser:
                    help="canary queries (shadow: scored queries) before any verdict")
     x.add_argument("--no-auto-promote", action="store_true",
                    help="gates report ready; an operator promotes")
+    x.add_argument("--result-cache-size", type=int, default=1024,
+                   help="version-keyed result cache entries (0 disables); hits answer "
+                        "before micro-batch admission")
+    x.add_argument("--result-cache-ttl", type=float, default=10.0,
+                   help="result-cache entry TTL seconds: the staleness bound for serving "
+                        "components reading live state outside the model")
+    x.add_argument("--slo-latency-threshold", type=float, default=0.010,
+                   help="latency SLO threshold in seconds (keep it on a histogram bucket bound)")
+    x.add_argument("--slo-latency-objective", type=float, default=0.50,
+                   help="fraction of /queries.json answers within the threshold")
+    x.add_argument("--slo-availability-objective", type=float, default=0.999,
+                   help="non-5xx fraction of /queries.json answers")
+    x.add_argument("--slo-shed-objective", type=float, default=0.99,
+                   help="fraction of arrivals not shed by admission control")
+    x.add_argument("--profile-dir", default="pio_obs/profiles",
+                   help="profile bundle store of POST /profile/capture and profile-on-alert")
+    x.add_argument("--profile-max-bundles", type=int, default=20)
+    x.add_argument("--profile-default-ms", type=int, default=500,
+                   help="capture length when POST /profile/capture gives no ?ms=")
+    x.add_argument("--profile-max-ms", type=int, default=10_000, help="the clamp of ?ms=")
+    x.add_argument("--sampler-period", type=float, default=0.05,
+                   help="host stack sampler period in seconds (<= 0 disables sampling)")
+    x.add_argument("--no-profile-on-alert", action="store_true",
+                   help="no bundle on SLO-alert transitions and candidate-breaker trips")
+    x.add_argument("--profile-alert-min-interval", type=float, default=60.0,
+                   help="seconds between two alert bundles of one trigger kind")
+    x.add_argument("--profile-alert-trace-ms", type=int, default=0,
+                   help="device trace length of an alert bundle (0: host stacks only)")
     x.set_defaults(fn=cmd_deploy)
+
+    _add_obs_verbs(sub)
 
     mdl = sub.add_parser("models", help="model registry: versions, canary/shadow rollout, "
                                         "promote/rollback").add_subparsers(dest="subcommand", required=True)

@@ -8,7 +8,10 @@ multi-host training).
 An engine instance goes through ``get_meta_data_engine_instances()`` (INIT,
 TRAINING, then COMPLETED or FAILED) and the model blob through
 ``get_model_data_models()``, keyed by the instance id, as in the JAX
-package; ``pio deploy`` finds the latest COMPLETED instance there.
+package; ``pio deploy`` finds the latest COMPLETED instance there. With
+``PIO_PROFILE_DIR`` set, the train runs inside a ``torch.profiler`` capture
+on the run's device, published as a profile bundle in that directory
+(``obs/profiler.maybe_profile_train``; ``pio profile train``).
 """
 
 from __future__ import annotations
@@ -28,6 +31,8 @@ from predictionio_tpu_torch.data.storage.base import (
     EvaluationInstanceStatus,
     Model,
 )
+from predictionio_tpu_torch.obs.profiler import maybe_profile_train
+from predictionio_tpu_torch.obs.torchprof import kernel_launch_counts
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
@@ -80,7 +85,19 @@ def run_train(
     try:
         instance.status = EngineInstanceStatus.TRAINING
         instances.update(instance)
-        models = engine.train(ctx, engine_params, options)
+        # the device-trace gate (PIO_PROFILE_DIR): the train runs inside a
+        # torch.profiler capture published as a content-addressed bundle
+        with maybe_profile_train(
+            context={
+                "engine": manifest.engine_id,
+                "engineVersion": manifest.version,
+                "batch": batch,
+                "instanceId": instance_id,
+            },
+            device=str(ctx.device),
+            counters_fn=kernel_launch_counts if ctx.device.type == "cuda" else None,
+        ):
+            models = engine.train(ctx, engine_params, options)
         if options and (options.stop_after_read or options.stop_after_prepare):
             instance.status = EngineInstanceStatus.COMPLETED
             instance.end_time = _dt.datetime.now(tz=UTC)

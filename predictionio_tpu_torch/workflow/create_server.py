@@ -10,9 +10,29 @@ bake loop, registry sync, ``/reload`` and ``/models``), the ANN attach of
 a lane loaded from the registry (with the ``pio_ann_*`` instruments) and
 its serving contract: the access key, TLS, output blockers and sniffers,
 the feedback loop, the remote log, per-request deadlines, load shedding,
-the dispatch watchdog and breaker, ``/healthz`` and a graceful drain. The
-result cache, the bandit and observability (``/metrics``, ``/slo``,
-``/traces/recent``, profiling) come in later slices.
+the dispatch watchdog and breaker, ``/healthz`` and a graceful drain; and
+its observability: ``GET /metrics`` (Prometheus text, or OpenMetrics with
+trace-id exemplars), ``GET /slo``, ``GET /traces/recent``, ``POST
+/profile/capture?ms=`` (409 while a capture runs) and ``GET
+/profile/stacks``, trace ids, the phase waterfall, profile-on-alert, and
+the version-keyed result cache. The bandit comes in a later slice.
+
+Observability. ``X-Pio-Trace-Id`` is accepted or minted, echoed, and
+carried on each queued item onto the dispatch and fetch threads, which
+install it around each query's stages; one ``query.batch`` span per query
+carries its waterfall. The nine phases of ``obs/waterfall.py`` are
+observed where the JAX server observes them: ingress parse and the cache
+lookup on the handler thread, queue wait when the collect thread takes
+the batch, batch assembly and dispatch around the dispatch call, and
+device compute (the fetch thread's wall time waiting for the lanes'
+results), the fetch residual and serve when the batch's answers are
+distributed; respond from then until the answer is ready to write, the
+same end the ``pio_request_seconds`` histogram reads, so the phases tile
+it (the answer is written after the ingress span is recorded). The
+result cache answers a repeat query on a quiesced stable lane before
+admission (also while the dispatch breaker is open), is bypassed while a
+rollout is active, and is flushed for the affected version on every
+stage, promote, rollback and stable swap.
 
 Each handler thread submits its query to the batcher and waits. One
 collect thread takes everything queued (up to ``max_batch``), drops what
@@ -47,6 +67,7 @@ import concurrent.futures
 import dataclasses
 import json
 import logging
+import os
 import queue
 import threading
 import time
@@ -62,7 +83,43 @@ from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
 from predictionio_tpu_torch.ann.metrics import AnnInstruments
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
-from predictionio_tpu_torch.obs.web import BreakerInstruments
+from predictionio_tpu_torch.obs.profiler import ProfileBusyError, ProfileSession, ProfileStore
+from predictionio_tpu_torch.obs.sampler import HostSampler
+from predictionio_tpu_torch.obs.slo import (
+    SLOEngine,
+    counter_ratio_source,
+    histogram_threshold_source,
+    paired_counter_source,
+)
+from predictionio_tpu_torch.obs.torchprof import KernelBuildWatcher, kernel_launch_counts
+from predictionio_tpu_torch.obs.tracing import (
+    TRACE_HEADER,
+    Tracer,
+    current_trace_id,
+    get_tracer,
+    mint_trace_id,
+    reset_trace_id,
+    set_trace_id,
+)
+from predictionio_tpu_torch.obs.waterfall import (
+    PHASE_BATCH_ASSEMBLY,
+    PHASE_CACHE,
+    PHASE_DEVICE_COMPUTE,
+    PHASE_DISPATCH,
+    PHASE_FETCH,
+    PHASE_INGRESS_PARSE,
+    PHASE_QUEUE_WAIT,
+    PHASE_RESPOND,
+    PHASE_SERVE,
+    PhaseWaterfall,
+    phase_tags_ms,
+)
+from predictionio_tpu_torch.obs.web import (
+    BreakerInstruments,
+    metrics_response,
+    slo_response,
+    traces_response,
+)
 from predictionio_tpu_torch.registry.controller import (
     VERDICT_PROMOTE,
     VERDICT_ROLLBACK,
@@ -80,6 +137,8 @@ from predictionio_tpu_torch.registry.router import (
     choose_lane,
     routing_key,
 )
+from predictionio_tpu_torch.registry.lease import register_lease_metrics
+from predictionio_tpu_torch.registry.result_cache import ResultCache
 from predictionio_tpu_torch.registry.store import MODE_CANARY, MODE_SHADOW, ArtifactStore
 from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
 from predictionio_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
@@ -173,6 +232,35 @@ class ServerConfig:
     # graceful drain (SIGTERM): how long queued and in-flight queries have
     # to answer after the listener closes
     drain_grace_s: float = 15.0
+    # -- SLOs: burn rates on /slo and the pio_slo_* gauges ----------------
+    # latency objective: this fraction of /queries.json answers lands at
+    # or under the threshold (keep it on a histogram bucket bound)
+    slo_latency_threshold_s: float = 0.010
+    slo_latency_objective: float = 0.50
+    # availability objective: non-5xx fraction of /queries.json answers
+    slo_availability_objective: float = 0.999
+    # shed objective: fraction of arrivals NOT rejected by admission control
+    slo_shed_objective: float = 0.99
+    # -- the version-keyed result cache (registry/result_cache.py) ----------
+    # entries (0 disables) and the staleness bound for serving components
+    # that read live state outside the model artifact
+    result_cache_size: int = 1024
+    result_cache_ttl_s: float = 10.0
+    # -- profiling -------------------------------------------------------------
+    # bundle store of POST /profile/capture (created on the first capture)
+    profile_dir: str = "pio_obs/profiles"
+    profile_max_bundles: int = 20
+    # capture duration rails: ?ms= defaults and clamps here
+    profile_default_ms: int = 500
+    profile_max_ms: int = 10_000
+    # the always-on host stack sampler; <= 0 disables sampling
+    sampler_period_s: float = 0.05
+    # profile-on-alert: SLO-alert transitions and candidate-breaker trips
+    # capture a rate-limited host-stack bundle; profile_alert_trace_ms > 0
+    # adds a device trace of that length
+    profile_on_alert: bool = True
+    profile_alert_min_interval_s: float = 60.0
+    profile_alert_trace_ms: int = 0
 
     def ssl_context(self):
         return server_ssl_context(self.ssl_certfile, self.ssl_keyfile)
@@ -180,9 +268,19 @@ class ServerConfig:
 
 @dataclasses.dataclass
 class _QItem:
+    """One queued query: its payload, future and deadline, the ingress
+    trace id (a contextvar does not follow the item onto the dispatch
+    thread), the enqueue time, the ``phases`` channel the handler shares
+    with the batcher (``t_collect``, ``t_done``) and, when its answer is
+    cacheable, its canonical query bytes."""
+
     payload: Any
     fut: concurrent.futures.Future
     deadline: Deadline
+    trace_id: str | None = None
+    t_submit: float = 0.0
+    phases: dict[str, float] = dataclasses.field(default_factory=dict)
+    cache_key: bytes | None = None
 
 
 def _settle(fut: concurrent.futures.Future, result: Any = None, exc: BaseException | None = None) -> None:
@@ -247,13 +345,30 @@ class _MicroBatcher:
     def queue_depth(self) -> int:
         return self._queue.qsize()
 
-    def submit(self, payload: Any, deadline: Deadline | None = None) -> concurrent.futures.Future:
+    def submit(
+        self,
+        payload: Any,
+        deadline: Deadline | None = None,
+        phases: dict[str, float] | None = None,
+        t_submit: float | None = None,
+        cache_key: bytes | None = None,
+    ) -> concurrent.futures.Future:
         """Enqueue one query; the future resolves to ``(encoded body,
         version)`` or the query's error. Raises ``ShuttingDownError`` once
-        closed and ``LoadShedError`` at high water."""
+        closed and ``LoadShedError`` at high water. ``phases`` receives the
+        waterfall timestamps; ``t_submit`` anchors the queue wait at the
+        caller's last phase boundary."""
         if self._closed:
             raise ShuttingDownError()
-        item = _QItem(payload, concurrent.futures.Future(), deadline or Deadline.never())
+        item = _QItem(
+            payload,
+            concurrent.futures.Future(),
+            deadline or Deadline.never(),
+            current_trace_id(),
+            t_submit if t_submit is not None else time.perf_counter(),
+            phases if phases is not None else {},
+            cache_key,
+        )
         with self._admit_lock:
             depth = self._queue.qsize()
             if self.high_water and depth >= self.high_water:
@@ -290,15 +405,21 @@ class _MicroBatcher:
     def _dispatch(self, batch: list[_QItem]) -> None:
         """Dispatch one collected batch under the dispatch watchdog and
         hand it to a finish waiter; holds one in-flight slot on entry."""
+        server = self._server
+        collect_t = time.perf_counter()
         live = []
         for item in batch:
             if item.fut.done():  # its probe slot, if it held one, can never be recorded
-                self._server.dispatch_breaker.release_probe()
+                server.dispatch_breaker.release_probe()
             elif item.deadline.expired:
                 # expired while queued: no device work for an answer nobody awaits
                 _settle(item.fut, exc=DeadlineExceeded("query expired in admission queue"))
             else:
                 live.append(item)
+                queue_wait_s = collect_t - item.t_submit
+                item.phases["t_collect"] = collect_t
+                server._m_queue_wait.observe(queue_wait_s)
+                server.waterfall.observe(PHASE_QUEUE_WAIT, queue_wait_s, item.trace_id)
         if not live:
             self._inflight.release()
             return
@@ -309,33 +430,55 @@ class _MicroBatcher:
             # so dispatch and fetch run in one hop under the dispatch watchdog
             combined = len(live) == 1 and self._queue.empty() and self.batches_in_flight == 0
             self.batches_in_flight += 1
-        fn = self._dispatch_combined if combined else self._server.dispatch_batch
-        call = self._dispatch_pool.submit(fn, [it.payload for it in live])
+        fn = self._dispatch_combined if combined else server.dispatch_batch
+        payloads, trace_ids = [it.payload for it in live], [it.trace_id for it in live]
+        dispatch_t0 = time.perf_counter()
+        call = self._dispatch_pool.submit(fn, payloads, trace_ids)
         done, _ = concurrent.futures.wait([call], timeout=deadline.remaining())
         if not done:
             self._walk_away(live, "dispatch")
             return
+        dispatch_s = time.perf_counter() - dispatch_t0
         try:
             # the outcomes in the combined hop, else the finalize that fetches them
             result = call.result()
         except Exception as exc:  # the whole batch failed to dispatch
             logger.exception("micro-batch dispatch failed")
-            self._server.dispatch_breaker.record_failure()
+            server.dispatch_breaker.record_failure()
             self._end_batch(live, [(exc, "")] * len(live))
             return
+        timings = result[1] if combined else result.timings
+        if combined:
+            # the combined hop swallowed device compute and serve: carve them
+            # out so the finish's observations keep the waterfall tiling
+            dispatch_s = max(0.0, dispatch_s - timings["device_s"] - timings["serve_s"])
+        server._m_dispatch.observe(dispatch_s)
+        # batch-scoped phases: every rider waits out the whole batch
+        riders = [item.trace_id for item in live]
+        server.waterfall.observe_batch(PHASE_BATCH_ASSEMBLY, max(0.0, dispatch_t0 - collect_t), riders)
+        server.waterfall.observe_batch(PHASE_DISPATCH, dispatch_s, riders)
         self.batches_dispatched += 1
         self.queries_dispatched += len(live)
         self.largest_batch = max(self.largest_batch, len(live))
+        dispatch_end = dispatch_t0 + dispatch_s
         if combined:
-            self._server.dispatch_breaker.record_success()
-            self._end_batch(live, result)
+            server._m_fetch.observe(0.0)
+            if timings["device_s"] > 0.0:
+                server._m_stall.inc(timings["device_s"], where="micro-batch-fetch")
+            server.dispatch_breaker.record_success()
+            self._end_batch(live, result[0], timings, dispatch_s, dispatch_end, 0.0)
         else:
-            self._finish_pool.submit(self._finish, live, result, deadline)
+            self._finish_pool.submit(self._finish, live, result, deadline, dispatch_s, dispatch_end)
 
-    def _dispatch_combined(self, payloads: list[Any]) -> list[tuple[Any, str]]:
-        return self._server.dispatch_batch(payloads)()
+    def _dispatch_combined(self, payloads: list[Any], trace_ids: list[str | None]):
+        fin = self._server.dispatch_batch(payloads, trace_ids)
+        return fin(), fin.timings
 
-    def _finish(self, batch: list[_QItem], finalize, deadline: Deadline) -> None:
+    def _finish(self, batch: list[_QItem], finalize, deadline: Deadline, dispatch_s: float,
+                dispatch_end: float) -> None:
+        server = self._server
+        timings = finalize.timings
+        fetch_t0 = time.perf_counter()
         with self._pool_lock:
             fetch = self._fetch_pool.submit(finalize)
         del finalize  # the lanes it holds go with the fetch
@@ -343,16 +486,20 @@ class _MicroBatcher:
         if not done:
             self._walk_away(batch, "fetch")
             return
+        fetch_s = time.perf_counter() - fetch_t0
+        server._m_fetch.observe(fetch_s)
+        # the fetch is where the host blocks on the card: stall time
+        server._m_stall.inc(fetch_s, where="micro-batch-fetch")
         try:
             outs = fetch.result()
         except Exception as exc:
             # a finalize that raised as a whole counts like a failed dispatch
             logger.exception("micro-batch finalize failed")
-            self._server.dispatch_breaker.record_failure()
+            server.dispatch_breaker.record_failure()
             outs = [(exc, "")] * len(batch)
         else:
-            self._server.dispatch_breaker.record_success()
-        self._end_batch(batch, outs)
+            server.dispatch_breaker.record_success()
+        self._end_batch(batch, outs, timings, dispatch_s, dispatch_end, fetch_s)
 
     def _walk_away(self, batch: list[_QItem], stage: str) -> None:
         """Watchdog trip: fail the batch, replace the pool whose thread is
@@ -372,13 +519,51 @@ class _MicroBatcher:
         exc = DeadlineExceeded(f"micro-batch {stage}: deadline exceeded")
         self._end_batch(batch, [(exc, "")] * len(batch))
 
-    def _end_batch(self, batch: list[_QItem], outs: list[tuple[Any, str]]) -> None:
+    def _end_batch(
+        self,
+        batch: list[_QItem],
+        outs: list[tuple[Any, str]],
+        timings: dict[str, float] | None = None,
+        dispatch_s: float = 0.0,
+        dispatch_end: float = 0.0,
+        fetch_s: float = 0.0,
+    ) -> None:
         """Release the batch's in-flight slot (once per batch) and answer
-        its queries."""
+        its queries. A batch that ran (``timings`` given) also observes
+        its device compute, fetch residual and serve phases, stores its
+        cacheable answers and records one ``query.batch`` span a query."""
         with self._count_lock:
             self.batches_in_flight -= 1
         self._inflight.release()
+        server = self._server
+        done_t = time.perf_counter()
+        if timings is not None:
+            device_s = max(0.0, timings["device_s"])
+            serve_s = max(0.0, timings["serve_s"])
+            fetch_resid_s = max(0.0, done_t - dispatch_end - device_s - serve_s)
+            riders = [item.trace_id for item in batch]
+            server.waterfall.observe_batch(PHASE_DEVICE_COMPUTE, device_s, riders)
+            server.waterfall.observe_batch(PHASE_FETCH, fetch_resid_s, riders)
+            server.waterfall.observe_batch(PHASE_SERVE, serve_s, riders)
         for item, (out, version) in zip(batch, outs):
+            if timings is not None:
+                if item.cache_key is not None and not isinstance(out, BaseException):
+                    server._cache_store(version, item.cache_key, out)
+                item.phases["t_done"] = done_t
+                queue_s = max(0.0, item.phases.get("t_collect", item.t_submit) - item.t_submit)
+                server.tracer.record_span(
+                    "query.batch",
+                    kind="batch",
+                    duration_s=done_t - item.t_submit,
+                    trace_id=item.trace_id,
+                    status=type(out).__name__ if isinstance(out, BaseException) else "ok",
+                    batch_size=len(batch),
+                    version=version,
+                    queue_ms=round(queue_s * 1000, 3),
+                    dispatch_ms=round(dispatch_s * 1000, 3),
+                    fetch_ms=round(fetch_s * 1000, 3),
+                    **phase_tags_ms(device_compute=device_s, serve=serve_s, fetch_residual=fetch_resid_s),
+                )
             if isinstance(out, BaseException):
                 _settle(item.fut, exc=out)
             else:
@@ -422,6 +607,11 @@ class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
         self.owner._connection_accepted()
         super().process_request(request, client_address)
 
+    def process_request_thread(self, request, client_address) -> None:
+        # the host sampler attributes stacks by thread name
+        threading.current_thread().name = "pio-handler"
+        super().process_request_thread(request, client_address)
+
     def finish_request(self, request, client_address) -> None:
         self.owner._first_request.pending = True
         try:
@@ -432,6 +622,16 @@ class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
 
 def _canonical_json(body: Any) -> str:
     return json.dumps(body, sort_keys=True, default=str)
+
+
+# the result-cache key: canonical bytes of the raw payload, so
+# {"user": "u1", "num": 10} and {"num": 10, "user": "u1"} share one entry
+# (the JAX server's encoder: sorted keys, compact separators)
+_CANONICAL = json.JSONEncoder(sort_keys=True, separators=(",", ":"), default=str)
+
+
+def _canonical_query_bytes(payload: Any) -> bytes:
+    return _CANONICAL.encode(payload).encode()
 
 
 def _engine_params_of_instance(engine: Engine, instance: Any) -> EngineParams:
@@ -476,12 +676,62 @@ class QueryServer:
             ArtifactStore(self.config.registry_dir) if self.config.registry_dir else None
         )
         self.metrics = MetricsRegistry()
+        self.tracer: Tracer = get_tracer()
         # the pio_ann_* family exists from start; lanes loaded from the
         # registry bind their attached index to it in _warmup_components,
         # and the collector retires a reloaded lane's version gauges
         self.ann_instruments = AnnInstruments(self.metrics)
         self.metrics.register_collector(self._collect_ann_indexes)
         m = self.metrics
+        self._m_requests = m.counter(
+            "pio_requests_total", "HTTP requests served, by route and status", labelnames=("endpoint", "status")
+        )
+        self._m_latency = m.histogram(
+            "pio_request_seconds", "HTTP request wall time, by route", labelnames=("endpoint",)
+        )
+        self._m_queue_wait = m.histogram(
+            "pio_queue_wait_seconds", "time queries spend in the micro-batch admission queue"
+        )
+        self._m_dispatch = m.histogram(
+            "pio_dispatch_seconds", "micro-batch dispatch phase (decode + device enqueue) wall time"
+        )
+        self._m_fetch = m.histogram(
+            "pio_fetch_seconds", "micro-batch fetch phase (device->host transport + serve) wall time"
+        )
+        self._m_stall = m.counter(
+            "pio_device_stall_seconds_total",
+            "cumulative seconds spent blocked on device->host synchronization",
+            labelnames=("where",),
+        )
+        # per-request latency attribution (obs/waterfall.py)
+        self.waterfall = PhaseWaterfall(m)
+        # the version-keyed result cache: the pio_cache_* counters mirror
+        # its monotonic stats at scrape time
+        self._result_cache: ResultCache | None = (
+            ResultCache(self.config.result_cache_size, self.config.result_cache_ttl_s)
+            if self.config.result_cache_size > 0 else None
+        )
+        self._m_cache_hits = m.counter(
+            "pio_cache_hits_total",
+            "queries answered from the version-keyed result cache (never entered the micro-batch queue)",
+        )
+        self._m_cache_misses = m.counter(
+            "pio_cache_misses_total", "cacheable queries that missed and went through dispatch"
+        )
+        self._m_cache_evictions = m.counter(
+            "pio_cache_evictions_total", "result-cache entries dropped by LRU pressure or TTL expiry"
+        )
+        self._m_cache_invalidations = m.counter(
+            "pio_cache_invalidations_total",
+            "result-cache entries flushed by model swap/promote/rollback/stage/reload",
+        )
+        if self._result_cache is not None:
+            m.register_collector(self._collect_cache)
+        # the kernel builds of this process (the counterpart of the JAX
+        # server's jit cache watcher)
+        self.build_watcher = KernelBuildWatcher(m)
+        m.register_collector(self.build_watcher.sample)
+        register_lease_metrics(m)
         self._m_shed = m.counter(
             "pio_load_shed_total", "requests rejected by admission control (503 + Retry-After)"
         )
@@ -508,6 +758,57 @@ class QueryServer:
             failure_threshold=self.config.breaker_threshold,
             recovery_timeout_s=self.config.breaker_recovery_s,
         ))
+        # declarative SLOs as multi-window burn rates over the instruments
+        # above (obs/slo.py): /slo and the pio_slo_* gauges
+        self.slo = SLOEngine(m)
+        queries = "/queries.json"
+        self.slo.add(
+            "latency",
+            f"{queries} answered within {self.config.slo_latency_threshold_s * 1000:g} ms",
+            self.config.slo_latency_objective,
+            histogram_threshold_source(self._m_latency, self.config.slo_latency_threshold_s, endpoint=queries),
+        )
+        self.slo.add(
+            "availability",
+            f"{queries} answered without a 5xx",
+            self.config.slo_availability_objective,
+            counter_ratio_source(
+                self._m_requests,
+                bad=lambda lab: lab.get("status", "").startswith("5"),
+                match=lambda lab: lab.get("endpoint") == queries,
+            ),
+        )
+        self.slo.add(
+            "shed",
+            f"{queries} arrivals not rejected by admission control",
+            self.config.slo_shed_objective,
+            paired_counter_source(
+                counter_ratio_source(
+                    self._m_requests, bad=lambda lab: False, match=lambda lab: lab.get("endpoint") == queries
+                ),
+                self._m_shed,
+            ),
+        )
+        m.register_collector(self.slo.collect)
+        # the always-on host sampler and the single-flight device capture;
+        # their pio_profile_* instruments exist from start
+        self.sampler = HostSampler(
+            period_s=self.config.sampler_period_s if self.config.sampler_period_s > 0 else 0.05, metrics=m
+        )
+        self.profiler = ProfileSession(
+            ProfileStore(self.config.profile_dir, self.config.profile_max_bundles),
+            device=str(self.ctx.device),
+            default_ms=self.config.profile_default_ms,
+            max_ms=self.config.profile_max_ms,
+            alert_min_interval_s=self.config.profile_alert_min_interval_s,
+            alert_trace_ms=self.config.profile_alert_trace_ms,
+            context_fn=self._profile_context,
+            counters_fn=kernel_launch_counts if self.ctx.device.type == "cuda" else None,
+            metrics=m,
+        )
+        # SLO alert transitions for profile-on-alert (a long burn captures
+        # once per transition, not once per tick)
+        self._slo_alerting: dict[str, bool] = {}
         self._candidate: Lane | None = None
         _, _, algorithms, serving = engine.make_components(engine_params)
         self._warmup_components(algorithms, models)
@@ -610,14 +911,20 @@ class QueryServer:
             algo.warmup_serving(model, self.config.max_batch)
 
     # -- the serving pipeline ------------------------------------------------
-    def dispatch_batch(self, payloads: list[Any]):
+    def dispatch_batch(self, payloads: list[Any], trace_ids: list[str | None] | None = None):
         """Decode each payload, route it to a lane (sticky canary),
         supplement it on that lane, launch every lane's device work, and
         return the finalize that fetches, serves and encodes one
         ``(result or exception, version)`` per payload. A candidate-lane
         failure never reaches the client: it feeds the candidate breaker
         and the query is answered again on the stable lane. Any other
-        per-query failure is that query's result alone."""
+        per-query failure is that query's result alone.
+
+        Each query's trace id (``trace_ids``) is installed around its
+        decode and supplement here and its serve in finalize, so spans
+        those stages record join the request's trace. Finalize publishes
+        its sub-phases on ``finalize.timings``: ``device_s``, the wall
+        time waiting for the lanes' results, and ``serve_s``."""
         stable, cand, plan, gen = self.lanes()
         canary = cand is not None and plan.mode == MODE_CANARY and plan.fraction > 0
         shadow = cand is not None and plan.mode == MODE_SHADOW
@@ -629,36 +936,14 @@ class QueryServer:
         supplemented: list[Any] = [None] * n
         stable_idx: list[int] = []
         cand_idx: list[int] = []
+        trace_ids = trace_ids or [None] * n
         for i, payload in enumerate(payloads):
+            token = set_trace_id(trace_ids[i])
             try:
-                q = self.engine.decode_query(payload)
-            except Exception as exc:
-                # a bad payload (a list, null, a missing field) fails alone
-                outs[i] = exc
-                continue
-            queries[i] = q
-            lane = stable
-            if canary and choose_lane(plan, routing_key(payload, self.config.sticky_key_field)) == LANE_CANDIDATE:
-                try:
-                    supplemented[i] = cand.serving.supplement(q)
-                    lane = cand
-                except Exception:
-                    logger.exception("candidate supplement failed")
-                    if gen == self._rollout_gen:
-                        inst.requests.inc(version=cand.version, lane=LANE_CANDIDATE)
-                    self._record_candidate_failure(cand.version, gen)
-            if lane is stable:
-                try:
-                    supplemented[i] = stable.serving.supplement(q)
-                except Exception as exc:
-                    inst.requests.inc(version=stable.version, lane=LANE_STABLE)
-                    inst.errors.inc(version=stable.version, lane=LANE_STABLE)
-                    outs[i] = exc
-                    continue
-                stable_idx.append(i)
-            else:
-                versions[i] = cand.version
-                cand_idx.append(i)
+                self._route_one(i, payload, stable, cand, plan, gen, canary, queries, supplemented,
+                                outs, versions, stable_idx, cand_idx)
+            finally:
+                reset_trace_id(token)
         dispatched = []
         for lane, lane_name, idxs in ((stable, LANE_STABLE, stable_idx), (cand, LANE_CANDIDATE, cand_idx)):
             if lane is None or not idxs:
@@ -675,13 +960,19 @@ class QueryServer:
                     fins.append(None)
             dispatched.append((lane, lane_name, idxs, sup, fins))
 
+        timings = {"device_s": 0.0, "serve_s": 0.0}
+
         def finalize() -> list[tuple[Any, str]]:
             sniffed: list[tuple[Any, Any]] = []
             for lane, lane_name, idxs, sup, fins in dispatched:
                 t0 = time.perf_counter()
                 preds_per_algo = self._lane_predictions(lane, sup, fins)
-                inst.predict_seconds.observe(time.perf_counter() - t0, version=lane.version)
+                lane_predict_s = time.perf_counter() - t0
+                timings["device_s"] += lane_predict_s
+                inst.predict_seconds.observe(lane_predict_s, version=lane.version)
                 for row, i in enumerate(idxs):
+                    token = set_trace_id(trace_ids[i])
+                    t_serve = time.perf_counter()
                     if lane_name != LANE_CANDIDATE or gen == self._rollout_gen:
                         inst.requests.inc(version=lane.version, lane=lane_name)
                     try:
@@ -696,6 +987,9 @@ class QueryServer:
                             logger.exception("serving a query failed")
                             inst.errors.inc(version=lane.version, lane=lane_name)
                             outs[i] = exc
+                    finally:
+                        timings["serve_s"] += time.perf_counter() - t_serve
+                        reset_trace_id(token)
             if shadow:
                 pairs = [
                     (queries[i], outs[i]) for i in stable_idx if not isinstance(outs[i], BaseException)
@@ -708,7 +1002,43 @@ class QueryServer:
                 self._background(self._sniffer_pool, self._notify_sniffers, sniffed)
             return list(zip(outs, versions))
 
+        finalize.timings = timings
         return finalize
+
+    def _route_one(self, i, payload, stable, cand, plan, gen, canary, queries, supplemented, outs,
+                   versions, stable_idx, cand_idx) -> None:
+        """Decode query ``i``, route it to a lane and supplement it there
+        (see :meth:`dispatch_batch`)."""
+        inst = self._rollout_instruments
+        try:
+            q = self.engine.decode_query(payload)
+        except Exception as exc:
+            # a bad payload (a list, null, a missing field) fails alone
+            outs[i] = exc
+            return
+        queries[i] = q
+        lane = stable
+        if canary and choose_lane(plan, routing_key(payload, self.config.sticky_key_field)) == LANE_CANDIDATE:
+            try:
+                supplemented[i] = cand.serving.supplement(q)
+                lane = cand
+            except Exception:
+                logger.exception("candidate supplement failed")
+                if gen == self._rollout_gen:
+                    inst.requests.inc(version=cand.version, lane=LANE_CANDIDATE)
+                self._record_candidate_failure(cand.version, gen)
+        if lane is stable:
+            try:
+                supplemented[i] = stable.serving.supplement(q)
+            except Exception as exc:
+                inst.requests.inc(version=stable.version, lane=LANE_STABLE)
+                inst.errors.inc(version=stable.version, lane=LANE_STABLE)
+                outs[i] = exc
+                return
+            stable_idx.append(i)
+        else:
+            versions[i] = cand.version
+            cand_idx.append(i)
 
     def _lane_predictions(self, lane: Lane, sup: list[Any], fins: list[Any]) -> list[list[Any]]:
         """One lane's per-algorithm predictions; a batch that fails falls
@@ -739,12 +1069,16 @@ class QueryServer:
                 raise p
         result = lane.serving.serve(query, plist)
         result = self.plugin_context.apply_output_blockers(self.manifest.variant, query, result)
-        sniffed.append((query, result))
+        sniffed.append((query, result, current_trace_id()))
         return self.engine.encode_result(result)
 
     def _notify_sniffers(self, sniffed: list) -> None:
-        for query, result in sniffed:
-            self.plugin_context.notify_output_sniffers(self.manifest.variant, query, result)
+        for query, result, trace_id in sniffed:
+            token = set_trace_id(trace_id)
+            try:
+                self.plugin_context.notify_output_sniffers(self.manifest.variant, query, result)
+            finally:
+                reset_trace_id(token)
 
     def _stable_retry(self, stable: Lane, query: Any, sniffed: list) -> tuple[Any, str]:
         """Answer a candidate-lane query again on the stable lane."""
@@ -818,7 +1152,16 @@ class QueryServer:
 
     # -- rollout transitions ---------------------------------------------------
     def _new_candidate_breaker(self) -> CircuitBreaker:
-        return CircuitBreaker(name="candidate", failure_threshold=self.config.candidate_breaker_threshold)
+        breaker = CircuitBreaker(name="candidate", failure_threshold=self.config.candidate_breaker_threshold)
+        breaker.chain_listener(self._on_candidate_transition)
+        return breaker
+
+    def _on_candidate_transition(self, name: str, old: str, new: str) -> None:
+        """A candidate-breaker trip captures the host stacks that show what
+        the serving threads were doing (profile-on-alert); the rollback
+        itself is :meth:`_record_candidate_failure`'s."""
+        if new == OPEN:
+            self._profile_on_alert("breaker-trip", {"breaker": name, "from": old, "to": new})
 
     def stage_candidate_lane(
         self, lane: Lane, mode: str = MODE_CANARY, fraction: float = 0.1, persist: bool = True
@@ -837,6 +1180,9 @@ class QueryServer:
             self._plan = RolloutPlan(mode, fraction if mode == MODE_CANARY else 0.0, lane.version)
             self.rollout_controller.begin(self._active.version, lane.version, mode)
             plan = self._plan
+        # a re-staged candidate must not inherit entries of an earlier life
+        # of its version (lookups are bypassed for the whole bake anyway)
+        self._cache_flush(lane.version, f"stage {lane.version}")
         self._rollout_instruments.set_plan(plan)
         if persist and self.registry_store is not None:
             try:
@@ -855,6 +1201,7 @@ class QueryServer:
             if cand is None:
                 return None
             self._rollout_gen += 1
+            retired = self._active.version
             self._active = cand
             if cand.instance_id:
                 self.instance_id = cand.instance_id
@@ -863,6 +1210,8 @@ class QueryServer:
             self._candidate = None
             self._plan = PLAN_OFF
             self.rollout_controller.end()
+        # the retired stable's entries stop being addressable: flush them
+        self._cache_flush(retired, f"promote {cand.version}")
         self._rollout_instruments.set_plan(PLAN_OFF)
         self._rollout_instruments.promotions.inc()
         if persist and self.registry_store is not None:
@@ -885,6 +1234,9 @@ class QueryServer:
             self._candidate = None
             self._plan = PLAN_OFF
             self.rollout_controller.end()
+        # candidate answers are never cached; this flush guards any path
+        # that would put them there
+        self._cache_flush(cand.version, f"rollback {cand.version} ({reason})")
         self._rollout_instruments.set_plan(PLAN_OFF)
         self._rollout_instruments.rollbacks.inc(reason=reason)
         if persist and self.registry_store is not None:
@@ -902,6 +1254,7 @@ class QueryServer:
         process moved); a bake in flight is rebased on the new stable."""
         with self._rollout_mutex:
             self._rollout_gen += 1
+            retired = self._active.version
             self._active = lane
             if lane.instance_id:
                 self.instance_id = lane.instance_id
@@ -910,6 +1263,8 @@ class QueryServer:
             cand = self._candidate
             if cand is not None:
                 self.rollout_controller.begin(lane.version, cand.version, self._plan.mode)
+        # the version that just stopped serving answers nothing more from cache
+        self._cache_flush(retired, f"stable -> {lane.version}")
 
     def _version_for_instance(self, instance_id: str) -> str:
         """Registry version whose lineage points at this engine instance;
@@ -968,6 +1323,96 @@ class QueryServer:
         with self._reload_lock:
             self.stage_candidate_lane(self._load_lane_from_registry(version), mode=mode, fraction=fraction)
 
+    # -- result cache plumbing -----------------------------------------------
+    def _cache_lookup_version(self) -> str | None:
+        """The version whose entries may answer now: the stable version
+        with no rollout active, None (bypass) while one is."""
+        if self._candidate is not None or self._plan is not PLAN_OFF:
+            return None
+        return self._active.version
+
+    def _cache_store(self, version: str, key: bytes, body: Any) -> None:
+        """Insert one answered body; only the current stable version's
+        answers are cacheable (a swap or stage between dispatch and store
+        orphans the write)."""
+        cache = self._result_cache
+        if cache is None or self._candidate is not None or version != self._active.version:
+            return
+        cache.put(version, key, body)
+
+    def _cache_flush(self, version: str | None, why: str) -> None:
+        """Invalidate one version's entries (``None``: all of them)."""
+        cache = self._result_cache
+        if cache is None:
+            return
+        n = cache.clear() if version is None else cache.flush_version(version)
+        if n:
+            logger.info("result cache: flushed %d entries (%s)", n, why)
+
+    def _collect_cache(self) -> None:
+        """Scrape-time mirror of the cache's monotonic stats into the
+        pio_cache_* counters (set_total clamps monotonic)."""
+        stats = self._result_cache.stats()
+        self._m_cache_hits.set_total(stats["hits"])
+        self._m_cache_misses.set_total(stats["misses"])
+        self._m_cache_evictions.set_total(stats["evictions"])
+        self._m_cache_invalidations.set_total(stats["invalidations"])
+
+    # -- profiling -----------------------------------------------------------
+    def _profile_context(self) -> dict[str, Any]:
+        """Manifest enrichment of every profile bundle: which engine and
+        model served, at which registry generation."""
+        generation = None
+        if self.registry_store is not None:
+            try:
+                generation = self.registry_store.state_generation(self.manifest.engine_id)
+            except Exception:  # enrichment, not evidence
+                generation = None
+        return {
+            "engine": self.manifest.engine_id,
+            "engineVersion": self.manifest.version,
+            "modelVersion": self._active.version,
+            "instanceId": self.instance_id,
+            "registryGeneration": generation,
+        }
+
+    def _profile_parts(self) -> dict[str, Any]:
+        """Host-side evidence of every bundle: the waterfall and the
+        sampler's folded stacks at capture time."""
+        return {"waterfall": self.waterfall.snapshot(), "stacks": self.sampler.snapshot()}
+
+    def capture_profile(self, ms: int | None, trigger: str = "manual") -> str:
+        """One bounded capture (blocking: runs on the handler thread)."""
+        return self.profiler.capture(ms=ms, trigger=trigger, parts=self._profile_parts())
+
+    def _profile_on_alert(self, trigger: str, context: dict[str, Any]) -> None:
+        """Rate-limited background capture for alert paths; never blocks
+        or raises into the caller."""
+        if not self.config.profile_on_alert:
+            return
+        parts = self._profile_parts()
+        texts = {"stacks_folded": self.sampler.folded()}
+        threading.Thread(
+            target=self.profiler.capture_alert,
+            args=(trigger,),
+            kwargs={"context": context, "parts": parts, "texts": texts},
+            name="pio-profile-alert",
+            daemon=True,
+        ).start()
+
+    def _check_slo_alerts(self) -> None:
+        """SLO alert transitions capture a profile bundle (rides the
+        rollout loop's tick)."""
+        for rpt in self.slo.evaluate():
+            name = rpt.get("name", "?")
+            was = self._slo_alerting.get(name, False)
+            now_alerting = bool(rpt.get("alerting"))
+            self._slo_alerting[name] = now_alerting
+            if now_alerting and not was:
+                self._profile_on_alert(
+                    "slo-alert", {"slo": name, "objective": rpt.get("objective")}
+                )
+
     # -- the background loops --------------------------------------------------
     def _loop(self, interval_s: float, tick) -> None:
         while not self._closing.wait(interval_s):
@@ -977,7 +1422,10 @@ class QueryServer:
                 logger.exception("%s failed", getattr(tick, "__name__", "tick"))
 
     def _rollout_tick(self) -> None:
-        """The bake gate (the reference's plain-gate branch: no bandit)."""
+        """The bake gate (the reference's plain-gate branch: no bandit),
+        and the SLO alert transitions."""
+        if self.config.profile_on_alert:
+            self._check_slo_alerts()
         if self._candidate is None:
             return
         verdict, reason = self.rollout_controller.evaluate()
@@ -1086,7 +1534,26 @@ class QueryServer:
                 "queries": b.queries_dispatched,
                 "avgBatchSize": b.queries_dispatched / max(1, b.batches_dispatched),
             },
+            "resultCache": self._result_cache.stats() if self._result_cache is not None else None,
+            "profiling": {"ready": self.profiler.ready, "captureInFlight": self.profiler._flight.locked(),
+                          "capturing": self.profiler.capturing},
+            "latency": self._latency_summary_ms(),
             "resilience": self._resilience_snapshot(),
+        }
+
+    def _latency_summary_ms(self) -> dict[str, Any]:
+        """The status page's latency block, from the histogram /metrics
+        exports (every /queries.json answer, resilience 503s included)."""
+        s = self._m_latency.summary(endpoint="/queries.json")
+        if s["count"] == 0:
+            return {"count": 0}
+        return {
+            "count": s["count"],
+            "mean_ms": 1000.0 * s["mean"],
+            "p50_ms": 1000.0 * s["p50"],
+            "p95_ms": 1000.0 * s["p95"],
+            "p99_ms": 1000.0 * s["p99"],
+            "max_ms": 1000.0 * s["max"],
         }
 
     def _resilience_snapshot(self) -> dict[str, Any]:
@@ -1120,7 +1587,17 @@ class QueryServer:
             if self._background_closed:
                 logger.warning("server shutting down: %s dropped", getattr(fn, "__name__", fn))
                 return
-            pool.submit(fn, *args)
+            pool.submit(self._with_trace, current_trace_id(), fn, *args)
+
+    @staticmethod
+    def _with_trace(trace_id: str | None, fn, *args) -> None:
+        """Run background work under the trace id of the request that
+        queued it (a pool thread does not inherit the caller's context)."""
+        token = set_trace_id(trace_id)
+        try:
+            fn(*args)
+        finally:
+            reset_trace_id(token)
 
     def _post(self, url: str, data: bytes, content_type: str, what: str) -> None:
         req = urllib.request.Request(url, data=data, method="POST", headers={"Content-Type": content_type})
@@ -1191,18 +1668,33 @@ class QueryServer:
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
             def handle_one_request(self):
+                self._trace_id = None  # one connection serves many requests
+                self._status = 500
+                self._deferred = None  # a /queries.json answer held until its span is recorded
                 super().handle_one_request()
                 server._first_request_done()
 
             def _reply(self, code: int, body: Any, headers: dict[str, str] | None = None) -> None:
-                data = json.dumps(body).encode()
+                self._reply_raw(code, json.dumps(body).encode(), "application/json", headers)
+
+            def _reply_raw(self, code: int, data: bytes, content_type: str,
+                           headers: dict[str, str] | None = None, defer: bool = True) -> None:
+                self._status = code
+                if defer and self._deferred is not None:
+                    self._deferred = (code, data, content_type, headers)
+                    return
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", content_type)
                 self.send_header("Content-Length", str(len(data)))
                 for k, v in (headers or {}).items():
                     self.send_header(k, v)
+                if self._trace_id is not None:
+                    self.send_header(TRACE_HEADER, self._trace_id)
                 self.end_headers()
                 self.wfile.write(data)
+
+            def _query_params(self) -> dict[str, str]:
+                return dict(urllib.parse.parse_qsl(urllib.parse.urlsplit(self.path).query))
 
             def _unavailable(self, message: str, retry_after_s: float) -> None:
                 """503 with the Retry-After clients and load balancers back off by."""
@@ -1233,6 +1725,22 @@ class QueryServer:
                     self._stop()
                 elif path == "/models":
                     self._reply(200, server.models_snapshot())
+                elif path == "/metrics":
+                    code, ctype, data = metrics_response(server.metrics, self._query_params(), self.headers)
+                    self._reply_raw(code, data, ctype)
+                elif path == "/slo":
+                    code, ctype, data = slo_response(server.slo, {"phases": server.waterfall.snapshot()})
+                    self._reply_raw(code, data, ctype)
+                elif path == "/traces/recent":
+                    code, ctype, data = traces_response(server.tracer, self._query_params())
+                    self._reply_raw(code, data, ctype)
+                elif path == "/profile/stacks":
+                    if self._query_params().get("format") == "json":
+                        body = server.sampler.snapshot()
+                        body["hotspots"] = server.sampler.hotspots()
+                        self._reply(200, body)
+                    else:
+                        self._reply_raw(200, server.sampler.folded().encode(), "text/plain; charset=utf-8")
                 elif path == "/reload":
                     logger.warning("GET /reload is deprecated (state-mutating GET); use POST /reload")
                     self._reload()
@@ -1244,7 +1752,7 @@ class QueryServer:
                 if path == "/queries.json":
                     server._request_began()
                     try:
-                        self._queries()
+                        self._traced_queries()
                     finally:
                         server._request_ended()
                     return
@@ -1255,6 +1763,7 @@ class QueryServer:
                     return
                 body = self.rfile.read(length)
                 routes = {
+                    "/profile/capture": self._profile_capture,
                     "/stop": self._stop,
                     "/reload": self._reload,
                     "/models/candidate": lambda: self._models_candidate(body),
@@ -1266,9 +1775,74 @@ class QueryServer:
                 else:
                     self._reply(404, {"message": "not found"})
 
-            def _queries(self) -> None:
+            def _profile_capture(self) -> None:
+                """``POST /profile/capture?ms=``: one bounded capture on this
+                handler thread; 409 while another runs."""
+                raw = self._query_params().get("ms")
+                try:
+                    ms = int(raw) if raw is not None else None
+                except ValueError:
+                    self._reply(400, {"message": "ms must be an integer"})
+                    return
+                try:
+                    path = server.capture_profile(ms)
+                except ProfileBusyError:
+                    self._reply(409, {"message": "a profile capture is already in flight"})
+                    return
+                except Exception as exc:
+                    logger.exception("profile capture failed")
+                    self._reply(500, {"message": f"capture failed: {exc}"})
+                    return
+                traced = server.profiler.clamp_ms(ms) > 0
+                self._reply(200, {
+                    "bundle": os.path.basename(path),
+                    "path": path,
+                    "durationMs": server.profiler.clamp_ms(ms),
+                    "modelVersion": server.model_version,
+                    "kernels": server.profiler.last_kernels if traced else {},
+                    "launchesCounted": server.profiler.last_counted if traced else None,
+                })
+
+            def _traced_queries(self) -> None:
+                """The trace and metrics envelope of the query path: accept
+                or mint the trace id (echoed), record the ingress span, and
+                count and time every status. One end timestamp anchors the
+                latency histogram and the respond phase, so the phases tile
+                what the histogram reads."""
+                t0 = time.perf_counter()
+                trace_id = self.headers.get(TRACE_HEADER) or mint_trace_id()
+                self._trace_id = trace_id
+                token = set_trace_id(trace_id)
+                phases: dict[str, float] = {"t_start": t0}
+                # the answer is written after the ingress span, the counters
+                # and the respond phase are recorded, as the JAX envelope
+                # records them before aiohttp writes the response
+                self._deferred = ()
+                try:
+                    with server.tracer.span("http.query", kind="ingress", endpoint="/queries.json") as sp:
+                        self._queries(phases)
+                        sp.tags["status"] = self._status
+                        if phases.get("t_done") is not None:
+                            phases["respond_s"] = time.perf_counter() - phases["t_done"]
+                        sp.tags.update(phase_tags_ms(
+                            ingress_parse=phases.get("parse_s"), respond=phases.get("respond_s")
+                        ))
+                finally:
+                    reset_trace_id(token)
+                    t_end = time.perf_counter()
+                    server._m_requests.inc(endpoint="/queries.json", status=str(self._status))
+                    server._m_latency.observe(t_end - t0, endpoint="/queries.json")
+                    t_done = phases.get("t_done")
+                    if t_done is not None:
+                        server.waterfall.observe(PHASE_RESPOND, t_end - t_done, trace_id)
+                answer, self._deferred = self._deferred, None
+                if answer:
+                    self._reply_raw(*answer, defer=False)
+
+            def _queries(self, phases: dict[str, float]) -> None:
                 """The JAX handler's order: access key, size, JSON, the
-                dispatch breaker, then the batcher under the deadline."""
+                result cache, the dispatch breaker, then the batcher under
+                the deadline."""
                 cfg = server.config
                 if cfg.accesskey:
                     query = urllib.parse.parse_qs(urllib.parse.urlsplit(self.path).query)
@@ -1290,6 +1864,35 @@ class QueryServer:
                 except ValueError as exc:
                     self._reply(400, {"message": str(exc)})
                     return
+                t_parse_end = time.perf_counter()
+                phases["parse_s"] = parse_s = t_parse_end - phases["t_start"]
+                server.waterfall.observe(PHASE_INGRESS_PARSE, parse_s, self._trace_id)
+                # the result cache, before admission and before the breaker:
+                # a wedged device must not block answers the cache holds
+                cache, cache_key, t_anchor = server._result_cache, None, t_parse_end
+                if cache is not None:
+                    entry, version = None, server._cache_lookup_version()
+                    if version is not None:
+                        try:
+                            cache_key = _canonical_query_bytes(payload)
+                        except (TypeError, ValueError):
+                            cache_key = None
+                        if cache_key is not None:
+                            entry = cache.get(version, cache_key)
+                    t_anchor = time.perf_counter()
+                    server.waterfall.observe(PHASE_CACHE, t_anchor - t_parse_end, self._trace_id)
+                    if entry is not None:
+                        server._m_cache_hits.inc()
+                        phases["t_done"] = t_anchor
+                        if entry.text is None:  # serialized once per entry
+                            entry.text = json.dumps(entry.body)
+                        if cfg.feedback:
+                            server._send_feedback(payload, entry.body)
+                        self._reply_raw(200, entry.text.encode(), "application/json",
+                                        {VERSION_HEADER: entry.version})
+                        return
+                    if cache_key is not None:
+                        server._m_cache_misses.inc()
                 try:
                     server.dispatch_breaker.allow()
                 except CircuitOpenError as exc:
@@ -1297,7 +1900,10 @@ class QueryServer:
                     self._unavailable("serving temporarily unavailable (dispatch circuit open)", exc.retry_after_s)
                     return
                 try:
-                    out, version = server.batcher.submit(payload, Deadline.after(cfg.request_timeout_s)).result()
+                    out, version = server.batcher.submit(
+                        payload, Deadline.after(cfg.request_timeout_s),
+                        phases=phases, t_submit=t_anchor, cache_key=cache_key,
+                    ).result()
                 except LoadShedError as exc:
                     # it died before any dispatch could record against the
                     # breaker: free its half-open probe slot (else the probe
@@ -1385,6 +1991,8 @@ class QueryServer:
         self._httpd = httpd
         self._thread = threading.Thread(target=httpd.serve_forever, name="pio-http", daemon=True)
         self._thread.start()
+        if self.config.sampler_period_s > 0:
+            self.sampler.start()
         loops = [("pio-rollout", self.config.bake_check_interval_s, self._rollout_tick)]
         if self.registry_store is not None and self.config.registry_sync_interval_s > 0:
             loops.append(("pio-registry-sync", self.config.registry_sync_interval_s, self._registry_sync_tick))
@@ -1429,6 +2037,7 @@ class QueryServer:
         """Stop the loops and the listener, answer the batches in flight,
         fail what is queued, and close every pool."""
         self._closing.set()
+        self.sampler.stop()
         for t in self._loops:
             t.join(timeout=10)
         self._loops = []

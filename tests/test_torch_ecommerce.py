@@ -13,6 +13,7 @@ by the port, and a model with no serving context refusing to guess one.
 """
 
 import subprocess
+import time
 import sys
 
 import numpy as np
@@ -292,9 +293,10 @@ def test_jax_blob_serves_in_the_port(memory_storage, tmp_path, events):
 def test_cli_serves_and_sees_a_later_import(tmp_path, events):
     """import -> train -> deploy from the JAX engine.json, then a second
     ``import`` (another process) of an unavailableItems constraint removes
-    the top item from the next answer."""
+    the top item from the next answer once the result cache's TTL (its
+    staleness bound for live reads outside the model, 1 s here) passed."""
     v = variant("ecommerce", None, app=APP, rank=4, numIterations=3)
-    with cli_deployed(tmp_path, APP, events, v) as base:
+    with cli_deployed(tmp_path, APP, events, v, deploy_flags=("--result-cache-ttl", "1")) as base:
         code, body = post(base + "/queries.json", {"user": "u3", "num": 4})
         assert code == 200 and len(body["itemScores"]) == 4
         top = body["itemScores"][0]["item"]
@@ -308,6 +310,7 @@ def test_cli_serves_and_sees_a_later_import(tmp_path, events):
              str(tmp_path / "h"), "import", "--appname", APP, "--input", str(later)],
             capture_output=True, text=True, timeout=120)
         assert out.returncode == 0, out.stderr
+        time.sleep(1.1)  # past the cache's TTL
         code, body = post(base + "/queries.json", {"user": "u3", "num": 4})
         assert code == 200 and top not in {s["item"] for s in body["itemScores"]}
         assert post(base + "/queries.json", {"num": 3})[0] == 400

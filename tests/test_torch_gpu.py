@@ -22,6 +22,8 @@ dispatch thread that replaces one walked away from takes the server's card
 and answers as ``serve_batch`` (rtol 1e-5).
 """
 
+import os
+
 import numpy as np
 import pytest
 
@@ -680,3 +682,38 @@ def test_a_replacement_dispatch_thread_answers_on_the_servers_card(cuda):
     scores, items = served.serving_index().serve_batch(np.asarray([served.user_index("u7")]), 10)
     assert [s["item"] for s in body["itemScores"]] == [served.item_vocab[int(i)] for i in items[0]]
     np.testing.assert_allclose([s["score"] for s in body["itemScores"]], scores[0], rtol=1e-5)
+
+
+def test_a_profile_capture_finds_each_kernels_symbol(cuda, tmp_path):
+    """torch.profiler on the card sees B1, B2 and B3, launched through
+    ctypes, as kernel events under their symbols, one launch each."""
+    from predictionio_tpu_torch.obs.profiler import ProfileSession, ProfileStore, kernel_launches
+    from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+
+    A_np, b_np = _spd_batch(500, 32)
+    Ad, bd = torch.from_numpy(A_np).to(cuda), torch.from_numpy(b_np).to(cuda)
+    q = torch.randn(8, 1, 200, 32, device=cuda)
+    ql = torch.randn(4, 1, 1024, 32, device=cuda)
+    batched_spd_solve_fused(Ad, bd), A.fused_attention_block(q, q, q, True), A.flash_attention(ql, ql, ql, True)
+    torch.cuda.synchronize()
+    session = ProfileSession(ProfileStore(str(tmp_path)), device="cuda")
+    with session.trace(trigger="test") as box:
+        batched_spd_solve_fused(Ad, bd)
+        A.fused_attention_block(q, q, q, True)
+        A.flash_attention(ql, ql, ql, True)
+    kernels = box["kernels"]
+    assert kernel_launches(kernels, "spd_cg_registers") == 1, kernels
+    assert kernel_launches(kernels, "attention_block_kernel") == 1, kernels
+    assert kernel_launches(kernels, "flash_attention_kernel") == 1, kernels
+    assert os.path.exists(os.path.join(box["path"], "trace", "trace.json"))
+
+
+def test_device_memory_stats_keep_the_jax_keys(cuda):
+    from predictionio_tpu_torch.obs import xray
+
+    x = torch.ones(1 << 20, device=cuda)
+    stats = xray.device_memory_stats()
+    assert set(stats) == {"device", "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
+    assert stats["bytes_limit"] > 0 and stats["bytes_in_use"] >= x.numel() * 4
+    assert xray.live_array_bytes() >= x.numel() * 4

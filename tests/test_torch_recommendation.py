@@ -548,6 +548,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "resilience.fault", "resilience.wrappers", "utils.tls", "workflow.server_plugins", "obs.web",
     )} <= set(modules)
+    # the observability slice is covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "obs.tracing", "obs.waterfall", "obs.slo", "obs.incidents", "obs.tsring", "obs.sampler",
+        "obs.profiler", "obs.torchprof", "obs.costmodel", "registry.result_cache",
+        "data.storage.traced", "models.sequential.metrics",
+    )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -582,6 +588,22 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
                          env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert "Streaming app importapp" in out.stdout and "RC 0 0 []" in out.stdout, out.stdout + out.stderr
+    # the observability verbs' processes: pio doctor, profile and incidents
+    code = (
+        "import sys\n"
+        "from predictionio_tpu_torch.tools import cli\n"
+        "rcs = [cli.main(['doctor', '--device', 'cpu']), cli.main(['doctor', '--roofline']),\n"
+        "       cli.main(['doctor', '--capacity', '100', '50', '8', '--ann', '8,2']),\n"
+        f"       cli.main(['profile', 'list', '--profile-dir', {str(tmp_path / 'prof')!r}]),\n"
+        f"       cli.main(['incidents', 'list', '--obs-dir', {str(tmp_path / 'obs')!r}])]\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'flax', 'optax', 'predictionio_tpu', 'aiohttp')]\n"
+        "print('RC', rcs, len(bad), bad[:5])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "RC [0, 0, 0, 0, 0] 0 []" in out.stdout, out.stdout + out.stderr
 
 
 @pytest.mark.parametrize(

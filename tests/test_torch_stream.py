@@ -670,9 +670,10 @@ class TestStreamPipeline:
                 text = resp.read().decode()
         finally:
             server.shutdown()
-        assert "pio_stream_events_total 4.0" in text
-        assert "pio_stream_publishes_total 1.0" in text
-        assert "pio_stream_lag_events 0.0" in text
+        # integral samples render as the JAX package's exposition does
+        assert "\npio_stream_events_total 4\n" in text
+        assert "\npio_stream_publishes_total 1\n" in text
+        assert "\npio_stream_lag_events 0\n" in text
 
     def test_foldin_pipeline_equals_the_jax_pipeline(self, tmp_path):
         """The same ALS stable and the same events through both packages'

@@ -157,10 +157,10 @@ def post(url: str, payload) -> tuple[int, dict]:
 
 
 @contextlib.contextmanager
-def cli_deployed(tmp_path: Path, app: str, events_path: Path, engine_json: dict):
-    """app new -> import -> train -> deploy through the port's CLI on the
-    CPU, each verb a subprocess; yields the server's base URL and stops it
-    with SIGTERM (it must exit 0)."""
+def cli_deployed(tmp_path: Path, app: str, events_path: Path, engine_json: dict, deploy_flags=()):
+    """app new -> import -> train -> deploy (with ``deploy_flags``) through
+    the port's CLI on the CPU, each verb a subprocess; yields the server's
+    base URL and stops it with SIGTERM (it must exit 0)."""
     engine_dir = tmp_path / "engine"
     engine_dir.mkdir()
     (engine_dir / "engine.json").write_text(json.dumps(engine_json))
@@ -180,7 +180,7 @@ def cli_deployed(tmp_path: Path, app: str, events_path: Path, engine_json: dict)
     with open(err_path, "w") as err:
         server = subprocess.Popen(
             [*cli, "deploy", "--engine-dir", str(engine_dir), "--device", "cpu",
-             "--ip", "127.0.0.1", "--port", str(port)],
+             "--ip", "127.0.0.1", "--port", str(port), *deploy_flags],
             env=env, stdout=subprocess.DEVNULL, stderr=err,
         )
     base = f"http://127.0.0.1:{port}"
