@@ -111,6 +111,24 @@ The recommendation template (ALS, kernel B1):
    publish: one drift line on the telemetry ring, one stream-drift bundle
    pio incidents list reads); B1 held and timed on a rank-10 fold-in's
    systems;
+3h. the bandit lanes in-process at full width: a QueryServer on the card
+   from a registry holding the ML-20M stable and the fold-in's candidate,
+   bandit_policy thompson, rewards in the fold-in's store: waves of 128
+   queries from 16 clients, each answered user converting with its arm's
+   probability (a reward event carrying the answer's trace id), a bake tick
+   between waves; round one (candidate 0.30, stable 0.15) promotes, round
+   two (the old stable re-staged, 0.05 against 0.30) retires; every answer
+   its lane's serve_batch, pulls, rewards and matched rewards exact,
+   pio_bandit_active 1 then 0, no 5xx, card memory flat; p50 and qps beside
+   the plain bake gate's;
+3i. the lifecycle loop through the CLI, after 3e in its directory: deploy
+   --bandit thompson, eventserver, lifecycle run started by 3e's drift
+   line, SIGKILLed after the grid's first ledger line and restarted (the
+   restarted grid trains only the cells its ledger lacks, on the CPU), the
+   winner staged, reward events through POST /batch/events.json until the
+   bandit promotes, at most 8 warm queries that are cache hits afterwards;
+   lifecycle status/trigger/pause/resume, top --once --json, top
+   --lifecycle, the admin server and the dashboard;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -214,6 +232,7 @@ import concurrent.futures
 import itertools
 import json
 import os
+import queue
 import re
 import shutil
 import signal
@@ -938,12 +957,14 @@ def cli_serve_phase(home: str, device: str = "cuda") -> dict:
 
 # Runs the port's CLI in this process and, at its exit, writes to the path
 # given as the first argument the kernel launches of the run (each count
-# zeroed before the verb runs; train, deploy, batchpredict, eval and stream) and
+# zeroed before the verb runs; train, deploy, batchpredict, eval, stream and
+# lifecycle run) and
 # every module of JAX, the JAX package or aiohttp that the process imported.
 _CLI_LAUNCHER = """
 import atexit, json, runpy, sys
 out = sys.argv.pop(1)
-counted = bool({"train", "deploy", "batchpredict", "eval", "stream"} & set(sys.argv))
+counted = bool({"train", "deploy", "batchpredict", "eval", "stream"} & set(sys.argv)) or (
+    "lifecycle" in sys.argv and sys.argv[sys.argv.index("lifecycle") + 1:][:1] == ["run"])
 if counted:
     from predictionio_tpu_torch.ops import attention, spd_solve
     kernels = {"spd_cg": spd_solve.batched_spd_solve_fused,
@@ -4047,14 +4068,17 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 2_000
 
 # the families the JAX package's query server registers
 # (tests/test_resilience.py's factory) less the port's written exemptions:
-# the five jit/XLA families (no jit cache in eager PyTorch) and the twelve
-# bandit families (not ported); tests/test_torch_obs.py holds this list to
-# that difference
+# the five jit/XLA families (no jit cache in eager PyTorch);
+# tests/test_torch_obs.py holds this list to that difference
 CONTRACT_FAMILIES = (
     "pio_ann_candidates_frac", "pio_ann_candidates_total", "pio_ann_fallback_total",
     "pio_ann_index_clusters", "pio_ann_index_items", "pio_ann_probes_total", "pio_ann_queries_total",
     "pio_ann_rebuilds_total", "pio_ann_recall_sampled", "pio_ann_recall_samples_total",
-    "pio_ann_refreshes_total", "pio_breaker_rejections_total", "pio_breaker_state",
+    "pio_ann_refreshes_total", "pio_bandit_active", "pio_bandit_fraction",
+    "pio_bandit_impressions_evicted_total", "pio_bandit_matched_rewards_total", "pio_bandit_p_candidate_better",
+    "pio_bandit_promotions_total", "pio_bandit_pulls_total", "pio_bandit_regret_pulls",
+    "pio_bandit_retirements_total", "pio_bandit_reward_rate", "pio_bandit_rewards_total",
+    "pio_bandit_unmatched_rewards_total", "pio_breaker_rejections_total", "pio_breaker_state",
     "pio_breaker_transitions_total", "pio_cache_evictions_total", "pio_cache_hits_total",
     "pio_cache_invalidations_total", "pio_cache_misses_total", "pio_deadline_exceeded_total",
     "pio_device_stall_seconds_total", "pio_dispatch_seconds", "pio_fetch_seconds", "pio_load_shed_total",
@@ -4119,6 +4143,19 @@ class _TracedConn:
         resp = self.conn.getresponse()
         body = json.loads(resp.read())
         return resp.status, resp.getheader("X-Pio-Trace-Id"), body, time.perf_counter() - t0
+
+    def close(self) -> None:
+        self.conn.close()
+
+    def query(self, payload, trace_id: str):
+        """POST /queries.json: (status, answering model version, decoded
+        body, seconds)."""
+        t0 = time.perf_counter()
+        self.conn.request("POST", "/queries.json", body=json.dumps(payload).encode(),
+                          headers={"Content-Type": "application/json", "X-Pio-Trace-Id": trace_id})
+        resp = self.conn.getresponse()
+        body = json.loads(resp.read())
+        return resp.status, resp.getheader("X-Pio-Model-Version"), body, time.perf_counter() - t0
 
 
 def _profiler_ready(base: str, timeout: float = 120.0) -> float:
@@ -4187,7 +4224,8 @@ def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_00
     base = f"http://127.0.0.1:{port}"
     users = [f"u{i}" for i in range(n_users)]
     uidx = np.asarray([model.user_index(u) for u in users], dtype=np.int32)
-    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 10)
+    # 20 columns for answers of 10: a run of tied scores cut at k is seen
+    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 20)
 
     def drive(us):
         local = threading.local()
@@ -4205,10 +4243,11 @@ def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_00
         for j, tid, status, echoed, body, _ in outs:
             if status != 200 or echoed != tid:
                 raise AssertionError(f"{us[j]}: status {status}, trace id {tid} echoed as {echoed}")
-            got_ids = [model.item_index(x["item"]) for x in body["itemScores"]]
-            if got_ids != ref_ids[j].tolist() or not np.allclose(
-                    [x["score"] for x in body["itemScores"]], ref_scores[j], rtol=1e-5):
-                raise AssertionError(f"{us[j]}: answered {body['itemScores'][:3]}..., not serve_batch's")
+            # a micro-batch's shape is not the reference's, so scores agree
+            # to rounding and near-tied ids may trade places (_same_topk)
+            _same_topk(np.asarray([[model.item_index(x["item"]) for x in body["itemScores"]]]),
+                       np.asarray([[x["score"] for x in body["itemScores"]]]), ref_ids[j:j + 1],
+                       ref_scores[j:j + 1], 1e-5, f"{us[j]}: not serve_batch's answer")
         return outs, wall
 
     def in_ring(outs, what):
@@ -4325,6 +4364,216 @@ def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_00
     emit_numbers("obs_inprocess", **steps)
     return steps
 
+
+
+# ---------------------------------------------------------------------------
+# the bandit lanes (predictionio_tpu_torch/bandit)
+# ---------------------------------------------------------------------------
+
+BANDIT_ENGINE = "smoke-bandit"
+BANDIT_ROUNDS = ({"candidate": 0.30, "stable": 0.15, "verdict": "promote"},
+                 {"candidate": 0.05, "stable": 0.30, "verdict": "retire"})
+
+
+def _bandit_registry(foldin: dict, work: str) -> tuple[str, list[str]]:
+    """A registry of its own: the fold-in's stable blob as v000001 (the
+    ML-20M model, rank 32) and its last candidate's blob as v000002."""
+    from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest
+
+    store, src = ArtifactStore(os.path.join(work, "registry")), foldin["store"]
+    versions = []
+    for blob in (foldin["stable_blob"], src.load_blob(STREAM_ENGINE, foldin["published"][-1])):
+        versions.append(store.publish(ModelManifest(version="", engine_id=BANDIT_ENGINE, engine_version="1",
+                                                    engine_variant="engine.json"), blob).version)
+    return store.base_dir, versions
+
+
+def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 128, seed: int = 43,
+                           max_queries: int = 40_000, n_users: int = 138_000) -> dict:
+    """The bandit lanes at full width: a QueryServer on the card deployed
+    from a registry whose v000001 is the ML-20M stable (138,000 x 27,000,
+    rank 32) and v000002 the fold-in's candidate, with bandit_policy
+    "thompson" and its reward app in the server's own (the fold-in's sqlite)
+    store. Round one stages v000002 at 0.1: waves of 128 queries from 16
+    clients (users drawn from a seed, each query with its own
+    X-Pio-Trace-Id); each answered user converts with its arm's
+    probability (numpy, fixed seed: candidate 0.30, stable 0.15) and the
+    conversion is a reward event carrying the answer's trace id; one bake
+    tick after each wave, until the bandit promotes. Round two re-stages
+    v000001 as the candidate (0.05 against the new stable's 0.30) until it
+    retires. The ticks run between waves, so each round's accounting is
+    exact: every answer 200 and equal to its lane's serve_batch, pulls per
+    arm equal to the answers per arm, matched rewards equal to the reward
+    events (every one of a live impression), pio_bandit_active 1 during
+    the round and 0 after, the registry's state and bandit.json ended as
+    the verdict; card memory held by tensors flat across both swaps. The
+    same waves through a server with the plain bake gate (no bandit, a
+    canary at 0.5) give the p50 and qps beside it."""
+    import uuid
+
+    from predictionio_tpu_torch.data.event import Event
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.create_server import ServerConfig, create_query_server
+
+    storage = foldin["storage"]
+    work = tempfile.mkdtemp(prefix="pio_smoke_bandit_")
+    registry, (v1, v2) = _bandit_registry(foldin, work)
+    engine_dir = _engine_dir(os.path.join(work, "engine"), BANDIT_ENGINE, "streamapp", {"rank": 32})
+    app_id = storage.get_meta_data_apps().insert(App(0, "banditrewards"))
+    levents = storage.get_l_events()
+    levents.init(app_id)
+    ctx = WorkflowContext(mode="serving", device="cuda", _storage=storage)
+    users_rng, convert_rng = np.random.default_rng(seed), np.random.default_rng(seed + 1)
+
+    opened: list = []
+
+    def serve(bandit: bool):
+        config = ServerConfig(ip="127.0.0.1", port=0, registry_dir=registry, bake_check_interval_s=3600.0,
+                              bake_window_s=1.0, bake_min_requests=20,
+                              profile_dir=os.path.join(work, "profiles"),
+                              **({"bandit_policy": "thompson", "bandit_app_name": "banditrewards"}
+                                 if bandit else {}))
+        server = create_query_server(engine_dir, ctx, config)
+        port = server.start()
+        # one keep-alive connection a client, open until the phase ends:
+        # across every swap, the plain server's shutdown and each reading
+        # of card memory
+        fresh = [_TracedConn(port) for _ in range(clients)]
+        opened.extend(fresh)
+        conns = queue.Queue()
+        for conn in fresh:
+            conns.put(conn)
+        return server, port, conns
+
+    def drive(conns, n):
+        users = [f"u{u}" for u in users_rng.integers(0, n_users, n)]
+
+        def one(j):
+            conn = conns.get()
+            try:
+                tid = uuid.uuid4().hex[:16]
+                return (tid, *conn.query({"user": users[j], "num": 10}, tid))
+            finally:
+                conns.put(conn)
+
+        t0 = time.perf_counter()
+        with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+            outs = list(pool.map(one, range(n)))
+        wall = time.perf_counter() - t0
+        bad = [o for o in outs if o[1] != 200]
+        if bad:
+            raise AssertionError(f"{len(bad)} of {n} answers not 200, e.g. {bad[0][1:3]}")
+        return users, outs, wall
+
+    def active_gauge(port):
+        return parse_metrics(_get(f"http://127.0.0.1:{port}", "/metrics")[2])["pio_bandit_active"][0][1]
+
+    steps: dict = {}
+    # the plain bake gate: a canary at 0.5 that never promotes in the window
+    plain, port, conns = serve(bandit=False)
+    try:
+        plain.stage_from_registry(v2, fraction=0.5)
+        lat, wall = [], 0.0
+        for _ in range(8):
+            _, outs, w = drive(conns, wave)
+            lat += [o[4] for o in outs]
+            wall += w
+        steps["plain_gate_p50_ms"], steps["plain_gate_qps"] = _p50_ms(lat), len(lat) / wall
+        plain._rollback_candidate("manual")
+    finally:
+        plain.shutdown()
+        del plain
+    server, port, conns = serve(bandit=True)
+    store, ins = server.registry_store, server.bandit_instruments
+    decisions = []
+    tick = server.bandit.tick
+
+    def recording_tick():
+        d = tick()
+        decisions.append(d)
+        return d
+
+    server.bandit.tick = recording_tick
+    rounds, lat, wall = [], [], 0.0
+    try:
+        memory = [_tensor_bytes(torch)]
+        for r, rates in enumerate(BANDIT_ROUNDS):
+            cand_version = v2 if r == 0 else v1
+            server.stage_from_registry(cand_version, fraction=0.1)
+            if not server.bandit.active:
+                raise AssertionError("the bandit did not engage on the staged candidate")
+            stable_lane, cand_lane, _, _ = server.lanes()
+            matched0, answers, conversions = ins.matched.value(), {"stable": [], "candidate": []}, \
+                {"stable": 0, "candidate": 0}
+            seen_active = False
+            n, p95_ratios = 0, []
+            while server._candidate is not None:
+                if n >= max_queries:
+                    raise AssertionError(f"round {r + 1}: no verdict after {n} queries: {server.bandit.snapshot()}")
+                users, outs, w = drive(conns, wave)
+                n += len(outs)
+                wall += w
+                for user, (tid, _, version, body, dt_s) in zip(users, outs):
+                    arm = "candidate" if version == cand_version else "stable"
+                    answers[arm].append((user, body, version, dt_s))
+                    lat.append(dt_s)
+                    if convert_rng.random() < rates[arm]:
+                        conversions[arm] += 1
+                        levents.insert(Event(event="reward", entity_type="user", entity_id=user,
+                                             properties={"traceId": tid}), app_id)
+                seen_active = seen_active or active_gauge(port) == 1.0
+                # what the gate's latency veto (1.5x, the default) reads
+                base, rinst = server.rollout_controller._baseline, server._rollout_instruments
+                if base is not None:
+                    p95s = (rinst.p95_since(base.candidate_version, base.cand_predict_counts),
+                            rinst.p95_since(base.stable_version, base.stable_predict_counts))
+                    if min(p95s) > 0:
+                        p95_ratios.append(p95s[0] / p95s[1])
+                server._rollout_tick()
+            verdict = decisions[-1]
+            saved = store.load_bandit_state(BANDIT_ENGINE)
+            state = store.get_state(BANDIT_ENGINE)
+            for arm in ("stable", "candidate"):
+                got = answers[arm]
+                if got:
+                    _lane_answers_held(server, stable_lane if arm == "stable" else cand_lane,
+                                       [(200, b, v, d) for _, b, v, d in got],
+                                       [u for u, *_ in got], f"round {r + 1} {arm} answers")
+                if saved[arm]["pulls"] != len(got) or saved[arm]["rewards"] != conversions[arm]:
+                    raise AssertionError(f"round {r + 1} {arm}: {saved[arm]} for {len(got)} answers and "
+                                         f"{conversions[arm]} conversions")
+            matched = ins.matched.value() - matched0
+            want_stable = (cand_version if rates["verdict"] == "promote" else stable_lane.version)
+            if (verdict.verdict != rates["verdict"] or saved.get("ended") != rates["verdict"]
+                    or matched != sum(conversions.values()) or not seen_active or active_gauge(port) != 0.0
+                    or state.stable != want_stable or state.candidate or server.model_version != want_stable):
+                raise AssertionError(f"round {r + 1}: verdict {verdict}, saved {saved}, matched {matched} of "
+                                     f"{conversions}, active seen {seen_active}, latency veto's p95 ratios "
+                                     f"{p95_ratios[-4:]}, state {state.to_json_dict()}")
+            del stable_lane, cand_lane
+            memory.append(_tensor_bytes(torch))
+            rounds.append({"verdict": verdict.verdict, "queries_to_verdict": n, "p_better": verdict.p_better,
+                           "final_fraction": verdict.fraction, "regret_pulls": ins.regret_pulls.value(),
+                           "pulls": {a: len(v) for a, v in answers.items()}, "rewards": conversions,
+                           "matched_rewards": matched, "max_p95_ratio_read": max(p95_ratios, default=None),
+                           "rates": {k: v for k, v in rates.items() if k != "verdict"}})
+        if max(memory) > 1.1 * min(memory):
+            raise AssertionError(f"card memory held by tensors moved across the swaps: {memory}")
+        metrics = parse_metrics(_get(f"http://127.0.0.1:{port}", "/metrics")[2])
+        statuses = {lab["status"] for lab, _, _ in metrics["pio_requests_total"]}
+        if any(s.startswith("5") for s in statuses):
+            raise AssertionError(f"5xx answers: {metrics['pio_requests_total']}")
+    finally:
+        server.shutdown()
+        for conn in opened:
+            conn.close()
+        shutil.rmtree(work, ignore_errors=True)
+    steps.update({"rounds": rounds, "clients": clients, "wave": wave, "bandit_p50_ms": _p50_ms(lat),
+                  "bandit_qps": len(lat) / wall, "memory_allocated": memory,
+                  "promotions": ins.promoted.value(), "retirements": ins.retired.value()})
+    emit_numbers("bandit_inprocess", **steps)
+    return steps
 
 
 def profiled_train(work: str, run, reports: list, engine_dir: str, device: str) -> int:
@@ -4445,6 +4694,89 @@ def sequential_captures(cli, env, engine_dir: str, work: str, device: str, sessi
     return out
 
 
+class _CliSession:
+    """The port's CLI verbs of one phase, each a process started through
+    _CLI_LAUNCHER in ``work`` on the store of ``--home home``; every report
+    file is kept in :attr:`reports`, every wall time in :attr:`steps`, every
+    server in :attr:`procs`."""
+
+    def __init__(self, work: str, home: str, env: dict):
+        self.work, self.home, self.env = work, home, env
+        self.reports: list[str] = []
+        self.steps: dict = {}
+        self.procs: list = []
+        self._lock = threading.Lock()  # verbs may run from several threads
+        self.started: dict = {}  # server verbs by name
+
+    def argv(self, *args) -> tuple[list[str], str]:
+        """The launcher's command line for a verb, and its report file."""
+        with self._lock:
+            report = os.path.join(self.work, f"report_{len(self.reports)}.json")
+            self.reports.append(report)
+        return [sys.executable, "-c", _CLI_LAUNCHER, report, "--home", self.home, *args], report
+
+    def run(self, name: str, *args, timeout: float = 600):
+        """Run one verb to its end: (stdout, the launch counts)."""
+        t0 = time.perf_counter()
+        argv, report = self.argv(*args)
+        proc = subprocess.run(argv, env=self.env, capture_output=True, text=True, timeout=timeout, cwd=self.work)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {' '.join(args[:2])} failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
+        self.steps[f"{name}_s"] = time.perf_counter() - t0
+        with open(report) as fh:
+            return proc.stdout, json.load(fh)["launches"]
+
+    def spawn(self, name: str, *args, env: dict | None = None):
+        """Start a verb that runs until stopped (stderr to name.err); the
+        process gets its report file's path as ``report``."""
+        argv, report = self.argv(*args)
+        with open(os.path.join(self.work, f"{name}.err"), "w") as err:
+            proc = subprocess.Popen(argv, env=env or self.env, stdout=subprocess.DEVNULL, stderr=err, cwd=self.work)
+        proc.report = report
+        self.procs.append(proc)
+        return proc
+
+    def err(self, name: str) -> str:
+        with open(os.path.join(self.work, f"{name}.err")) as fh:
+            return fh.read()[-3000:]
+
+    def start(self, name: str, *args) -> str:
+        """Start a server verb on a free port; its base URL once GET /
+        answers 200."""
+        port = _free_port()
+        proc = self.spawn(name, *args, "--ip", "127.0.0.1", "--port", str(port))
+        self.started[name] = proc
+        t0 = time.perf_counter()
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(f"{name} exited {proc.returncode}: {self.err(name)}")
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=2) as resp:
+                    if resp.status == 200:
+                        self.steps[f"{name}_ready_s"] = time.perf_counter() - t0
+                        return f"http://127.0.0.1:{port}"
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError(f"{name} did not answer GET / within 180 s")
+            time.sleep(0.2)
+
+    def stop_all(self) -> None:
+        for proc in self.procs:
+            if proc.poll() is None:
+                _stop(proc)
+
+    def foreign(self, skip=()) -> None:
+        """Fail if a process imported JAX, the JAX package or aiohttp."""
+        for path in self.reports:
+            if path in skip:
+                continue
+            with open(path) as fh:
+                foreign = json.load(fh)["foreign_modules"]
+            if foreign:
+                raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
+
+
 def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new_users: int = 500,
                        n_new: int = 5_000) -> dict:
     """The registry path as a user drives it, each verb a process of the
@@ -4466,41 +4798,8 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
     work = tempfile.mkdtemp(prefix="pio_smoke_registry_")
     # the reference's variable: every version this path trains pins an index
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "PIO_ANN_MIN_ITEMS": "0"}
-    reports, steps, procs = [], {}, []
-
-    def argv(*args):
-        reports.append(os.path.join(work, f"report_{len(reports)}.json"))
-        return [sys.executable, "-c", _CLI_LAUNCHER, reports[-1], "--home", home, *args]
-
-    def run(name, *args, timeout=600):
-        t0 = time.perf_counter()
-        proc = subprocess.run(argv(*args), env=env, capture_output=True, text=True, timeout=timeout, cwd=work)
-        if proc.returncode != 0:
-            raise AssertionError(f"cli {' '.join(args[:2])} failed ({proc.returncode}):\n{proc.stderr[-3000:]}")
-        steps[f"{name}_s"] = time.perf_counter() - t0
-        with open(reports[-1]) as fh:
-            return proc.stdout, json.load(fh)["launches"]
-
-    def start(name, *args):
-        port = _free_port()
-        with open(os.path.join(work, f"{name}.err"), "w") as err:
-            proc = subprocess.Popen(argv(*args, "--ip", "127.0.0.1", "--port", str(port)), env=env,
-                                    stdout=subprocess.DEVNULL, stderr=err, cwd=work)
-        procs.append(proc)
-        t0 = time.perf_counter()
-        while True:
-            if proc.poll() is not None:
-                with open(os.path.join(work, f"{name}.err")) as fh:
-                    raise AssertionError(f"{name} exited {proc.returncode}: {fh.read()[-3000:]}")
-            try:
-                if _http(f"http://127.0.0.1:{port}/", timeout=2)[0] == 200:
-                    steps[f"{name}_ready_s"] = time.perf_counter() - t0
-                    return f"http://127.0.0.1:{port}"
-            except (urllib.error.URLError, ConnectionError, TimeoutError):
-                pass
-            if time.perf_counter() - t0 > 180:
-                raise AssertionError(f"{name} did not answer GET / within 180 s")
-            time.sleep(0.2)
+    session = _CliSession(work, home, env)
+    run, start, steps = session.run, session.start, session.steps
 
     def models_state(base):
         with urllib.request.urlopen(base + "/models", timeout=30) as resp:
@@ -4599,22 +4898,17 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
         steps["adopt_winner_s"] = wait_for(base, "the grid winner", lambda s: (s["candidate"] or {}).get("version") == winner)
         steps.update(stream_drift(run, stream, es, key, model, obs))
     finally:
-        for proc in procs:
-            if proc.poll() is None:
-                _stop(proc)
-    for path in reports:
-        with open(path) as fh:
-            foreign = json.load(fh)["foreign_modules"]
-        if foreign:
-            raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
-    shutil.rmtree(work, ignore_errors=True)
+        session.stop_all()
+    session.foreign()
     if launches["train"] != 20 or launches["eval_publish"] != (4 + 1) * 20:
         raise AssertionError(f"B1 launches {launches}")
     result = {"host_numbers": True, **steps, "spd_cg_launches": launches, "streamed_events": len(events),
               "answers_by_version": by_version, "candidate": cand, "grid_winner": winner,
               "ann_indexes": indexes}
     emit(phase="registry_cli", **result)
-    return {"launches": {"registry_cli": sum(launches.values())}}
+    # lifecycle_cli goes on in this directory (its registry, engine, obs dir)
+    return {"launches": {"registry_cli": sum(launches.values())}, "work": work, "engine_dir": engine_dir,
+            "registry": registry, "obs": obs, "variant": variant}
 
 
 def stream_drift(run, stream: list, es: str, key: str, model, obs: str, n_events: int = 900) -> dict:
@@ -4666,6 +4960,277 @@ def make_evaluation():
         **VARIANT["algorithms"][0]["params"], "rank": rank}}}}]}}) for rank in (10, 20)]
     return Evaluation(engine=engine, metric=PrecisionAtK(k=10), engine_params_generator=params)
 """
+
+
+# the retune grid of lifecycle_cli: the template's ALS, each train logging
+# its rank and device to $GRID_TRAIN_LOG after waiting $GRID_TRAIN_SLEEP s
+_LIFECYCLE_GRID = """
+import os
+import time
+
+from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.eval import Evaluation
+from predictionio_tpu_torch.models.recommendation import engine as rec
+from predictionio_tpu_torch.tuning.metrics import PrecisionAtK
+
+VARIANT = {variant!r}
+
+
+class LoggedALS(rec.ALSAlgorithm):
+    def train(self, ctx, pd):
+        with open(os.environ["GRID_TRAIN_LOG"], "a") as fh:
+            fh.write(f"{{self.params.rank}} {{ctx.device}}\\n")
+        time.sleep(float(os.environ.get("GRID_TRAIN_SLEEP", "0")))
+        return super().train(ctx, pd)
+
+
+def make_evaluation():
+    engine = Engine(rec.DataSource, {{"": rec.Preparator}}, {{"als": LoggedALS}}, {{"": rec.Serving}},
+                    query_class=rec.Query)
+    params = [engine.engine_params_from_variant({{**VARIANT, "algorithms": [{{"name": "als", "params": {{
+        **VARIANT["algorithms"][0]["params"], "rank": rank}}}}]}}) for rank in (10, 20)]
+    return Evaluation(engine=engine, metric=PrecisionAtK(k=10), engine_params_generator=params)
+"""
+LIFECYCLE_CELLS = 4  # 2 ranks x 2 folds
+
+
+def _lines(path: str) -> list[str]:
+    if not os.path.exists(path):
+        return []
+    with open(path) as fh:
+        return [ln for ln in fh.read().splitlines() if ln.strip()]
+
+
+def _queries_total(base: str, family: str) -> float:
+    parsed = parse_metrics(_get(base, "/metrics")[2])
+    return sum(v for lab, v, _ in parsed.get(family, []) if lab.get("endpoint", "/queries.json") == "/queries.json")
+
+
+def lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "cuda", seed: int = 47,
+                        rates: dict | None = None, clients: int = 8, wave: int = 64,
+                        max_queries: int = 20_000) -> dict:
+    """The lifecycle loop through the port's CLI on the event server's
+    ML-100K store, in registry_cli's directory after it: models rollback
+    (clears the grid winner it left staged), deploy --registry-dir
+    --bandit thompson --bandit-app-name restapp, eventserver, then
+    lifecycle run over a 2-rank x 2-fold grid with --workers 0 and
+    --obs-dir the directory whose telemetry ring holds the drift line
+    stream_drift left: that line alone starts the episode. The controller
+    is SIGKILLed after the grid's first ledger line and started again: the
+    restarted grid trains only the cells the ledger lacks, plus the
+    winner's refit (the cell in flight at the kill is the one retrained),
+    every cell on the CPU (the cpu-fallback class). The winner lands as the
+    canary; 8 clients query it with their own X-Pio-Trace-Id, and each
+    answered user converts with its arm's probability (numpy, fixed seed:
+    candidate 0.35, stable 0.10), posted as a reward event through POST
+    /batch/events.json, until the bandit promotes; the controller then
+    warms the cache with at most 8 queries, which are cache hits
+    afterwards. Then lifecycle status (text and --json), trigger, pause,
+    resume, top --once --json (the bandit line), top --lifecycle, the
+    admin server's /cmd/app and /cmd/models/<engine> (the promoted
+    version stable) and the dashboard's panel of the server. Every answer
+    200; no process imports JAX, the JAX package or aiohttp."""
+    import re
+    import uuid
+
+    from predictionio_tpu_torch.data.store.event_store import resolve_app
+    from predictionio_tpu_torch.lifecycle import read_json_file
+    from predictionio_tpu_torch.obs.tsring import TelemetryRing
+    from predictionio_tpu_torch.registry import ArtifactStore
+    from predictionio_tpu_torch.workflow.batch_predict import iter_event_users
+
+    rates = rates or {"candidate": 0.35, "stable": 0.10}
+    work, engine_dir, registry, obs = reg["work"], reg["engine_dir"], reg["registry"], reg["obs"]
+    engine_id = reg["variant"]["id"]
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    session = _CliSession(work, home, env)
+    run, steps = session.run, session.steps
+    store = ArtifactStore(registry)
+    state_dir = os.path.join(obs, "lifecycle")
+    state_path = os.path.join(state_dir, "lifecycle.json")
+    ring_dir = os.path.join(obs, "telemetry")
+    drift = [r for r in TelemetryRing(ring_dir).records() if r.get("kind") == "drift"]
+    if len(drift) != 1:
+        raise AssertionError(f"expected stream_drift's one drift line on the ring: {drift}")
+    with open(os.path.join(work, "lifecycle_grid.py"), "w") as fh:
+        fh.write(_LIFECYCLE_GRID.format(variant={**reg["variant"], "datasource": {"params": {
+            **reg["variant"]["datasource"]["params"], "evalParams": {"kFold": 2, "queryNum": 10}}}}))
+    ed = ["--engine-dir", engine_dir]
+    logs = [os.path.join(work, "trains1.log"), os.path.join(work, "trains2.log")]
+    ctl = ["lifecycle", "run", "lifecycle_grid.make_evaluation", *ed, "--registry-dir", registry,
+           "--obs-dir", obs, "--workers", "0", "--tick-interval", "0.2", "--cooldown", "9999",
+           "--stage-fraction", "0.1", "--app-name", "restapp", "--warm-limit", "8"]
+    rng = np.random.default_rng(seed)
+    users = [u for u in rest["user_ids"] if u.startswith("u")]
+    killed = []
+    try:
+        if store.get_state(engine_id).candidate:  # eval --publish's winner
+            run("models_rollback", "models", "rollback", *ed, "--registry-dir", registry)
+        if store.get_state(engine_id).candidate:
+            raise AssertionError(f"a candidate is still staged: {store.get_state(engine_id).to_json_dict()}")
+        base = session.start("deploy", "deploy", *ed, "--device", device, "--registry-dir", registry,
+                             "--registry-sync-interval", "0.2", "--bake-window", "1", "--bake-min-requests", "20",
+                             "--bandit", "thompson", "--bandit-app-name", "restapp",
+                             "--profile-dir", os.path.join(work, "profiles"))
+        es = session.start("eventserver", "eventserver")
+        ctl += ["--serve-url", base]
+        t0 = time.perf_counter()
+        c1 = session.spawn("lifecycle1", *ctl, env={**env, "GRID_TRAIN_LOG": logs[0], "GRID_TRAIN_SLEEP": "1"})
+        killed.append(c1.report)
+        ledger = os.path.join(state_dir, "grid", "run-0001", "ledger.jsonl")
+        _wait(lambda: c1.poll() is not None or len(_lines(ledger)) >= 1, 600, "the grid's first ledger line")
+        if c1.poll() is not None:
+            raise AssertionError(f"lifecycle run exited {c1.returncode}: {session.err('lifecycle1')}")
+        c1.send_signal(signal.SIGKILL)
+        c1.wait(timeout=30)
+        steps["drift_to_first_cell_s"] = time.perf_counter() - t0
+        finished_at_kill, trains_at_kill = len(_lines(ledger)), len(_lines(logs[0]))
+        if (read_json_file(state_path) or {}).get("policy", {}).get("state") != "tuning":
+            raise AssertionError(f"state after the kill: {read_json_file(state_path)}")
+        c2 = session.spawn("lifecycle2", *ctl, env={**env, "GRID_TRAIN_LOG": logs[1], "GRID_TRAIN_SLEEP": "0"})
+        t1 = time.perf_counter()
+
+        def state():
+            if c2.poll() is not None:
+                raise AssertionError(f"lifecycle run exited {c2.returncode}: {session.err('lifecycle2')}")
+            return (read_json_file(state_path) or {}).get("policy", {})
+
+        _wait(lambda: state().get("state") == "baking", 600, "the grid's winner baking")
+        steps["restart_to_baking_s"] = time.perf_counter() - t1
+        winner = store.get_state(engine_id).candidate
+        _wait(lambda: (_http(base + "/")[1]["bandit"] or {}).get("active"), 60, "the bandit engaging")
+        port = int(base.rsplit(":", 1)[1])
+        answers, conversions, n, t2 = {"stable": 0, "candidate": 0}, {"stable": 0, "candidate": 0}, 0, \
+            time.perf_counter()
+        while store.get_state(engine_id).stable != winner:
+            if n >= max_queries:
+                raise AssertionError(f"no bandit promote after {n} queries: {_http(base + '/')[1]['bandit']}")
+            batch = [users[i] for i in rng.integers(0, len(users), wave)]
+            local, conns = threading.local(), []
+
+            def one(u):
+                if not hasattr(local, "conn"):
+                    local.conn = _TracedConn(port)
+                    conns.append(local.conn)
+                tid = uuid.uuid4().hex[:16]
+                return (u, tid, *local.conn.query({"user": u, "num": 10}, tid))
+
+            with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+                outs = list(pool.map(one, batch))
+            for conn in conns:
+                conn.close()
+            events = []
+            for u, tid, status, version, body, _ in outs:
+                if status != 200:
+                    raise AssertionError(f"{u}: answered {status} {body}")
+                _check_result(body, 10, 1682)
+                arm = "candidate" if version == winner else "stable"
+                answers[arm] += 1
+                if rng.random() < rates[arm]:
+                    conversions[arm] += 1
+                    events.append({"event": "reward", "entityType": "user", "entityId": u,
+                                   "properties": {"traceId": tid}})
+            for lo in range(0, len(events), 50):
+                status, results, _ = _http(f"{es}/batch/events.json?accessKey={rest['access_key']}",
+                                           events[lo:lo + 50])
+                if status != 200 or any(r.get("status") != 201 for r in results):
+                    raise AssertionError(f"reward batch: {status} {results[:2]}")
+            n += len(outs)
+        steps["canary_to_promote_s"] = time.perf_counter() - t2
+        _wait(lambda: state().get("state") == "idle", 120, "the episode closing")
+        steps["episode_wall_s"] = time.perf_counter() - t0
+        final = read_json_file(state_path)
+        if final["policy"]["lastOutcome"] != "promoted" or final["lastDecision"]["action"] != "warm":
+            raise AssertionError(f"episode: {final}")
+        warm = re.findall(r"cache warmed for (\S+): \{'ok': (\d+), 'error': (\d+)\}", session.err("lifecycle2"))
+        if len(warm) != 1 or warm[0][0] != winner or int(warm[0][2]) or not 0 < int(warm[0][1]) <= 8:
+            raise AssertionError(f"the warm: {warm}\n{session.err('lifecycle2')}")
+        warmed = int(warm[0][1])
+        levents = smoke_storage(home).get_l_events()
+        app_id, _ = resolve_app(smoke_storage(home), "restapp", None)
+        hits0 = _queries_total(base, "pio_cache_hits_total")
+        for _, query in iter_event_users(levents, app_id, limit=8):
+            if _http(base + "/queries.json", query)[0] != 200:
+                raise AssertionError(f"warm query {query} not answered 200")
+        hits = _queries_total(base, "pio_cache_hits_total") - hits0
+        trains = [_lines(p) for p in logs]
+        devices = sorted({ln.split()[1] for t in trains for ln in t})
+        retrained = trains_at_kill - finished_at_kill
+        if (len(trains[1]) != LIFECYCLE_CELLS - finished_at_kill + 1 or retrained > 1 or devices != ["cpu"]
+                or hits != warmed):
+            raise AssertionError(f"{finished_at_kill} cells at the kill, {trains_at_kill} trains before it, "
+                                 f"{len(trains[1])} after; devices {devices}; {hits} cache hits of {warmed}")
+        # the server's own loop ticks here, so the answers of the waves in
+        # flight at its verdict (at most two) are no pulls, and rewards not
+        # yet read then are never credited; bandit_inprocess holds both exactly
+        bandit_json = store.load_bandit_state(engine_id)
+        late = {arm: (answers[arm] - bandit_json[arm]["pulls"], conversions[arm] - bandit_json[arm]["rewards"])
+                for arm in answers}
+        if bandit_json.get("ended") != "promote" or bandit_json["candidate"]["version"] != winner or any(
+                not (0 <= p and 0 <= r) for p, r in late.values()) or sum(p for p, _ in late.values()) > 2 * wave:
+            raise AssertionError(f"bandit.json {bandit_json}; answers {answers}, conversions {conversions}")
+        ring = [(r.get("kind"), r.get("event")) for r in TelemetryRing(ring_dir).records()]
+        if [e for k, e in ring if k == "lifecycle"] != ["triggered", "tuning", "baking", "finished"]:
+            raise AssertionError(f"ring: {ring}")
+        c2.send_signal(signal.SIGINT)  # a clean exit writes its report
+        c2.wait(timeout=30)
+
+        def control_verbs():  # in order: each reads and rewrites the control file
+            out = []
+            for verb in ("trigger", "pause", "resume"):
+                run(f"lifecycle_{verb}", "lifecycle", verb, "--obs-dir", obs)
+                out.append(read_json_file(os.path.join(state_dir, "lifecycle-control.json")))
+            return out
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            control = pool.submit(control_verbs)
+            status_text, status_json, top_json, top_lc = [pool.submit(run, *a) for a in (
+                ("lifecycle_status", "lifecycle", "status", "--obs-dir", obs),
+                ("lifecycle_status_json", "lifecycle", "status", "--obs-dir", obs, "--json"),
+                ("top_json", "top", "--once", "--json", "--url", base),
+                ("top_lifecycle", "top", "--lifecycle", state_path, "--once"))]
+            admin, dash = pool.submit(session.start, "adminserver", "adminserver", "--registry-dir", registry), \
+                pool.submit(session.start, "dashboard", "dashboard", "--metrics-url", base)
+            control, admin, dash = control.result(), admin.result(), dash.result()
+            status_text, status_json, top_json, top_lc = (f.result()[0] for f in (
+                status_text, status_json, top_json, top_lc))
+        if "state  idle" not in status_text or "last promoted" not in status_text \
+                or json.loads(status_json)["policy"]["lastOutcome"] != "promoted":
+            raise AssertionError(f"lifecycle status:\n{status_text}\n{status_json}")
+        if control != [{"trigger": 1}, {"trigger": 1, "paused": True}, {"trigger": 1, "paused": False}]:
+            raise AssertionError(f"control file: {control}")
+        bandit_line = json.loads(top_json)["bandit"]
+        if bandit_line["active"] or bandit_line["promotions_total"] != 1 or bandit_line["pulls"] != {
+                arm: bandit_json[arm]["pulls"] for arm in answers}:
+            raise AssertionError(f"pio top's bandit line: {bandit_line}")
+        if f"lifecycle {engine_id}" not in top_lc or "last promoted" not in top_lc:
+            raise AssertionError(f"pio top --lifecycle:\n{top_lc}")
+        apps = _http(admin + "/cmd/app")[1]
+        models = _http(admin + f"/cmd/models/{store.engine_key(engine_id)}")[1]
+        if "restapp" not in [a["name"] for a in apps] or models["state"]["stable"] != winner \
+                or winner not in [m["version"] for m in models["versions"]]:
+            raise AssertionError(f"admin server: {apps} {models['state']}")
+        page = _get(dash, "/")[2]
+        if f"<h3>{base}</h3><table>" not in page or 'class="unreachable"' in page:
+            raise AssertionError(f"dashboard page without the server's panel:\n{page[:2000]}")
+    finally:
+        session.stop_all()
+    session.foreign(skip=killed)
+    launches = {}
+    for name, proc in (("deploy", session.started["deploy"]), ("lifecycle", c2)):
+        with open(proc.report) as fh:
+            launches[name] = json.load(fh)["launches"]["spd_cg"]
+    if launches["lifecycle"]:
+        raise AssertionError(f"the retune's cells launched B1 on the card: {launches}")
+    shutil.rmtree(work, ignore_errors=True)
+    result = {"host_numbers": True, **steps, "cells": LIFECYCLE_CELLS, "cells_at_kill": finished_at_kill,
+              "trains_before_kill": trains_at_kill, "trains_after_restart": len(trains[1]),
+              "cells_retrained": retrained, "cell_devices": devices, "winner": winner, "queries_to_promote": n,
+              "answers": answers, "conversions": conversions, "bandit_json": bandit_json,
+              "warm_queries": warmed, "warm_cache_hits": hits,
+              "spd_cg_launches": launches, "drift_line": {k: drift[0][k] for k in ("guard", "measured", "threshold")}}
+    emit(phase="lifecycle_cli", **result)
+    return result
 
 
 def stream_b1_rows(torch, home: str, n_events: int = 5_000) -> list[dict]:
@@ -5304,11 +5869,13 @@ def main() -> int:
         rollout_lanes_phase(torch, home, foldin)
         contract = serving_contract_inprocess_phase(torch, foldin)
         obs_inprocess_phase(torch, foldin, contract)
+        bandit_inprocess_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
         del foldin
         offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)
         eval_rows = eval_b1_rows(torch, os.path.join(home, "rest"))
         registry = registry_cli_phase(torch, os.path.join(home, "rest"), rest)
+        lifecycle_cli_phase(torch, os.path.join(home, "rest"), rest, registry)
         foldin_rows += stream_b1_rows(torch, os.path.join(home, "rest"))
         rank160, rank160_launches = als_rank160_phase(torch, home)
         attention_kernel_phase(torch)

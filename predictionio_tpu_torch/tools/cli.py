@@ -23,6 +23,16 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
            [--registry-dir R] [--registry-sync-interval S] [--bake-window S] ...
            [--result-cache-size N] [--result-cache-ttl S] [--slo-* ...]
            [--profile-dir D] [--sampler-period S] [--no-profile-on-alert] ...
+           [--bandit epsilon|thompson --bandit-app-name A [--bandit-epsilon E]
+            [--bandit-min-pulls N] [--bandit-reward-event reward,purchase]]
+    lifecycle run EVALUATION [--engine-dir DIR] [--registry-dir R] [--obs-dir D]
+                  [--workers N] [--serve-url U --app-name A] [--warm-limit N] ...
+            | status [--json] | trigger | pause | resume   [--obs-dir D] [--state-dir S]
+    top [--url U] [--once] [--json] [--interval S] [-n N] [--metrics-url U ...]
+        [--hotspots] [--fleet] | --history [--history-window S] [--obs-dir D]
+        | --eval STATUS_FILE | --batchpredict STATUS_FILE | --lifecycle STATE_FILE
+    adminserver [--ip IP] [--port N] [--registry-dir R]
+    dashboard [--ip IP] [--port N] [--metrics-url U ...]
     profile serve --url U [--ms N] | train [--profile-dir D] -- TRAIN ARGS
             | list | show BUNDLE [--json] | export BUNDLE DEST
     incidents list | show BUNDLE [--json] | export BUNDLE DEST  [--obs-dir D]
@@ -49,7 +59,12 @@ the basedir; ``pio stream`` keeps its cursors under ``--cursor-dir``, else
 --obs-dir D`` appends drift signals to the telemetry ring under
 ``D/telemetry`` and writes incident bundles under ``D/incidents``, which
 ``pio incidents`` reads. ``pio profile`` and ``pio doctor`` read bundles
-and the card without importing anything of JAX.
+and the card without importing anything of JAX. ``pio lifecycle run``
+reads that ring for drift, retunes through the eval grid (cpu-fallback
+cells, on the CPU), stages the winner as a canary and warms the result
+cache after the promote; its state lives under ``<obs-dir>/lifecycle``.
+``pio adminserver`` and ``pio dashboard`` are standard-library HTTP
+servers; ``pio top`` polls ``/metrics``.
 """
 
 from __future__ import annotations
@@ -551,6 +566,13 @@ def cmd_deploy(args) -> int:
         profile_on_alert=not args.no_profile_on_alert,
         profile_alert_min_interval_s=args.profile_alert_min_interval,
         profile_alert_trace_ms=args.profile_alert_trace_ms,
+        bandit_policy=args.bandit,
+        bandit_epsilon=args.bandit_epsilon,
+        bandit_min_pulls=args.bandit_min_pulls,
+        bandit_app_name=args.bandit_app_name,
+        bandit_reward_events=tuple(
+            name.strip() for name in (args.bandit_reward_event or "reward").split(",") if name.strip()
+        ),
     )
     server = create_query_server(args.engine_dir, ctx, config, args.variant)
     port = server.start()
@@ -565,6 +587,224 @@ def cmd_deploy(args) -> int:
     if _wait_for_signal(server.stop_requested) == signal.SIGTERM:
         server.drain()
     server.shutdown()
+    return 0
+
+
+def cmd_adminserver(args) -> int:
+    from predictionio_tpu_torch.tools.admin_api import AdminServer
+
+    server = AdminServer(storage=_storage(), registry_dir=_registry_dir(args))
+    port = server.start(args.ip, args.port)
+    print(f"Admin server started on {args.ip}:{port}", flush=True)
+    _wait_for_signal()
+    server.shutdown()
+    return 0
+
+
+def cmd_dashboard(args) -> int:
+    from predictionio_tpu_torch.tools.dashboard import Dashboard
+
+    server = Dashboard(storage=_storage(), metrics_urls=args.metrics_url or ())
+    port = server.start(args.ip, args.port)
+    print(f"Dashboard started on {args.ip}:{port}", flush=True)
+    _wait_for_signal()
+    server.shutdown()
+    return 0
+
+
+_TOP_DEFAULT_URL = "http://127.0.0.1:8000"
+
+
+def cmd_top(args) -> int:
+    """Live one-screen summary of a running server's /metrics (qps, p95,
+    waterfall, SLO burn, shed rate, breaker states, the bandit line).
+    ``--fleet`` points it at a gateway's federated /metrics; repeated
+    ``--metrics-url`` polls several endpoints per refresh. ``--history``
+    renders the telemetry ring (over HTTP, or off ``--obs-dir``);
+    ``--eval``, ``--batchpredict`` and ``--lifecycle`` render a status
+    file."""
+    from predictionio_tpu_torch.tools.top import (
+        run_batchpredict_top,
+        run_evalgrid_top,
+        run_history,
+        run_lifecycle_top,
+        run_top,
+    )
+
+    iterations = 1 if args.once else args.iterations
+    for path, run in ((args.lifecycle, run_lifecycle_top), (args.eval, run_evalgrid_top),
+                      (args.batchpredict, run_batchpredict_top)):
+        if path:
+            return run(path, interval_s=args.interval, iterations=iterations, json_mode=args.json)
+    if args.history:
+        url = args.url if (args.fleet or args.url != _TOP_DEFAULT_URL) else None
+        if args.obs_dir is None and url is None:
+            url = args.url  # the default address is still worth a try
+        return run_history(url=url, obs_dir=args.obs_dir, window_s=args.history_window, json_mode=args.json)
+    # --metrics-url endpoints poll in addition to a --url the operator set
+    # (first in each refresh); an untouched default --url is not polled
+    urls = list(args.metrics_url or [])
+    url_given = args.fleet or args.url != _TOP_DEFAULT_URL
+    if urls and url_given and args.url not in urls:
+        urls.insert(0, args.url)
+    elif args.fleet and not urls:
+        urls = [args.url]
+    return run_top(
+        args.url,
+        interval_s=args.interval,
+        iterations=iterations,
+        clear_screen=False if args.once else None,
+        json_mode=args.json,
+        urls=urls or None,
+        hotspots=args.hotspots,
+    )
+
+
+def _lifecycle_state_dir(args) -> str:
+    return args.state_dir or os.path.join(args.obs_dir, "lifecycle")
+
+
+def cmd_lifecycle_run(args) -> int:
+    """The standalone lifecycle controller: watch the obs dir's telemetry
+    ring for drift (plus cadence and manual triggers), retune on
+    cpu-fallback grid cells, stage the winner, watch the bake, warm the
+    result cache on promote. It runs against an already-running server."""
+    import asyncio
+
+    from predictionio_tpu_torch.lifecycle import (
+        LifecycleConfig,
+        LifecycleController,
+        LifecyclePolicy,
+        build_grid_tuner,
+        build_warmer,
+    )
+    from predictionio_tpu_torch.lifecycle.warm import event_store_queries
+    from predictionio_tpu_torch.obs.incidents import IncidentRecorder
+    from predictionio_tpu_torch.obs.tsring import TelemetryRing
+    from predictionio_tpu_torch.registry import registry_rollout_probe
+    from predictionio_tpu_torch.workflow.engine_loader import load_manifest
+
+    manifest = load_manifest(args.engine_dir, args.variant)
+    registry_dir = args.registry_dir or os.environ.get("PIO_REGISTRY_DIR")
+    if not registry_dir:
+        return _die("the lifecycle controller needs a registry (--registry-dir or $PIO_REGISTRY_DIR)")
+    state_dir = _lifecycle_state_dir(args)
+    config = LifecycleConfig(
+        cadence_s=args.cadence,
+        drift_window_s=args.drift_window,
+        min_drift_records=args.min_drift_records,
+        cooldown_s=args.cooldown,
+        tune_timeout_s=args.tune_timeout,
+        bake_timeout_s=args.bake_timeout,
+        tick_interval_s=args.tick_interval,
+        warm_limit=args.warm_limit,
+    )
+    ring = TelemetryRing(os.path.join(args.obs_dir, "telemetry"), writer_id="lifecycle")
+    incidents = IncidentRecorder(os.path.join(args.obs_dir, "incidents"))
+    incidents.add_source("telemetry-ring", lambda: ring.tail(200))
+    # user evaluations live in the engine project's cwd
+    cwd = os.getcwd()
+    if cwd not in sys.path:
+        sys.path.insert(0, cwd)
+    env = {k: v for k, v in os.environ.items() if k.startswith("PIO_")}
+    if args.home:
+        env["PIO_FS_BASEDIR"] = os.path.abspath(args.home)
+    storage = _storage()
+    tuner = build_grid_tuner(
+        args.evaluation,
+        workdir=args.workdir or os.path.join(state_dir, "grid"),
+        engine_manifest=manifest,
+        registry_dir=registry_dir,
+        storage=storage,
+        workers=args.workers,
+        nice=args.nice,
+        folds=args.folds,
+        stage_mode=args.stage_mode,
+        stage_fraction=args.stage_fraction,
+        cwd=cwd,
+        env=env,
+    )
+    warmer = None
+    if args.serve_url and args.app_name:
+        from predictionio_tpu_torch.data.store.event_store import resolve_app
+
+        app_id, _ = resolve_app(storage, args.app_name, None)
+        warmer = build_warmer(
+            args.serve_url,
+            lambda: event_store_queries(storage, app_id, limit=args.warm_limit),
+            limit=args.warm_limit,
+        )
+    controller = LifecycleController(
+        LifecyclePolicy(config),
+        state_dir=state_dir,
+        engine_id=manifest.engine_id,
+        registry_dir=registry_dir,
+        tune=tuner,
+        warm=warmer,
+        rollout_probe=registry_rollout_probe(registry_dir),
+        ring=ring,
+        incidents=incidents,
+    )
+    # the controller's transitions and warm counts go to stderr, as the JAX
+    # CLI logs them
+    logging.getLogger("predictionio_tpu_torch.lifecycle").setLevel(logging.INFO)
+    print(
+        f"Lifecycle controller for {manifest.engine_id}: state {state_dir}, "
+        f"registry {registry_dir}, "
+        f"triggers {'cadence %gs' % args.cadence if args.cadence else 'drift/manual'}",
+        flush=True,
+    )
+    try:
+        asyncio.run(controller.run())
+    except KeyboardInterrupt:
+        pass
+    return 0
+
+
+def cmd_lifecycle_status(args) -> int:
+    """One status line (or JSON) from the controller's durable state
+    file, whether or not the controller is alive."""
+    from predictionio_tpu_torch.lifecycle import read_json_file
+    from predictionio_tpu_torch.lifecycle.controller import STATE_FILE
+    from predictionio_tpu_torch.tools.top import render_lifecycle
+
+    path = os.path.join(_lifecycle_state_dir(args), STATE_FILE)
+    status = read_json_file(path)
+    if status is None:
+        return _die(
+            f"no lifecycle state at {path} (is a controller running with this --obs-dir/--state-dir?)"
+        )
+    print(json.dumps(status, indent=2, sort_keys=True) if args.json else render_lifecycle(status))
+    return 0
+
+
+def cmd_lifecycle_trigger(args) -> int:
+    """Queue one manual retune: bumps the control file's trigger token;
+    the controller consumes it on its next tick (bypassing the cooldown,
+    never an in-flight episode or a live bake)."""
+    from predictionio_tpu_torch.lifecycle import write_control
+
+    data = write_control(_lifecycle_state_dir(args), trigger=True)
+    print(
+        f"Retune queued (trigger token {data['trigger']}); the controller "
+        "starts it on its next tick unless an episode is already running."
+    )
+    return 0
+
+
+def cmd_lifecycle_pause(args) -> int:
+    """Turn automatic triggers off or on; an in-flight episode always runs
+    to its outcome."""
+    from predictionio_tpu_torch.lifecycle import write_control
+
+    paused = args.subcommand == "pause"
+    write_control(_lifecycle_state_dir(args), paused=paused)
+    print(
+        "Lifecycle paused (automatic triggers off; `pio lifecycle resume` "
+        "re-enables, manual `trigger` still works)."
+        if paused
+        else "Lifecycle resumed (automatic triggers back on)."
+    )
     return 0
 
 
@@ -1559,7 +1799,112 @@ def build_parser() -> argparse.ArgumentParser:
                    help="seconds between two alert bundles of one trigger kind")
     x.add_argument("--profile-alert-trace-ms", type=int, default=0,
                    help="device trace length of an alert bundle (0: host stacks only)")
+    x.add_argument("--bandit", choices=("epsilon", "thompson"),
+                   help="steer staged candidates with a bandit policy: the arms are the stable and "
+                        "candidate lanes, the reward is feedback events matched to served answers "
+                        "by trace id, and the bake gate doubles as reward accounting")
+    x.add_argument("--bandit-epsilon", type=float, default=0.1,
+                   help="explore share of the epsilon policy (thompson's cold-start fraction)")
+    x.add_argument("--bandit-min-pulls", type=int, default=20,
+                   help="answers per arm before the reward posterior may promote or retire")
+    x.add_argument("--bandit-app-name", help="app whose events carry the rewards (needed with --bandit)")
+    x.add_argument("--bandit-reward-event",
+                   help="comma-separated event names credited as rewards (default: reward)")
     x.set_defaults(fn=cmd_deploy)
+
+    x = sub.add_parser("adminserver")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=7071)
+    x.add_argument("--registry-dir", help="model registry served at /cmd/models (default: "
+                                          "$PIO_REGISTRY_DIR, else registry/ under the basedir)")
+    x.set_defaults(fn=cmd_adminserver)
+
+    x = sub.add_parser("dashboard")
+    x.add_argument("--ip", default="127.0.0.1")
+    x.add_argument("--port", type=int, default=9000)
+    x.add_argument("--metrics-url", action="append",
+                   help="a server base URL whose /metrics shows as a panel (repeatable)")
+    x.set_defaults(fn=cmd_dashboard)
+
+    x = sub.add_parser("top", help="live terminal summary of a running server's /metrics")
+    x.add_argument("--url", default=_TOP_DEFAULT_URL, help="server base URL (query or event server)")
+    x.add_argument("--interval", type=float, default=2.0)
+    x.add_argument("-n", "--iterations", type=int, default=None,
+                   help="stop after N refreshes (default: run until Ctrl-C)")
+    x.add_argument("--once", action="store_true",
+                   help="print one snapshot and exit (rates need two samples and show as '-')")
+    x.add_argument("--json", action="store_true", help="one JSON snapshot per line")
+    x.add_argument("--metrics-url", action="append",
+                   help="poll this endpoint too (repeatable); a --url that was set is polled first")
+    x.add_argument("--fleet", action="store_true", help="--url is a fleet gateway")
+    x.add_argument("--history", action="store_true",
+                   help="render the telemetry ring's series (one shot), over HTTP or off --obs-dir")
+    x.add_argument("--history-window", type=float, default=600.0, metavar="S",
+                   help="trailing seconds of telemetry to render")
+    x.add_argument("--obs-dir", default=None, help="read the telemetry ring from this directory")
+    x.add_argument("--batchpredict", default=None, metavar="STATUS_FILE",
+                   help="the progress line of a batchpredict --status-file")
+    x.add_argument("--eval", default=None, metavar="STATUS_FILE",
+                   help="the grid line of an eval --status-file")
+    x.add_argument("--lifecycle", default=None, metavar="STATE_FILE",
+                   help="the lifecycle controller's episode line from <state-dir>/lifecycle.json")
+    x.add_argument("--hotspots", action="store_true",
+                   help="append the host sampler's hotspots from /profile/stacks")
+    x.set_defaults(fn=cmd_top)
+
+    lc = sub.add_parser("lifecycle", help="the model lifecycle: drift -> retune -> bake -> promote "
+                                          "-> warm").add_subparsers(dest="subcommand", required=True)
+
+    def lifecycle_dir_args(x):
+        x.add_argument("--obs-dir", default="pio_obs",
+                       help="observability directory (state under <obs-dir>/lifecycle)")
+        x.add_argument("--state-dir", default=None, help="state directory (default <obs-dir>/lifecycle)")
+
+    x = lc.add_parser("run", help="run the controller against an already-deployed server")
+    x.add_argument("evaluation", help="dotted path to the retune Evaluation")
+    x.add_argument("--engine-dir", default=".")
+    x.add_argument("--variant")
+    x.add_argument("--registry-dir", help="registry the loop stages through (default: $PIO_REGISTRY_DIR)")
+    lifecycle_dir_args(x)
+    x.add_argument("--cadence", type=float, default=0.0,
+                   help="scheduled retune every N seconds (0 = drift/manual only)")
+    x.add_argument("--drift-window", type=float, default=600.0,
+                   help="trailing seconds of drift records that count as a live signal")
+    x.add_argument("--min-drift-records", type=int, default=1,
+                   help="drift records inside the window needed to trigger")
+    x.add_argument("--cooldown", type=float, default=600.0,
+                   help="seconds after an episode before drift or cadence can retrigger")
+    x.add_argument("--tune-timeout", type=float, default=7200.0, help="abandon a grid run older than this")
+    x.add_argument("--bake-timeout", type=float, default=3600.0,
+                   help="unstage a candidate no server resolves within this")
+    x.add_argument("--tick-interval", type=float, default=2.0, help="control-loop cadence")
+    x.add_argument("--workers", type=int, default=2,
+                   help="grid worker processes (cpu-fallback class: no card, at most 4)")
+    x.add_argument("--nice", type=int, default=10, help="re-nice grid workers")
+    x.add_argument("--folds", type=int, default=None)
+    x.add_argument("--workdir", default=None,
+                   help="grid workdir root, one run-NNNN per episode (default <state-dir>/grid)")
+    x.add_argument("--stage-mode", choices=["canary", "shadow"], default="canary")
+    x.add_argument("--stage-fraction", type=float, default=0.1)
+    x.add_argument("--serve-url", default=None,
+                   help="server base URL; a promoted model's cache warms by replaying queries here")
+    x.add_argument("--app-name", default=None, help="app whose event store supplies warm-up queries")
+    x.add_argument("--warm-limit", type=int, default=256,
+                   help="max queries replayed per post-promote warm (0 disables)")
+    x.set_defaults(fn=cmd_lifecycle_run)
+    x = lc.add_parser("status", help="episode state from the controller's durable file")
+    lifecycle_dir_args(x)
+    x.add_argument("--json", action="store_true")
+    x.set_defaults(fn=cmd_lifecycle_status)
+    x = lc.add_parser("trigger", help="queue one manual retune")
+    lifecycle_dir_args(x)
+    x.set_defaults(fn=cmd_lifecycle_trigger)
+    x = lc.add_parser("pause", help="stop automatic triggers")
+    lifecycle_dir_args(x)
+    x.set_defaults(fn=cmd_lifecycle_pause)
+    x = lc.add_parser("resume", help="re-enable automatic triggers")
+    lifecycle_dir_args(x)
+    x.set_defaults(fn=cmd_lifecycle_pause)
 
     _add_obs_verbs(sub)
 

@@ -15,7 +15,10 @@ its observability: ``GET /metrics`` (Prometheus text, or OpenMetrics with
 trace-id exemplars), ``GET /slo``, ``GET /traces/recent``, ``POST
 /profile/capture?ms=`` (409 while a capture runs) and ``GET
 /profile/stacks``, trace ids, the phase waterfall, profile-on-alert, and
-the version-keyed result cache. The bandit comes in a later slice.
+the version-keyed result cache; and the bandit lanes
+(``bandit_policy``): a two-arm Thompson or epsilon-greedy policy that
+steers the canary fraction from reward events and promotes or retires
+the candidate.
 
 Observability. ``X-Pio-Trace-Id`` is accepted or minted, echoed, and
 carried on each queued item onto the dispatch and fetch threads, which
@@ -55,10 +58,15 @@ thread reads all four at once (:meth:`QueryServer.lanes`) per
 micro-batch: an in-flight batch finishes on the lanes it read, whatever a
 concurrent promote, rollback or ``/reload`` swaps in. Where the reference
 runs an asyncio task (the bake loop, registry sync), the port runs a
-daemon thread; shadow scoring, output sniffers and the background HTTP of
+daemon thread, and the bandit's tick (a storage read of new reward
+events) runs on the bake loop's own thread, holding no lock across the
+read; shadow scoring, output sniffers and the background HTTP of
 the feedback loop and the remote log run on bounded pools off the serving
 path. A retired lane is dropped from every reference, so its device
-tables are freed once its last in-flight batch is done.
+tables are freed once its last in-flight batch is done, whatever
+connections stay open; :meth:`QueryServer.shutdown` hangs up the
+keep-alive connections, whose handler threads would otherwise hold the
+server and its lanes until each client hangs up.
 """
 
 from __future__ import annotations
@@ -69,6 +77,7 @@ import json
 import logging
 import os
 import queue
+import socket
 import threading
 import time
 import traceback
@@ -81,6 +90,16 @@ import torch
 
 from predictionio_tpu_torch.ann import lifecycle as ann_lifecycle
 from predictionio_tpu_torch.ann.metrics import AnnInstruments
+from predictionio_tpu_torch.bandit import (
+    ARM_CANDIDATE,
+    ARM_STABLE,
+    DECIDE_PROMOTE,
+    DECIDE_RETIRE,
+    BanditCriteria,
+    BanditInstruments,
+    BanditLoop,
+    RewardTailer,
+)
 from predictionio_tpu_torch.controller.engine import Engine, EngineParams
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 from predictionio_tpu_torch.obs.profiler import ProfileBusyError, ProfileSession, ProfileStore
@@ -219,9 +238,12 @@ class ServerConfig:
     # consecutive candidate failures that trip the candidate breaker and
     # roll the candidate back at once
     candidate_breaker_threshold: int = 3
-    # promotion gates (the rest are PromotionCriteria's defaults)
+    # promotion gates (registry/controller.py PromotionCriteria)
     bake_window_s: float = 60.0
     bake_min_requests: int = 20
+    max_error_ratio: float = 2.0
+    max_p95_ratio: float = 1.5
+    max_divergence_rate: float = 0.25
     auto_promote: bool = True
     bake_check_interval_s: float = 1.0
     # shadow batches queued at most; past it samples are dropped (counted)
@@ -261,6 +283,28 @@ class ServerConfig:
     profile_on_alert: bool = True
     profile_alert_min_interval_s: float = 60.0
     profile_alert_trace_ms: int = 0
+    # -- bandit exploration lanes ----------------------------------------------
+    # policy steering the candidate traffic fraction while a rollout is
+    # live: "epsilon" | "thompson"; None keeps the plain bake gate. With a
+    # policy set, the bandit owns the promote/retire decision (the bake
+    # gate keeps its error/latency/divergence veto) and the plan fraction
+    # follows the reward posterior every bake tick.
+    bandit_policy: str | None = None
+    bandit_epsilon: float = 0.1  # explore share (and cold-start fraction)
+    bandit_min_pulls: int = 20  # per-arm evidence floor before deciding
+    bandit_promote_threshold: float = 0.95  # P(candidate better) to promote
+    bandit_retire_threshold: float = 0.05  # ... to retire the candidate
+    bandit_min_fraction: float = 0.05
+    bandit_max_fraction: float = 0.9
+    # reward source: feedback events tailed from the event store and
+    # matched to impressions by the trace id echoed into properties
+    bandit_app_name: str | None = None  # app whose events carry rewards
+    bandit_channel_name: str | None = None
+    bandit_reward_events: tuple[str, ...] = ("reward",)
+    bandit_trace_property: str = "traceId"
+    bandit_reward_property: str = "reward"
+    bandit_impression_capacity: int = 65536
+    bandit_seed: int = 0
 
     def ssl_context(self):
         return server_ssl_context(self.ssl_certfile, self.ssl_keyfile)
@@ -604,8 +648,12 @@ class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
         super().__init__(address, handler)
 
     def process_request(self, request, client_address) -> None:
-        self.owner._connection_accepted()
+        self.owner._connection_accepted(request)
         super().process_request(request, client_address)
+
+    def shutdown_request(self, request) -> None:
+        self.owner._connection_closed(request)
+        super().shutdown_request(request)
 
     def process_request_thread(self, request, client_address) -> None:
         # the host sampler attributes stacks by thread name
@@ -832,10 +880,38 @@ class QueryServer:
             PromotionCriteria(
                 bake_window_s=self.config.bake_window_s,
                 min_requests=self.config.bake_min_requests,
+                max_error_ratio=self.config.max_error_ratio,
+                max_p95_ratio=self.config.max_p95_ratio,
+                max_divergence_rate=self.config.max_divergence_rate,
                 auto_promote=self.config.auto_promote,
             ),
         )
         self.candidate_breaker = self._new_candidate_breaker()
+        # the pio_bandit_* family registers eagerly (it exists at zero with
+        # no policy); the loop exists only when a policy is configured. Its
+        # arms are the lanes, its actuator the canary fraction, and promote
+        # and retire go through the rollout transitions below
+        self.bandit_instruments = BanditInstruments(m)
+        self.bandit: BanditLoop | None = (
+            BanditLoop(
+                self.config.bandit_policy,
+                epsilon=self.config.bandit_epsilon,
+                criteria=BanditCriteria(
+                    min_pulls=float(self.config.bandit_min_pulls),
+                    promote_threshold=self.config.bandit_promote_threshold,
+                    retire_threshold=self.config.bandit_retire_threshold,
+                    min_fraction=self.config.bandit_min_fraction,
+                    max_fraction=self.config.bandit_max_fraction,
+                ),
+                instruments=self.bandit_instruments,
+                store=self.registry_store,
+                engine_id=self.manifest.engine_id,
+                impression_capacity=self.config.bandit_impression_capacity,
+                seed=self.config.bandit_seed,
+            )
+            if self.config.bandit_policy
+            else None
+        )
         self._shadow_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="pio-shadow", initializer=self.bind_device
         )
@@ -858,6 +934,8 @@ class QueryServer:
         self._inflight_requests = 0
         self._unanswered_connections = 0
         self._first_request = threading.local()
+        # every open connection, so shutdown can hang up idle keep-alives
+        self._open_connections: set = set()
         self._draining = False
         self.batcher = _MicroBatcher(
             self, self.config.max_batch, MAX_INFLIGHT,
@@ -928,6 +1006,10 @@ class QueryServer:
         stable, cand, plan, gen = self.lanes()
         canary = cand is not None and plan.mode == MODE_CANARY and plan.fraction > 0
         shadow = cand is not None and plan.mode == MODE_SHADOW
+        # bandit accounting is snapshotted with the lanes: the answered
+        # queries of this batch are pulls of this rollout's arms (the
+        # version check in record_impression drops a race with a promote)
+        bandit = self.bandit if canary and self.bandit is not None and self.bandit.active else None
         inst = self._rollout_instruments
         n = len(payloads)
         outs: list[Any] = [None] * n
@@ -979,10 +1061,20 @@ class QueryServer:
                         outs[i] = self._serve_one(lane, queries[i], [p[row] for p in preds_per_algo], sniffed)
                         if lane_name == LANE_CANDIDATE and gen == self._rollout_gen:
                             self.candidate_breaker.record_success()
+                        if bandit is not None:
+                            # an answered query is a pull the moment it is
+                            # served; its trace id becomes matchable
+                            bandit.record_impression(
+                                trace_ids[i], ARM_CANDIDATE if lane_name == LANE_CANDIDATE else ARM_STABLE,
+                                lane.version,
+                            )
                     except Exception as exc:
                         if lane_name == LANE_CANDIDATE:
                             self._record_candidate_failure(lane.version, gen)
                             outs[i], versions[i] = self._stable_retry(stable, queries[i], sniffed)
+                            if bandit is not None and not isinstance(outs[i], BaseException):
+                                # re-answered on stable: a stable pull
+                                bandit.record_impression(trace_ids[i], ARM_STABLE, stable.version)
                         else:
                             logger.exception("serving a query failed")
                             inst.errors.inc(version=lane.version, lane=lane_name)
@@ -1178,8 +1270,18 @@ class QueryServer:
             self.candidate_breaker = self._new_candidate_breaker()
             self._candidate = lane
             self._plan = RolloutPlan(mode, fraction if mode == MODE_CANARY else 0.0, lane.version)
-            self.rollout_controller.begin(self._active.version, lane.version, mode)
+            stable_version = self._active.version
+            self.rollout_controller.begin(stable_version, lane.version, mode)
             plan = self._plan
+        if self.bandit is not None and mode == MODE_CANARY:
+            # engage the two-arm bandit on this rollout (a persisted
+            # posterior of the same version pair resumes); a failure (no
+            # reward app, storage down) leaves the plain bake gate in charge
+            # and never blocks the stage itself
+            try:
+                self.bandit.begin(stable_version, lane.version, self._bandit_tailer())
+            except Exception:
+                logger.exception("bandit engage failed; plain bake gate governs this rollout")
         # a re-staged candidate must not inherit entries of an earlier life
         # of its version (lookups are bypassed for the whole bake anyway)
         self._cache_flush(lane.version, f"stage {lane.version}")
@@ -1214,6 +1316,8 @@ class QueryServer:
         self._cache_flush(retired, f"promote {cand.version}")
         self._rollout_instruments.set_plan(PLAN_OFF)
         self._rollout_instruments.promotions.inc()
+        if self.bandit is not None and self.bandit.active:
+            self.bandit.end("promote")
         if persist and self.registry_store is not None:
             try:
                 self.registry_store.promote(self.manifest.engine_id, cand.version)
@@ -1239,6 +1343,8 @@ class QueryServer:
         self._cache_flush(cand.version, f"rollback {cand.version} ({reason})")
         self._rollout_instruments.set_plan(PLAN_OFF)
         self._rollout_instruments.rollbacks.inc(reason=reason)
+        if self.bandit is not None and self.bandit.active:
+            self.bandit.end("retire" if reason == "bandit-retire" else "rollback")
         if persist and self.registry_store is not None:
             try:
                 self.registry_store.unstage(
@@ -1248,6 +1354,41 @@ class QueryServer:
                 logger.exception("registry rollback bookkeeping failed")
         logger.warning("candidate %s rolled back (%s) %s", cand.version, reason, detail)
         return cand.version
+
+    def _bandit_tailer(self) -> RewardTailer:
+        """The reward tail of one rollout: feedback events of the
+        configured app, matched to served impressions by the trace id
+        echoed into their properties. The cursor seeds at the current
+        sequence head, so history never credits an arm."""
+        from predictionio_tpu_torch.data.store.event_store import resolve_app
+
+        app_name = self.config.bandit_app_name
+        if not app_name:
+            raise ValueError(
+                "bandit policy configured without bandit_app_name (the app whose events carry rewards)"
+            )
+        app_id, channel_id = resolve_app(self.ctx.storage, app_name, self.config.bandit_channel_name)
+        return RewardTailer(
+            self.ctx.storage.get_l_events(),
+            app_id,
+            channel_id,
+            event_names=tuple(self.config.bandit_reward_events),
+            trace_property=self.config.bandit_trace_property,
+            reward_property=self.config.bandit_reward_property,
+        )
+
+    def _bandit_apply_fraction(self, fraction: float) -> None:
+        """Move the live canary fraction to the policy's choice. The salt
+        (the candidate version) stays, so a fraction change flips only the
+        users whose sticky bucket the boundary crossed."""
+        with self._rollout_mutex:
+            plan = self._plan
+            if self._candidate is None or plan.mode != MODE_CANARY:
+                return
+            if abs(plan.fraction - fraction) < 1e-9:
+                return
+            self._plan = plan = RolloutPlan(MODE_CANARY, fraction, plan.salt)
+        self._rollout_instruments.set_plan(plan)
 
     def _adopt_stable(self, lane: Lane) -> None:
         """Swap in a new stable lane (``/reload``, or a stable pin another
@@ -1422,8 +1563,10 @@ class QueryServer:
                 logger.exception("%s failed", getattr(tick, "__name__", "tick"))
 
     def _rollout_tick(self) -> None:
-        """The bake gate (the reference's plain-gate branch: no bandit),
-        and the SLO alert transitions."""
+        """The bake gate, the bandit when one is engaged, and the SLO alert
+        transitions. The gate's health veto outranks the bandit: a
+        reward-winning arm that fails or blows the latency ratio still
+        rolls back."""
         if self.config.profile_on_alert:
             self._check_slo_alerts()
         if self._candidate is None:
@@ -1431,11 +1574,32 @@ class QueryServer:
         verdict, reason = self.rollout_controller.evaluate()
         if verdict == VERDICT_ROLLBACK:
             self._rollback_candidate(reason.split(" ")[0], reason)
-        elif verdict == VERDICT_PROMOTE:
+            return
+        bandit = self.bandit
+        if bandit is None or not bandit.active:
+            # the plain bake gate: time and health decide
+            if verdict == VERDICT_PROMOTE:
+                with self._reload_lock:
+                    version = self._promote_candidate()
+                if version:
+                    logger.info("auto-promoted %s: %s", version, reason)
+            return
+        # the bandit is engaged: the tick drains new reward events from the
+        # store (no lock held), credits the posteriors and re-chooses the
+        # fraction. The reward posterior owns promote and retire; the gate's
+        # promote verdict is the health-and-window precondition
+        decision = bandit.tick()
+        if decision is None:
+            return  # the rollout flipped underneath the tick
+        if decision.verdict == DECIDE_PROMOTE and verdict == VERDICT_PROMOTE:
             with self._reload_lock:
                 version = self._promote_candidate()
             if version:
-                logger.info("auto-promoted %s: %s", version, reason)
+                logger.info("bandit promoted %s: %s", version, decision.reason)
+        elif decision.verdict == DECIDE_RETIRE:
+            self._rollback_candidate("bandit-retire", decision.reason)
+        else:
+            self._bandit_apply_fraction(decision.fraction)
 
     def _registry_sync_tick(self) -> None:
         """Adopt what other processes did to the registry's rollout state;
@@ -1534,6 +1698,7 @@ class QueryServer:
                 "queries": b.queries_dispatched,
                 "avgBatchSize": b.queries_dispatched / max(1, b.batches_dispatched),
             },
+            "bandit": self.bandit.snapshot() if self.bandit is not None else None,
             "resultCache": self._result_cache.stats() if self._result_cache is not None else None,
             "profiling": {"ready": self.profiler.ready, "captureInFlight": self.profiler._flight.locked(),
                           "capturing": self.profiler.capturing},
@@ -1633,9 +1798,29 @@ class QueryServer:
                          "application/json", "feedback")
 
     # -- drain accounting ------------------------------------------------------
-    def _connection_accepted(self) -> None:
+    def _connection_accepted(self, sock) -> None:
         with self._drain_lock:
             self._unanswered_connections += 1
+            self._open_connections.add(sock)
+
+    def _connection_closed(self, sock) -> None:
+        with self._drain_lock:
+            self._open_connections.discard(sock)
+
+    def _hang_up_connections(self) -> None:
+        """End the read side of every open connection, as aiohttp's
+        cleanup closes its keep-alives: a handler waiting for its next
+        request reads end of stream and returns, and its thread lets go
+        of the server (and the server of its lanes); a handler still
+        writing an answer finishes it first. Bypasses ``SSLSocket``'s
+        ``shutdown``, which would drop the TLS state under a writer."""
+        with self._drain_lock:
+            conns = list(self._open_connections)
+        for sock in conns:
+            try:
+                socket.socket.shutdown(sock, socket.SHUT_RD)
+            except OSError:  # the client hung up first
+                pass
 
     def _first_request_done(self) -> None:
         """The calling handler thread's connection has had its first
@@ -2035,7 +2220,8 @@ class QueryServer:
 
     def shutdown(self) -> None:
         """Stop the loops and the listener, answer the batches in flight,
-        fail what is queued, and close every pool."""
+        fail what is queued, hang up the keep-alive connections, and close
+        every pool."""
         self._closing.set()
         self.sampler.stop()
         for t in self._loops:
@@ -2043,6 +2229,7 @@ class QueryServer:
         self._loops = []
         self._close_listener()
         self.batcher.close()
+        self._hang_up_connections()
         with self._background_lock:
             self._background_closed = True
         self._sniffer_pool.shutdown(wait=True)

@@ -669,12 +669,6 @@ EXEMPT = {
              "build, counted by pio_kernel_builds_total"
        for name in ("pio_jit_cache_misses_total", "pio_jit_cache_size", "pio_jit_recompile_storm",
                     "pio_xla_compile_events_total", "pio_xla_compile_seconds_total")},
-    **{name: "the bandit lanes are not ported yet (ROADMAP item 8)"
-       for name in ("pio_bandit_active", "pio_bandit_fraction", "pio_bandit_impressions_evicted_total",
-                    "pio_bandit_matched_rewards_total", "pio_bandit_p_candidate_better",
-                    "pio_bandit_promotions_total", "pio_bandit_pulls_total", "pio_bandit_regret_pulls",
-                    "pio_bandit_retirements_total", "pio_bandit_reward_rate", "pio_bandit_rewards_total",
-                    "pio_bandit_unmatched_rewards_total")},
 }
 
 

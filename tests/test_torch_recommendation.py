@@ -500,8 +500,8 @@ def test_query_server_batches_concurrent_queries(tmp_path):
 
 
 _IMPORT = re.compile(
-    r"^\s*(?:from|import)\s+(?:jax|flax|optax|predictionio_tpu)\b(?!_torch)"
-    r"|import_module\(\s*['\"](?:jax|flax|optax|predictionio_tpu)\b(?!_torch)",
+    r"^\s*(?:from|import)\s+(?:jax|flax|optax|aiohttp|predictionio_tpu)\b(?!_torch)"
+    r"|import_module\(\s*['\"](?:jax|flax|optax|aiohttp|predictionio_tpu)\b(?!_torch)",
     re.M,
 )
 
@@ -553,6 +553,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
         "obs.tracing", "obs.waterfall", "obs.slo", "obs.incidents", "obs.tsring", "obs.sampler",
         "obs.profiler", "obs.torchprof", "obs.costmodel", "registry.result_cache",
         "data.storage.traced", "models.sequential.metrics",
+    )} <= set(modules)
+    # the bandit, the lifecycle controller and the operator tools are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "bandit", "bandit.policy", "bandit.rewards", "bandit.metrics", "bandit.controller",
+        "lifecycle", "lifecycle.policy", "lifecycle.controller", "lifecycle.tune", "lifecycle.warm",
+        "tools.top", "tools.admin_api", "tools.dashboard", "tools.route_server",
     )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
