@@ -36,7 +36,7 @@ The recommendation template (ALS, kernel B1):
    aiohttp; with that event server still up, the serving contract through
    the CLI: pio deploy with TLS (an openssl certificate), an access key,
    feedback into the event server, a remote log, request timeout 2 s,
-   queue high water 32 and drain grace 5 s; 200 HTTPS queries answer 200,
+   queue high water 32 and drain grace 5 s; 100 HTTPS queries answer 200,
    401 without the key, 400 plus one remote-log body for a failing query,
    one predict event per answered query in the store, a silent TCP client
    delaying nobody, SIGTERM amid a burst of 32 (/healthz 503 while
@@ -59,8 +59,8 @@ The recommendation template (ALS, kernel B1):
    within 0.02) and resumed (0 cells retrained); B1 held and timed on an
    eval cell's rank-20 systems;
 3c. stream fold-in: the ML-20M model published as stable into a model
-   registry, 200,000 rate events (150,000 by 7,500 active users, 50,000 by
-   5,000 new users) in a sqlite event store, drained 500 at a time through
+   registry, 100,000 rate events (75,000 by 3,750 active users, 25,000 by
+   2,500 new users) in a sqlite event store, drained 500 at a time through
    FoldInALSTrainer on the card (two B1 launches an absorb, each held to the
    plain version at row-relative 1e-4; 1,000 folded users held to a float64
    solve) into StreamPipeline, which publishes and stages 4 canary
@@ -70,7 +70,7 @@ The recommendation template (ALS, kernel B1):
    publish's seconds;
 3d. rollout lanes: a QueryServer on the card deployed from that registry
    with registry sync every 0.5 s adopts the canary candidate, both lanes
-   with their ANN indexes attached; 2,000
+   with their ANN indexes attached; 1,000
    queries route by sticky bucket (share 0.1 +- 0.03), each answer equal to
    its lane's serve_batch; promote, stage then rollback, a shadow candidate
    (answers from stable, divergence recorded), five stage/promote cycles
@@ -79,7 +79,7 @@ The recommendation template (ALS, kernel B1):
    QueryServer on the card with TLS, an access key, feedback into an
    event server on the fold-in's store, a remote log, an output blocker
    and a sniffer, request timeout 1 s, queue high water 64, breaker
-   threshold 2 and recovery 1 s: 2,000 queries from 16 clients, each the
+   threshold 2 and recovery 1 s: 1,000 queries from 16 clients, each the
    blocker's rewrite of serve_batch and each seen by the sniffer, p50 and
    qps beside a server with none of it; predict_batch_dispatch hung
    through FaultInjector (503 + Retry-After within 1.5 s, two watchdog
@@ -129,6 +129,21 @@ The recommendation template (ALS, kernel B1):
    bandit promotes, at most 8 warm queries that are cache hits afterwards;
    lifecycle status/trigger/pause/resume, top --once --json, top
    --lifecycle, the admin server and the dashboard;
+3j. the serving fleet through the CLI at full width (after 3h, from a
+   registry of the ML-20M stable and the fold-in's candidate): deploy
+   --fleet 2 --fleet-max 2 --autoscale --cpu-fallback-max 1, the kernels
+   built before it starts; 2,000 queries from 16 clients through the
+   gateway and straight to w0 (the gateway's hop), every answer
+   serve_batch's; one card context per device worker; w0 SIGKILLed amid
+   traffic with no answer but 200, restarted and readmitted, a
+   worker-crash bundle; a flood from 48 clients until a cpu-fallback
+   replica serves (no card context, answers serve_batch's); a stage and a
+   promote through the gateway on every worker; pio top --fleet; SIGTERM,
+   exit 0 and no worker left;
+3k. the lifecycle controller in the fleet parent, after 3i in its
+   directory: deploy --fleet 2 --lifecycle; one drift line, the retune on
+   the CPU, the canary on both workers, a promote through the gateway, at
+   most 8 warm queries through it, cache hits when sent again;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -189,7 +204,7 @@ recommended-user train implicit ALS through kernel B1 at rank 10):
    train's own systems, batches of 64 filtered queries checked against
    their filters and the plain product; the same-cluster share of the
    top-10 on the bench's clustered data;
-14. e-commerce: 20,000 users x 10,000 items, 0.46 M events imported with
+14. e-commerce: 20,000 users x 10,000 items, 0.235 M events imported with
    import_events into a sqlite store, trains at 10 and (adjust-score) 20
    iterations, batches of 64 known and cold users with live reads through
    LEventStore at cacheTtlS 0 and 60;
@@ -209,10 +224,10 @@ top-k over its probed candidates in float64:
    f = 32), f32 and int8 indexes built on the card at default sizing, the
    four searches over 40 batches of 64, recall@10 against the exact top-k,
    the candidates scored, the search p50 beside the exact dot_top_k's;
-19. similar-product at a 100,000-item catalog (ML-20M's users and 20 M
+19. similar-product at a 100,000-item catalog (ML-20M's users and 10 M
    events as views): the train (20 B1 launches, held at 1e-4) publishes
    into a registry with an index at the default AnnConfig, a QueryServer
-   deployed from it answers 2,000 queries (half filtered) through it, 0
+   deployed from it answers 1,000 queries (half filtered) through it, 0
    fallbacks; then an int8 index: filter-less batches through search_q8,
    filtered ones exact and counted;
 20. two-tower (after its serve phase) and sequential (after its
@@ -229,6 +244,7 @@ every kernel with its launches on the main paths, errors and times.
 from __future__ import annotations
 
 import concurrent.futures
+import http.client
 import itertools
 import json
 import os
@@ -2277,14 +2293,15 @@ def similarproduct_quality_phase(torch) -> dict:
     return {"share": share, "gate": gate}
 
 
-ECOMMERCE_RATES = 250_000
+ECOMMERCE_RATES = 125_000
+ECOMMERCE_BUYS = ECOMMERCE_VIEWS = 50_000
 
 
 def ecommerce_phase(torch, home: str) -> dict:
-    """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 250,000
-    rate events (the template trains on rates; a quarter of the bench's
-    1,000,000, to keep the script within its time) and 100,000 buys of 19,000
-    known users, 100,000 views of known users and 500 cold users, 500 cold
+    """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 125,000
+    rate events (the template trains on rates; an eighth of the bench's
+    1,000,000, to keep the script within its time) and 50,000 buys of 19,000
+    known users, 50,000 views of known users and 500 cold users, 500 cold
     users with no events, 50 categories, an unavailableItems constraint of
     50 items and a weightedItems constraint, imported with import_events into
     the port's sqlite store (live reads go to it, through its (entityType,
@@ -2308,11 +2325,11 @@ def ecommerce_phase(torch, home: str) -> dict:
     t0 = time.perf_counter()
     ru, ri, rv = synthesize_ratings(n_known, n_items, ECOMMERCE_RATES, seed=7)
     rng = np.random.default_rng(37)
-    bu = rng.integers(0, n_known, 100_000).astype(np.int32)
-    bi = (rng.zipf(1.3, 100_000) % n_items).astype(np.int32)
-    vu = np.where(rng.random(100_000) < 0.8, rng.integers(0, n_known, 100_000),
-                  rng.integers(n_known, n_known + 500, 100_000)).astype(np.int32)
-    vi = (rng.zipf(1.3, 100_000) % n_items).astype(np.int32)
+    bu = rng.integers(0, n_known, ECOMMERCE_BUYS).astype(np.int32)
+    bi = (rng.zipf(1.3, ECOMMERCE_BUYS) % n_items).astype(np.int32)
+    vu = np.where(rng.random(ECOMMERCE_VIEWS) < 0.8, rng.integers(0, n_known, ECOMMERCE_VIEWS),
+                  rng.integers(n_known, n_known + 500, ECOMMERCE_VIEWS)).astype(np.int32)
+    vi = (rng.zipf(1.3, ECOMMERCE_VIEWS) % n_items).astype(np.int32)
     cats = [frozenset({f"c{i % 50}"}) for i in range(n_items)]
     unavailable = [f"i{i}" for i in rng.choice(n_items, 50, replace=False)]
     up, down = rng.choice(n_items, 150, replace=False).reshape(2, 75)
@@ -2378,7 +2395,7 @@ def ecommerce_phase(torch, home: str) -> dict:
         launches[name] = n_b1
         train_out[name] = {"train_wall_s": wall, "spd_cg_launches": n_b1,
                            **{k: v for k, v in algo.timings.items() if k.endswith("_s")}}
-    emit(phase="ecommerce_train", shape=[n_users, n_items, ECOMMERCE_RATES, 100_000, 100_000],
+    emit(phase="ecommerce_train", shape=[n_users, n_items, ECOMMERCE_RATES, ECOMMERCE_BUYS, ECOMMERCE_VIEWS],
          events_in_store=k, data_s=data_s, import_s=import_s, import_events_per_s=k / import_s,
          backend="sqlite", **train_out)
 
@@ -3158,16 +3175,16 @@ def _rating_events(model, rng, existing: np.ndarray, new_ids: list, new_taste: n
     return out
 
 
-def stream_foldin_phase(torch, home: str, model, n_active: int = 7_500, n_existing: int = 150_000,
-                        n_new_users: int = 5_000, n_new: int = 50_000, batch_limit: int = 500,
-                        publish_min_events: int = 50_000, sampled_users: int = 1_000) -> dict:
+def stream_foldin_phase(torch, home: str, model, n_active: int = 3_750, n_existing: int = 75_000,
+                        n_new_users: int = 2_500, n_new: int = 25_000, batch_limit: int = 500,
+                        publish_min_events: int = 25_000, sampled_users: int = 1_000) -> dict:
     """The speed layer in-process at full width: the ML-20M model of the
-    train phase published as stable into an ArtifactStore; 200,000 rate
-    events from a fixed seed written into a sqlite event store (150,000 by
-    7,500 active existing users on existing items, 20 each, and 50,000 by
-    5,000 new users, 10 each, every rating around the model's own score);
+    train phase published as stable into an ArtifactStore; 100,000 rate
+    events from a fixed seed written into a sqlite event store (75,000 by
+    3,750 active existing users on existing items, 20 each, and 25,000 by
+    2,500 new users, 10 each, every rating around the model's own score);
     EventTailer(batch_limit=500) -> FoldInALSTrainer on the card ->
-    StreamPipeline(publish_min_events=50,000, canary 0.1): 400 absorbs, two
+    StreamPipeline(publish_min_events=25,000, canary 0.1): 200 absorbs, two
     B1 launches each (the touched users against the fixed items, then the
     touched items against the updated users), 4 published candidates.
     Every launch's x is held to the plain version on the same A and b by
@@ -3236,6 +3253,8 @@ def stream_foldin_phase(torch, home: str, model, n_active: int = 7_500, n_existi
     sizes = {"user": [], "item": []}
     f64 = []
     systems = {}
+    # users held to float64 in each absorb: sampled_users over the run
+    per_absorb = -(-sampled_users * batch_limit // n_total)
 
     def hold(side, order, A, b, x):
         record = b1_held(torch, A, b, 1e-4, f"a fold-in's {side} side", x=x)
@@ -3247,7 +3266,7 @@ def stream_foldin_phase(torch, home: str, model, n_active: int = 7_500, n_existi
         if side == "user" and len(f64) < sampled_users:
             fixed = trainer.item_factors  # the table this solve ran against
             xs = x.cpu().numpy()
-            for k in range(0, len(order), max(1, len(order) // 3))[:3]:
+            for k in range(0, len(order), max(1, len(order) // per_absorb))[:per_absorb]:
                 pairs = trainer._user_ratings[order[k]]
                 V = fixed[np.fromiter((p[0] for p in pairs), np.int64, len(pairs))].astype(np.float64)
                 r = np.fromiter((p[1] for p in pairs), np.float64, len(pairs))
@@ -3350,10 +3369,10 @@ def _lane_answers_held(server, lane, outs, users, what: str) -> None:
     _same_topk(got_ids, got_scores, ref_ids, ref_scores, 1e-5, what)
 
 
-def rollout_lanes_phase(torch, home: str, foldin: dict, n_queries: int = 2_000) -> dict:
+def rollout_lanes_phase(torch, home: str, foldin: dict, n_queries: int = 1_000) -> dict:
     """A QueryServer on the card deployed from the fold-in's registry with
     registry sync every 0.5 s. Canary: it adopts the staged candidate, and
-    2,000 queries for 2,000 distinct users route by sticky_bucket(user,
+    1,000 queries for 1,000 distinct users route by sticky_bucket(user,
     salt = candidate version) with a candidate share within 0.1 +- 0.03,
     every answer equal to serve_batch of its lane's own model. POST
     /models/promote: every answer from the candidate. Staging the next
@@ -3611,7 +3630,7 @@ def serving_contract_cli_phase(work: str, argv, reports: list, run, es_port: int
     serving flag (TLS from an openssl certificate, an access key, feedback
     into the running event server, a remote log to a collector in this
     process, request timeout 2 s, queue high water 32, drain grace 5 s).
-    200 queries over HTTPS with the key answer 200; without the key 401; a
+    100 queries over HTTPS with the key answer 200; without the key 401; a
     query that fails in serving 400, and exactly one remote-log body with
     the prefix arrives; the store then holds one predict event per answered
     query, with its query and the body answered; a silent TCP client does
@@ -3682,7 +3701,7 @@ def serving_contract_cli_phase(work: str, argv, reports: list, run, es_port: int
 
         t0 = time.perf_counter()
         with concurrent.futures.ThreadPoolExecutor(8) as pool:
-            answers = list(pool.map(query, users[:200]))
+            answers = list(pool.map(query, users[:100]))
         https_wall = time.perf_counter() - t0
         for status, _, body, _ in answers:
             if status != 200:
@@ -3712,7 +3731,7 @@ def serving_contract_cli_phase(work: str, argv, reports: list, run, es_port: int
         steps["feedback_landed_s"] = _wait(lambda: len(landed()) >= len(answers), 60, "the predict events")
         events = landed()
         es.close()
-        want = {u: body for u, (_, _, body, _) in zip(users[:200], answers)}
+        want = {u: body for u, (_, _, body, _) in zip(users[:100], answers)}
         got = {e["properties"]["query"]["user"]: e for e in events}
         if len(events) != len(answers) or set(got) != set(want):
             raise AssertionError(f"{len(events)} predict events for {len(answers)} answered queries")
@@ -3823,14 +3842,14 @@ def _blocked_answer(scores, ids, vocab, banned: frozenset, keep: int):
     return [(vocab[int(i)], float(s)) for s, i in zip(scores, ids) if vocab[int(i)] not in banned][:keep]
 
 
-def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 2_000, burst: int = 512) -> dict:
+def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 1_000, burst: int = 512) -> dict:
     """The serving contract at full width: the ML-20M model the fold-in
     published as stable (138,000 users x 27,000 items, rank 32) in a
     QueryServer on the card with TLS, an access key, feedback into an
     in-process event server on the fold-in's sqlite store, a remote log,
     an output blocker (drops banned items, keeps 5) and a sniffer,
     request_timeout_s 1, queue_high_water 64, breaker_threshold 2,
-    breaker_recovery_s 1. 2,000 queries from 16 clients: every answer is
+    breaker_recovery_s 1. 1,000 queries from 16 clients: every answer is
     serve_batch's after the blocker's rewrite, and the sniffer saw every
     one; the same queries on a server without any of it, for p50 and qps.
     predict_batch_dispatch hung through a FaultInjector: 503 with
@@ -4375,7 +4394,7 @@ BANDIT_ROUNDS = ({"candidate": 0.30, "stable": 0.15, "verdict": "promote"},
                  {"candidate": 0.05, "stable": 0.30, "verdict": "retire"})
 
 
-def _bandit_registry(foldin: dict, work: str) -> tuple[str, list[str]]:
+def _bandit_registry(foldin: dict, work: str, engine_id: str = BANDIT_ENGINE) -> tuple[str, list[str]]:
     """A registry of its own: the fold-in's stable blob as v000001 (the
     ML-20M model, rank 32) and its last candidate's blob as v000002."""
     from predictionio_tpu_torch.registry import ArtifactStore, ModelManifest
@@ -4383,7 +4402,7 @@ def _bandit_registry(foldin: dict, work: str) -> tuple[str, list[str]]:
     store, src = ArtifactStore(os.path.join(work, "registry")), foldin["store"]
     versions = []
     for blob in (foldin["stable_blob"], src.load_blob(STREAM_ENGINE, foldin["published"][-1])):
-        versions.append(store.publish(ModelManifest(version="", engine_id=BANDIT_ENGINE, engine_version="1",
+        versions.append(store.publish(ModelManifest(version="", engine_id=engine_id, engine_version="1",
                                                     engine_variant="engine.json"), blob).version)
     return store.base_dir, versions
 
@@ -4574,6 +4593,519 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
                   "promotions": ins.promoted.value(), "retirements": ins.retired.value()})
     emit_numbers("bandit_inprocess", **steps)
     return steps
+
+
+FLEET_ENGINE = "smoke-fleet"
+
+
+def _fleet_ports(n: int = 4) -> int:
+    """A base port whose next ``n`` ports are free: the gateway, then the
+    workers in the launcher's order. Below Linux's ephemeral range (32768
+    up), so a client polling a worker's port before it listens is never
+    handed that port as its own source port (a TCP self-connect reads back
+    its own request)."""
+    rng = np.random.default_rng()
+    for _ in range(200):
+        base = int(rng.integers(20_000, 32_000 - n))
+        socks = []
+        try:
+            for p in range(base, base + n):
+                s = socket.socket()
+                socks.append(s)
+                s.bind(("127.0.0.1", p))
+            return base
+        except OSError:
+            continue
+        finally:
+            for s in socks:
+                s.close()
+    raise AssertionError(f"no {n} free consecutive ports")
+
+
+def _pid_on_port(port: int) -> int | None:
+    """The pid of the port's CLI process whose argv names ``--port port``."""
+    for name in os.listdir("/proc"):
+        if not name.isdigit():
+            continue
+        try:
+            with open(f"/proc/{name}/cmdline", "rb") as fh:
+                argv = fh.read().split(b"\0")
+        except OSError:
+            continue
+        if b"predictionio_tpu_torch.tools.cli" in argv and b"--port" in argv \
+                and argv[argv.index(b"--port") + 1] == str(port).encode():
+            return int(name)
+    return None
+
+
+def _worker_images(pid: int) -> dict:
+    """What a worker process runs: its argv, whether it maps the card's
+    device files (a CUDA context does), and any JAX or aiohttp image."""
+    with open(f"/proc/{pid}/cmdline", "rb") as fh:
+        argv = [a.decode() for a in fh.read().split(b"\0") if a]
+    with open(f"/proc/{pid}/maps") as fh:
+        maps = fh.read()
+    foreign = sorted({ln.split()[-1] for ln in maps.splitlines()
+                      if "jaxlib" in ln or "/jax/" in ln or "aiohttp" in ln})
+    return {"argv": argv, "cuda_context": "/dev/nvidia" in maps, "foreign_images": foreign}
+
+
+def _compute_apps() -> list[str]:
+    """nvidia-smi's compute apps, one "pid, used MiB" line each (the pid is
+    the host's, which this process cannot map to its own)."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid,used_memory", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True).stdout
+    return [ln.strip() for ln in out.splitlines() if ln.strip()]
+
+
+def _card_used(torch) -> int:
+    """Bytes in use on the card, every process's (nvidia-smi's per-process
+    figures on the chip machine repeat one container-wide number)."""
+    if not torch.cuda.is_available():
+        return 0
+    free, total = torch.cuda.mem_get_info()
+    return int(total - free)
+
+
+def _fleet_query_run(port: int, users: list, clients: int) -> tuple[list, float]:
+    """Each user's query (num 10) through one of ``clients`` keep-alive
+    connections: [(user, status, body, seconds)] in order, and the wall."""
+    conns: queue.Queue = queue.Queue()
+    opened = [_Conn(port) for _ in range(clients)]
+    for c in opened:
+        conns.put(c)
+
+    def one(u):
+        conn = conns.get()
+        try:
+            status, _, body, dt = conn.call("POST", "/queries.json", {"user": u, "num": 10})
+            return u, status, body, dt
+        finally:
+            conns.put(conn)
+
+    t0 = time.perf_counter()
+    try:
+        with concurrent.futures.ThreadPoolExecutor(clients) as pool:
+            outs = list(pool.map(one, users))
+    finally:
+        for c in opened:
+            c.close()
+    return outs, time.perf_counter() - t0
+
+
+def _fleet_answers_held(model, outs, what: str) -> None:
+    """Every answer 200 and serve_batch's on the card (tie-aware, rtol 1e-5)."""
+    bad = [o for o in outs if o[1] != 200]
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} of {len(outs)} answers not 200, e.g. {bad[0][1:3]}")
+    got_ids = np.asarray([[model.item_index(x["item"]) for x in body["itemScores"]] for _, _, body, _ in outs])
+    got_scores = np.asarray([[x["score"] for x in body["itemScores"]] for _, _, body, _ in outs])
+    uidx = np.asarray([model.user_index(u) for u, *_ in outs], dtype=np.int32)
+    ref_scores, ref_ids = model.serving_index().serve_batch(uidx, 20)
+    _same_topk(got_ids, got_scores, ref_ids, ref_scores, 1e-5, what)
+
+
+def _forwards_by_replica(base: str) -> dict:
+    """The gateway's 2xx forwards per replica so far."""
+    out: dict = {}
+    for lab, v, _ in parse_metrics(_get(base, "/metrics")[2]).get("pio_fleet_requests_total", []):
+        if lab.get("status") == "2xx":
+            out[lab["replica"]] = out.get(lab["replica"], 0.0) + v
+    return out
+
+
+def _ring_summary(obs: str, n: int = 40) -> list:
+    """The fleet ring's last records, for a failing phase's report: each
+    snapshot's gauges, shape and fast burns, each scaling decision."""
+    from predictionio_tpu_torch.obs.tsring import TelemetryRing
+
+    try:
+        records = TelemetryRing(os.path.join(obs, "telemetry")).records()
+    except OSError:
+        return []
+    out = []
+    for r in records[-n:]:
+        if r.get("kind") == "fleet":
+            out.append({"t": r.get("t"), "gauges": r.get("gauges"), "shape": r.get("shape"),
+                        "burn": {k: min(v["burn"].items(), key=lambda kv: float(kv[0]))[1]
+                                 for k, v in (r.get("slo") or {}).items() if v.get("burn")}})
+        else:
+            out.append(r)
+    return out
+
+
+def fleet_cli_phase(torch, foldin: dict, clients: int = 16, n_queries: int = 2_000,
+                    flood_clients: int = 48, seed: int = 53, device: str = "cuda") -> dict:
+    """The serving fleet through the port's CLI at full width: a registry
+    whose v000001 is the ML-20M stable (138,000 x 27,000, rank 32) and
+    v000002 the fold-in's candidate; ``pio deploy --fleet 2 --fleet-max 2
+    --autoscale --cpu-fallback-max 1 --autoscale-interval 0.5
+    --fleet-probe-interval 0.3 --obs-dir O`` (the parent through the
+    counting launcher, its two device workers ``-m`` processes of the
+    CLI; no worker maps a JAX or aiohttp image). Then: 2,000 queries from
+    16 clients through the gateway and the same queries straight to w0,
+    every answer 200 and serve_batch's (p50 and qps of both: the gateway's
+    hop; each replica's share); nvidia-smi's compute apps (one more per
+    device worker, each worker mapping the card); w0 SIGKILLed amid
+    traffic (no answer but 200; the seconds to its restart and its
+    readmission; a worker-crash bundle with its stderr tail); a flood from
+    48 clients until the gateway routes to a cpu-fallback replica (within
+    60 s of the flood; its direct answers serve_batch's; it maps no card
+    and adds no compute app). 48, not 32: the autoscaler's default
+    in-flight threshold is 16 a replica, and 32 closed-loop clients keep
+    at most 28-32 in flight at the gateway, while the workers' own request
+    p50 stays under the latency SLO's 10 ms; v000002 staged and promoted through the
+    gateway, every worker on the new stable within the sync interval plus
+    2 s; ``pio top --fleet --once --json``; SIGTERM: exit 0 within the
+    grace, and no worker left, on the card or off it."""
+    from predictionio_tpu_torch.obs.incidents import list_bundles, load_bundle
+    from predictionio_tpu_torch.workflow import model_io
+
+    work = tempfile.mkdtemp(prefix="pio_smoke_fleet_")
+    registry, (v1, v2) = _bandit_registry(foldin, work, FLEET_ENGINE)
+    engine_dir = _engine_dir(os.path.join(work, "engine"), FLEET_ENGINE, "streamapp", {"rank": 32})
+    store = foldin["store"]
+    models = {v: model_io.deserialize_models(blob)[0] for v, blob in (
+        (v1, foldin["stable_blob"]), (v2, store.load_blob(STREAM_ENGINE, foldin["published"][-1])))}
+    for model in models.values():
+        model.device = device
+    n_users = len(models[v1].user_vocab)
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
+    session = _CliSession(work, os.path.join(work, "home"), env)
+    steps: dict = {}
+    obs = os.path.join(work, "obs")
+    port = _fleet_ports()
+    base = f"http://127.0.0.1:{port}"
+    rng = np.random.default_rng(seed)
+    for model in models.values():  # the references' tables on the card before the baseline
+        model.serving_index()
+    apps0, used0 = _compute_apps(), _card_used(torch)
+    parent = session.spawn("fleet", "deploy", "--engine-dir", engine_dir, "--device", device, "--ip", "127.0.0.1",
+                           "--port", str(port), "--registry-dir", registry, "--fleet", "2", "--fleet-max", "2",
+                           "--autoscale", "--cpu-fallback-max", "1", "--autoscale-interval", "0.5",
+                           "--fleet-probe-interval", "0.3", "--obs-dir", obs,
+                           "--profile-dir", os.path.join(work, "profiles"))
+
+    def replicas() -> list:
+        if parent.poll() is not None:
+            raise AssertionError(f"the fleet parent exited {parent.returncode}: {session.err('fleet')}")
+        return _http(base + "/")[1]["replicas"]
+
+    def ready(p: int) -> bool:
+        try:
+            return _http(f"http://127.0.0.1:{p}/", timeout=2)[0] == 200
+        except (urllib.error.URLError, ConnectionError, TimeoutError, http.client.HTTPException):
+            return False
+
+    def healthy(p: int) -> bool:
+        try:
+            return any(r["url"].endswith(f":{p}") and r["healthy"] for r in replicas())
+        except (urllib.error.URLError, ConnectionError, TimeoutError, http.client.HTTPException):
+            return False
+
+    passed = False
+    try:
+        t0 = time.perf_counter()
+        _wait(lambda: all(ready(p) and healthy(p) for p in (port + 1, port + 2)), 300, "the fleet's two workers")
+        steps["boot_s"] = time.perf_counter() - t0
+        pids = {name: _pid_on_port(p) for name, p in (("w0", port + 1), ("w1", port + 2))}
+        # 1. the gateway's hop: the same queries through it and straight to w0
+        users = [f"u{u}" for u in rng.integers(0, n_users, n_queries)]
+        shares0 = _forwards_by_replica(base)
+        t_traffic = time.perf_counter()
+        via, via_wall = _fleet_query_run(port, users, clients)
+        shares = {k: v - shares0.get(k, 0.0) for k, v in _forwards_by_replica(base).items()}
+        direct, direct_wall = _fleet_query_run(port + 1, users, clients)
+        _fleet_answers_held(models[v1], via, "through the gateway")
+        _fleet_answers_held(models[v1], direct, "straight to w0")
+        steps.update(gateway_p50_ms=_p50_ms([o[3] for o in via]), gateway_qps=n_queries / via_wall,
+                     direct_p50_ms=_p50_ms([o[3] for o in direct]), direct_qps=n_queries / direct_wall,
+                     replica_share={k: v / n_queries for k, v in sorted(shares.items())})
+        steps["hop_p50_ms"] = steps["gateway_p50_ms"] - steps["direct_p50_ms"]
+        # 2. one CUDA context each device worker
+        images = {name: _worker_images(pid) for name, pid in pids.items()}
+        apps = _compute_apps()
+        if any(not im["cuda_context"] or im["foreign_images"] or "predictionio_tpu_torch.tools.cli" not in im["argv"]
+               for im in images.values()) or len(apps) < len(apps0) + 2:
+            raise AssertionError(f"device workers: {images}; compute apps {apps0} -> {apps}")
+        steps["compute_apps"] = apps
+        steps["worker_card_bytes"] = (_card_used(torch) - used0) / 2
+        # 3. SIGKILL w0 amid traffic
+        statuses: list = []
+        stop = threading.Event()
+        answered: list = []
+
+        def pump():
+            conn = _Conn(port)
+            k = 0
+            try:
+                while not stop.is_set():
+                    u = f"u{(k * 7919) % n_users}"
+                    k += 1
+                    try:
+                        status, _, body, dt = conn.call("POST", "/queries.json", {"user": u, "num": 10})
+                    except (OSError, ValueError) as exc:
+                        statuses.append(type(exc).__name__)
+                        conn.close()
+                        conn = _Conn(port)
+                        continue
+                    statuses.append(status)
+                    answered.append((u, status, body, dt))
+            finally:
+                conn.close()
+
+        pumps = [threading.Thread(target=pump, daemon=True) for _ in range(8)]
+        for t in pumps:
+            t.start()
+        time.sleep(1.0)
+        t_kill = time.perf_counter()
+        os.kill(pids["w0"], signal.SIGKILL)
+        try:
+            steps["kill_to_restart_s"] = _wait(
+                lambda: _pid_on_port(port + 1) not in (None, pids["w0"]) and ready(port + 1), 300, "w0's restart")
+            _wait(lambda: healthy(port + 1), 60, "w0's readmission")
+            steps["kill_to_readmit_s"] = time.perf_counter() - t_kill
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in pumps:
+                t.join(timeout=60)
+        if set(statuses) != {200}:
+            raise AssertionError(f"answers around the kill: {sorted(set(map(str, statuses)))}")
+        _fleet_answers_held(models[v1], answered, "around the kill")
+        steps["queries_around_kill"] = len(statuses)
+        pids["w0"] = _pid_on_port(port + 1)
+        crashes = [b for b in list_bundles(os.path.join(obs, "incidents")) if b.trigger == "worker-crash"]
+        if not crashes:
+            raise AssertionError(f"no worker-crash bundle: {os.listdir(os.path.join(obs, 'incidents'))}")
+        bundle = load_bundle(os.path.join(obs, "incidents"), crashes[0].bundle_id)
+        if bundle["manifest"]["context"].get("replica") != "w0" or "deployed at" not in \
+                bundle["texts"].get("stderr_tail", ""):
+            raise AssertionError(f"the crash bundle: {bundle['manifest']}")
+        # 4. overflow into the cpu-fallback class
+        def cpu_replica():
+            return next((r for r in replicas() if r["workerClass"] == "cpu-fallback" and r["healthy"]), None)
+
+        steps["cpu_fallback_before_flood"] = cpu_replica() is not None
+        stop.clear()
+        flood_statuses: list = []
+
+        def flood():
+            conn = _Conn(port)
+            k = 0
+            try:
+                while not stop.is_set():
+                    k += 1
+                    status, _, _, _ = conn.call("POST", "/queries.json", {"user": f"u{k % n_users}", "num": 10})
+                    flood_statuses.append(status)
+            finally:
+                conn.close()
+
+        floods = [threading.Thread(target=flood, daemon=True) for _ in range(flood_clients)]
+        used_before_flood = _card_used(torch)
+        t_flood = time.perf_counter()
+        for t in floods:
+            t.start()
+        try:
+            _wait(lambda: cpu_replica() is not None, 60, "a cpu-fallback replica")
+            steps["flood_to_cpu_fallback_s"] = time.perf_counter() - t_flood
+            steps["traffic_to_cpu_fallback_s"] = time.perf_counter() - t_traffic
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in floods:
+                t.join(timeout=60)
+        if set(flood_statuses) != {200}:
+            raise AssertionError(f"flood answers: {sorted(set(flood_statuses))}")
+        cpu_port = int(cpu_replica()["url"].rsplit(":", 1)[1])
+        cpu_pid = _pid_on_port(cpu_port)
+        cpu_out, _ = _fleet_query_run(cpu_port, users[:64], 4)
+        _fleet_answers_held(models[v1], cpu_out, "the cpu-fallback replica")
+        cpu_image = _worker_images(cpu_pid)
+        metrics = parse_metrics(_get(base, "/metrics")[2])
+        overflow = sum(v for _, v, _ in metrics.get("pio_fleet_overflow_picks_total", []))
+        apps = _compute_apps()
+        if cpu_image["cuda_context"] or cpu_image["foreign_images"] or "--device" not in cpu_image["argv"] \
+                or cpu_image["argv"][cpu_image["argv"].index("--device") + 1] != "cpu" or len(apps) != len(apps0) + 2:
+            raise AssertionError(f"the cpu-fallback worker: {cpu_image}; compute apps {apps}")
+        steps.update(flood_queries=len(flood_statuses), overflow_picks=overflow, cpu_fallback_port=cpu_port,
+                     card_bytes_across_flood=_card_used(torch) - used_before_flood)
+        # 5. a rollout through the gateway reaches every worker
+        ports = [port + 1, port + 2, cpu_port]
+
+        def on_every_worker(pred) -> bool:
+            return all(pred(_http(f"http://127.0.0.1:{p}/models")[1]) for p in ports)
+
+        if _http(base + "/models/candidate", {"version": v2, "fraction": 0.1})[0] != 200:
+            raise AssertionError("staging through the gateway failed")
+        steps["stage_adopted_s"] = _wait(lambda: on_every_worker(
+            lambda m: (m["candidate"] or {}).get("version") == v2), 120, "every worker's canary")
+        if _http(base + "/models/promote", {})[0] != 200:
+            raise AssertionError("the promote through the gateway failed")
+        steps["promote_adopted_s"] = _wait(lambda: on_every_worker(
+            lambda m: m["stable"]["version"] == v2 and m["candidate"] is None), 3.0, "every worker's new stable")
+        promoted, _ = _fleet_query_run(port, users[:256], clients)
+        _fleet_answers_held(models[v2], promoted, "after the promote")
+        # 6. pio top --fleet
+        out, _ = session.run("top_fleet", "top", "--fleet", "--once", "--json", "--url", base)
+        fleet_line = json.loads(out.strip().splitlines()[-1])["fleet"]
+        if fleet_line["replicas_total"] != 3 or fleet_line["replicas_up"] != 3 or fleet_line["restarts_total"] < 1:
+            raise AssertionError(f"pio top's fleet line: {fleet_line}")
+        steps["top_fleet"] = {k: fleet_line[k] for k in ("replicas_total", "replicas_up", "restarts_total",
+                                                         "retries_total", "no_replica_total")}
+        # 7. SIGTERM: a zero-downtime stop
+        workers = [pids["w0"], pids["w1"], cpu_pid]
+        t_term = time.perf_counter()
+        parent.send_signal(signal.SIGTERM)
+        code = parent.wait(timeout=60)
+        steps["sigterm_exit_s"] = time.perf_counter() - t_term
+        if code != 0 or steps["sigterm_exit_s"] > 20.0:
+            raise AssertionError(f"the fleet parent exited {code} {steps['sigterm_exit_s']} s after SIGTERM")
+        _wait(lambda: not any(os.path.exists(f"/proc/{p}") for p in workers) and len(_compute_apps()) == len(apps0),
+              30, "the workers leaving the card")
+        passed = True
+    finally:
+        if not passed:
+            emit(phase="fleet_cli_failed", steps=steps, ring=_ring_summary(obs))
+            for p in (port + 1, port + 2, port + 3):
+                pid = _pid_on_port(p)
+                if pid is not None:
+                    os.kill(pid, signal.SIGKILL)
+        session.stop_all()
+    session.foreign()
+    with open(parent.report) as fh:
+        parent_launches = json.load(fh)["launches"]
+    shutil.rmtree(work, ignore_errors=True)
+    steps.update(host_numbers=True, queries=n_queries, clients=clients, flood_clients=flood_clients,
+                 parent_launches=parent_launches)
+    emit_numbers("fleet_cli", **steps)
+    return steps
+
+
+def fleet_lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "cuda") -> dict:
+    """The lifecycle controller in the fleet parent, on the ML-100K store
+    lifecycle_cli used, in its directory after it: ``pio deploy --fleet 2
+    --lifecycle lifecycle_grid.make_evaluation --lifecycle-app restapp
+    --lifecycle-workers 0 --lifecycle-warm-limit 8 --no-auto-promote``
+    over lifecycle_cli's registry and a fresh obs dir. One drift line on
+    the fleet's ring starts the episode: the retune's cells train in the
+    parent, every one on the CPU (no B1 launch in the parent), the winner
+    lands as the canary both workers adopt, a promote through the gateway
+    ends the bake, and the controller sends at most 8 warm queries through
+    the gateway; the same queries sent again through the gateway are all
+    cache hits, summed over the workers' /metrics. SIGTERM: exit 0."""
+    import re
+
+    from predictionio_tpu_torch.data.store.event_store import resolve_app
+    from predictionio_tpu_torch.lifecycle import read_json_file
+    from predictionio_tpu_torch.obs.tsring import TelemetryRing
+    from predictionio_tpu_torch.registry import ArtifactStore
+    from predictionio_tpu_torch.workflow.batch_predict import iter_event_users
+
+    work, engine_dir, registry = reg["work"], reg["engine_dir"], reg["registry"]
+    engine_id = reg["variant"]["id"]
+    obs = os.path.join(work, "fleet_obs")
+    train_log = os.path.join(work, "fleet_trains.log")
+    env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "GRID_TRAIN_LOG": train_log}
+    session = _CliSession(work, home, env)
+    store = ArtifactStore(registry)
+    stable0 = store.get_state(engine_id).stable
+    if store.get_state(engine_id).candidate:
+        raise AssertionError(f"a candidate is staged: {store.get_state(engine_id).to_json_dict()}")
+    state_path = os.path.join(obs, "lifecycle", "lifecycle.json")
+    port = _fleet_ports(3)
+    base = f"http://127.0.0.1:{port}"
+    steps: dict = {}
+    parent = session.spawn("fleet_lifecycle", "deploy", "--engine-dir", engine_dir, "--device", device,
+                           "--ip", "127.0.0.1", "--port", str(port), "--registry-dir", registry, "--fleet", "2",
+                           "--obs-dir", obs, "--fleet-probe-interval", "0.3", "--registry-sync-interval", "0.2",
+                           "--no-auto-promote", "--lifecycle", "lifecycle_grid.make_evaluation",
+                           "--lifecycle-workers", "0", "--lifecycle-app", "restapp", "--lifecycle-warm-limit", "8",
+                           "--profile-dir", os.path.join(work, "fleet_profiles"))
+
+    def state() -> dict:
+        if parent.poll() is not None:
+            raise AssertionError(f"the fleet parent exited {parent.returncode}: {session.err('fleet_lifecycle')}")
+        return (read_json_file(state_path) or {}).get("policy", {})
+
+    def ready() -> bool:
+        state()
+        try:
+            for p in (port + 1, port + 2):
+                _http(f"http://127.0.0.1:{p}/", timeout=2)
+            return _http(base + "/healthz", timeout=2)[1]["replicasHealthy"] == 2
+        except (urllib.error.URLError, ConnectionError, TimeoutError, http.client.HTTPException):
+            return False
+
+    def on_both(pred) -> bool:
+        return all(pred(_http(f"http://127.0.0.1:{p}/models")[1]) for p in (port + 1, port + 2))
+
+    def cache_hits() -> float:
+        return sum(_queries_total(f"http://127.0.0.1:{p}", "pio_cache_hits_total") for p in (port + 1, port + 2))
+
+    passed = False
+    try:
+        steps["boot_s"] = _wait(ready, 300, "the fleet's two workers")
+        TelemetryRing(os.path.join(obs, "telemetry"), writer_id="stream").append({
+            "kind": "drift", "engine": engine_id, "trainer": "als", "guard": "holdout_rmse",
+            "measured": 9.9, "threshold": 0.5, "reason": "a breach"})
+        t0 = time.perf_counter()
+        _wait(lambda: state().get("state") == "baking", 600, "the grid's winner baking")
+        steps["drift_to_baking_s"] = time.perf_counter() - t0
+        winner = store.get_state(engine_id).candidate
+        steps["canary_adopted_s"] = _wait(lambda: on_both(
+            lambda m: (m["candidate"] or {}).get("version") == winner), 120, "both workers' canary")
+        if _http(base + "/models/promote", {})[0] != 200:
+            raise AssertionError("the promote through the gateway failed")
+        _wait(lambda: state().get("state") == "idle", 120, "the episode closing")
+        steps["drift_to_idle_s"] = time.perf_counter() - t0
+        final = read_json_file(state_path)
+        if final["policy"]["lastOutcome"] != "promoted" or final["lastDecision"]["action"] != "warm" \
+                or store.get_state(engine_id).stable != winner:
+            raise AssertionError(f"episode: {final}; registry {store.get_state(engine_id).to_json_dict()}")
+        _wait(lambda: "cache warmed for" in session.err("fleet_lifecycle"), 30, "the warm's log line")
+        warm = re.findall(r"cache warmed for (\S+): \{'ok': (\d+), 'error': (\d+)\}", session.err("fleet_lifecycle"))
+        if len(warm) != 1 or warm[0][0] != winner or int(warm[0][2]) or not 0 < int(warm[0][1]) <= 8:
+            raise AssertionError(f"the warm: {warm}\n{session.err('fleet_lifecycle')}")
+        warmed = int(warm[0][1])
+        levents = smoke_storage(home).get_l_events()
+        app_id, _ = resolve_app(smoke_storage(home), "restapp", None)
+        hits0 = cache_hits()
+        queries = [q for _, q in iter_event_users(levents, app_id, limit=8)]
+        for q in queries:
+            if _http(base + "/queries.json", q)[0] != 200:
+                raise AssertionError(f"warm query {q} not answered 200")
+        hits = cache_hits() - hits0
+        devices = sorted({ln.split()[1] for ln in _lines(train_log)})
+        if hits != warmed or len(queries) != warmed or devices != ["cpu"]:
+            raise AssertionError(f"{hits} cache hits of {warmed} warmed ({len(queries)} queries); cells on {devices}")
+        ring = [r.get("event") for r in TelemetryRing(os.path.join(obs, "telemetry")).records()
+                if r.get("kind") == "lifecycle"]
+        if ring != ["triggered", "tuning", "baking", "finished"]:
+            raise AssertionError(f"ring: {ring}")
+        parent.send_signal(signal.SIGTERM)
+        if parent.wait(timeout=60) != 0:
+            raise AssertionError(f"the fleet parent exited {parent.returncode}")
+        passed = True
+    finally:
+        if not passed:
+            for p in (port + 1, port + 2):
+                pid = _pid_on_port(p)
+                if pid is not None:
+                    os.kill(pid, signal.SIGKILL)
+        session.stop_all()
+    session.foreign()
+    with open(parent.report) as fh:
+        launches = json.load(fh)["launches"]
+    if launches.get("spd_cg"):
+        raise AssertionError(f"the retune's cells launched B1 on the card: {launches}")
+    cells = len(_lines(train_log))
+    shutil.rmtree(work, ignore_errors=True)
+    result = {"host_numbers": True, **steps, "stable_before": stable0, "winner": winner,
+              "cells": cells, "cell_devices": devices, "warm_queries": warmed,
+              "warm_cache_hits": hits, "parent_spd_cg_launches": launches.get("spd_cg", 0)}
+    emit(phase="fleet_lifecycle_cli", **result)
+    return result
 
 
 def profiled_train(work: str, run, reports: list, engine_dir: str, device: str) -> int:
@@ -5222,7 +5754,6 @@ def lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "
             launches[name] = json.load(fh)["launches"]["spd_cg"]
     if launches["lifecycle"]:
         raise AssertionError(f"the retune's cells launched B1 on the card: {launches}")
-    shutil.rmtree(work, ignore_errors=True)
     result = {"host_numbers": True, **steps, "cells": LIFECYCLE_CELLS, "cells_at_kill": finished_at_kill,
               "trains_before_kill": trains_at_kill, "trains_after_restart": len(trains[1]),
               "cells_retrained": retrained, "cell_devices": devices, "winner": winner, "queries_to_promote": n,
@@ -5491,16 +6022,16 @@ SIMILAR_FACTORY = "predictionio_tpu_torch.models.similarproduct.engine.engine_fa
 SIMILAR_ANN_ENGINE = "smoke-similar-ann"
 
 
-def similarproduct_ann_phase(torch, home: str, n_queries: int = 2_000, n_users: int = 138_000,
-                             n_items: int = 100_000, n_views: int = 20_000_000) -> dict:
+def similarproduct_ann_phase(torch, home: str, n_queries: int = 1_000, n_users: int = 138_000,
+                             n_items: int = 100_000, n_views: int = 10_000_000) -> dict:
     """(b) Similar-product at a 100,000-item catalog, deployed from the
-    registry: ML-20M's 138,000 users and 20 M events as views of 100,000
+    registry: ML-20M's 138,000 users and 10 M events as views of 100,000
     items (synthesize_ratings' draws), 200 categories; ALSAlgorithm at
     rank 10, 10 iterations (20 B1 launches, the last systems of each side
     held by b1_rows_held at row-relative 1e-4 and timed); published through
     core_workflow._publish_to_registry, which pins an index at the default
     AnnConfig (its sha256 verified on load); a QueryServer deployed from
-    that registry answers 2,000 queries of 1-5 items (half with 20 of the
+    that registry answers 1,000 queries of 1-5 items (half with 20 of the
     200 categories) from 16 clients, each answered 200 and held to the
     exact top-10 over its probed candidates, 0 fallbacks, the recall
     shadow's gauge read (PIO_ANN_RECALL_EVERY=4); the same queries are sent
@@ -5870,12 +6401,14 @@ def main() -> int:
         contract = serving_contract_inprocess_phase(torch, foldin)
         obs_inprocess_phase(torch, foldin, contract)
         bandit_inprocess_phase(torch, foldin)
+        fleet_cli_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
         del foldin
         offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)
         eval_rows = eval_b1_rows(torch, os.path.join(home, "rest"))
         registry = registry_cli_phase(torch, os.path.join(home, "rest"), rest)
         lifecycle_cli_phase(torch, os.path.join(home, "rest"), rest, registry)
+        fleet_lifecycle_cli_phase(torch, os.path.join(home, "rest"), rest, registry)
         foldin_rows += stream_b1_rows(torch, os.path.join(home, "rest"))
         rank160, rank160_launches = als_rank160_phase(torch, home)
         attention_kernel_phase(torch)

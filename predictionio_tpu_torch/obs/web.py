@@ -58,6 +58,13 @@ class BreakerInstruments:
         self.collect()
         return breaker
 
+    def unwatch(self, breaker: CircuitBreaker) -> None:
+        """Forget a retired replica's breaker: stop refreshing it and drop
+        its state gauge series (the transition counter stays: history is
+        monotonic, the gauge is a live-set claim)."""
+        self._breakers = [b for b in self._breakers if b is not breaker]
+        self._state.remove(breaker=breaker.name)
+
     def on_transition(self, name: str, old: str, new: str) -> None:
         self._transitions.inc(breaker=name, to=new)
         self._state.set(BREAKER_STATE_VALUES.get(new, -1.0), breaker=name)

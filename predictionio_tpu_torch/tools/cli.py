@@ -528,6 +528,40 @@ def cmd_deploy(args) -> int:
     from predictionio_tpu_torch.workflow.context import WorkflowContext
     from predictionio_tpu_torch.workflow.create_server import ServerConfig, create_query_server
 
+    if args.autoscale and not args.fleet:
+        # silently ignoring elasticity flags would leave the operator
+        # believing the fleet sizes itself when nothing is running
+        return _die(
+            "--autoscale requires --fleet N (the autoscaler drives the "
+            "fleet supervisor; docs/fleet.md §Autoscaling)"
+        )
+    if args.hosts and not args.fleet:
+        return _die(
+            "--hosts requires --fleet N (host placement is the fleet "
+            "supervisor's job; docs/fleet.md §Multi-host)"
+        )
+    if args.lifecycle and not args.fleet:
+        return _die(
+            "--lifecycle requires --fleet N (the controller rides the "
+            "fleet parent's obs plane; for a single server run "
+            "`pio lifecycle run` alongside it; docs/lifecycle.md)"
+        )
+    if args.gateways != 1 and not args.fleet:
+        return _die(
+            "--gateways requires --fleet N (peer gateways front the "
+            "fleet's replica set; docs/fleet.md §Gateway tier)"
+        )
+    if args.fleet:
+        # N supervised worker processes of this CLI behind a gateway: the
+        # gateway takes --port, workers take port+1..port+N and get a
+        # registry sync interval so rollouts propagate fleet-wide
+        from predictionio_tpu_torch.fleet.launch import run_fleet
+
+        try:
+            return run_fleet(args, args.cli_argv, wait=_wait_for_signal, storage=_storage)
+        except ValueError as exc:
+            return _die(str(exc))
+
     ctx = WorkflowContext(mode="serving", device=args.device, _storage=_storage())
     config = ServerConfig(
         ip=args.ip,
@@ -1759,8 +1793,10 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--registry-dir",
                    help="serve the registry's stable version and expose the /models rollout "
                         "routes (default: registry disabled)")
-    x.add_argument("--registry-sync-interval", type=float, default=0.0,
-                   help="seconds between polls of the registry's rollout state (0 disables)")
+    x.add_argument("--registry-sync-interval", type=float, default=None,
+                   help="seconds between polls of the registry's rollout state: adopt "
+                        "stage/promote/rollback made by other processes (fleet workers "
+                        "default to 1.0; 0 disables)")
     x.add_argument("--sticky-key", default="user",
                    help="query field that pins a user to one lane for a whole bake")
     x.add_argument("--candidate-breaker-threshold", type=int, default=3,
@@ -1810,6 +1846,64 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--bandit-app-name", help="app whose events carry the rewards (needed with --bandit)")
     x.add_argument("--bandit-reward-event",
                    help="comma-separated event names credited as rewards (default: reward)")
+    x.add_argument("--fleet", type=int, default=0, metavar="N",
+                   help="deploy N supervised QueryServer worker processes (ports PORT+1..PORT+N) "
+                        "behind a gateway on PORT: least-loaded routing, /healthz ejection, crash "
+                        "restart, one-retry failover, federated /metrics")
+    x.add_argument("--fleet-probe-interval", type=float, default=1.0,
+                   help="gateway /healthz probe cadence in seconds (bounds how fast a dead "
+                        "replica is ejected)")
+    x.add_argument("--autoscale", action="store_true",
+                   help="size the fleet from the telemetry ring: scale out on fast-window SLO "
+                        "burn / sustained queue depth, scale in (graceful drain) on sustained "
+                        "idle; never resizes mid-bake; needs the flight recorder (--obs-dir)")
+    x.add_argument("--fleet-min", type=int, default=None, metavar="N",
+                   help="autoscaler device-class floor (default 1)")
+    x.add_argument("--fleet-max", type=int, default=None, metavar="N",
+                   help="autoscaler device-class ceiling (default 2x the --fleet boot size); "
+                        "wanting capacity past the whole envelope snapshots an "
+                        "autoscaler-saturated incident bundle")
+    x.add_argument("--cpu-fallback-max", type=int, default=None, metavar="N",
+                   help="max cheap cpu-fallback replicas (workers that see no card and serve "
+                        "with --device cpu) added once the device envelope is exhausted; the "
+                        "gateway routes them overflow-first so spikes degrade to slower answers "
+                        "instead of sheds (default 0 = disabled)")
+    x.add_argument("--autoscale-interval", type=float, default=None,
+                   help="autoscaler control-loop cadence in seconds (default 5)")
+    x.add_argument("--hosts", default=None, metavar="SPEC",
+                   help="multi-host worker placement: comma list of [driver@]host:slots entries "
+                        "(drivers: local, ssh, container; e.g. 'local:4,ssh@gpu-2:8'); workers "
+                        "spread across the inventory and a dead host's capacity respawns on "
+                        "survivors")
+    x.add_argument("--gateways", type=int, default=1, metavar="N",
+                   help="run N shared-nothing gateways on ports PORT..PORT+N-1 over the same "
+                        "replica set (put any TCP balancer in front); each peer serves its own "
+                        "/metrics, /traces/recent and /slo fan in across peers (default 1)")
+    x.add_argument("--obs-dir", default="pio_obs",
+                   help="fleet flight-recorder directory: worker log tails, the durable "
+                        "telemetry ring (`pio top --history`), and incident bundles (`pio "
+                        "incidents list`); '' disables")
+    x.add_argument("--lifecycle", default=None, metavar="EVALUATION",
+                   help="run the lifecycle controller in the fleet parent: drift on the "
+                        "telemetry ring (or --lifecycle-cadence) triggers a background retune "
+                        "of this dotted Evaluation on nice'd cpu-fallback grid workers, the "
+                        "winner bakes through the rollout gates, promotes warm the result "
+                        "cache; needs --registry-dir and --obs-dir")
+    x.add_argument("--lifecycle-cadence", type=float, default=None,
+                   help="also retune every N seconds (default 0 = drift/manual only)")
+    x.add_argument("--lifecycle-cooldown", type=float, default=None,
+                   help="seconds after an episode before auto triggers re-arm (default 600)")
+    x.add_argument("--lifecycle-workers", type=int, default=None,
+                   help="grid worker processes for lifecycle retunes (default 2; always the "
+                        "cpu-fallback class)")
+    x.add_argument("--lifecycle-nice", type=int, default=None,
+                   help="re-nice lifecycle grid workers (default 10)")
+    x.add_argument("--lifecycle-warm-limit", type=int, default=None,
+                   help="max queries replayed per post-promote cache warm (default 256; 0 "
+                        "disables)")
+    x.add_argument("--lifecycle-app", default=None, metavar="APP_NAME",
+                   help="app whose event store supplies warm-up queries (distinct users); "
+                        "unset disables cache warming")
     x.set_defaults(fn=cmd_deploy)
 
     x = sub.add_parser("adminserver")
@@ -2025,7 +2119,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv: list[str] | None = None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = build_parser().parse_args(argv)
+    args.cli_argv = argv  # what `deploy --fleet` derives its workers' command lines from
     logging.basicConfig(
         level=logging.WARNING, format="%(asctime)s %(levelname)s %(name)s: %(message)s"
     )

@@ -560,6 +560,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
         "lifecycle", "lifecycle.policy", "lifecycle.controller", "lifecycle.tune", "lifecycle.warm",
         "tools.top", "tools.admin_api", "tools.dashboard", "tools.route_server",
     )} <= set(modules)
+    # the serving fleet is covered
+    assert {f"predictionio_tpu_torch.fleet{m}" for m in (
+        "", ".worklog", ".hostrt", ".supervisor", ".federation", ".gateway", ".autoscaler", ".launch",
+    )} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"
@@ -610,6 +614,42 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
                          env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120, cwd=REPO)
     assert out.returncode == 0, out.stderr
     assert "RC [0, 0, 0, 0, 0] 0 []" in out.stdout, out.stdout + out.stderr
+    # a `pio deploy --fleet 2` process and its two workers, ended by SIGTERM
+    # once the gateway counts both workers healthy
+    from tests.test_torch_fleet import foreign_module_env, foreign_reports, free_ports
+
+    port = free_ports(3)
+    code = (
+        "import json, os, signal, sys, threading, time, urllib.request\n"
+        "from predictionio_tpu_torch.tools import cli\n"
+        "def ready():\n"
+        "    try:\n"
+        f"        for p in ({port + 1}, {port + 2}):\n"
+        "            urllib.request.urlopen(f'http://127.0.0.1:{p}/', timeout=2).read()\n"
+        f"        hz = urllib.request.urlopen('http://127.0.0.1:{port}/healthz', timeout=2).read()\n"
+        "        return json.loads(hz)['replicasHealthy'] == 2\n"
+        "    except OSError:\n"
+        "        return False\n"
+        "def stop():\n"
+        "    deadline = time.monotonic() + 90\n"
+        "    while not ready() and time.monotonic() < deadline:\n"
+        "        time.sleep(0.1)\n"
+        "    os.kill(os.getpid(), signal.SIGTERM)\n"
+        "threading.Thread(target=stop, daemon=True).start()\n"
+        f"rc = cli.main(['--home', {str(tmp_path / 'home' / 'port_home')!r}, 'deploy', '--engine-dir', "
+        f"{str(engine_dir)!r}, '--device', 'cpu', '--ip', '127.0.0.1', '--port', '{port}', '--fleet', '2', "
+        f"'--registry-dir', {str(tmp_path / 'registry')!r}, '--obs-dir', {str(tmp_path / 'fleet_obs')!r}])\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'predictionio_tpu', 'aiohttp')]\n"
+        "print('RC', rc, len(bad), bad[:5])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env=foreign_module_env(tmp_path), timeout=180, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert "RC 0 0 []" in out.stdout, out.stdout + out.stderr
+    # a worker restarted under load reports once a process
+    workers = [r for r in foreign_reports(tmp_path) if "--fleet" not in r["argv"] and "deploy" in r["argv"]]
+    assert len(workers) >= 2 and all(r["foreign"] == [] for r in foreign_reports(tmp_path)), workers
 
 
 @pytest.mark.parametrize(
