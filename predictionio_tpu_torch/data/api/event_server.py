@@ -104,6 +104,7 @@ from predictionio_tpu_torch.obs.web import (
 from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
 from predictionio_tpu_torch.resilience.policy import ResiliencePolicy
 from predictionio_tpu_torch.resilience.retry import RetryBudget, RetryPolicy
+from predictionio_tpu_torch.utils.httpbody import BodyError, BodyTooLarge, read_body, reply_bad_framing
 from predictionio_tpu_torch.utils.tls import HandshakeOnHandlerThread, server_ssl_context
 
 logger = logging.getLogger(__name__)
@@ -635,12 +636,15 @@ class EventServer:
                 logger.debug("%s " + fmt, self.address_string(), *args)
 
             def _serve(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                if length > MAX_BODY_BYTES:
-                    self.close_connection = True
+                try:
+                    body = read_body(self.headers, self.rfile, MAX_BODY_BYTES)
+                except BodyTooLarge:
+                    self.close_connection = True  # the rest stays unread
                     self._reply(413, {"message": "payload too large"})
                     return
-                body = self.rfile.read(length) if length else b""
+                except BodyError as exc:
+                    reply_bad_framing(self, exc)
+                    return
                 url = urllib.parse.urlsplit(self.path)
                 query: dict[str, str] = {}
                 for k, v in urllib.parse.parse_qsl(url.query, keep_blank_values=True):

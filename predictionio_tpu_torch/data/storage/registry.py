@@ -15,9 +15,8 @@ under ``$PIO_FS_BASEDIR``, else the port's own home, ``$PIO_TORCH_HOME`` or
 ``~/.pio_store``, so a deploy of either package cannot pick up the other's
 engine instances.
 
-Port of ``predictionio_tpu/data/storage/registry.py`` with the ``memory``,
-``sqlite``, ``localfs`` and ``jsonl`` backends; the JAX package's other
-types (:data:`NOT_PORTED`) raise :class:`StorageError`.
+Port of ``predictionio_tpu/data/storage/registry.py`` with every backend
+type of the JAX package, under the same client class names.
 """
 
 from __future__ import annotations
@@ -49,11 +48,16 @@ _BACKENDS: dict[str, tuple[str, str]] = {
     "sqlite": ("predictionio_tpu_torch.data.storage.sqlite", "SQLiteStorageClient"),
     "localfs": ("predictionio_tpu_torch.data.storage.localfs", "LocalFSStorageClient"),
     "jsonl": ("predictionio_tpu_torch.data.storage.jsonl", "JSONLStorageClient"),
+    # client/server SQL databases over DB-API; the driver module is imported
+    # at connect time, and a missing one raises StorageError naming it
+    "postgres": ("predictionio_tpu_torch.data.storage.sql", "PostgresStorageClient"),
+    "mysql": ("predictionio_tpu_torch.data.storage.sql", "MySQLStorageClient"),
+    "sql": ("predictionio_tpu_torch.data.storage.sql", "SQLStorageClient"),
+    # REST drivers on the standard library, no client packages
+    "elasticsearch": ("predictionio_tpu_torch.data.storage.elasticsearch", "ESStorageClient"),
+    "s3": ("predictionio_tpu_torch.data.storage.s3", "S3StorageClient"),
+    "hdfs": ("predictionio_tpu_torch.data.storage.hdfs", "HDFSStorageClient"),
 }
-
-# backend types of the JAX package that the port does not have yet: naming
-# one is a configuration the port cannot serve, so it fails at lookup
-NOT_PORTED = ("postgres", "mysql", "sql", "elasticsearch", "s3", "hdfs")
 
 REPOSITORIES = ("METADATA", "EVENTDATA", "MODELDATA")
 
@@ -160,11 +164,6 @@ class Storage:
             with _backends_lock:
                 entry = _BACKENDS.get(type_name)
                 known = sorted(_BACKENDS)
-            if entry is None and type_name in NOT_PORTED:
-                raise StorageError(
-                    f"storage backend type {type_name!r} is not yet ported to "
-                    f"predictionio_tpu_torch; ported: {known}"
-                )
             if entry is None:
                 raise StorageError(
                     f"unknown storage backend type {type_name!r}; "

@@ -101,6 +101,7 @@ from predictionio_tpu_torch.obs.web import (
 from predictionio_tpu_torch.registry.router import routing_key, sticky_bucket
 from predictionio_tpu_torch.resilience import OPEN, CircuitBreaker, CircuitOpenError, RetryBudget
 from predictionio_tpu_torch.tools.top import parse_prometheus
+from predictionio_tpu_torch.utils.httpbody import BodyError, BodyTooLarge, read_body, reply_bad_framing
 
 logger = logging.getLogger(__name__)
 
@@ -1496,16 +1497,17 @@ class Gateway:
                 self._answer(self._route("GET", None))
 
             def do_POST(self):
-                length = int(self.headers.get("Content-Length") or 0)
-                if (
-                    self.path.split("?", 1)[0] == "/queries.json"
-                    and gateway.config.max_payload_bytes
-                    and length > gateway.config.max_payload_bytes
-                ):
-                    self.close_connection = True  # the body stays unread
+                queries = self.path.split("?", 1)[0] == "/queries.json"
+                try:
+                    body = read_body(self.headers, self.rfile,
+                                     gateway.config.max_payload_bytes if queries else None)
+                except BodyTooLarge:
+                    self.close_connection = True  # the rest stays unread
                     self._answer(gateway.handle_queries(None, self.headers))
                     return
-                body = self.rfile.read(length) if length else b""
+                except BodyError as exc:
+                    reply_bad_framing(self, exc)
+                    return
                 self._answer(self._route("POST", body))
 
         return Handler

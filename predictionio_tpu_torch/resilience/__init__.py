@@ -14,7 +14,13 @@ from predictionio_tpu_torch.resilience.breaker import (
 from predictionio_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
 from predictionio_tpu_torch.resilience.fault import FaultInjector, FaultSpec, InjectedFault
 from predictionio_tpu_torch.resilience.policy import ResiliencePolicy
-from predictionio_tpu_torch.resilience.retry import RetryBudget, RetryPolicy, is_transient
+from predictionio_tpu_torch.resilience.retry import (
+    TRANSIENT_HTTP_STATUSES,
+    RetryBudget,
+    RetryPolicy,
+    is_transient,
+    mark_transient,
+)
 from predictionio_tpu_torch.resilience.wrappers import ResilientProxy, wrap_dao
 
 __all__ = [
@@ -32,6 +38,8 @@ __all__ = [
     "ResilientProxy",
     "RetryBudget",
     "RetryPolicy",
+    "TRANSIENT_HTTP_STATUSES",
     "is_transient",
+    "mark_transient",
     "wrap_dao",
 ]

@@ -19,6 +19,17 @@ from predictionio_tpu_torch.resilience.deadline import Deadline
 
 _TRANSIENT_TYPES = (ConnectionError, InterruptedError)
 
+# HTTP statuses worth replaying (server-side trouble a fresh attempt can
+# clear), shared by the REST storage drivers (elasticsearch, s3, hdfs)
+TRANSIENT_HTTP_STATUSES = (500, 502, 503, 504)
+
+
+def mark_transient(exc: BaseException) -> BaseException:
+    """Tag an exception as replay-safe for ``is_transient`` and return it
+    (``raise mark_transient(SomeError(...)) from exc``)."""
+    exc.transient = True
+    return exc
+
 
 def is_transient(exc: BaseException) -> bool:
     marked = getattr(exc, "transient", None)

@@ -8,6 +8,8 @@ import threading
 import urllib.parse
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
+from predictionio_tpu_torch.utils.httpbody import BodyError, read_body, reply_bad_framing
+
 
 class RouteServer:
     """Subclasses answer :meth:`route`; this class binds, serves every
@@ -33,8 +35,11 @@ class RouteServer:
                 pass
 
             def _serve(self) -> None:
-                length = int(self.headers.get("Content-Length") or 0)
-                body = self.rfile.read(length) if length else b""
+                try:
+                    body = read_body(self.headers, self.rfile)
+                except BodyError as exc:
+                    reply_bad_framing(self, exc)
+                    return
                 status, ctype, data = server.route(self.command, urllib.parse.urlsplit(self.path).path, body)
                 self.send_response(status)
                 self.send_header("Content-Type", ctype)

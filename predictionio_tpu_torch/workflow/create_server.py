@@ -161,6 +161,13 @@ from predictionio_tpu_torch.registry.result_cache import ResultCache
 from predictionio_tpu_torch.registry.store import MODE_CANARY, MODE_SHADOW, ArtifactStore
 from predictionio_tpu_torch.resilience.breaker import OPEN, CircuitBreaker, CircuitOpenError
 from predictionio_tpu_torch.resilience.deadline import Deadline, DeadlineExceeded
+from predictionio_tpu_torch.utils.httpbody import (
+    BodyError,
+    BodyTooLarge,
+    framing,
+    read_body,
+    reply_bad_framing,
+)
 from predictionio_tpu_torch.utils.tls import HandshakeOnHandlerThread, server_ssl_context
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
@@ -1934,6 +1941,11 @@ class QueryServer:
 
             def do_POST(self):
                 path = self.path.split("?")[0]
+                try:  # a malformed frame is answered before any route, as aiohttp's parser does
+                    framing(self.headers)
+                except BodyError as exc:
+                    reply_bad_framing(self, exc)
+                    return
                 if path == "/queries.json":
                     server._request_began()
                     try:
@@ -1941,12 +1953,15 @@ class QueryServer:
                     finally:
                         server._request_ended()
                     return
-                length = int(self.headers.get("Content-Length") or 0)
-                if length > server.config.max_payload_bytes:
-                    self.close_connection = True
+                try:
+                    body = read_body(self.headers, self.rfile, server.config.max_payload_bytes)
+                except BodyTooLarge:
+                    self.close_connection = True  # the rest stays unread
                     self._reply(413, {"message": "payload too large"})
                     return
-                body = self.rfile.read(length)
+                except BodyError as exc:
+                    reply_bad_framing(self, exc)
+                    return
                 routes = {
                     "/profile/capture": self._profile_capture,
                     "/stop": self._stop,
@@ -2038,12 +2053,16 @@ class QueryServer:
                         self.close_connection = True  # the body stays unread
                         self._reply(401, {"message": "Invalid accessKey."})
                         return
-                length = int(self.headers.get("Content-Length") or 0)
-                if cfg.max_payload_bytes and length > cfg.max_payload_bytes:
-                    self.close_connection = True
-                    self._reply(413, {"message": f"query payload too large ({length} > {cfg.max_payload_bytes} bytes)"})
+                try:
+                    body = read_body(self.headers, self.rfile, cfg.max_payload_bytes)
+                except BodyTooLarge as exc:
+                    self.close_connection = True  # the rest stays unread
+                    self._reply(413, {"message": f"query payload too large ({exc.length} > {cfg.max_payload_bytes} bytes)"})
                     return
-                body = self.rfile.read(length)
+                except BodyError as exc:  # a chunked body cut short
+                    self.close_connection = True
+                    self._reply_raw(exc.status, f"{exc.message}\n".encode(), "text/plain; charset=utf-8")
+                    return
                 try:
                     payload = json.loads(body.decode("utf-8"))
                 except ValueError as exc:

@@ -506,6 +506,47 @@ _IMPORT = re.compile(
 )
 
 
+NEW_BACKEND_MODULES = (
+    "data.storage.sql", "data.storage.elasticsearch", "data.storage.s3", "data.storage.hdfs",
+    "data.view", "data.bimap", "controller.self_cleaning", "e2.vectorizer", "utils.httpbody",
+)
+
+
+def test_the_storage_backends_and_library_modules_import_no_jax(tmp_path):
+    """In a clean process, importing the sql, elasticsearch, s3 and hdfs
+    drivers, data.view, controller.self_cleaning and e2.vectorizer, and
+    driving a ``sql`` (sqlite3) store through Storage, leaves neither jax
+    nor the JAX package (nor aiohttp) in sys.modules."""
+    env_store = {
+        "PIO_STORAGE_SOURCES_DB_TYPE": "sql", "PIO_STORAGE_SOURCES_DB_MODULE": "sqlite3",
+        "PIO_STORAGE_SOURCES_DB_CONNECT_ARGS": json.dumps({"database": str(tmp_path / "s.db")}),
+        **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "DB" for r in ("METADATA", "EVENTDATA", "MODELDATA")},
+    }
+    code = (
+        "import importlib, sys\n"
+        f"for m in {[f'predictionio_tpu_torch.{m}' for m in NEW_BACKEND_MODULES]!r}: importlib.import_module(m)\n"
+        "from predictionio_tpu_torch.data.storage.registry import Storage\n"
+        "from predictionio_tpu_torch.data.storage.base import App\n"
+        "from predictionio_tpu_torch.data.event import Event\n"
+        "from predictionio_tpu_torch.e2 import BinaryVectorizer\n"
+        f"s = Storage(env={env_store!r})\n"
+        "app = s.get_meta_data_apps().insert(App(0, 'a'))\n"
+        "s.get_l_events().insert(Event('rate', 'user', 'u1', 'item', 'i1', {'rating': 3.0}), app)\n"
+        "cols = s.get_p_events().to_columnar(app, rating_key='rating')\n"
+        "assert len(cols) == 1 and BinaryVectorizer.fit([{'a': 'b'}]).n_features == 1\n"
+        "bad = [k for k in sys.modules if k.split('.')[0] in "
+        "('jax', 'jaxlib', 'flax', 'optax', 'predictionio_tpu', 'aiohttp')]\n"
+        "print(len(bad), bad[:5])\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         env={**os.environ, "OMP_NUM_THREADS": "1"}, timeout=120, cwd=REPO)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.startswith("0 "), out.stdout
+    for m in NEW_BACKEND_MODULES:
+        path = REPO / "predictionio_tpu_torch" / (m.replace(".", "/") + ".py")
+        assert not _IMPORT.findall(path.read_text()), path
+
+
 def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     modules = sorted(
         ".".join(p.relative_to(REPO).with_suffix("").parts).removesuffix(".__init__")
@@ -564,6 +605,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     assert {f"predictionio_tpu_torch.fleet{m}" for m in (
         "", ".worklog", ".hostrt", ".supervisor", ".federation", ".gateway", ".autoscaler", ".launch",
     )} <= set(modules)
+    # the storage backends, the library modules and the body reader are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in NEW_BACKEND_MODULES} <= set(modules)
     for path in [*PORT_PKG.rglob("*.py"), REPO / "chip_smoke.py"]:
         hits = _IMPORT.findall(path.read_text())
         assert not hits, f"{path}: {hits}"

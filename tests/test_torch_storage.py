@@ -40,6 +40,39 @@ APP = 7
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _sql_client(tmp_path):
+    """The generic DB-API driver through sqlite3's module: the code path
+    postgres and mysql take, without a server."""
+    from predictionio_tpu_torch.data.storage.sql import SQLStorageClient
+
+    return SQLStorageClient({"MODULE": "sqlite3", "CONNECT_ARGS": {"database": str(tmp_path / "s.db")}})
+
+
+def _fake_dialect_client(tmp_path, module_name):
+    """The postgres / mysql dialects (placeholder rewriting, RETURNING id,
+    named cursors, their DDL types) over tests/fake_dbapi.py's shims."""
+    from predictionio_tpu_torch.data.storage.sql import SQLStorageClient
+    from tests.fake_dbapi import install
+
+    install()
+    return SQLStorageClient({
+        "MODULE": module_name,
+        "DIALECT": "postgres" if "psycopg" in module_name else "mysql",
+        "CONNECT_ARGS": {"database": str(tmp_path / f"{module_name}.db")},
+    })
+
+
+def _es_client():
+    """The REST driver against tests/es_mock.py served in this process."""
+    from predictionio_tpu_torch.data.storage.elasticsearch import ESStorageClient
+    from tests.es_mock import make_server
+
+    server, url = make_server()
+    client = ESStorageClient({"URL": url})
+    client._mock_server = server
+    return client
+
+
 def _make_client(param, tmp_path):
     if param == "memory":
         return MemoryStorageClient()
@@ -47,17 +80,40 @@ def _make_client(param, tmp_path):
         return SQLiteStorageClient({"PATH": str(tmp_path / "t.db")})
     if param == "jsonl":
         return JSONLStorageClient({"PATH": str(tmp_path / "events")})
+    if param == "sql":
+        return _sql_client(tmp_path)
+    if param == "sql_postgres":
+        return _fake_dialect_client(tmp_path, "fake_psycopg2")
+    if param == "sql_mysql":
+        return _fake_dialect_client(tmp_path, "fake_pymysql")
+    if param == "elasticsearch":
+        return _es_client()
     raise ValueError(param)
 
 
-@pytest.fixture(params=["memory", "sqlite", "jsonl"])
+def _cleanup_client(c):
+    server = getattr(c, "_mock_server", None)
+    if server is not None:
+        server.shutdown()
+        server.server_close()
+
+
+EVENT_BACKENDS = ["memory", "sqlite", "jsonl", "sql", "sql_postgres", "sql_mysql", "elasticsearch"]
+META_BACKENDS = ["memory", "sqlite", "sql", "sql_postgres", "sql_mysql", "elasticsearch"]
+
+
+@pytest.fixture(params=EVENT_BACKENDS)
 def client(request, tmp_path):
-    return _make_client(request.param, tmp_path)
+    c = _make_client(request.param, tmp_path)
+    yield c
+    _cleanup_client(c)
 
 
-@pytest.fixture(params=["memory", "sqlite"])
+@pytest.fixture(params=META_BACKENDS)
 def meta_client(request, tmp_path):
-    return _make_client(request.param, tmp_path)
+    c = _make_client(request.param, tmp_path)
+    yield c
+    _cleanup_client(c)
 
 
 def t(n):
@@ -499,13 +555,75 @@ class TestRegressions:
 # ---------------------------------------------------------------------------
 
 
+def _backend_env(type_name, tmp_path):
+    """A PIO_STORAGE_SOURCES_* environment naming ``type_name`` for source
+    X: every repository on X, or only MODELDATA for the blob stores (s3,
+    hdfs), whose events and metadata sit on memory."""
+    cfg = {
+        "postgres": {"MODULE": "fake_psycopg2", "DIALECT": "postgres", "CONNECT_ARGS": json.dumps({"database": str(tmp_path / "pg.db")})},
+        "mysql": {"MODULE": "fake_pymysql", "DIALECT": "mysql", "CONNECT_ARGS": json.dumps({"database": str(tmp_path / "my.db")})},
+        "sql": {"MODULE": "sqlite3", "CONNECT_ARGS": json.dumps({"database": str(tmp_path / "s.db")})},
+        "s3": {"BUCKET_NAME": "b", "REGION": "eu-test-1", "ENDPOINT": "http://127.0.0.1:9",
+               "ACCESS_KEY_ID": "AKID", "SECRET_ACCESS_KEY": "sk"},
+        "hdfs": {"URL": "http://127.0.0.1:9", "PATH": "/pio_models"},
+    }.get(type_name, {})
+    env = {"PIO_STORAGE_SOURCES_X_TYPE": type_name, "PIO_STORAGE_SOURCES_MEM_TYPE": "memory",
+           **{f"PIO_STORAGE_SOURCES_X_{k}": v for k, v in cfg.items()}}
+    blob_only = type_name in ("s3", "hdfs")
+    for repo in ("METADATA", "EVENTDATA", "MODELDATA"):
+        env[f"PIO_STORAGE_REPOSITORIES_{repo}_SOURCE"] = "MEM" if blob_only and repo != "MODELDATA" else "X"
+    return env
+
+
 @pytest.mark.parametrize("type_name", ["postgres", "mysql", "sql", "elasticsearch", "s3", "hdfs"])
-def test_backend_types_not_yet_ported_raise(type_name):
+def test_every_backend_type_of_the_jax_registry_resolves_to_a_port_client(type_name, tmp_path):
+    """Each type the JAX registry knows resolves, through Storage and a
+    PIO_STORAGE_SOURCES_* environment, to a client of the port under the
+    JAX registry's class name, and its repositories hand out the port's
+    DAOs."""
+    from predictionio_tpu.data.storage.registry import _BACKENDS as JAX_BACKENDS
+    from predictionio_tpu_torch.data.storage import base
+    from tests.fake_dbapi import install
+
+    install()
+    env = _backend_env(type_name, tmp_path)
+    server = None
+    if type_name == "elasticsearch":
+        from tests.es_mock import make_server
+
+        server, env["PIO_STORAGE_SOURCES_X_URL"] = make_server()
+    try:
+        storage = Storage(env=env)
+        models = storage.get_model_data_models()
+        client = storage._client("X")
+        assert type(client).__name__ == JAX_BACKENDS[type_name][1]
+        assert type(client).__module__ == JAX_BACKENDS[type_name][0].replace(
+            "predictionio_tpu.", "predictionio_tpu_torch.")
+        assert isinstance(models, base.Models)
+        if type_name not in ("s3", "hdfs"):
+            app_id = storage.get_meta_data_apps().insert(App(0, f"{type_name}app"))
+            levents = storage.get_l_events()
+            levents.init(app_id)
+            eid = levents.insert(ev(), app_id)
+            assert levents.get(eid, app_id).event == "rate"
+            models.insert(Model("m1", b"\x00blob"))
+            assert models.get("m1").models == b"\x00blob"
+    finally:
+        if server is not None:
+            server.shutdown()
+            server.server_close()
+
+
+def test_a_missing_postgres_driver_is_a_storage_error_naming_it(monkeypatch):
+    """Without psycopg2 (and psycopg), the postgres type fails at connect
+    with a StorageError that names the driver; nothing is installed."""
+    for mod in ("psycopg2", "psycopg"):
+        monkeypatch.setitem(sys.modules, mod, None)  # importing it raises ImportError
     storage = Storage(env={
-        "PIO_STORAGE_SOURCES_X_TYPE": type_name,
-        **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "X" for r in ("METADATA", "EVENTDATA", "MODELDATA")},
+        "PIO_STORAGE_SOURCES_PGSQL_TYPE": "postgres",
+        **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "PGSQL" for r in ("METADATA", "EVENTDATA", "MODELDATA")},
     })
-    with pytest.raises(StorageError, match="not yet ported"):
+    with pytest.raises(StorageError, match="psycopg2"):
         storage.get_meta_data_apps()
 
 
