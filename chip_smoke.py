@@ -113,8 +113,8 @@ The recommendation template (ALS, kernel B1):
    systems;
 3h. the bandit lanes in-process at full width: a QueryServer on the card
    from a registry holding the ML-20M stable and the fold-in's candidate,
-   bandit_policy thompson and the gate's latency veto off (the ratio it
-   would read is kept), rewards in the fold-in's store: waves of 128
+   bandit_policy thompson and the gate's default latency veto (1.5x at
+   equal batch sizes; the ratios it read are kept), rewards in the fold-in's store: waves of 128
    queries from 16 clients, each answered user converting with its arm's
    probability (a reward event carrying the answer's trace id), a bake tick
    between waves; round one (candidate 0.30, stable 0.15) promotes, round
@@ -154,6 +154,19 @@ The recommendation template (ALS, kernel B1):
    a chunked POST /queries.json then GET / on one keep-alive connection;
    the train's columnar read and the partitioned scan equal the imported
    arrays in canonical order;
+3m. more than one rank, beside the phases from 3 to 3g (each rank this
+   script as ``--rank-phase NAME WORK`` through the port's launcher):
+   sharded_cli, pio train --num-hosts 2 with distributed: true on an
+   ML-100K-shape sqlite store (two gloo ranks sharing the card, B1 twice
+   an iteration on each, the coordinator alone recording the instance and
+   the model), pio deploy, 200 queries equal to serve_batch of the
+   persisted model; sharded_als, ALS at the ML-20M shape on 2 gloo ranks,
+   then on 1 NCCL rank (B1's first launches on each rank held to the plain
+   version, held-out RMSE <= 0.45, the factors against the one-rank train
+   of phase 2, each iteration's all-gather seconds); twotower_parallel, a
+   few full-width two-tower steps on 2 ranks at data=2 and at model=2
+   under ring and ulysses (B2 on each rank under ulysses, held; step 1's
+   loss and parameters against one rank's step on the same batch);
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -283,6 +296,9 @@ _T0 = time.perf_counter()
 GPU = ""
 # card-memory peaks of the main path, read by pio doctor's check
 PEAKS: dict[str, int] = {}
+# train_phase's one-rank ML-20M factors and held-out RMSE, which the
+# sharded train is held to
+ONE_RANK_ALS: dict = {}
 # PERF.md's kernel table: (kernel, shape) -> (bound ms as printed, decimals)
 TABLE_BOUNDS = {
     ("spd_cg", (("f", 32), ("n", 138001))): (0.183, 3),
@@ -533,6 +549,8 @@ def train_phase(torch, home: str):
         timings=algo.timings, heldout_rmse=rmse, rmse_gate=0.45, spd_cg_launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
+    ONE_RANK_ALS.update(user_factors=model.user_factors, item_factors=model.item_factors, rmse=rmse,
+                        ratings=(users, items, vals, test_mask))
     if not rmse <= 0.45:
         raise AssertionError(f"held-out RMSE {rmse} above the 0.45 gate")
     if launches != 2 * iterations:
@@ -4686,10 +4704,11 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
     events (every one of a live impression), pio_bandit_active 1 during
     the round and 0 after, the registry's state and bandit.json ended as
     the verdict; card memory held by tensors flat across both swaps. The
-    bandit's server has the gate's latency veto off (max_p95_ratio 1000);
-    each round keeps the largest and the last latency ratio the veto would
-    have read. The same waves through a server with the plain bake gate (no
-    bandit, a canary at 0.5) give the p50 and qps beside it."""
+    bandit's server keeps the gate's default latency veto (1.5x, the two
+    lanes compared at one batch size: ROADMAP C16); each round keeps the
+    largest and the last latency ratio the veto read. The same waves
+    through a server with the plain bake gate (no bandit, a canary at 0.5)
+    give the p50 and qps beside it."""
     import uuid
 
     from predictionio_tpu_torch.data.event import Event
@@ -4710,17 +4729,11 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
     opened: list = []
 
     def serve(bandit: bool):
-        # the bandit's server keeps the gate's error veto and turns its
-        # latency veto off, as the bandit tests of both packages do: a
-        # lane's per-batch predict time grows with its share of each
-        # micro-batch, which the bandit itself moves from 0.1 to 0.9, so the
-        # 1.5x ratio reads the split and not the models (the ratios the gate
-        # would have read are kept in the rounds)
         config = ServerConfig(ip="127.0.0.1", port=0, registry_dir=registry, bake_check_interval_s=3600.0,
                               bake_window_s=1.0, bake_min_requests=20,
                               profile_dir=os.path.join(work, "profiles"),
-                              **({"bandit_policy": "thompson", "bandit_app_name": "banditrewards",
-                                  "max_p95_ratio": 1000.0} if bandit else {}))
+                              **({"bandit_policy": "thompson", "bandit_app_name": "banditrewards"}
+                                 if bandit else {}))
         server = create_query_server(engine_dir, ctx, config)
         port = server.start()
         # one keep-alive connection a client, open until the phase ends:
@@ -4810,13 +4823,10 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
                         levents.insert(Event(event="reward", entity_type="user", entity_id=user,
                                              properties={"traceId": tid}), app_id)
                 seen_active = seen_active or active_gauge(port) == 1.0
-                # what the gate's latency veto (1.5x, the default) would read
-                base, rinst = server.rollout_controller._baseline, server._rollout_instruments
-                if base is not None:
-                    p95s = (rinst.p95_since(base.candidate_version, base.cand_predict_counts),
-                            rinst.p95_since(base.stable_version, base.stable_predict_counts))
-                    if min(p95s) > 0:
-                        p95_ratios.append(p95s[0] / p95s[1])
+                # what the gate's latency veto (1.5x, the default) reads
+                p95s = server.rollout_controller.latency_p95s()
+                if min(p95s) > 0:
+                    p95_ratios.append(p95s[0] / p95s[1])
                 server._rollout_tick()
             verdict = decisions[-1]
             saved = store.load_bandit_state(BANDIT_ENGINE)
@@ -6642,6 +6652,423 @@ def sequential_ann_phase(torch, model, sessions, n_dispatch: int = 12, batch: in
     return {"launches": launches, **out}
 
 
+# ---------------------------------------------------------------------------
+# More than one rank (parallel/, ops/als_sharded.py, two-tower's mesh):
+# each job is this script run as ``--rank-phase NAME WORK`` once per rank
+# through the port's launcher; every rank writes WORK/NAME.w<world>.rank<r>.json
+# ---------------------------------------------------------------------------
+
+TT_PARALLEL_MESHES = [("data=2,model=1", False, "ring"), ("data=1,model=2", True, "ring"),
+                      ("data=1,model=2", True, "ulysses")]
+
+
+def _rank_job(name: str, n: int, work: str, timeout: float = 600.0) -> tuple[list[dict], float]:
+    """``chip_smoke.py --rank-phase name work`` as an ``n``-rank job through
+    the port's MultiHostLauncher (each rank's output on stderr, prefixed);
+    every rank's result and the job's wall seconds. A rank that fails
+    fails the job; past ``timeout`` seconds the launcher reaps them all."""
+    from predictionio_tpu_torch.parallel.launcher import MultiHostLauncher
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    launcher = MultiHostLauncher(command=[sys.executable, os.path.join(here, "chip_smoke.py"), "--rank-phase",
+                                          name, work],
+                                 num_hosts=n, env_extra={"PYTHONPATH": here})
+    timer = threading.Timer(timeout, launcher.terminate)
+    timer.start()
+    t0 = time.perf_counter()
+    try:
+        result = launcher.run()
+    finally:
+        timer.cancel()
+    wall = time.perf_counter() - t0
+    if not result.ok:
+        raise AssertionError(f"{name} on {n} ranks: exit codes {result.returncodes} after {wall:.1f} s")
+    outs = []
+    for r in range(n):
+        with open(os.path.join(work, f"{name}.w{n}.rank{r}.json")) as fh:
+            outs.append(json.load(fh))
+    return outs, wall
+
+
+def sharded_als_rank(torch, work: str, n_users: int = 138_000, n_items: int = 27_000,
+                     n_ratings: int = 20_000_000) -> dict:
+    """One rank of the sharded ALS train at the ML-20M shape (train_phase's
+    ratings and held-out split, read from WORK/ratings.npz, and its
+    config): B1's two launches of the first
+    iteration held to the plain version on this rank's own systems, the
+    launches counted, each iteration's all-gather seconds, held-out RMSE."""
+    from predictionio_tpu_torch.ops import als as als_mod
+    from predictionio_tpu_torch.ops.als import ALSConfig
+    from predictionio_tpu_torch.ops.als_sharded import als_train_sharded
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.parallel import distributed
+
+    rt = distributed.runtime()
+    t0 = time.perf_counter()
+    with np.load(os.path.join(work, "ratings.npz")) as z:  # synthesize_ratings', as train_phase drew them
+        users, items, vals, test = z["users"], z["items"], z["vals"], z["test"]
+    if users.shape[0] != n_ratings or int(users.max()) >= n_users or int(items.max()) >= n_items:
+        raise AssertionError(f"ratings.npz holds {users.shape[0]} ratings, not {n_ratings}")
+    data_s = time.perf_counter() - t0
+    solve, held = als_mod.batched_spd_solve_auto, []
+
+    def holding(A, b):
+        x = solve(A, b)
+        if len(held) < 2:  # the first iteration's user and item solves
+            side = ("user", "item")[len(held)]
+            if side == "user" and rt.rank == 0 and rt.world_size == 2:  # timed by the main process
+                np.save(os.path.join(work, "b1_A.npy"), A.cpu().numpy())
+                np.save(os.path.join(work, "b1_b.npy"), b.cpu().numpy())
+            held.append({"side": side, "n": int(b.shape[0]), "f": int(b.shape[1]),
+                         **b1_held(torch, A, b, 1e-3, f"rank {rt.rank}'s first {side} solve", x=x)})
+        return x
+
+    als_mod.batched_spd_solve_auto = holding
+    batched_spd_solve_fused.launches = 0
+    timings: dict = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uf, vf = als_train_sharded(users[~test], items[~test], vals[~test], n_users, n_items,
+                               ALSConfig(rank=32, iterations=10, reg=0.05, chunk=65536), timings=timings)
+    train_wall_s = time.perf_counter() - t0
+    launches = batched_spd_solve_fused.launches
+    pred = np.sum(uf[users[test]] * vf[items[test]], 1)
+    if rt.rank == 0:
+        np.save(os.path.join(work, f"sharded_als.w{rt.world_size}.uf.npy"), uf)
+        np.save(os.path.join(work, f"sharded_als.w{rt.world_size}.vf.npy"), vf)
+    return {"rank": rt.rank, "world": rt.world_size, "backend": rt.backend, "device": str(rt.device),
+            "spd_cg_launches": launches, "held": held, "data_s": data_s, "train_wall_s": train_wall_s,
+            "timings": timings, "heldout_rmse": float(np.sqrt(np.mean((pred - vals[test]) ** 2))),
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def sharded_als_phase(torch, home: str) -> dict:
+    """ALS at the ML-20M shape across ranks: 2 ranks sharing the card over
+    gloo (tensors on the card, collectives staged through the host), then
+    1 rank over NCCL (its init and all-gathers on the card). Each rank
+    launches B1 twice an iteration (its users', then its items' systems),
+    the first two held to the plain version; held-out RMSE <= 0.45; the
+    2-rank factors against train_phase's one-rank als_train from the same
+    initial factors (explicit ALS: the sharded init is _als_init's draw):
+    the held-out RMSE within 1e-3 and the median row-relative factor
+    difference within 1e-2 (f32 sums in another order through 10
+    iterations of CG stopped at f + 4 steps; 4e-4 to 6e-4 in a CPU
+    rehearsal at 3,000 x 2,000)."""
+    one_rank = ONE_RANK_ALS
+    work = tempfile.mkdtemp(prefix="pio_smoke_sharded_", dir=home)
+    t0 = time.perf_counter()
+    users, items, vals, test = one_rank["ratings"]
+    np.savez(os.path.join(work, "ratings.npz"), users=users, items=items, vals=vals, test=test)
+    gloo, gloo_wall = _rank_job("sharded_als", 2, work)
+    nccl, nccl_wall = _rank_job("sharded_als", 1, work)
+    uf = np.load(os.path.join(work, "sharded_als.w2.uf.npy"))
+    vf = np.load(os.path.join(work, "sharded_als.w2.vf.npy"))
+
+    def row_rel(a, b):
+        return np.linalg.norm(a - b, axis=1) / np.maximum(np.linalg.norm(b, axis=1), 1e-30)
+
+    rel_u, rel_i = row_rel(uf, one_rank["user_factors"]), row_rel(vf, one_rank["item_factors"])
+    steps = {
+        "phase_s": time.perf_counter() - t0, "gloo_job_wall_s": gloo_wall, "nccl_job_wall_s": nccl_wall,
+        "ranks": [{k: r[k] for k in ("rank", "world", "backend", "device", "spd_cg_launches", "data_s",
+                                     "train_wall_s", "heldout_rmse", "peak_mem_gb")}
+                  | {"gather_s": r["timings"]["gather_s"], "pack_s": r["timings"]["pack_s"],
+                     "upload_s": r["timings"]["upload_s"], "device_s": r["timings"]["device_s"],
+                     "held": r["held"]} for r in gloo + nccl],
+        "one_rank_rmse": one_rank["rmse"],
+        "median_row_rel_user": float(np.median(rel_u)), "median_row_rel_item": float(np.median(rel_i)),
+        "max_row_rel_user": float(rel_u.max()), "max_row_rel_item": float(rel_i.max()),
+    }
+    emit(phase="sharded_als", gpu=GPU, **steps)
+    for r in gloo + nccl:
+        want_backend = "gloo" if r["world"] == 2 else "nccl"
+        if r["backend"] != want_backend or r["spd_cg_launches"] != 20 or len(r["held"]) != 2:
+            raise AssertionError(f"sharded_als rank {r['rank']} of {r['world']}: backend {r['backend']}, "
+                                 f"B1 launched {r['spd_cg_launches']} times (20 expected), held {r['held']}")
+        if not r["heldout_rmse"] <= 0.45:
+            raise AssertionError(f"sharded_als on {r['world']} ranks: held-out RMSE {r['heldout_rmse']}")
+    if abs(gloo[0]["heldout_rmse"] - one_rank["rmse"]) > 1e-3 or max(np.median(rel_u), np.median(rel_i)) > 1e-2:
+        raise AssertionError(f"2-rank factors against the one-rank train: {steps}")
+    return {"work": work,
+            "launches": {f"sharded_als_w{r['world']}_rank{r['rank']}": r["spd_cg_launches"] for r in gloo + nccl},
+            "rows": [{"systems": f"sharded ALS, rank {r['rank']} of {r['world']}, first {h['side']} solve",
+                      "n": h["n"], "f": h["f"], "max_abs_err": h["max_abs_err"],
+                      "max_row_rel_err": h["max_row_rel_err"], "limit": h["limit"]}
+                     for r in gloo + nccl for h in r["held"]]}
+
+
+def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: int = 27_000,
+                           n_slice: int = 1_000_000, batch: int = 4096, steps: int = 4) -> dict:
+    """One rank of two-tower training across 2 ranks at the template's
+    widths (historyLen 256, batch 4096; twotower_train_phase's data): on
+    each mesh of TT_PARALLEL_MESHES, ``steps`` steps from one init, the loss
+    of the first batch before and after them (finite and falling), B2's
+    launches and its first launch held to the plain version; rank 0 also
+    takes the one-rank step on the first global batch (f32 reference
+    attention for ring, whose blocks are f32) and holds the mesh's step-1
+    loss (rtol 1e-4), its summed gradients (each within 1e-2 of its
+    tensor's largest entry plus 1e-6: the bf16 towers round a batch
+    slice's partial sums where one rank rounds the whole batch's) and its
+    updated parameters to it (Adam's first step moves each by about lr,
+    whatever the gradient's size: equal within 1e-6 or, where a near-zero
+    gradient's sign flipped, within 2 lr, at most 1 % of them)."""
+    from predictionio_tpu_torch.models.twotower import model as M
+    from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.parallel import distributed
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    rt = distributed.runtime()
+    users, items, _ = synthesize_ratings(n_users, n_items, 10 * n_slice)
+    users, items = users[:n_slice], items[:n_slice]
+    times = np.random.default_rng(21).random(n_slice) * 1e8
+    hist = torch.from_numpy(M.build_history_matrix(users, items, times, n_users, 256).astype(np.int64)).cuda()
+    users_d = torch.from_numpy(users.astype(np.int64)).cuda()
+    items_d = torch.from_numpy(items.astype(np.int64)).cuda()
+    log_q = torch.from_numpy(M.item_log_q(items, n_items)).cuda()
+    perm = torch.from_numpy(np.random.default_rng(0).permutation(n_slice)).cuda()
+    batches = [perm[s * batch:(s + 1) * batch] for s in range(steps)]
+    block, forward, held = A.fused_attention_block, A._fused_attention_forward, []
+
+    def holding(q, k, v, causal):
+        out = forward(q, k, v, causal)
+        if not held:
+            plain = A._fused_attention_plain(q, k, v, causal)
+            err = float((out - plain).abs().max())
+            scale = max(1.0, float(plain.abs().max()))
+            held.append({"shape": list(q.shape), "max_abs_err": err, "limit": ATTENTION_ATOL * scale})
+            if not err <= ATTENTION_ATOL * scale:
+                raise AssertionError(f"B2 on rank {rt.rank} at {tuple(q.shape)}: {err} from the plain version")
+            if rt.rank == 0:  # ulysses' block (1 head) and data=2's (2 heads), timed by the main process
+                for name, t in zip("qkv", (q, k, v)):
+                    np.save(os.path.join(work, f"b2_h{q.shape[1]}_{name}.npy"), t.detach().cpu().numpy())
+        return out
+
+    out = {"rank": rt.rank, "world": rt.world_size, "backend": rt.backend, "meshes": []}
+    for spec, cp, impl in TT_PARALLEL_MESHES:
+        mesh = make_mesh(spec, "cuda")
+        config = M.TwoTowerConfig(n_users=n_users, n_items=n_items, embed_dim=64, hidden=(128,), out_dim=32,
+                                  n_heads=2, history_len=256, batch_size=batch, context_parallel=cp, sp_impl=impl)
+        model = M.build_model(config, "cuda", mesh)
+        opt = M.make_optimizer(model, config.learning_rate)
+        step = M.make_train_step(model, opt, config.temperature, True, log_q, mesh)
+        ub, ib = users_d[batches[0]], items_d[batches[0]]
+        with torch.no_grad():
+            loss_before = float(M.global_batch_loss(model, ub, ib, config.temperature, hist, log_q, mesh))
+        held.clear()
+        A._fused_attention_forward = holding
+        block.launches = 0
+        step_s, losses = [], []
+        try:
+            for s, sel in enumerate(batches):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                losses.append(float(step(users_d[sel], items_d[sel], hist)))
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                if s == 0 and rt.rank == 0:  # the summed gradients stay in .grad until the next step
+                    after_one = {n: p.detach().clone() for n, p in model.named_parameters()}
+                    grads_one = {n: p.grad.detach().clone() for n, p in model.named_parameters()}
+        finally:
+            A._fused_attention_forward = forward
+        launches = block.launches
+        with torch.no_grad():
+            loss_after = float(M.global_batch_loss(model, ub, ib, config.temperature, hist, log_q, mesh))
+        row = {"mesh": spec, "sp_impl": impl if cp else None, "losses": losses, "step_s": step_s,
+               "loss_before": loss_before, "loss_after": loss_after, "attention_block_launches": launches,
+               "held": list(held)}
+        if not (np.all(np.isfinite(losses)) and loss_after < loss_before):
+            raise AssertionError(f"two-tower on {spec} ({row['sp_impl']}): losses {losses}, first batch "
+                                 f"{loss_before} -> {loss_after}: not finite and falling")
+        del model, opt, step
+        if rt.rank == 0:  # the one-rank step on the same global batch, same init
+            real = M.fused_attention
+            if cp and impl == "ring":
+                M.fused_attention = A.attention_reference
+            try:
+                single = M.build_model(config, "cuda")
+                sopt = M.make_optimizer(single, config.learning_rate)
+                sloss = float(M.make_train_step(single, sopt, config.temperature, True, log_q)(ub, ib, hist))
+            finally:
+                M.fused_attention = real
+            moved = total = 0
+            worst = grad_excess = 0.0
+            for n, p in single.named_parameters():
+                diff = (after_one[n] - p.detach()).abs()
+                worst = max(worst, float(diff.max()))
+                moved += int((diff > 1e-6).sum())
+                total += diff.numel()
+                g1 = p.grad.detach() if p.grad is not None else torch.zeros_like(p)
+                gerr = float((grads_one[n] - g1).abs().max())
+                grad_excess = max(grad_excess, gerr / (1e-2 * float(g1.abs().max()) + 1e-6))
+            row.update(one_rank_loss=sloss, params_moved_otherwise=moved, params=total, max_param_diff=worst,
+                       grad_err_over_limit=grad_excess)
+            if abs(losses[0] - sloss) > 1e-4 * abs(sloss) or worst > 2 * config.learning_rate + 1e-6 \
+                    or moved > 0.01 * total or not grad_excess <= 1.0:
+                raise AssertionError(f"two-tower on {spec} ({row['sp_impl']}) against one rank: {row}")
+            del single, sopt, after_one, grads_one
+        out["meshes"].append(row)
+        torch.cuda.empty_cache()
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    return out
+
+
+def twotower_parallel_phase(torch, home: str) -> dict:
+    """Two-tower training on 2 ranks sharing the card (gloo): data=2
+    (batch halves, one global in-batch softmax), and model=2 with
+    context_parallel under ring (no B2: f32 online softmax blocks) and
+    under ulysses (one B2 launch a step on each rank, over the whole
+    history of one head). Each rank's checks are twotower_parallel_rank's;
+    here each rank's B2 launches: one a step where its encoder attends
+    locally, none under ring."""
+    work = tempfile.mkdtemp(prefix="pio_smoke_ttpar_", dir=home)
+    t0 = time.perf_counter()
+    ranks, wall = _rank_job("twotower_parallel", 2, work)
+    launches = {}
+    for r in ranks:
+        for m in r["meshes"]:
+            want = 0 if m["sp_impl"] == "ring" else len(m["losses"])
+            if m["attention_block_launches"] != want or (want and not m["held"]):
+                raise AssertionError(f"two-tower on {m['mesh']} ({m['sp_impl']}), rank {r['rank']}: B2 launched "
+                                     f"{m['attention_block_launches']} times, {want} expected")
+            launches[f"twotower_parallel_{m['mesh']}_{m['sp_impl'] or 'dp'}_rank{r['rank']}"] = \
+                m["attention_block_launches"]
+        if r["backend"] != "gloo":
+            raise AssertionError(f"two ranks on one card ran {r['backend']}, not gloo")
+    emit(phase="twotower_parallel", gpu=GPU, job_wall_s=wall, phase_s=time.perf_counter() - t0, ranks=ranks)
+    return {"work": work, "launches": launches,
+            "rows": [{"systems": f"two-tower {m['mesh']} {m['sp_impl']}, rank {r['rank']}", **h}
+                     for r in ranks for m in r["meshes"] for h in m["held"]]}
+
+
+def sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 200) -> dict:
+    """pio train --num-hosts 2 of the recommendation template with
+    distributed: true (ML-100K shape: 943 x 1,682 x 100,000 ratings, rank
+    10) on the CLI's sqlite event store: two ranks sharing the card over
+    gloo; the coordinator alone records the engine instance (with each
+    rank's kernel launches: B1 twice an iteration on both) and the model.
+    Then a single-process pio deploy and 200 POST /queries.json from 8
+    clients, each answered 200 and equal to serve_batch of the persisted
+    model (scores at rtol 1e-5, ids compared as sets within a run of tied
+    scores, as the other CLI phases hold theirs), an unknown user's empty."""
+    from predictionio_tpu_torch.ops.als import ServingIndex
+    from predictionio_tpu_torch.workflow import model_io
+
+    t_phase = time.perf_counter()
+    n_users, n_items, n_ratings = 943, 1682, 100_000
+    users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=5)
+    work = tempfile.mkdtemp(prefix="pio_smoke_sharded_cli_", dir=home)
+    events = os.path.join(work, "events.jsonl")
+    with open(events, "w") as fh:
+        for k, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(), vals.tolist())):
+            fh.write(json.dumps({
+                "event": "rate", "entityType": "user", "entityId": f"u{u}",
+                "targetEntityType": "item", "targetEntityId": f"i{i}", "properties": {"rating": r},
+                "eventTime": f"2024-01-01T{k // 360000 % 24:02d}:{k // 6000 % 60:02d}:{k // 100 % 60:02d}."
+                             f"{k % 100:03d}Z",
+            }) + "\n")
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump({"id": "smoke-sharded", "engineFactory":
+                   "predictionio_tpu_torch.models.recommendation.engine.engine_factory",
+                   "datasource": {"params": {"appName": "shardedapp"}},
+                   "algorithms": [{"name": "als", "params": {"rank": 10, "numIterations": 10, "lambda": 0.05,
+                                                             "seed": 3, "distributed": True}}]}, fh)
+    home_cli = os.path.join(work, "home")
+    cli, env, run = _cli(home_cli)
+    steps = {"app_new_s": run("app", "new", "shardedapp"),
+             "import_s": run("import", "--appname", "shardedapp", "--input", events),
+             "train_s": run("train", "--engine-dir", engine_dir, "--device", device, "--num-hosts", "2")}
+    storage = smoke_storage(home_cli)
+    instances = storage.get_meta_data_engine_instances().get_all()
+    if len(instances) != 1 or instances[0].status != "COMPLETED":
+        raise AssertionError(f"pio train --num-hosts 2 recorded {[(i.id, i.status) for i in instances]}")
+    launches = json.loads(instances[0].spark_conf["kernel_launches"])
+    if [r["spd_cg"] for r in launches] != [20, 20]:
+        raise AssertionError(f"B1 launches by rank {launches}: 20 on each of 2 ranks expected")
+    (model,) = model_io.deserialize_models(storage.get_model_data_models().get(instances[0].id).models)
+    index = ServingIndex(model.user_factors, model.item_factors, device)
+    server, base, steps["deploy_ready_s"] = _start_deploy(cli, env, engine_dir, work, device)
+    try:
+        asked = [f"u{u}" for u in np.random.default_rng(6).integers(0, n_users, n_queries)]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            outs = list(pool.map(lambda u: _http(base + "/queries.json", {"user": u, "num": 10}), asked))
+        known = []
+        for u, (status, body, _) in zip(asked, outs):
+            if status != 200:
+                raise AssertionError(f"query for {u} answered {status}")
+            if model.user_index(u) is not None:
+                known.append((u, body["itemScores"]))
+            elif body["itemScores"]:
+                raise AssertionError(f"unknown user {u} answered {body['itemScores']}")
+        # the server's micro-batches are not serve_batch's shape, so scores
+        # agree to rounding and near-tied items may trade places (_same_topk)
+        ref_scores, ref_ids = index.serve_batch(np.asarray([model.user_index(u) for u, _ in known]), 20)
+        _same_topk(np.asarray([[model.item_index(g["item"]) for g in got] for _, got in known]),
+                   np.asarray([[g["score"] for g in got] for _, got in known]), ref_ids, ref_scores, 1e-5,
+                   "sharded_cli: an answer is not serve_batch's")
+        lat_ms = np.asarray([dt for _, _, dt in outs]) * 1e3
+    finally:
+        _stop(server)
+    steps.update(queries=len(asked), all_200=True, p50_ms=float(np.percentile(lat_ms, 50)),
+                 launches_by_rank=launches, train_wall_clock_s=float(instances[0].spark_conf["train_wall_clock_sec"]),
+                 phase_s=time.perf_counter() - t_phase)
+    emit(phase="sharded_cli", gpu=GPU, shape=[n_users, n_items, n_ratings], **steps)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": {f"sharded_cli_rank{r}": c["spd_cg"] for r, c in enumerate(launches)}}
+
+
+RANK_PHASES = {"sharded_als": sharded_als_rank, "twotower_parallel": twotower_parallel_rank}
+
+
+def rank_phases(torch, home: str) -> dict:
+    """The three phases of more than one rank, one after another (run
+    beside the main thread's phases: their ranks are processes of their
+    own)."""
+    return {"sharded_cli": sharded_cli_phase(torch, home), "sharded_als": sharded_als_phase(torch, home),
+            "twotower_parallel": twotower_parallel_phase(torch, home)}
+
+
+def rank_kernel_times(torch, ranks: dict) -> None:
+    """B1 on rank 0's first user-side systems of the 2-rank sharded train
+    and B2 on rank 0's ulysses and data=2 blocks, timed here while no other phase
+    runs (beside their bounds, plain versions and library calls), as
+    rows of the kernels line."""
+    als_work, tt_work = ranks["sharded_als"].pop("work"), ranks["twotower_parallel"].pop("work")
+    A, b = (torch.from_numpy(np.load(os.path.join(als_work, f"b1_{n}.npy"))).cuda() for n in ("A", "b"))
+    row = {"systems": "sharded ALS, rank 0 of 2, first user solve", **b1_times(torch, A, b)}
+    emit(phase="kernel_real", kernel="spd_cg", **row)
+    ranks["sharded_als"]["rows"].append(row)
+    del A, b
+    for heads, label in ((1, "two-tower ulysses block, rank 0 of 2"), (2, "two-tower data=2 block, rank 0 of 2")):
+        q, k, v = (torch.from_numpy(np.load(os.path.join(tt_work, f"b2_h{heads}_{n}.npy"))).cuda() for n in "qkv")
+        ranks["twotower_parallel"]["rows"].append(b2_times(torch, q, k, v, label))
+        del q, k, v
+    shutil.rmtree(als_work, ignore_errors=True)
+    shutil.rmtree(tt_work, ignore_errors=True)
+
+
+def rank_phase_main(argv: list[str]) -> int:
+    """``--rank-phase NAME WORK``: one rank of a job the launcher started
+    (the PIO_COORDINATOR contract in the environment)."""
+    import torch
+
+    from predictionio_tpu_torch.parallel import distributed
+
+    name, work = argv
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    distributed.maybe_initialize_distributed("cuda")
+    rt = distributed.runtime()
+    if rt is None:
+        raise SystemExit("--rank-phase needs the launcher's PIO_COORDINATOR contract")
+    result = RANK_PHASES[name](torch, work)
+    with open(os.path.join(work, f"{name}.w{rt.world_size}.rank{rt.rank}.json"), "w") as fh:
+        json.dump(result, fh)
+    distributed.shutdown()
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -6673,6 +7100,12 @@ def main() -> int:
         doctor = doctor_start(os.path.join(home, "doctor"))
         cli_serve_phase(os.path.join(home, "cli"))
         doctor_phase(torch, doctor)
+        # the phases of more than one rank start their own processes: they
+        # run beside the phases up to the bandit's (whose latency veto must
+        # not read another process's load on the card, and the fleet counts
+        # the card's processes)
+        ranks_pool = concurrent.futures.ThreadPoolExecutor(1)
+        ranks_future = ranks_pool.submit(rank_phases, torch, home)
         rest = eventserver_phase(torch, os.path.join(home, "rest"))
         sql_es = sql_es_cli_phase(torch, os.path.join(home, "sql_es"))
         inprocess_serve_phase(torch, model)
@@ -6683,6 +7116,9 @@ def main() -> int:
         rollout_lanes_phase(torch, home, foldin)
         contract = serving_contract_inprocess_phase(torch, foldin)
         obs_inprocess_phase(torch, foldin, contract)
+        ranks = ranks_future.result()
+        ranks_pool.shutdown()
+        rank_kernel_times(torch, ranks)
         bandit_inprocess_phase(torch, foldin)
         fleet_cli_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
@@ -6727,19 +7163,22 @@ def main() -> int:
                                   **rest["launches"], **sql_es["launches"], **similar["launches"],
                                   **ecommerce["launches"], **recuser["launches"],
                                   **offline["launches"], **foldin_launches,
-                                  **registry["launches"], **similar_ann["launches"]}
+                                  **registry["launches"], **similar_ann["launches"],
+                                  **ranks["sharded_als"]["launches"], **ranks["sharded_cli"]["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     kernel["other_shapes"] += (rest["rows"] + sql_es["rows"] + eval_rows + foldin_rows + rank160["rows"]
-                               + similar["rows"] + similar_ann["rows"] + [grid_row])
+                               + similar["rows"] + similar_ann["rows"] + [grid_row]
+                               + ranks["sharded_als"]["rows"])
     block = next(e for e in attention if e["name"] == "attention_block")
     block["launches_by_path"].update(twotower_train=tt_train_launches,
                                      twotower_serve=tt_serve_launches,
                                      twotower_ann=tt_ann["attention_block_launches"],
                                      **seq_bp["launches"]["attention_block"],
-                                     **seq_ann["launches"]["attention_block"])
+                                     **seq_ann["launches"]["attention_block"],
+                                     **ranks["twotower_parallel"]["launches"])
     block["launches"] = sum(block["launches_by_path"].values())
     block["other_shapes"] = b2_rows + [r for r in wide_rows if r["kernel"] == "attention_block"] \
-        + [r for r in seq_bp["rows"] if r["kernel"] == "attention_block"]
+        + [r for r in seq_bp["rows"] if r["kernel"] == "attention_block"] + ranks["twotower_parallel"]["rows"]
     flash = next(e for e in attention if e["name"] == "flash_attention")
     flash["launches_by_path"].update(**seq_bp["launches"]["flash_attention"],
                                      **seq_ann["launches"]["flash_attention"])
@@ -6760,4 +7199,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--rank-phase"]:
+        sys.exit(rank_phase_main(sys.argv[2:]))
     sys.exit(main())

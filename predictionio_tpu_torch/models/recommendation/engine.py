@@ -4,7 +4,9 @@
 Query ``{"user", "num", "blackList"}`` -> ``{"itemScores": [{item, score}]}``.
 The DataSource reads "rate" and "buy" events of user -> item (buy maps to
 rating 4.0) from the columnar store; ALSAlgorithm trains with
-``ops.als.als_train`` on the context's device and serves from a
+``ops.als.als_train`` on the context's device (``ops.als_sharded.
+als_train_sharded`` over the context's mesh with ``distributed``) and
+serves from a
 device-resident ``ServingIndex``, one batched top-k per micro-batch.
 Variants: the ``custom`` preparator drops the items listed in a file, the
 ``filter`` serving drops those listed in a file it re-reads per request.
@@ -28,7 +30,10 @@ from predictionio_tpu_torch.controller import (
     TorchAlgorithm,
 )
 from predictionio_tpu_torch.data.storage.base import ColumnarEvents
+from predictionio_tpu_torch.obs import xray
 from predictionio_tpu_torch.ops.als import ALSConfig, ServingIndex, als_train, next_pow2
+from predictionio_tpu_torch.ops.als_sharded import als_train_sharded
+from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 
 DEFAULT_QUERY_NUM = 10
@@ -227,8 +232,8 @@ class ALSAlgorithmParams(Params):
     seed: int | None = 3
     implicit_prefs: bool = False
     alpha: float = 1.0
-    # the JAX package's mesh-sharded solver across all devices; on one
-    # device both train the same (the multi-device path is not ported yet)
+    # the mesh-sharded solver (ops/als_sharded.py) across the ranks of a
+    # joined job; without one, the single-device train
     distributed: bool = False
     gather_dtype: str = "f32"  # "f32" | "bf16": dtype of the gathered rows only
     solver: str = "cg"  # "cg" | "cg_fused" (both kernel B1 on CUDA) | "cholesky"
@@ -303,17 +308,20 @@ class ALSAlgorithm(TorchAlgorithm):
             gather_dtype=self.params.gather_dtype,
             solver=self.params.solver,
         )
-        uf, vf = als_train(
-            pd.user_idx,
-            pd.item_idx,
-            pd.ratings,
-            len(pd.user_vocab),
-            len(pd.item_vocab),
-            cfg,
-            timings=self.timings,
-            device=ctx.device,
-        )
-        model = ALSModel(uf.cpu().numpy(), vf.cpu().numpy(), pd.user_vocab, pd.item_vocab)
+        args = (pd.user_idx, pd.item_idx, pd.ratings, len(pd.user_vocab), len(pd.item_vocab), cfg)
+        if self.timings is not None:
+            # the capacity planner's per-card prediction, over the ranks
+            # the train spreads across (pio doctor --capacity answers it)
+            self.timings["estimate"] = xray.estimate_factors(
+                len(pd.user_vocab), len(pd.item_vocab), self.params.rank,
+                n_devices=ctx.mesh.size if self.params.distributed else 1,
+                nnz=int(pd.user_idx.shape[0]), gather_dtype=self.params.gather_dtype,
+            ).to_json_dict()
+        if self.params.distributed and distributed.runtime() is not None:
+            uf, vf = als_train_sharded(*args, mesh=ctx.mesh, timings=self.timings)
+        else:
+            uf, vf = (t.cpu().numpy() for t in als_train(*args, timings=self.timings, device=ctx.device))
+        model = ALSModel(uf, vf, pd.user_vocab, pd.item_vocab)
         model.device = ctx.device
         return model
 

@@ -11,7 +11,9 @@ when ``historyLen > 0``) and serves one fused user tower -> u·itemsᵀ ->
 With an ANN index pinned on the model (``ann.lifecycle.ATTR``) the user
 embedding feeds the clustered search instead of the corpus-wide product.
 
-Not ported yet: a ``mesh`` that asks for more than one device (A14).
+``mesh`` spreads the train over the job's ranks (``parallel.mesh``; its
+size must be the number of ranks); without one, every rank of a job on
+one ``data`` axis, and one device alone.
 """
 
 from __future__ import annotations
@@ -39,6 +41,7 @@ from predictionio_tpu_torch.models.twotower.model import (
     train_two_tower,
 )
 from predictionio_tpu_torch.ops import topk
+from predictionio_tpu_torch.parallel.mesh import make_mesh
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 
 
@@ -122,28 +125,16 @@ class TwoTowerAlgorithmParams(Params):
     batch_size: int = 4096
     epochs: int = 5
     seed: int = 0
-    # the JAX package's mesh, e.g. "data=-1,model=1"; one device here, so
-    # every axis must be 1 or -1 (all devices)
+    # e.g. "data=-1,model=2" over the job's ranks; empty = every rank on data
     mesh: str = ""
     # sequence encoder over each user's recent item history (kernel B2 on
     # the card, ops/attention.py); 0 disables
     history_len: int = 0
     n_heads: int = 2
-    # the JAX package's sequence parallelism; runs as on a mesh whose model
-    # axis is 1
+    # sequence parallelism of the encoder over the mesh's model axis
+    # (history_len % model == 0; ulysses also n_heads % model == 0)
     context_parallel: bool = False
     sp_impl: str = "ring"  # "ring" | "ulysses"
-
-
-def check_single_device_mesh(spec: str) -> None:
-    """Accept a JAX mesh string that asks for one device; refuse the rest."""
-    for part in filter(None, (p.strip() for p in spec.split(","))):
-        name, _, size = part.partition("=")
-        if size.strip() not in ("1", "-1"):
-            raise ValueError(
-                f"mesh {spec!r}: axis {name.strip()!r} asks for more than one device; "
-                "the port trains the two-tower model on one device"
-            )
 
 
 @dataclasses.dataclass
@@ -237,7 +228,7 @@ class TwoTowerAlgorithm(TorchAlgorithm):
     params: TwoTowerAlgorithmParams
 
     def train(self, ctx: WorkflowContext, pd: TrainingData) -> TwoTowerModelState:
-        check_single_device_mesh(self.params.mesh)
+        mesh = make_mesh(self.params.mesh, ctx.device) if self.params.mesh else ctx.mesh
         config = TwoTowerConfig(
             n_users=max(len(pd.user_vocab), 1),
             n_items=max(len(pd.item_vocab), 1),
@@ -260,7 +251,8 @@ class TwoTowerAlgorithm(TorchAlgorithm):
                 pd.user_idx, pd.item_idx, pd.timestamps, config.n_users, config.history_len
             )
         result = train_two_tower(
-            pd.user_idx, pd.item_idx, config, history=history, device=ctx.device
+            pd.user_idx, pd.item_idx, config, history=history, device=ctx.device,
+            mesh=mesh if mesh.size > 1 else None,
         )
         model = TwoTowerModelState(
             config=config,

@@ -16,11 +16,18 @@
     padding at the END, so causal masking keeps pad keys invisible to real
     positions and pooling masks the rest.
 
-One device. The JAX package shards the batch over a mesh's ``data`` axis
-and the embedding tables over ``model``; here ``context_parallel`` runs as
-the JAX package runs it on a mesh whose ``model`` axis is 1 (plain
-single-device attention). Initialisation draws from a ``torch.Generator``
-seeded by ``config.seed`` with flax's distributions; it does not give
+Across ranks (``train_two_tower(..., mesh=...)``, a ``parallel.mesh`` of
+``data`` x ``model``): each ``data`` rank embeds its slice of the global
+batch, the tower outputs are all-gathered over ``data`` (with gradients)
+so that every rank computes the one in-batch softmax over the global
+batch, as the JAX loss does; with ``context_parallel`` the history
+encoder's attention shards the history over ``model`` (ring or ulysses,
+``ops.attention``) and gathers its output back. Every rank computes the
+same loss, so each backpropagates a 1/ranks share of it and the summed
+gradients are the one-rank step's. The embedding tables stay whole on
+every rank; the JAX package shards them over ``model`` (memory, not
+math). Initialisation draws from a ``torch.Generator`` seeded by
+``config.seed`` with flax's distributions; it does not give
 ``jax.random``'s numbers, so parity tests carry a JAX init over with
 ``convert.twotower_params_from_numpy``.
 """
@@ -40,7 +47,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from predictionio_tpu_torch.ops.attention import fused_attention
+from predictionio_tpu_torch.ops.attention import fused_attention, ring_attention, ulysses_attention
+from predictionio_tpu_torch.parallel.collectives import all_gather_grad, all_reduce_sum
+from predictionio_tpu_torch.parallel.mesh import Mesh
 from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -67,9 +76,9 @@ class TwoTowerConfig:
     # history consumed by causal self-attention in the user tower
     history_len: int = 0
     n_heads: int = 2
-    # the JAX package's sequence parallelism over a mesh's model axis; one
-    # device here, so the encoder attends on that device (A14 ports the
-    # sharded attention)
+    # sequence parallelism of the history encoder over the mesh's model
+    # axis (ring or ulysses); without a mesh of model > 1 it attends on one
+    # device
     context_parallel: bool = False
     sp_impl: str = "ring"  # "ring" | "ulysses"
     # sampled-softmax log-Q debiasing of in-batch negatives (see loss_fn)
@@ -98,12 +107,18 @@ def _bf16_dense(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
 
 class SeqEncoder(nn.Module):
     """Causal self-attention over a user's recent item history: [B, T] item
-    indices, chronological, -1 padding at the end -> [B, embed_dim]."""
+    indices, chronological, -1 padding at the end -> [B, embed_dim].
 
-    def __init__(self, vocab: int, embed_dim: int, n_heads: int, max_len: int):
+    With a ``mesh`` whose ``sp_axis`` holds more than one rank, attention
+    shards T over that axis (``sp_impl`` ring or ulysses) and the output is
+    all-gathered back; the rest runs whole on every rank."""
+
+    def __init__(self, vocab: int, embed_dim: int, n_heads: int, max_len: int,
+                 mesh: Mesh | None = None, sp_axis: str = "model", sp_impl: str = "ring"):
         super().__init__()
         self.vocab = vocab
         self.n_heads = n_heads
+        self.mesh, self.sp_axis, self.sp_impl = mesh, sp_axis, sp_impl
         # index ``vocab`` is a learned mask token: end pads and train-time
         # target masking map to it instead of item 0
         self.hist_embed = nn.Embedding(vocab + 1, embed_dim)
@@ -113,6 +128,26 @@ class SeqEncoder(nn.Module):
         self.k = nn.Linear(embed_dim, embed_dim)
         self.v = nn.Linear(embed_dim, embed_dim)
         self.proj = nn.Linear(embed_dim, embed_dim)
+
+    def _attend(self, q, k, v):  # [B, H, T, Dh] each
+        sp = self.mesh.axis_size(self.sp_axis) if self.mesh is not None else 1
+        if sp <= 1:
+            return fused_attention(q, k, v, causal=True)
+        T, H = q.shape[2], q.shape[1]
+        # fail loud: a silent fallback would turn the configured sequence
+        # parallelism into a no-op nobody notices
+        if T % sp:
+            raise ValueError(f"history_len {T} not divisible by mesh axis {self.sp_axis}={sp}")
+        if self.sp_impl == "ulysses" and H % sp:
+            raise ValueError(
+                f"n_heads {H} not divisible by mesh axis {self.sp_axis}={sp} (ulysses splits heads)"
+            )
+        me = self.mesh.axis_index(self.sp_axis)
+        part = slice(me * (T // sp), (me + 1) * (T // sp))
+        q, k, v = (x[:, :, part].contiguous() for x in (q, k, v))
+        attend = ulysses_attention if self.sp_impl == "ulysses" else ring_attention
+        out = attend(q, k, v, self.mesh, axis=self.sp_axis, causal=True)
+        return all_gather_grad(out, self.mesh, self.sp_axis, dim=2)
 
     def forward(self, hist_ids: torch.Tensor) -> torch.Tensor:
         valid = hist_ids >= 0
@@ -126,7 +161,7 @@ class SeqEncoder(nn.Module):
             # the kernels take contiguous [B, H, T, Dh] only
             return layer(x).reshape(B, T, H, E // H).transpose(1, 2).contiguous()
 
-        out = fused_attention(heads(self.q), heads(self.k), heads(self.v), causal=True)
+        out = self._attend(heads(self.q), heads(self.k), heads(self.v))
         out = out.transpose(1, 2).reshape(B, T, E)
         out = x + self.proj(out)  # residual
         # masked mean-pool over valid (non-pad) positions
@@ -155,14 +190,19 @@ class Tower(nn.Module):
 
 
 class TwoTower(nn.Module):
-    def __init__(self, config: TwoTowerConfig):
+    """``mesh``: the ranks the history encoder's sequence parallelism
+    spreads over (with ``config.context_parallel``); attention carries no
+    parameters, so a model trained so loads mesh-less for serving."""
+
+    def __init__(self, config: TwoTowerConfig, mesh: Mesh | None = None):
         super().__init__()
         c = config
         self.config = c
         self.user_tower = Tower(c.n_users, c.embed_dim, c.hidden, c.out_dim)
         self.item_tower = Tower(c.n_items, c.embed_dim, c.hidden, c.out_dim)
         self.hist_encoder = (
-            SeqEncoder(c.n_items, c.embed_dim, c.n_heads, c.history_len)
+            SeqEncoder(c.n_items, c.embed_dim, c.n_heads, c.history_len,
+                       mesh=mesh if c.context_parallel else None, sp_impl=c.sp_impl)
             if c.history_len > 0
             else None
         )
@@ -250,27 +290,64 @@ def make_optimizer(model: TwoTower, learning_rate: float) -> torch.optim.Adam:
     return torch.optim.Adam(model.parameters(), lr=learning_rate, betas=(0.9, 0.999), eps=1e-8)
 
 
+def global_batch_loss(
+    model: TwoTower,
+    user_ids: torch.Tensor,
+    item_ids: torch.Tensor,
+    temperature: float,
+    hist_matrix: torch.Tensor | None = None,
+    item_log_q: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
+) -> torch.Tensor:
+    """The train step's loss on a global batch of (user, item) index
+    tensors. With a [n_users, T] ``hist_matrix`` each example's history is
+    gathered on its device and its own target masked out (-1, the mask
+    token) so the encoder cannot copy it into the logits. With a ``mesh``,
+    every rank passes the same global batch and embeds its ``data`` slice;
+    the tower outputs are all-gathered over ``data`` (with gradients) into
+    the one in-batch softmax of the global batch."""
+    batch_items = item_ids
+    if mesh is not None:
+        dp, di = mesh.axis_size("data"), mesh.axis_index("data")
+        part = slice(di * (len(user_ids) // dp), (di + 1) * (len(user_ids) // dp))
+        user_ids, item_ids = user_ids[part], item_ids[part]
+    h = None
+    if hist_matrix is not None:
+        h = hist_matrix[user_ids]
+        h = torch.where(h == item_ids[:, None], -1, h)
+    u, v = model(user_ids, item_ids, h)
+    if mesh is not None:
+        u, v = all_gather_grad(u, mesh, "data"), all_gather_grad(v, mesh, "data")
+    return in_batch_loss(u, v, batch_items, temperature, item_log_q)
+
+
 def make_train_step(
     model: TwoTower,
     optimizer: torch.optim.Optimizer,
     temperature: float,
     with_history: bool = False,
     item_log_q: torch.Tensor | None = None,
+    mesh: Mesh | None = None,
 ):
-    """One step on a batch of (user, item) index tensors: loss, gradient,
-    Adam update; returns the loss tensor. With history the [n_users, T]
-    history matrix is a third argument, gathered per batch on its device,
-    and the example's own target is masked out of its history (-1, the
-    mask token) so the encoder cannot copy it into the logits."""
+    """One step on a global batch of (user, item) index tensors: the loss
+    of :func:`global_batch_loss`, its gradient, the Adam update; returns
+    the loss tensor. With history the history matrix is a third argument.
+    With a ``mesh`` each rank backpropagates loss / ranks and the
+    gradients are summed over every rank before Adam, so every rank takes
+    the one-rank step."""
+    world = mesh.size if mesh is not None else 1
+    params = list(model.parameters())
 
     def train_step(user_ids, item_ids, hist_matrix=None):
-        h = None
-        if with_history:
-            h = hist_matrix[user_ids]
-            h = torch.where(h == item_ids[:, None], -1, h)
         optimizer.zero_grad(set_to_none=True)
-        loss = loss_fn(model, user_ids, item_ids, temperature, h, item_log_q)
-        loss.backward()
+        loss = global_batch_loss(model, user_ids, item_ids, temperature,
+                                 hist_matrix if with_history else None, item_log_q, mesh)
+        (loss / world).backward()
+        if world > 1:
+            for p in params:
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            all_reduce_sum([p.grad for p in params])
         optimizer.step()
         return loss.detach()
 
@@ -313,9 +390,10 @@ def build_history_matrix(
     return hist
 
 
-def build_model(config: TwoTowerConfig, device: str | torch.device = "cuda") -> TwoTower:
+def build_model(config: TwoTowerConfig, device: str | torch.device = "cuda",
+                mesh: Mesh | None = None) -> TwoTower:
     """A TwoTower with flax-distributed weights from ``config.seed``."""
-    model = TwoTower(config)
+    model = TwoTower(config, mesh)
     init_params(model, config.seed)
     return model.to(resolve_device(device))
 
@@ -333,24 +411,33 @@ def train_two_tower(
     config: TwoTowerConfig,
     history: np.ndarray | None = None,
     device: str | torch.device = "cuda",
+    mesh: Mesh | None = None,
 ) -> TrainResult:
-    """The JAX package's loop on one device: batch min(batch_size, max(n, 8)),
-    one permutation per epoch from ``np.random.default_rng(seed)`` (a
-    resumed run replays the permutations it skips), n // batch steps per
-    epoch with a short last batch padded by wrapping, the loss of each
-    epoch's last step, epoch checkpoints, and the item-embedding table for
-    serving at the end. ``history`` ([n_users, history_len], -1 padded)
-    enables the encoder when ``config.history_len > 0``."""
-    dev = resolve_device(device)
-    model = build_model(config, dev)
+    """The JAX package's loop: batch min(batch_size, max(n, 8)) (rounded to
+    a multiple of the mesh's ``data`` axis), one permutation per epoch from
+    ``np.random.default_rng(seed)`` (a resumed run replays the permutations
+    it skips), n // batch steps per epoch with a short last batch padded by
+    wrapping, the loss of each epoch's last step, epoch checkpoints, and
+    the item-embedding table for serving at the end. ``history``
+    ([n_users, history_len], -1 padded) enables the encoder when
+    ``config.history_len > 0``. ``mesh`` (``parallel.mesh``, axes ``data``
+    and ``model``) spreads each step over its ranks, on each rank's
+    device; every rank returns the same result and only rank 0 writes
+    checkpoints."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    model = build_model(config, dev, mesh)
     optimizer = make_optimizer(model, config.learning_rate)
     n = len(user_idx)
     B = min(config.batch_size, max(n, 8))
+    writes = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        dp = mesh.axis_size("data")
+        B = max(dp, (B // dp) * dp)
     with_history = config.history_len > 0 and history is not None
     log_q = None
     if config.logq_correction and n:
         log_q = torch.from_numpy(item_log_q(item_idx, config.n_items)).to(dev)
-    step = make_train_step(model, optimizer, config.temperature, with_history, log_q)
+    step = make_train_step(model, optimizer, config.temperature, with_history, log_q, mesh)
     hist_dev = torch.from_numpy(np.asarray(history, np.int64)).to(dev) if with_history else None
     users_dev = torch.from_numpy(np.asarray(user_idx, np.int64)).to(dev)
     items_dev = torch.from_numpy(np.asarray(item_idx, np.int64)).to(dev)
@@ -387,12 +474,12 @@ def train_two_tower(
                 sel = torch.cat([sel, perm_dev[: B - len(sel)]])
             loss = step(users_dev[sel], items_dev[sel], hist_dev)
         losses.append(float(loss))
-        if config.checkpoint_dir and (epoch + 1) % max(1, config.checkpoint_every) == 0:
+        if writes and config.checkpoint_dir and (epoch + 1) % max(1, config.checkpoint_every) == 0:
             save_train_checkpoint(
                 config.checkpoint_dir, model, optimizer, epoch + 1, losses,
                 signature=run_signature,
             )
-    if config.checkpoint_dir:
+    if writes and config.checkpoint_dir:
         # a finished run's checkpoint must not turn the next train into a no-op
         clear_train_checkpoint(config.checkpoint_dir)
 

@@ -1,7 +1,8 @@
-"""Single-device attention: the plain PyTorch versions and the CUDA kernels.
+"""Attention: the plain PyTorch versions, the CUDA kernels, and sequence
+parallelism over ranks.
 
-Port of the single-device part of ``predictionio_tpu/ops/attention.py``.
-Two TPU kernels compute one function there, and both have a hand-written
+Port of ``predictionio_tpu/ops/attention.py``. Two TPU kernels compute
+one single-device function there, and both have a hand-written
 CUDA counterpart here:
 
   - B2, ``_fused_attention_pallas`` (:389): one block per batch·head holds
@@ -30,8 +31,16 @@ ragged edge is masked by index, so the card never runs a plain version.
 Training goes through ``FusedAttention``: the kernels' forward, and the
 gradient of the f32 reference as explicit matrix products.
 
-``ring_attention`` and ``ulysses_attention`` (the mesh code) are not ported
-yet.
+Sequence parallelism over a mesh axis (``parallel.mesh``): each rank of
+the axis holds one [B, H, L/P, D] shard of the sequence.
+``ring_attention`` runs P online-softmax steps (``_online_block``, plain
+torch ops as jnp in JAX) and passes its K/V shard to the next rank each
+step (``ppermute``); ``ulysses_attention`` re-shards heads for sequence
+with one all-to-all, attends the whole sequence locally through
+``fused_attention`` (B2, B3 past the tile limit) and re-shards back. Both
+train: the collectives' gradients are JAX's transposes. Batch sharding
+(dp x sp) composes through the mesh: an axis's process group lies within
+one coordinate of every other axis.
 """
 
 from __future__ import annotations
@@ -43,6 +52,8 @@ import math
 import torch
 
 from predictionio_tpu_torch.ops import _build
+from predictionio_tpu_torch.parallel.collectives import all_gather, all_to_all_grad, ppermute_grad
+from predictionio_tpu_torch.parallel.mesh import Mesh
 
 # one f32 score tile under this many bytes takes B2 (attention.py:465)
 BLOCK_TILE_BYTES = 4 * 1024 * 1024
@@ -393,3 +404,87 @@ def fused_attention(
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         return FusedAttention.apply(q, k, v, causal)
     return _fused_attention_forward(q, k, v, causal)
+
+
+# ---------------------------------------------------------------------------
+# Sequence parallelism over a mesh axis
+# ---------------------------------------------------------------------------
+
+
+def ring_attention(
+    q: torch.Tensor,  # [B, H, L/P, D]: this rank's shard of the sequence
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh: Mesh,
+    axis: str = "sp",
+    causal: bool = False,
+) -> torch.Tensor:
+    """Attention of this rank's query shard over the whole sequence, whose
+    shards lie in rank order on ``axis``. Each of the P steps attends the
+    K/V shard held (in f32, online softmax) and passes it to the next rank;
+    the causal mask uses global positions. Returns this rank's [B, H, L/P,
+    D] output in q's dtype."""
+    n, me = mesh.axis_size(axis), mesh.axis_index(axis)
+    B, H, Lq, D = q.shape
+    q32 = q.float()
+    k_cur, v_cur = k.float(), v.float()
+    acc = torch.zeros((B, H, Lq, D), dtype=torch.float32, device=q.device)
+    row_max = torch.full((B, H, Lq), float("-inf"), dtype=torch.float32, device=q.device)
+    row_sum = torch.zeros((B, H, Lq), dtype=torch.float32, device=q.device)
+    perm = [(i, (i + 1) % n) for i in range(n)]
+    pos = torch.arange(Lq, device=q.device)
+    for i in range(n):
+        src = (me - i) % n  # the rank whose K/V shard is held now
+        mask = (pos[:, None] + me * Lq) >= (pos[None, :] + src * Lq) if causal else None
+        acc, row_max, row_sum = _online_block(q32, k_cur, v_cur, acc, row_max, row_sum, mask)
+        if i + 1 < n:
+            k_cur = ppermute_grad(k_cur, mesh, axis, perm)
+            v_cur = ppermute_grad(v_cur, mesh, axis, perm)
+    safe_sum = torch.where(row_sum == 0.0, 1.0, row_sum)
+    return (acc / safe_sum[..., None]).to(q.dtype)
+
+
+def ring_attention_sharded(
+    q: torch.Tensor,  # [B, H, L, D]: the whole sequence, on every rank
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh: Mesh,
+    axis: str = "sp",
+    causal: bool = False,
+) -> torch.Tensor:
+    """Ring attention of global arrays: every rank passes the whole
+    sequence, attends its own shard and gets the whole output back (the
+    form of JAX's jit-wrapped ``ring_attention_sharded``). Requires L %
+    P == 0."""
+    n, me = mesh.axis_size(axis), mesh.axis_index(axis)
+    L = q.shape[2]
+    if L % n:
+        raise ValueError(f"sequence length {L} not divisible by {axis}={n}")
+    part = slice(me * (L // n), (me + 1) * (L // n))
+    out = ring_attention(q[:, :, part], k[:, :, part], v[:, :, part], mesh, axis, causal)
+    return all_gather(out, mesh, axis, dim=2)
+
+
+def ulysses_attention(
+    q: torch.Tensor,  # [B, H, L/P, D]: this rank's shard of the sequence
+    k: torch.Tensor,
+    v: torch.Tensor,
+    mesh: Mesh,
+    axis: str = "sp",
+    causal: bool = False,
+) -> torch.Tensor:
+    """All-to-all sequence parallelism (DeepSpeed-Ulysses): one all-to-all
+    gives each rank H/P heads over the whole sequence, ``fused_attention``
+    attends them (kernel B2 or B3 on a card, through ``FusedAttention`` for
+    the gradient), and a second all-to-all restores this rank's sequence
+    shard of every head. Requires H % P == 0."""
+    n = mesh.axis_size(axis)
+    H = q.shape[1]
+    if H % n:
+        raise ValueError(f"head count {H} not divisible by {axis}={n}")
+
+    def to_heads(x):  # [B, H, L/P, D] -> [B, H/P, L, D]
+        return all_to_all_grad(x, mesh, axis, 1, 2).contiguous()
+
+    out = fused_attention(to_heads(q), to_heads(k), to_heads(v), causal=causal)
+    return all_to_all_grad(out, mesh, axis, 2, 1)

@@ -20,8 +20,21 @@ Stable-lane counters accumulate across rollouts, so every comparison uses
 deltas since the candidate was staged — the two models are judged on the
 same traffic window.
 
+The latency gate compares the two models on equal work. A lane's predict
+time is taken once per micro-batch over that lane's share of the batch,
+so it grows with the share: at a 0.9 split the candidate's batches are
+nine times the stable's. The gate therefore scales every sample to one
+common batch size along a cost shape, a fixed cost plus a per-row
+cost, fitted to both lanes, or to each lane where their samples show two
+shapes (:func:`matched_work_p95`), and compares the p95s there. Dividing
+by the row count instead would make the small lane read slow, since a
+batch has a fixed launch cost.
+
 (Own copy of ``predictionio_tpu/registry/controller.py``: the same
-verdicts on the same metric sequences.)
+verdicts on the same metric sequences, except the latency gate's. The
+reference compares raw per-batch p95s and so vetoes an equal candidate
+that serves most of the traffic, as the bandit's split does; ROADMAP
+C16.)
 """
 
 from __future__ import annotations
@@ -29,6 +42,8 @@ from __future__ import annotations
 import dataclasses
 import time
 from typing import Callable
+
+import numpy as np
 
 from predictionio_tpu_torch.registry.router import RolloutInstruments
 
@@ -72,8 +87,86 @@ class _Baseline:
     cand_errors: float
     shadow_scored: float
     divergence: float
-    stable_predict_counts: list
-    cand_predict_counts: list
+    stable_predict_mark: int
+    cand_predict_mark: int
+
+
+# the relative per-row costs the latency gate's fit tries (0, then 1e-3 to
+# 10 times a batch's fixed cost per row, log-spaced)
+_KAPPAS = np.concatenate([[0.0], np.geomspace(1e-3, 10.0, 200)])
+# F statistic (1 and many degrees of freedom, p = 0.001) above which the
+# lanes' samples show two cost shapes rather than one
+_SHAPES_DIFFER_F = 10.83
+# distinct row counts a lane needs before it may have a shape of its own
+_MIN_ROW_COUNTS = 3
+
+
+def _shape_errors(rows: np.ndarray, secs: np.ndarray) -> np.ndarray:
+    """For every kappa of the grid, the squared error of
+    log secs = log m + log(1 + kappa * rows) with m at its least squares
+    (log space: the noise of a timing is relative, and each sample counts
+    alike whatever its lane's size)."""
+    res = np.log(np.maximum(secs, 1e-12))[None, :] - np.log1p(_KAPPAS[:, None] * rows[None, :])
+    res -= res.mean(axis=1, keepdims=True)
+    return (res**2).sum(axis=1)
+
+
+def _relative_row_costs(data: list[tuple[np.ndarray, np.ndarray]]) -> list[float]:
+    """Each lane's kappa in the cost shape m_lane * (1 + kappa * r) of a
+    batch of r rows.
+
+    One kappa for every lane (a slower model that scales its fixed and its
+    per-row cost alike), unless each lane saw at least three row counts and
+    a kappa of each lane's own fits better than the shared one beyond noise
+    (an F test of the one extra parameter at p = 0.001): then each lane
+    keeps its own, so a model slower per row only reads slower at the
+    common size, as it is. A lane that saw one or two row counts cannot
+    tell its shape from its noise and takes the shared kappa."""
+    errors = [_shape_errors(rows, secs) for rows, secs in data]
+    total = np.sum(errors, axis=0)
+    shared = int(np.argmin(total))
+    own = [int(np.argmin(e)) for e in errors]
+    n = sum(rows.size for rows, _ in data)
+    if len(data) > 1 and n > 2 * len(data) and all(np.unique(rows).size >= _MIN_ROW_COUNTS for rows, _ in data):
+        sse_shared = float(total[shared])
+        sse_own = float(sum(e[i] for e, i in zip(errors, own)))
+        dof = n - 2 * len(data)
+        if sse_shared - sse_own > _SHAPES_DIFFER_F * (len(data) - 1) * max(sse_own, 1e-300) / dof:
+            return [float(_KAPPAS[i]) for i in own]
+    return [float(_KAPPAS[shared])] * len(data)
+
+
+def matched_work_p95(
+    lanes: list[list[tuple[int, float]]], p95: Callable[[list[float]], float]
+) -> list[float]:
+    """Each lane's predict p95 at one common batch size.
+
+    ``lanes`` holds each lane's (rows, seconds) samples. Every sample is
+    scaled along its lane's cost shape (:func:`_relative_row_costs`) to the
+    common size, the mean of the lanes' mean row counts, and ``p95`` is
+    taken over the scaled samples, so the tail stays in. The lanes share
+    one shape, fitted from all their samples, unless their samples show
+    two: a lane that saw few row counts (the small arm of a 0.05 split)
+    cannot bend the shared one, as a slope of its own would. Samples of
+    equal rows are not moved, so lanes served at one batch size are
+    compared as they were measured. 0.0 for a lane without samples."""
+    data = [
+        (np.asarray([r for r, _ in pairs], np.float64), np.asarray([t for _, t in pairs], np.float64))
+        for pairs in lanes
+    ]
+    seen = [(rows, secs) for rows, secs in data if rows.size]
+    if not seen:
+        return [0.0] * len(lanes)
+    kappas = iter(_relative_row_costs(seen))
+    common = float(np.mean([rows.mean() for rows, _ in seen]))
+    out = []
+    for rows, secs in data:
+        if not rows.size:
+            out.append(0.0)
+            continue
+        kappa = next(kappas)
+        out.append(p95((secs * (1.0 + kappa * common) / (1.0 + kappa * rows)).tolist()))
+    return out
 
 
 class RolloutController:
@@ -105,12 +198,8 @@ class RolloutController:
             cand_errors=cand["errors"],
             shadow_scored=cand["shadow_scored"],
             divergence=cand["divergence"],
-            stable_predict_counts=self.instruments.predict_bucket_counts(
-                stable_version
-            ),
-            cand_predict_counts=self.instruments.predict_bucket_counts(
-                candidate_version
-            ),
+            stable_predict_mark=self.instruments.predict_mark(stable_version),
+            cand_predict_mark=self.instruments.predict_mark(candidate_version),
         )
 
     def end(self) -> None:
@@ -157,13 +246,9 @@ class RolloutController:
                 f"{allowed:.3f} (stable {stable_rate:.3f})",
             )
         # -- latency gate (windowed: this bake's samples only — a re-staged
-        # candidate must not be judged on a previous bake's latency) -------
-        cand_p95 = self.instruments.p95_since(
-            b.candidate_version, b.cand_predict_counts
-        )
-        stable_p95 = self.instruments.p95_since(
-            b.stable_version, b.stable_predict_counts
-        )
+        # candidate must not be judged on a previous bake's latency; both
+        # lanes at one batch size — the split must not read as latency) ---
+        cand_p95, stable_p95 = self.latency_p95s()
         if cand_p95 > 0 and stable_p95 > 0 and cand_p95 > stable_p95 * c.max_p95_ratio:
             return (
                 VERDICT_ROLLBACK,
@@ -186,6 +271,20 @@ class RolloutController:
         if not c.auto_promote:
             return VERDICT_READY, reason
         return VERDICT_PROMOTE, reason
+
+    def latency_p95s(self) -> tuple[float, float]:
+        """(candidate, stable) predict p95 over this bake's samples, each
+        lane at the common batch size of :func:`matched_work_p95`; 0.0 for
+        a lane without samples."""
+        b = self._baseline
+        if b is None:
+            return 0.0, 0.0
+        lanes = [
+            self.instruments.predict_samples_since(b.candidate_version, b.cand_predict_mark),
+            self.instruments.predict_samples_since(b.stable_version, b.stable_predict_mark),
+        ]
+        cand, stable = matched_work_p95(lanes, self.instruments.p95_of)
+        return cand, stable
 
     def snapshot(self) -> dict:
         """JSON-ready controller state for /models and `pio models show`."""

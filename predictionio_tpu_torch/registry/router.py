@@ -27,8 +27,12 @@ so a fleet that mixes packages canaries the same users.)
 
 from __future__ import annotations
 
+import bisect
+import collections
+import dataclasses
 import hashlib
 import json
+import threading
 from typing import Any, NamedTuple
 
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
@@ -36,6 +40,19 @@ from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 LANE_STABLE = "stable"
 LANE_CANDIDATE = "candidate"
 LANE_SHADOW = "shadow"
+
+# the latency gate's (rows, seconds) log: pairs kept per version, and
+# versions kept (a rollout compares two; older ones are dropped first)
+PREDICT_LOG_PAIRS = 4096
+PREDICT_LOG_VERSIONS = 8
+
+
+@dataclasses.dataclass
+class _PredictLog:
+    total: int = 0
+    pairs: collections.deque = dataclasses.field(
+        default_factory=lambda: collections.deque(maxlen=PREDICT_LOG_PAIRS)
+    )
 
 
 class Lane(NamedTuple):
@@ -119,6 +136,8 @@ class RolloutInstruments:
             "per-batch predict wall time, by model version",
             labelnames=("version",),
         )
+        self._samples: dict[str, _PredictLog] = {}
+        self._samples_lock = threading.Lock()
         self.divergence = registry.counter(
             "pio_shadow_divergence_total",
             "shadow-scored queries whose candidate result differed from stable",
@@ -179,17 +198,41 @@ class RolloutInstruments:
         summary = self.predict_seconds.summary(version=version)
         return float(summary.get("p95", 0.0)) if summary.get("count") else 0.0
 
-    def predict_bucket_counts(self, version: str) -> list[int]:
-        """Baseline snapshot for :meth:`p95_since`."""
-        return self.predict_seconds.bucket_counts(version=version)
+    def observe_predict(self, seconds: float, rows: int, version: str) -> None:
+        """One lane's predict wall time for a batch of ``rows`` queries:
+        the ``pio_model_predict_seconds`` sample, and the (rows, seconds)
+        pair the latency gate reads (the histogram alone cannot tell a
+        slower model from a larger share of each micro-batch)."""
+        self.predict_seconds.observe(seconds, version=version)
+        with self._samples_lock:
+            log = self._samples.pop(version, None) or _PredictLog()
+            self._samples[version] = log  # most recently observed last
+            while len(self._samples) > PREDICT_LOG_VERSIONS:
+                self._samples.pop(next(iter(self._samples)))
+            log.total += 1
+            log.pairs.append((int(rows), float(seconds)))
 
-    def p95_since(self, version: str, baseline_counts: list[int]) -> float:
-        """predict p95 over ONLY the samples observed since the baseline
-        snapshot — a re-staged candidate must be judged on this bake's
-        latency, not a previous bake's (lifetime p95 would carry old slow
-        samples forever)."""
-        current = self.predict_seconds.bucket_counts(version=version)
-        delta = [max(0, c - b) for c, b in zip(current, baseline_counts)]
-        if sum(delta) == 0:
-            return 0.0
-        return self.predict_seconds.percentile_from_counts(delta, 0.95)
+    def predict_mark(self, version: str) -> int:
+        """Baseline for :meth:`predict_samples_since`."""
+        with self._samples_lock:
+            log = self._samples.get(version)
+            return log.total if log is not None else 0
+
+    def predict_samples_since(self, version: str, mark: int) -> list[tuple[int, float]]:
+        """The (rows, seconds) pairs observed since ``mark`` (at most the
+        last ``PREDICT_LOG_PAIRS``): a re-staged candidate is judged on this
+        bake's latency, not a previous bake's."""
+        with self._samples_lock:
+            log = self._samples.get(version)
+            if log is None or log.total <= mark:
+                return []
+            n = min(log.total - mark, len(log.pairs))
+            return list(log.pairs)[-n:]
+
+    def p95_of(self, seconds: list[float]) -> float:
+        """The histogram's p95 estimate over these values (bucket-bounded,
+        as the ``/metrics`` p95 reads)."""
+        counts = [0] * (len(self.predict_seconds.buckets) + 1)
+        for value in seconds:
+            counts[bisect.bisect_left(self.predict_seconds.buckets, value)] += 1
+        return self.predict_seconds.percentile_from_counts(counts, 0.95)

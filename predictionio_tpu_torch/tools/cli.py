@@ -350,8 +350,27 @@ def _registry_dir(args) -> str:
     return default_registry_dir()
 
 
+def _strip_launcher_flags(argv: list[str]) -> list[str]:
+    """Drop --num-hosts/--hosts (and their values) so workers don't
+    recursively launch fleets."""
+    out: list[str] = []
+    skip = False
+    for a in argv:
+        if skip:
+            skip = False
+            continue
+        if a in ("--num-hosts", "--hosts"):
+            skip = True
+            continue
+        if a.startswith("--num-hosts=") or a.startswith("--hosts="):
+            continue
+        out.append(a)
+    return out
+
+
 def cmd_train(args) -> int:
     from predictionio_tpu_torch.controller.engine import TrainOptions
+    from predictionio_tpu_torch.parallel.distributed import maybe_initialize_distributed, rank_device, shutdown
     from predictionio_tpu_torch.workflow.context import WorkflowContext
     from predictionio_tpu_torch.workflow.core_workflow import run_train
     from predictionio_tpu_torch.workflow.engine_loader import load_engine
@@ -359,9 +378,21 @@ def cmd_train(args) -> int:
     if args.follow and not args.app_name:
         # fail BEFORE the train, not after it
         return _die("pio train --follow requires --app-name")
+    hosts = [h for h in (args.hosts or "").split(",") if h]
+    if (args.num_hosts > 1 or hosts) and "PIO_PROCESS_ID" not in os.environ:
+        # launcher role: one worker per rank running this same train
+        # command (the argv main() parsed, not this process's sys.argv);
+        # they join through the PIO_COORDINATOR contract and this process
+        # supervises them
+        from predictionio_tpu_torch.parallel.launcher import launch_cli_multihost
+
+        return launch_cli_multihost(
+            _strip_launcher_flags(args.cli_argv), num_hosts=args.num_hosts, hosts=hosts or None
+        )
+    maybe_initialize_distributed(args.device)
     manifest, engine = load_engine(args.engine_dir, args.variant)
     engine_params = engine.engine_params_from_variant(manifest.variant_json)
-    ctx = WorkflowContext(mode="training", device=args.device, _storage=_storage())
+    ctx = WorkflowContext(mode="training", device=rank_device(args.device), _storage=_storage())
     registry_dir = args.registry_dir or (_registry_dir(args) if args.follow else None)
     options = TrainOptions(
         skip_sanity_check=args.skip_sanity_check,
@@ -378,6 +409,10 @@ def cmd_train(args) -> int:
         keep_versions=args.keep_versions,
         options=options,
     )
+    shutdown()  # a joined job's ranks leave together, once the coordinator has persisted
+    if not instance_id:
+        print(f"Rank finished on {ctx.device}; the coordinator persists the model")
+        return 0
     print(f"Training completed. Engine instance {instance_id} on {ctx.device}")
     if args.follow:
         # the batch train just published the stable: keep tailing the event
@@ -562,7 +597,10 @@ def cmd_deploy(args) -> int:
         except ValueError as exc:
             return _die(str(exc))
 
-    ctx = WorkflowContext(mode="serving", device=args.device, _storage=_storage())
+    from predictionio_tpu_torch.parallel.distributed import maybe_initialize_distributed, rank_device
+
+    maybe_initialize_distributed(args.device)
+    ctx = WorkflowContext(mode="serving", device=rank_device(args.device), _storage=_storage())
     config = ServerConfig(
         ip=args.ip,
         port=args.port,
@@ -1743,6 +1781,11 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("--skip-sanity-check", action="store_true")
     x.add_argument("--stop-after-read", action="store_true")
     x.add_argument("--stop-after-prepare", action="store_true")
+    x.add_argument("--num-hosts", type=int, default=1,
+                   help="launch N local worker processes joined via torch.distributed "
+                        "(ref Runner.runOnSpark)")
+    x.add_argument("--hosts", default="",
+                   help="comma-separated remote hosts; one ssh-launched worker each")
     x.add_argument("--registry-dir",
                    help="publish the trained model into this artifact registry "
                         "(default: $PIO_REGISTRY_DIR when set, else no registry publish)")

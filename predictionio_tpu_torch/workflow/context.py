@@ -1,6 +1,8 @@
 """WorkflowContext — what DASE components receive (port of
 ``predictionio_tpu/workflow/context.py``): the run's mode, app addressing,
-the storage locator, and a ``torch.device`` in place of the JAX mesh.
+the storage locator, the run's ``torch.device`` and the rank mesh a
+distributed train spreads over (``parallel.mesh``; by default every rank
+of the job on one ``data`` axis, one rank without a job).
 Templates read events through :meth:`p_event_store` and
 :meth:`l_event_store`, exactly where the JAX templates do."""
 
@@ -13,6 +15,7 @@ import torch
 
 from predictionio_tpu_torch.data.storage.registry import Storage
 from predictionio_tpu_torch.data.store.event_store import LEventStore, PEventStore
+from predictionio_tpu_torch.parallel.mesh import Mesh, local_mesh
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -25,6 +28,7 @@ class WorkflowContext:
     _storage: Storage | None = None
     batch: str = ""  # the batch label an evaluation run records
     extra: dict[str, Any] = dataclasses.field(default_factory=dict)
+    _mesh: Mesh | None = None
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
@@ -34,6 +38,12 @@ class WorkflowContext:
         if self._storage is None:
             self._storage = Storage.instance()
         return self._storage
+
+    @property
+    def mesh(self) -> Mesh:
+        if self._mesh is None:
+            self._mesh = local_mesh(self.device)
+        return self._mesh
 
     def p_event_store(self) -> PEventStore:
         return PEventStore(self.storage)

@@ -2,8 +2,14 @@
 repositories (port of ``run_train``, ``load_models_for_instance``,
 ``run_evaluation`` and ``run_grid_evaluation`` in
 ``predictionio_tpu/workflow/core_workflow.py``, with its registry publish
-and the ANN index built at publish, without the step profiler and
-multi-host training).
+and the ANN index built at publish, without the step profiler).
+
+Across ranks (``parallel.distributed``), every rank trains (the
+collectives inside ``engine.train`` need them all), but only the
+coordinator, rank 0, touches the metadata and model stores; the others
+log and return "" (the Spark driver was the single metadata writer). The
+engine instance records every rank's kernel launches during the train
+(``spark_conf["kernel_launches"]``, a JSON list in rank order).
 
 An engine instance goes through ``get_meta_data_engine_instances()`` (INIT,
 TRAINING, then COMPLETED or FAILED) and the model blob through
@@ -33,6 +39,7 @@ from predictionio_tpu_torch.data.storage.base import (
 )
 from predictionio_tpu_torch.obs.profiler import maybe_profile_train
 from predictionio_tpu_torch.obs.torchprof import kernel_launch_counts
+from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.workflow import model_io
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
@@ -53,7 +60,8 @@ def run_train(
     options: TrainOptions | None = None,
 ) -> str:
     """Train, store the serialised models, and record the engine instance;
-    returns its id. A failed run is recorded as FAILED. After a stop that
+    returns its id ("" on a rank other than the coordinator, which stores
+    nothing). A failed run is recorded as FAILED. After a stop that
     ``options`` asks for (read or prepare) the instance is COMPLETED with
     no model blob and nothing is published (ref core_workflow.py:170-180).
 
@@ -63,6 +71,22 @@ def run_train(
     large enough gets its ANN index pinned (``ann.lifecycle``). A failed
     publish never fails the train: the metadata and model repositories,
     written first, stay authoritative."""
+    rt = distributed.runtime()
+    if rt is not None and not distributed.is_coordinator():
+        before = kernel_launch_counts()
+        with maybe_profile_train(
+            context={"engine": manifest.engine_id, "engineVersion": manifest.version,
+                     "processIndex": rt.rank},
+            device=str(ctx.device),
+            counters_fn=kernel_launch_counts if ctx.device.type == "cuda" else None,
+        ):
+            models = engine.train(ctx, engine_params, options)
+        _launches_by_rank(before)
+        if not (options and (options.stop_after_read or options.stop_after_prepare)):
+            # the serialisable form may gather across ranks: every rank runs it
+            engine.make_serializable_models(ctx, engine_params, models)
+        logger.info("rank %d of %d finished (the coordinator persists)", rt.rank, rt.world_size)
+        return ""
     storage = ctx.storage
     instances = storage.get_meta_data_engine_instances()
     params_json = Engine.engine_params_to_json(engine_params)
@@ -82,6 +106,7 @@ def run_train(
     instance_id = instances.insert(instance)
     logger.info("engine instance %s created", instance_id)
     t0 = time.perf_counter()
+    before = kernel_launch_counts()
     try:
         instance.status = EngineInstanceStatus.TRAINING
         instances.update(instance)
@@ -98,6 +123,7 @@ def run_train(
             counters_fn=kernel_launch_counts if ctx.device.type == "cuda" else None,
         ):
             models = engine.train(ctx, engine_params, options)
+        launches = _launches_by_rank(before)
         if options and (options.stop_after_read or options.stop_after_prepare):
             instance.status = EngineInstanceStatus.COMPLETED
             instance.end_time = _dt.datetime.now(tz=UTC)
@@ -117,6 +143,7 @@ def run_train(
     instance.spark_conf = {
         "train_wall_clock_sec": f"{wall:.3f}",
         "device": str(ctx.device),
+        "kernel_launches": json.dumps(launches),
     }
     instances.update(instance)
     _publish_to_registry(
@@ -125,6 +152,21 @@ def run_train(
     )
     logger.info("training completed: engine instance %s, %.2fs", instance_id, wall)
     return instance_id
+
+
+def _launches_by_rank(before: dict[str, int]) -> list[dict[str, int]]:
+    """Each rank's kernel launches since ``before`` (its own counters),
+    gathered over the job in rank order (every rank calls this once a
+    train): the record says which ranks ran which kernels."""
+    mine = {k: v - before[k] for k, v in kernel_launch_counts().items()}
+    rt = distributed.runtime()
+    if rt is None:
+        return [mine]
+    import torch.distributed as dist
+
+    out: list = [None] * rt.world_size
+    dist.all_gather_object(out, mine)
+    return out
 
 
 def _publish_to_registry(

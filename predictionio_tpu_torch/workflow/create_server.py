@@ -1058,7 +1058,7 @@ class QueryServer:
                 preds_per_algo = self._lane_predictions(lane, sup, fins)
                 lane_predict_s = time.perf_counter() - t0
                 timings["device_s"] += lane_predict_s
-                inst.predict_seconds.observe(lane_predict_s, version=lane.version)
+                inst.observe_predict(lane_predict_s, len(idxs), version=lane.version)
                 for row, i in enumerate(idxs):
                     token = set_trace_id(trace_ids[i])
                     t_serve = time.perf_counter()
@@ -1231,7 +1231,7 @@ class QueryServer:
                     scored_s = time.perf_counter() - t0
                     if gen != self._rollout_gen:
                         return
-                    inst.predict_seconds.observe(scored_s, version=cand.version)
+                    inst.observe_predict(scored_s, 1, version=cand.version)
                     inst.shadow_scored.inc(version=cand.version)
                     if _canonical_json(body) != _canonical_json(stable_body):
                         inst.divergence.inc(version=cand.version)

@@ -19,7 +19,10 @@ Past rank 128 B1 runs one block per system, and the limit is row-relative
 matrix products on the card against CPU autograd: atol 1e-4 (f32 sums in
 another order over 256-key softmax rows). The query server's watchdog: a
 dispatch thread that replaces one walked away from takes the server's card
-and answers as ``serve_batch`` (rtol 1e-5).
+and answers as ``serve_batch`` (rtol 1e-5). Ranks: two gloo ranks sharing
+the card train sharded ALS to the one-rank CPU train's factors (atol 1e-3,
+the whole-train tolerance of ``tests/test_torch_als.py``); a one-rank job
+on the card runs NCCL's all-gather and the ppermute autograd function.
 """
 
 import os
@@ -717,3 +720,54 @@ def test_device_memory_stats_keep_the_jax_keys(cuda):
     assert set(stats) == {"device", "bytes_in_use", "peak_bytes_in_use", "bytes_limit"}
     assert stats["bytes_limit"] > 0 and stats["bytes_in_use"] >= x.numel() * 4
     assert xray.live_array_bytes() >= x.numel() * 4
+
+
+def _dist_worker():
+    """tests/torch_dist_worker.py by path (a ``tests`` package installed on
+    the card's machine can shadow this checkout's)."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "torch_dist_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_dist_worker", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_two_ranks_sharing_the_card_over_gloo_give_the_cpu_result(cuda, tmp_path, monkeypatch):
+    from predictionio_tpu_torch.ops import als as pt_als
+    from predictionio_tpu_torch.ops.als import ALSConfig, als_train
+    worker = _dist_worker()
+    load, run_world, train_ratings = worker.load, worker.run_world, worker.train_ratings
+
+    init = pt_als._als_init
+
+    def zero_dummy(**kw):  # the sharded init zeroes rows past n_items
+        uf, vf = init(**kw)
+        vf[-1] = 0.0
+        return uf, vf
+
+    monkeypatch.setattr(pt_als, "_als_init", zero_dummy)
+    run_world(2, ["als_train2_cuda"], str(tmp_path), timeout=120)
+    for implicit in (False, True):
+        u, i, v = train_ratings(implicit)
+        cfg = ALSConfig(rank=4, iterations=6, reg=0.05, implicit=implicit, chunk=256)
+        pu, pv = als_train(u, i, v, 120, 80, cfg, device="cpu")
+        tag = "implicit" if implicit else "explicit"
+        got = load(str(tmp_path), "als_train2_cuda")
+        assert str(got["backend"]) == "gloo"
+        np.testing.assert_allclose(got[f"uf_{tag}"], pu.numpy(), rtol=0, atol=1e-3)
+        np.testing.assert_allclose(got[f"vf_{tag}"], pv.numpy(), rtol=0, atol=1e-3)
+
+
+def test_a_one_rank_job_on_the_card_runs_nccl_collectives(cuda, tmp_path):
+    worker = _dist_worker()
+    load, run_world = worker.load, worker.run_world
+
+    run_world(1, ["nccl1_cuda"], str(tmp_path), timeout=120)
+    got = load(str(tmp_path), "nccl1_cuda")
+    assert str(got["backend"]) == "nccl" and str(got["device"]).startswith("cuda")
+    x = np.arange(6.0).reshape(2, 3)
+    np.testing.assert_array_equal(got["gathered"], x)
+    np.testing.assert_array_equal(got["permuted"], 2 * x)
+    np.testing.assert_array_equal(got["grad"], 2 * x)

@@ -358,8 +358,13 @@ def _run_scenario(pkg, criteria_kw, ops):
         elif op == "err":
             inst.errors.inc(a[2], version=a[0], lane=a[1])
         elif op == "pred":
+            # one-row batches: the port's gate compares the lanes at equal
+            # rows, which one-row samples already are
             for _ in range(a[2]):
-                inst.predict_seconds.observe(a[1], version=a[0])
+                if pkg == "jax":
+                    inst.predict_seconds.observe(a[1], version=a[0])
+                else:
+                    inst.observe_predict(a[1], 1, version=a[0])
         elif op == "scored":
             inst.shadow_scored.inc(a[1], version=a[0])
         elif op == "div":

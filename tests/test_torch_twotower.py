@@ -402,10 +402,14 @@ def test_port_blob_roundtrip(tmp_path):
 
 
 def test_mesh_and_context_parallel_params():
-    pt_eng.check_single_device_mesh("")
-    pt_eng.check_single_device_mesh("data=-1,model=1")
-    with pytest.raises(ValueError, match="more than one device"):
-        pt_eng.check_single_device_mesh("data=4,model=2")
+    # without a job the mesh has one rank: a mesh asking for more is refused
+    # with the JAX package's message (parallel/mesh.py _resolve_sizes)
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    assert make_mesh("", "cpu").size == 1
+    assert make_mesh("data=-1,model=1", "cpu").shape == {"data": 1, "model": 1}
+    with pytest.raises(ValueError, match="require 8 devices, have 1"):
+        make_mesh("data=4,model=2", "cpu")
     with pytest.raises(ValueError, match="context_parallel"):
         pt_tt.TwoTowerConfig(n_users=2, n_items=2, context_parallel=True)
     with pytest.raises(ValueError, match="divisible"):
