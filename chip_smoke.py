@@ -19,11 +19,12 @@ The recommendation template (ALS, kernel B1):
    real user-side and item-side systems of that model and on 138,001
    rank-10 systems, each timed beside the plain version and a library
    Cholesky solve, eager (``ms``) and as a replayed CUDA graph
-   (``graph_ms``); then pio doctor in three processes (beside the serve
+   (``graph_ms``); then pio doctor in four processes (beside the serve
    phase): the inventory names
    the card, --capacity 138000 27000 32 --ann 2048,16 beside that train's
-   measured torch.cuda.max_memory_allocated, and --roofline's B1/B2/B3
-   bounds equal to PERF.md's kernel table;
+   measured torch.cuda.max_memory_allocated, --mesh data=2 --gather-dtype
+   bf16 beside each rank's of the 2-rank sharded train (3m), and
+   --roofline's B1/B2/B3 bounds equal to PERF.md's kernel table;
 3. serve phase: the port's CLI in subprocesses (app new, import of an
    ML-100K-shape event file, train, deploy) answering POST /queries.json;
    then the ingest path: app new, accesskey new and eventserver on one
@@ -166,7 +167,15 @@ The recommendation template (ALS, kernel B1):
    of phase 2, each iteration's all-gather seconds); twotower_parallel, a
    few full-width two-tower steps on 2 ranks at data=2 and at model=2
    under ring and ulysses (B2 on each rank under ulysses, held; step 1's
-   loss and parameters against one rank's step on the same batch);
+   loss and parameters against one rank's step on the same batch; at
+   model=2 the id tables sharded, a shard held to its rows, each rank's
+   parameter, gradient and Adam bytes half the tables' fewer, one ulysses
+   step through the sharding inspector); twotower_sharded_cli, pio train
+   --num-hosts 2 of the two-tower template with mesh data=1,model=2 on an
+   ML-100K-shape view file (944 users), pio deploy, 200 queries held to
+   the persisted model (B2 on both ranks and the server); tools_cli,
+   build, unregister, start-all / stop-all and pio shell (on the card and
+   with --device cpu);
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -267,6 +276,7 @@ every kernel with its launches on the main paths, errors and times.
 from __future__ import annotations
 
 import concurrent.futures
+import faulthandler
 import http.client
 import itertools
 import json
@@ -385,20 +395,24 @@ def profiler_warm_up(torch, home: str) -> None:
 
 
 def doctor_start(home: str) -> dict:
-    """Start ``pio doctor`` in three processes (they run beside the next
+    """Start ``pio doctor`` in four processes (they run beside the next
     phase; :func:`doctor_phase` reads them)."""
     cli, env, _ = _cli(home)
     argvs = {"inventory": ["doctor"],
              "capacity": ["doctor", "--capacity", "138000", "27000", "32", "--ann", "2048,16"],
+             "capacity_mesh": ["doctor", "--capacity", "138000", "27000", "32", "--mesh", "data=2",
+                               "--gather-dtype", "bf16"],
              "roofline": ["doctor", "--roofline"]}
     return {k: subprocess.Popen([*cli, *a], env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
             for k, a in argvs.items()}
 
 
 def doctor_phase(torch, procs: dict) -> dict:
-    """``pio doctor``'s three processes: the inventory names the card;
+    """``pio doctor``'s four processes: the inventory names the card;
     ``--capacity 138000 27000 32 --ann 2048,16`` prices the ML-20M train
-    beside the train's measured torch.cuda.max_memory_allocated;
+    beside the train's measured torch.cuda.max_memory_allocated (``--mesh
+    data=2 --gather-dtype bf16`` prices the 2-rank train, read by
+    :func:`doctor_mesh_check`);
     ``--roofline`` prints B1/B2/B3's bounds at PERF.md's shapes, equal to
     the kernel table's."""
     t0 = time.perf_counter()
@@ -432,9 +446,23 @@ def doctor_phase(torch, procs: dict) -> dict:
              "capacity_total_bytes": capacity["perDeviceBytesTotal"],
              "measured_train_peak_bytes": measured,
              "estimate_over_measured": capacity["capacity"]["per_device_bytes"] / measured,
-             "roofline_bounds_checked": len(TABLE_BOUNDS), "doctor_wait_s": wait}
-    emit_numbers("doctor", **steps)
+             "roofline_bounds_checked": len(TABLE_BOUNDS), "doctor_wait_s": wait,
+             "mesh_capacity": json.loads(outs["capacity_mesh"])["capacity"]}
+    if steps["mesh_capacity"]["n_devices"] != 2:
+        raise AssertionError(f"pio doctor --mesh data=2 priced {steps['mesh_capacity']}")
+    emit_numbers("doctor", **{k: v for k, v in steps.items() if k != "mesh_capacity"})
     return steps
+
+
+def doctor_mesh_check(doctor: dict, ranks: dict) -> None:
+    """pio doctor --capacity 138000 27000 32 --mesh data=2 --gather-dtype
+    bf16 beside each rank's max_memory_allocated in sharded_als's 2-rank
+    train (f32 gathers; the estimate adds the bf16 copies)."""
+    est = doctor["mesh_capacity"]
+    peaks = ranks["sharded_als"].pop("peaks_w2")
+    emit(phase="doctor_mesh", gpu=GPU, per_device_bytes=est["per_device_bytes"],
+         factor_bytes=est["factor_bytes"], workspace_bytes=est["workspace_bytes"],
+         measured_rank_peaks=peaks, estimate_over_measured=[est["per_device_bytes"] / p for p in peaks])
 
 
 def kernel_phase(torch) -> None:
@@ -4238,9 +4266,11 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 1_000
         for u, (status, _, body, _) in zip(users, outs_off):
             if status != 200:
                 raise AssertionError(f"{u} answered {status} with the contract off: {body}")
+        # 20 reference columns: an item tied with the 10th at rounding may take its place
+        wide_scores, wide_ids = model.serving_index().serve_batch(uidx, 20)
         _same_topk(np.asarray([[model.item_index(x["item"]) for x in b["itemScores"]] for _, _, b, _ in outs_off]),
                    np.asarray([[x["score"] for x in b["itemScores"]] for _, _, b, _ in outs_off]),
-                   ref_ids, ref_scores, 1e-5, "answers with the contract off")
+                   wide_ids, wide_scores, 1e-5, "answers with the contract off")
         on.config.feedback = False  # the same server, its feedback POSTs alone off
         outs_nofb, wall_nofb = drive(on_port, tls, qpath, users)
         on.config.feedback = True
@@ -6660,6 +6690,8 @@ def sequential_ann_phase(torch, model, sessions, n_dispatch: int = 12, batch: in
 
 TT_PARALLEL_MESHES = [("data=2,model=1", False, "ring"), ("data=1,model=2", True, "ring"),
                       ("data=1,model=2", True, "ulysses")]
+# half the ML-20M id tables' f32 parameter, gradient and two Adam moments
+TT_HALF_TABLES_BYTES = (138_000 + 27_000) * 64 * 4 * 4 // 2
 
 
 def _rank_job(name: str, n: int, work: str, timeout: float = 600.0) -> tuple[list[dict], float]:
@@ -6739,7 +6771,8 @@ def sharded_als_rank(torch, work: str, n_users: int = 138_000, n_items: int = 27
     return {"rank": rt.rank, "world": rt.world_size, "backend": rt.backend, "device": str(rt.device),
             "spd_cg_launches": launches, "held": held, "data_s": data_s, "train_wall_s": train_wall_s,
             "timings": timings, "heldout_rmse": float(np.sqrt(np.mean((pred - vals[test]) ** 2))),
-            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
 def sharded_als_phase(torch, home: str) -> dict:
@@ -6771,7 +6804,7 @@ def sharded_als_phase(torch, home: str) -> dict:
     steps = {
         "phase_s": time.perf_counter() - t0, "gloo_job_wall_s": gloo_wall, "nccl_job_wall_s": nccl_wall,
         "ranks": [{k: r[k] for k in ("rank", "world", "backend", "device", "spd_cg_launches", "data_s",
-                                     "train_wall_s", "heldout_rmse", "peak_mem_gb")}
+                                     "train_wall_s", "heldout_rmse", "peak_mem_gb", "max_memory_allocated")}
                   | {"gather_s": r["timings"]["gather_s"], "pack_s": r["timings"]["pack_s"],
                      "upload_s": r["timings"]["upload_s"], "device_s": r["timings"]["device_s"],
                      "held": r["held"]} for r in gloo + nccl],
@@ -6789,7 +6822,7 @@ def sharded_als_phase(torch, home: str) -> dict:
             raise AssertionError(f"sharded_als on {r['world']} ranks: held-out RMSE {r['heldout_rmse']}")
     if abs(gloo[0]["heldout_rmse"] - one_rank["rmse"]) > 1e-3 or max(np.median(rel_u), np.median(rel_i)) > 1e-2:
         raise AssertionError(f"2-rank factors against the one-rank train: {steps}")
-    return {"work": work,
+    return {"work": work, "peaks_w2": [r["max_memory_allocated"] for r in gloo],
             "launches": {f"sharded_als_w{r['world']}_rank{r['rank']}": r["spd_cg_launches"] for r in gloo + nccl},
             "rows": [{"systems": f"sharded ALS, rank {r['rank']} of {r['world']}, first {h['side']} solve",
                       "n": h["n"], "f": h["f"], "max_abs_err": h["max_abs_err"],
@@ -6811,8 +6844,15 @@ def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: in
     slice's partial sums where one rank rounds the whole batch's) and its
     updated parameters to it (Adam's first step moves each by about lr,
     whatever the gradient's size: equal within 1e-6 or, where a near-zero
-    gradient's sign flipped, within 2 lr, at most 1 % of them)."""
+    gradient's sign flipped, within 2 lr, at most 1 % of them). On the
+    model=2 meshes the user and item tables are sharded: a shard is held
+    to its rows of the one-rank tensors. Each mesh's parameter, Adam and
+    gradient bytes on this rank (exact nbytes sums; the first two equal to
+    describe_shardings' per-device sum) and its max_memory_allocated; on
+    ulysses one more step through inspect_train_step (its collectives and
+    flags, the model and Adam put back)."""
     from predictionio_tpu_torch.models.twotower import model as M
+    from predictionio_tpu_torch.obs import xray
     from predictionio_tpu_torch.ops import attention as A
     from predictionio_tpu_torch.parallel import distributed
     from predictionio_tpu_torch.parallel.mesh import make_mesh
@@ -6845,6 +6885,7 @@ def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: in
 
     out = {"rank": rt.rank, "world": rt.world_size, "backend": rt.backend, "meshes": []}
     for spec, cp, impl in TT_PARALLEL_MESHES:
+        torch.cuda.reset_peak_memory_stats()
         mesh = make_mesh(spec, "cuda")
         config = M.TwoTowerConfig(n_users=n_users, n_items=n_items, embed_dim=64, hidden=(128,), out_dim=32,
                                   n_heads=2, history_len=256, batch_size=batch, context_parallel=cp, sp_impl=impl)
@@ -6873,9 +6914,30 @@ def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: in
         launches = block.launches
         with torch.no_grad():
             loss_after = float(M.global_batch_loss(model, ub, ib, config.temperature, hist, log_q, mesh))
+        tables = M.sharded_tables(model)
+        rows = {n: slice(m.start, m.start + m.weight.shape[0]) for n, m in tables.items()}
+        param_bytes = sum(p.nbytes for p in model.parameters())
+        adam_bytes = sum(v.nbytes for st in opt.state.values() for v in st.values() if torch.is_tensor(v))
+        grad_bytes = sum(p.grad.nbytes for p in model.parameters())
+        described = sum(e["per_device_bytes"] for e in xray.describe_shardings({"params": model, "opt": opt}, mesh))
+        if described != param_bytes + adam_bytes:
+            raise AssertionError(f"describe_shardings on {spec}: {described} B a rank, the tensors hold "
+                                 f"{param_bytes + adam_bytes}")
         row = {"mesh": spec, "sp_impl": impl if cp else None, "losses": losses, "step_s": step_s,
                "loss_before": loss_before, "loss_after": loss_after, "attention_block_launches": launches,
-               "held": list(held)}
+               "held": list(held), "sharded": sorted(tables),
+               "table_rows": {n: [r.start, r.stop] for n, r in rows.items()},
+               "param_bytes": param_bytes, "adam_bytes": adam_bytes, "grad_bytes": grad_bytes,
+               "max_memory_allocated": torch.cuda.max_memory_allocated()}
+        if cp and impl == "ulysses":  # one more step, counted and put back
+            t0 = time.perf_counter()
+            report = xray.inspect_train_step(step, ub, ib, hist, arg_names=("user_ids", "item_ids", "hist"))
+            flagged = sorted(e["name"] for e in xray.find_replicated(report["arrays"]))
+            row["inspect"] = {"collectives": report["collectives"], "flags": report["flags"],
+                              "flagged": flagged, "seconds": time.perf_counter() - t0}
+            tables_flagged = {"params.user_tower.embed.weight", "params.item_tower.embed.weight"} & set(flagged)
+            if "params.hist_encoder.hist_embed.weight" not in flagged or tables_flagged:
+                raise AssertionError(f"inspect_train_step on {spec}: flags {report['flags']}")
         if not (np.all(np.isfinite(losses)) and loss_after < loss_before):
             raise AssertionError(f"two-tower on {spec} ({row['sp_impl']}): losses {losses}, first batch "
                                  f"{loss_before} -> {loss_after}: not finite and falling")
@@ -6893,11 +6955,12 @@ def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: in
             moved = total = 0
             worst = grad_excess = 0.0
             for n, p in single.named_parameters():
-                diff = (after_one[n] - p.detach()).abs()
+                mine = rows.get(n, slice(None))  # a shard against its rows of the whole table
+                diff = (after_one[n] - p.detach()[mine]).abs()
                 worst = max(worst, float(diff.max()))
                 moved += int((diff > 1e-6).sum())
                 total += diff.numel()
-                g1 = p.grad.detach() if p.grad is not None else torch.zeros_like(p)
+                g1 = (p.grad.detach() if p.grad is not None else torch.zeros_like(p))[mine]
                 gerr = float((grads_one[n] - g1).abs().max())
                 grad_excess = max(grad_excess, gerr / (1e-2 * float(g1.abs().max()) + 1e-6))
             row.update(one_rank_loss=sloss, params_moved_otherwise=moved, params=total, max_param_diff=worst,
@@ -6934,6 +6997,18 @@ def twotower_parallel_phase(torch, home: str) -> dict:
                 m["attention_block_launches"]
         if r["backend"] != "gloo":
             raise AssertionError(f"two ranks on one card ran {r['backend']}, not gloo")
+        # the model=2 meshes hold half of each id table a rank: its parameter,
+        # both Adam moments and its gradient, (138,000 + 27,000) x 64 x 4 B x 4 / 2
+        whole = next(m for m in r["meshes"] if not m["sharded"])
+        for m in r["meshes"]:
+            if m["sharded"]:
+                less = sum(whole[k] - m[k] for k in ("param_bytes", "adam_bytes", "grad_bytes"))
+                m["bytes_less_than_whole_tables"] = less
+                if less != TT_HALF_TABLES_BYTES or sorted(m["sharded"]) != ["item_tower.embed.weight",
+                                                                            "user_tower.embed.weight"]:
+                    raise AssertionError(f"two-tower on {m['mesh']} ({m['sp_impl']}), rank {r['rank']}: "
+                                         f"{less} B less than whole tables, {TT_HALF_TABLES_BYTES} expected; "
+                                         f"sharded {m['sharded']}")
     emit(phase="twotower_parallel", gpu=GPU, job_wall_s=wall, phase_s=time.perf_counter() - t0, ranks=ranks)
     return {"work": work, "launches": launches,
             "rows": [{"systems": f"two-tower {m['mesh']} {m['sp_impl']}, rank {r['rank']}", **h}
@@ -7018,15 +7093,258 @@ def sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 2
     return {"launches": {f"sharded_cli_rank{r}": c["spd_cg"] for r, c in enumerate(launches)}}
 
 
+# the two-tower CLI on ranks: one bf16 ulp of a unit vector's entries, at
+# which the served and the in-process scores may part (the user tower's
+# bf16 products are cuBLAS calls of the micro-batch's shape)
+TT_CLI_SCORE_ATOL = 2.0 ** -7
+
+
+def _tt_answers_held(got: list, ref: list, what: str) -> int:
+    """Each served answer (item, score) against the in-process answer of
+    the persisted model at a deeper k: the scores within
+    TT_CLI_SCORE_ATOL of the reference's top scores, and every served item
+    one the reference scores at least its k-th score less that tolerance
+    (ties and near-ties may trade places). Returns the answers held."""
+    for g, r in zip(got, ref):
+        k = len(g)
+        if k != min(10, len(r)):
+            raise AssertionError(f"{what}: {k} items served, the reference has {len(r)}")
+        gs, rs = np.asarray([x["score"] for x in g]), np.asarray([x["score"] for x in r])
+        if not np.allclose(gs, rs[:k], rtol=0, atol=TT_CLI_SCORE_ATOL):
+            raise AssertionError(f"{what}: scores {gs} against {rs[:k]}")
+        floor = rs[k - 1] - TT_CLI_SCORE_ATOL
+        allowed = {x["item"]: x["score"] for x in r if x["score"] >= floor}
+        for x in g:
+            if x["item"] not in allowed or abs(allowed[x["item"]] - x["score"]) > TT_CLI_SCORE_ATOL:
+                raise AssertionError(f"{what}: served {x} outside the reference's {sorted(allowed)}")
+    return len(got)
+
+
+def twotower_sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 200,
+                               epochs: int = 2) -> dict:
+    """pio train --num-hosts 2 of the two-tower template with mesh
+    data=1,model=2 (its id tables sharded over the two ranks, contextParallel
+    off: each rank attends the whole batch through B2), historyLen 256,
+    batch 4096, on an ML-100K-shape view file: 944 users (the JAX
+    placement refuses 943 over model=2) x 1,682 items x 100,000 views,
+    every user and item seen. The coordinator alone records the instance
+    (each rank's B2 launches: one a step) and the model, whose tables are
+    whole. Then a single-process pio deploy (its B2 launches counted at
+    exit) and 200 POST /queries.json from 8 clients, each answered 200 and
+    held to the in-process answer of the persisted model
+    (:func:`_tt_answers_held`); an unknown user's empty."""
+    from predictionio_tpu_torch.models.twotower import engine as tt
+    from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.workflow import model_io
+
+    t_phase = time.perf_counter()
+    n_users, n_items, n_views, batch = 944, 1682, 100_000, 4096
+    users, items, _ = synthesize_ratings(n_users, n_items, n_views, seed=8)
+    users[:n_items], items[:n_items] = np.arange(n_items) % n_users, np.arange(n_items)
+    work = tempfile.mkdtemp(prefix="pio_smoke_tt_sharded_", dir=home)
+    events = os.path.join(work, "events.jsonl")
+    with open(events, "w") as fh:
+        for k, (u, i) in enumerate(zip(users.tolist(), items.tolist())):
+            fh.write(json.dumps({
+                "event": "view", "entityType": "user", "entityId": f"u{u}",
+                "targetEntityType": "item", "targetEntityId": f"i{i}",
+                "eventTime": f"2024-01-01T{k // 360000 % 24:02d}:{k // 6000 % 60:02d}:{k // 100 % 60:02d}."
+                             f"{k % 100:03d}Z",
+            }) + "\n")
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    params = {"embedDim": 64, "hidden": [128], "outDim": 32, "epochs": epochs, "batchSize": batch,
+              "historyLen": 256, "nHeads": 2, "mesh": "data=1,model=2", "contextParallel": False, "seed": 3}
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump({"id": "smoke-twotower-sharded",
+                   "engineFactory": "predictionio_tpu_torch.models.twotower.engine.engine_factory",
+                   "datasource": {"params": {"appName": "ttshardapp"}},
+                   "algorithms": [{"name": "twotower", "params": params}]}, fh)
+    home_cli = os.path.join(work, "home")
+    cli, env, run = _cli(home_cli)
+    steps = {"app_new_s": run("app", "new", "ttshardapp"),
+             "import_s": run("import", "--appname", "ttshardapp", "--input", events),
+             "train_s": run("train", "--engine-dir", engine_dir, "--device", device, "--num-hosts", "2")}
+    storage = smoke_storage(home_cli)
+    instances = storage.get_meta_data_engine_instances().get_all()
+    if len(instances) != 1 or instances[0].status != "COMPLETED":
+        raise AssertionError(f"pio train --num-hosts 2 recorded {[(i.id, i.status) for i in instances]}")
+    launches = json.loads(instances[0].spark_conf["kernel_launches"])
+    want = epochs * (n_views // batch)
+    if device == "cuda" and [r["attention_block"] for r in launches] != [want, want]:
+        raise AssertionError(f"B2 launches by rank {launches}: {want} on each of 2 ranks expected")
+    (model,) = model_io.deserialize_models(storage.get_model_data_models().get(instances[0].id).models)
+    shapes = {k: list(np.shape(model.params[k])) for k in ("user_tower.embed.weight", "item_tower.embed.weight")}
+    if shapes != {"user_tower.embed.weight": [n_users, 64], "item_tower.embed.weight": [n_items, 64]}:
+        raise AssertionError(f"the persisted tables are not whole: {shapes}")
+    report = os.path.join(work, "deploy_report.json")
+    port = _free_port()
+    with open(os.path.join(work, "deploy.err"), "w") as err:
+        server = subprocess.Popen([sys.executable, "-c", _CLI_LAUNCHER, report, "--home", home_cli, "deploy",
+                                   "--engine-dir", engine_dir, "--device", device, "--ip", "127.0.0.1",
+                                   "--port", str(port)], env=env, stdout=subprocess.DEVNULL, stderr=err)
+    base = f"http://127.0.0.1:{port}"
+    t0 = time.perf_counter()
+    try:
+        while True:
+            if server.poll() is not None:
+                with open(os.path.join(work, "deploy.err")) as fh:
+                    raise AssertionError(f"deploy exited {server.returncode}: {fh.read()[-3000:]}")
+            try:
+                if _http(base + "/", timeout=2)[0] == 200:
+                    break
+            except (urllib.error.URLError, ConnectionError, TimeoutError):
+                pass
+            if time.perf_counter() - t0 > 180:
+                raise AssertionError("deploy did not answer GET / within 180 s")
+            time.sleep(0.2)
+        steps["deploy_ready_s"] = time.perf_counter() - t0
+        asked = [f"u{u}" for u in np.random.default_rng(6).integers(0, n_users, n_queries)]
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            outs = list(pool.map(lambda u: _http(base + "/queries.json", {"user": u, "num": 10}), asked))
+        status, body, _ = _http(base + "/queries.json", {"user": "no-such-user", "num": 5})
+        if status != 200 or body != {"itemScores": []}:
+            raise AssertionError(f"unknown user answered {status} {body}")
+        _, st, _ = _http(base + "/")
+    finally:
+        _stop(server)
+    with open(report) as fh:
+        server_launches = json.load(fh)["launches"]
+    for u, (status, body, _) in zip(asked, outs):
+        if status != 200:
+            raise AssertionError(f"query for {u} answered {status}")
+    # the persisted model in this process, on the card, at a deeper k
+    model.device = device
+    algo = tt.TwoTowerAlgorithm(tt.TwoTowerAlgorithmParams())
+    A.fused_attention_block.launches = 0
+    ref = algo.predict_batch(model, [tt.Query(u, 20) for u in asked])
+    inprocess_launches = A.fused_attention_block.launches
+    held = _tt_answers_held([b["itemScores"] for _, b, _ in outs],
+                            [[{"item": x.item, "score": x.score} for x in r.item_scores] for r in ref],
+                            "twotower_sharded_cli: an answer is not the persisted model's")
+    if device == "cuda" and not (server_launches["attention_block"] >= st["batches"] > 0
+                                 and inprocess_launches >= 1):
+        raise AssertionError(f"B2 on the server: {server_launches} for {st['batches']} batches; "
+                             f"in-process {inprocess_launches}")
+    lat_ms = np.asarray([dt for _, _, dt in outs]) * 1e3
+    steps.update(queries=len(asked), all_200=True, answers_held=held, p50_ms=float(np.percentile(lat_ms, 50)),
+                 launches_by_rank=launches, server_launches=server_launches, server_batches=st["batches"],
+                 train_wall_clock_s=float(instances[0].spark_conf["train_wall_clock_sec"]),
+                 phase_s=time.perf_counter() - t_phase)
+    emit(phase="twotower_sharded_cli", gpu=GPU, shape=[n_users, n_items, n_views], **steps)
+    shutil.rmtree(work, ignore_errors=True)
+    return {"launches": {**{f"twotower_sharded_cli_rank{r}": c["attention_block"] for r, c in enumerate(launches)},
+                         "twotower_sharded_cli_serve": server_launches["attention_block"]}}
+
+
+# one line a statement: code.interact (without IPython) prompts again on a continuation
+SHELL_SCRIPT = """import sys
+names = dir()
+print("BOUND", sorted(n for n in names if n in ("storage", "p_event_store", "l_event_store", "Event", "DataMap", "CleanupFunctions", "torch", "device")))
+print("JAX", any(m.split(".")[0] in ("jax", "predictionio_tpu") for m in sys.modules))
+x = torch.ones(3, device=device)
+print("CUDA", torch.cuda.is_initialized(), str(x.device))
+CleanupFunctions.add(lambda: print("HOOK ran"))
+"""
+
+
+def _gone(pid: int) -> bool:
+    """A process that has exited (gone, or a zombie its new parent has not
+    reaped yet)."""
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] == "Z"
+    except FileNotFoundError:
+        return True
+
+
+def tools_cli_phase(home: str) -> dict:
+    """The small verbs through the CLI: build and unregister of an engine
+    directory (the JAX package's texts), start-all (the event server, the
+    admin server and the dashboard answer GET /) then stop-all (no process
+    of theirs left), and pio shell fed a script on the card and with
+    --device cpu (the card hidden: CUDA not initialised)."""
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="pio_smoke_tools_", dir=home)
+    cli, env, _ = _cli(os.path.join(work, "home"))
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump({"id": "smoke-tools", "engineFactory": "predictionio_tpu.models.recommendation.engine_factory",
+                   "datasource": {"params": {"appName": "toolsapp"}},
+                   "algorithms": [{"name": "als", "params": {"rank": 4}}]}, fh)
+
+    def verb(*args, stdin=None, timeout=120):
+        proc = subprocess.run([*cli, *args], env=env, input=stdin, capture_output=True, text=True,
+                              timeout=timeout)
+        if proc.returncode != 0:
+            raise AssertionError(f"pio {args[0]} exited {proc.returncode}: {proc.stderr[-2000:]}")
+        return proc.stdout
+
+    texts = {"build": verb("build", "--engine-dir", engine_dir), "unregister": verb("unregister", "--engine-dir",
+                                                                                       engine_dir)}
+    want = {"build": "Engine smoke-tools is ready (factory predictionio_tpu.models.recommendation.engine_factory).\n",
+            "unregister": "Nothing to unregister: engines are not registered. An engine is just its directory "
+                          f"({engine_dir}); remove the directory (or its trained instances via the metadata "
+                          "store) instead.\n"}
+    if texts != want:
+        raise AssertionError(f"build / unregister printed {texts}")
+    ports = [_free_port() for _ in range(3)]
+    out = verb("start-all", "--eventserver-port", str(ports[0]), "--adminserver-port", str(ports[1]),
+               "--dashboard-port", str(ports[2]))
+    pids = [int(line.split("pid ")[1].rstrip(")")) for line in out.splitlines() if line.startswith("started")]
+    ready = {}
+    try:
+        t0 = time.perf_counter()
+        for name, port in zip(("eventserver", "adminserver", "dashboard"), ports):
+            while True:
+                try:  # the dashboard answers HTML
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}/", timeout=2) as resp:
+                        if resp.status == 200:
+                            ready[name] = time.perf_counter() - t0
+                            break
+                except (urllib.error.URLError, ConnectionError, TimeoutError):
+                    pass
+                if time.perf_counter() - t0 > 120:
+                    raise AssertionError(f"start-all: {name} did not answer GET / within 120 s")
+                time.sleep(0.2)
+    finally:
+        verb("stop-all")
+    t0 = time.perf_counter()
+    while not all(_gone(pid) for pid in pids):
+        if time.perf_counter() - t0 > 30:
+            raise AssertionError(f"stop-all left {[pid for pid in pids if not _gone(pid)]}")
+        time.sleep(0.2)
+    stopped_s = time.perf_counter() - t0
+    shells = {}
+    for dev in ("cuda", "cpu"):
+        # a line's REPL prompts ("In [2]: ", ">>> ") stand before what the script printed
+        shells[dev] = [ln[min(i for i in (ln.find(k + " ") for k in ("BOUND", "JAX", "CUDA", "HOOK")) if i >= 0):]
+                       for ln in verb("shell", "--device", dev, stdin=SHELL_SCRIPT).splitlines()
+                       if any(k + " " in ln for k in ("BOUND", "JAX", "CUDA", "HOOK"))]
+    bound = ("BOUND ['CleanupFunctions', 'DataMap', 'Event', 'device', 'l_event_store', 'p_event_store', "
+             "'storage', 'torch']")
+    for dev, cuda in (("cuda", "CUDA True cuda:0"), ("cpu", "CUDA False cpu")):
+        if shells[dev] != [bound, "JAX False", cuda, "HOOK ran"]:
+            raise AssertionError(f"pio shell --device {dev} printed {shells[dev]}")
+    steps = {"services_ready_s": ready, "services_stopped_s": stopped_s, "pids": pids,
+             "shell": shells, "phase_s": time.perf_counter() - t_phase}
+    emit(phase="tools_cli", gpu=GPU, **steps)
+    shutil.rmtree(work, ignore_errors=True)
+    return steps
+
+
 RANK_PHASES = {"sharded_als": sharded_als_rank, "twotower_parallel": twotower_parallel_rank}
 
 
 def rank_phases(torch, home: str) -> dict:
-    """The three phases of more than one rank, one after another (run
-    beside the main thread's phases: their ranks are processes of their
-    own)."""
+    """The four phases of more than one rank and the small verbs, one after
+    another (run beside the main thread's phases: their ranks and verbs
+    are processes of their own)."""
     return {"sharded_cli": sharded_cli_phase(torch, home), "sharded_als": sharded_als_phase(torch, home),
-            "twotower_parallel": twotower_parallel_phase(torch, home)}
+            "twotower_parallel": twotower_parallel_phase(torch, home),
+            "twotower_sharded_cli": twotower_sharded_cli_phase(torch, home),
+            "tools_cli": tools_cli_phase(home)}
 
 
 def rank_kernel_times(torch, ranks: dict) -> None:
@@ -7099,7 +7417,7 @@ def main() -> int:
         _, kernel = real_system_check(torch, td, model, params, launches)
         doctor = doctor_start(os.path.join(home, "doctor"))
         cli_serve_phase(os.path.join(home, "cli"))
-        doctor_phase(torch, doctor)
+        doctor = doctor_phase(torch, doctor)
         # the phases of more than one rank start their own processes: they
         # run beside the phases up to the bandit's (whose latency veto must
         # not read another process's load on the card, and the fleet counts
@@ -7119,6 +7437,7 @@ def main() -> int:
         ranks = ranks_future.result()
         ranks_pool.shutdown()
         rank_kernel_times(torch, ranks)
+        doctor_mesh_check(doctor, ranks)
         bandit_inprocess_phase(torch, foldin)
         fleet_cli_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
@@ -7175,7 +7494,8 @@ def main() -> int:
                                      twotower_ann=tt_ann["attention_block_launches"],
                                      **seq_bp["launches"]["attention_block"],
                                      **seq_ann["launches"]["attention_block"],
-                                     **ranks["twotower_parallel"]["launches"])
+                                     **ranks["twotower_parallel"]["launches"],
+                                     **ranks["twotower_sharded_cli"]["launches"])
     block["launches"] = sum(block["launches_by_path"].values())
     block["other_shapes"] = b2_rows + [r for r in wide_rows if r["kernel"] == "attention_block"] \
         + [r for r in seq_bp["rows"] if r["kernel"] == "attention_block"] + ranks["twotower_parallel"]["rows"]
@@ -7199,6 +7519,10 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    # a crash of this process or of any it starts (they inherit the
+    # environment) leaves its stack on stderr
+    faulthandler.enable()
+    os.environ["PYTHONFAULTHANDLER"] = "1"
     if sys.argv[1:2] == ["--rank-phase"]:
         sys.exit(rank_phase_main(sys.argv[2:]))
     sys.exit(main())

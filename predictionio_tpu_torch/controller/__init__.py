@@ -2,6 +2,8 @@
 
 from predictionio_tpu_torch.controller.algorithm import (
     LocalAlgorithm,
+    PersistentModel,
+    PersistentModelManifest,
     TorchAlgorithm,
     model_to_host,
 )
@@ -11,18 +13,21 @@ from predictionio_tpu_torch.controller.base import (
     BasePreparator,
     BaseServing,
     Doer,
+    IdentityPreparator,
     SanityCheck,
 )
-from predictionio_tpu_torch.controller.engine import Engine, EngineParams, TrainOptions
+from predictionio_tpu_torch.controller.engine import Engine, EngineFactory, EngineParams, TrainOptions
 from predictionio_tpu_torch.controller.params import (
     EmptyParams,
     Params,
     ParamsError,
     params_from_dict,
+    params_from_json,
 )
-from predictionio_tpu_torch.controller.serving import FirstServing
+from predictionio_tpu_torch.controller.serving import AverageServing, FirstServing
 
 __all__ = [
+    "AverageServing",
     "BaseAlgorithm",
     "BaseDataSource",
     "BasePreparator",
@@ -30,14 +35,19 @@ __all__ = [
     "Doer",
     "EmptyParams",
     "Engine",
+    "EngineFactory",
     "EngineParams",
     "FirstServing",
+    "IdentityPreparator",
     "LocalAlgorithm",
     "Params",
     "ParamsError",
+    "PersistentModel",
+    "PersistentModelManifest",
     "SanityCheck",
     "TorchAlgorithm",
     "TrainOptions",
     "model_to_host",
     "params_from_dict",
+    "params_from_json",
 ]

@@ -37,3 +37,31 @@ class TorchAlgorithm(BaseAlgorithm[PD, M, Q, P], Generic[PD, M, Q, P]):
 class LocalAlgorithm(BaseAlgorithm[PD, M, Q, P], Generic[PD, M, Q, P]):
     """Host-only algorithm (ref LAlgorithm): pure Python/NumPy train and
     predict, no device interaction."""
+
+
+class PersistentModel:
+    """Models managing their own storage (ref PersistentModel.scala:115).
+
+    A model class implementing ``save``/``load`` is persisted by calling
+    ``save`` and recording a manifest; at deploy, ``load`` rebuilds it.
+    """
+
+    def save(self, instance_id: str, params: Any, base_dir: str) -> bool:
+        """Persist; return False to fall back to the default host-numpy
+        persistence."""
+        raise NotImplementedError
+
+    @classmethod
+    def load(cls, instance_id: str, params: Any, base_dir: str) -> "PersistentModel":
+        raise NotImplementedError
+
+
+class PersistentModelManifest:
+    """Marker stored in the model repository instead of bytes
+    (ref workflow/PersistentModelManifest.scala)."""
+
+    def __init__(self, class_path: str):
+        self.class_path = class_path
+
+    def to_json_dict(self) -> dict[str, str]:
+        return {"class_path": self.class_path}

@@ -66,6 +66,13 @@ class BasePreparator(_Component, Generic[TD, PD]):
         raise NotImplementedError
 
 
+class IdentityPreparator(BasePreparator[TD, TD]):
+    """Pass-through preparator (ref IdentityPreparator.scala:91)."""
+
+    def prepare(self, ctx: WorkflowContext, training_data: TD) -> TD:
+        return training_data
+
+
 class BaseAlgorithm(_Component, Generic[PD, M, Q, P]):
     """The train/predict contract plus model-persistence hooks."""
 

@@ -270,3 +270,15 @@ class Engine(Generic[TD, EI, PD, Q, P, A]):
             ),
             "serving_params": dump(engine_params.serving[1]),
         }
+
+
+class EngineFactory:
+    """ref EngineFactory.scala:44 — a callable returning an Engine. Engine
+    templates expose a module-level ``engine_factory()`` function or subclass
+    this."""
+
+    def apply(self) -> Engine:
+        raise NotImplementedError
+
+    def __call__(self) -> Engine:
+        return self.apply()

@@ -127,3 +127,7 @@ def params_from_dict(cls: Type[P], data: Mapping[str, Any] | None) -> P:
             f"{cls.__name__}: unknown fields {sorted(data)} (known: {sorted(field_names)})"
         )
     return cls(**kwargs)  # type: ignore[return-value]
+
+
+def params_from_json(cls: Type[P], text: str) -> P:
+    return params_from_dict(cls, json.loads(text) if text.strip() else {})

@@ -12,3 +12,10 @@ class FirstServing(BaseServing[Q, P]):
 
     def serve(self, query: Q, predictions: Sequence[P]) -> P:
         return predictions[0]
+
+
+class AverageServing(BaseServing[Q, P]):
+    """Average numeric predictions across algorithms (ref LAverageServing)."""
+
+    def serve(self, query: Q, predictions: Sequence[P]) -> P:
+        return sum(predictions) / len(predictions)  # type: ignore[return-value]

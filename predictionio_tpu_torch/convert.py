@@ -12,6 +12,7 @@ without importing the JAX package or flax.
 from __future__ import annotations
 
 import pickle
+import re
 from typing import Sequence
 
 import numpy as np
@@ -161,36 +162,85 @@ def is_flax_tree(params) -> bool:
     return isinstance(params, dict) and any(isinstance(v, dict) for v in params.values())
 
 
+def _flax_path(name: str) -> tuple[tuple[str, ...], bool]:
+    """The flax path of a port TwoTower parameter and whether its layout
+    is transposed: an Embedding ``weight`` is the Embed's ``embedding``, a
+    Linear ``weight`` [out, in] the Dense ``kernel`` [in, out], a
+    LayerNorm ``weight`` its ``scale``; ``pos`` and biases carry over."""
+    parts = re.sub(r"\.dense\.(\d+)\.", r".dense_\1.", name).split(".")
+    leaf = parts[-1]
+    module = parts[-2] if len(parts) > 1 else ""
+    if leaf == "weight" and module in ("embed", "hist_embed"):
+        return (*parts[:-1], "embedding"), False
+    if leaf == "weight" and module == "ln":
+        return (*parts[:-1], "scale"), False
+    if leaf == "weight":
+        return (*parts[:-1], "kernel"), True
+    return tuple(parts), False
+
+
+def _flax_leaves(params, prefix: tuple[str, ...] = ()):
+    for k, v in params.items():
+        if isinstance(v, dict):
+            yield from _flax_leaves(v, (*prefix, k))
+        else:
+            yield (*prefix, k), v
+
+
+def _port_name(path: tuple[str, ...]) -> str:
+    """The port name of a flax path (the inverse of :func:`_flax_path`)."""
+    *mods, leaf = path
+    mods = [f"dense.{m[len('dense_'):]}" if m.startswith("dense_") else m for m in mods]
+    leaf = {"embedding": "weight", "kernel": "weight", "scale": "weight"}.get(leaf, leaf)
+    return ".".join([*mods, leaf])
+
+
 def twotower_params_from_numpy(params) -> dict[str, np.ndarray]:
     """The port's TwoTower ``state_dict`` (numpy) from the JAX package's
     flax tree in numpy: an Embed's ``embedding`` is the Embedding
     ``weight``; a Dense ``kernel`` [in, out] becomes the Linear ``weight``
-    [out, in]; ``pos`` and LayerNorm ``scale``/``bias`` carry over."""
-
-    def arr(x) -> np.ndarray:
-        return np.array(x, dtype=np.float32, order="C")  # an owned, writable copy
-
-    def dense(prefix: str, node) -> dict[str, np.ndarray]:
-        return {f"{prefix}.weight": arr(np.asarray(node["kernel"]).T), f"{prefix}.bias": arr(node["bias"])}
-
-    out: dict[str, np.ndarray] = {}
-    for tower in ("user_tower", "item_tower"):
-        node = params[tower]
-        out[f"{tower}.embed.weight"] = arr(node["embed"]["embedding"])
-        i = 0
-        while f"dense_{i}" in node:
-            out.update(dense(f"{tower}.dense.{i}", node[f"dense_{i}"]))
-            i += 1
-        out.update(dense(f"{tower}.out", node["out"]))
-    if "hist_encoder" in params:
-        node = params["hist_encoder"]
-        out["hist_encoder.hist_embed.weight"] = arr(node["hist_embed"]["embedding"])
-        out["hist_encoder.pos"] = arr(node["pos"])
-        out["hist_encoder.ln.weight"] = arr(node["ln"]["scale"])
-        out["hist_encoder.ln.bias"] = arr(node["ln"]["bias"])
-        for name in ("q", "k", "v", "proj"):
-            out.update(dense(f"hist_encoder.{name}", node[name]))
+    [out, in]; ``pos`` and LayerNorm ``scale``/``bias`` carry over. The
+    tables are whole; :func:`load_twotower_params` gives a sharded model
+    its rows."""
     known = {"user_tower", "item_tower", "hist_encoder"}
     if set(params) - known:
         raise ValueError(f"unknown two-tower parameter groups {sorted(set(params) - known)}")
+    out: dict[str, np.ndarray] = {}
+    for path, leaf in _flax_leaves(params):
+        name = _port_name(path)
+        a = np.asarray(leaf)
+        # an owned, writable copy
+        out[name] = np.array(a.T if _flax_path(name)[1] else a, dtype=np.float32, order="C")
     return out
+
+
+def twotower_key_map(state) -> dict[str, tuple[str, ...]]:
+    """Port parameter name -> flax path, for every name of ``state`` (a
+    port ``state_dict`` or a model's ``named_parameters`` names)."""
+    return {name: _flax_path(name)[0] for name in state}
+
+
+def load_twotower_params(model, params) -> None:
+    """Load a whole parameter tree (the JAX package's flax tree, or the
+    port's whole ``state_dict``) into a TwoTower, sharded or not: a
+    sharded table takes this rank's rows."""
+    from predictionio_tpu_torch.models.twotower.model import load_whole_state_dict
+
+    load_whole_state_dict(model, twotower_params_from_numpy(params) if is_flax_tree(params) else params)
+
+
+def twotower_params_to_numpy(model) -> dict:
+    """The JAX package's flax tree (numpy, whole tables) of a TwoTower,
+    sharded or not; on a sharded model every rank of its ``model`` axis
+    must call it (the tables are gathered)."""
+    from predictionio_tpu_torch.models.twotower.model import gather_state_dict
+
+    tree: dict = {}
+    for name, t in gather_state_dict(model).items():
+        path, transposed = _flax_path(name)
+        a = t.detach().cpu().numpy()
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = np.ascontiguousarray(a.T if transposed else a)
+    return tree

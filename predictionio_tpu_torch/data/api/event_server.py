@@ -718,3 +718,17 @@ def create_event_server(
     config: EventServerConfig | None = None, storage: Storage | None = None
 ) -> EventServer:
     return EventServer(storage=storage, config=config)
+
+
+def run_event_server(config: EventServerConfig | None = None, storage: Storage | None = None) -> None:
+    """Blocking entry point (ref EventServer.createEventServer): serve on
+    ``storage`` (default ``Storage.instance()``) until SIGINT or SIGTERM.
+    Call from the main thread."""
+    from predictionio_tpu_torch.utils.platform import wait_for_signal
+
+    server = EventServer(storage=storage or Storage.instance(), config=config or EventServerConfig())
+    server.start()
+    try:
+        wait_for_signal()
+    finally:
+        server.shutdown()

@@ -113,7 +113,7 @@ class Event:
 
 
 def validate(e: Event) -> None:
-    """The event API's validation rules."""
+    """The event API's validation rules (:class:`EventValidation`)."""
 
     def require(cond: bool, msg: str) -> None:
         if not cond:
@@ -157,3 +157,29 @@ def validate(e: Event) -> None:
             not _reserved(k),
             f"The property {k} is not allowed. 'pio_' is a reserved name prefix.",
         )
+
+
+class EventValidation:
+    """The validation rules under the JAX package's class (ref
+    Event.scala:112-166); ``validate`` is :func:`validate`."""
+
+    DEFAULT_TZ = UTC
+    SPECIAL_EVENTS = SPECIAL_EVENTS
+    BUILTIN_ENTITY_TYPES = BUILTIN_ENTITY_TYPES
+    BUILTIN_PROPERTIES: frozenset[str] = frozenset()
+
+    @classmethod
+    def is_reserved_prefix(cls, name: str) -> bool:
+        return _reserved(name)
+
+    @classmethod
+    def is_special_event(cls, name: str) -> bool:
+        return name in cls.SPECIAL_EVENTS
+
+    @classmethod
+    def is_builtin_entity_type(cls, name: str) -> bool:
+        return name in cls.BUILTIN_ENTITY_TYPES
+
+    @classmethod
+    def validate(cls, e: Event) -> None:
+        validate(e)

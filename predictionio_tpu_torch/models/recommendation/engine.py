@@ -314,7 +314,7 @@ class ALSAlgorithm(TorchAlgorithm):
             # the train spreads across (pio doctor --capacity answers it)
             self.timings["estimate"] = xray.estimate_factors(
                 len(pd.user_vocab), len(pd.item_vocab), self.params.rank,
-                n_devices=ctx.mesh.size if self.params.distributed else 1,
+                mesh=ctx.mesh.size if self.params.distributed else 1,
                 nnz=int(pd.user_idx.shape[0]), gather_dtype=self.params.gather_dtype,
             ).to_json_dict()
         if self.params.distributed and distributed.runtime() is not None:

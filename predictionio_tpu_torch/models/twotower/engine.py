@@ -13,7 +13,10 @@ embedding feeds the clustered search instead of the corpus-wide product.
 
 ``mesh`` spreads the train over the job's ranks (``parallel.mesh``; its
 size must be the number of ranks); without one, every rank of a job on
-one ``data`` axis, and one device alone.
+one ``data`` axis, and one device alone. A ``model`` axis of more than one
+rank shards the user and item id tables over it, with or without
+``contextParallel``, as the JAX template's mesh does; the persisted model
+holds them whole.
 """
 
 from __future__ import annotations
@@ -125,7 +128,8 @@ class TwoTowerAlgorithmParams(Params):
     batch_size: int = 4096
     epochs: int = 5
     seed: int = 0
-    # e.g. "data=-1,model=2" over the job's ranks; empty = every rank on data
+    # e.g. "data=-1,model=2" over the job's ranks (model > 1 shards the id
+    # tables); empty = every rank on data
     mesh: str = ""
     # sequence encoder over each user's recent item history (kernel B2 on
     # the card, ops/attention.py); 0 disables

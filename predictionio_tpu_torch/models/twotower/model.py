@@ -23,10 +23,18 @@ so that every rank computes the one in-batch softmax over the global
 batch, as the JAX loss does; with ``context_parallel`` the history
 encoder's attention shards the history over ``model`` (ring or ulysses,
 ``ops.attention``) and gathers its output back. Every rank computes the
-same loss, so each backpropagates a 1/ranks share of it and the summed
-gradients are the one-rank step's. The embedding tables stay whole on
-every rank; the JAX package shards them over ``model`` (memory, not
-math). Initialisation draws from a ``torch.Generator`` seeded by
+same loss, so each backpropagates a 1/ranks share of it. The user and item
+towers' id tables are sharded over ``model`` along the vocabulary, as the
+JAX package's ``param_sharding_tree`` places them (a 2-D leaf under a key
+``embed``; ``hist_embed`` and ``pos`` stay whole): the rank at ``model``
+index r holds rows [r·V/M, (r+1)·V/M) (:class:`ShardedEmbedding`), looks
+up the ids that fall there, writes zeros elsewhere and sums over
+``model``. A shard's gradient is summed over ``data``, every whole
+parameter's over every rank, so every rank takes the one-rank step; Adam
+keeps each shard's moments on its rank. The parameters a train returns,
+and its checkpoints, hold the whole tables (gathered over ``model``), so a
+model trained sharded loads mesh-less for serving. Initialisation draws
+from a ``torch.Generator`` seeded by
 ``config.seed`` with flax's distributions; it does not give
 ``jax.random``'s numbers, so parity tests carry a JAX init over with
 ``convert.twotower_params_from_numpy``.
@@ -48,8 +56,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from predictionio_tpu_torch.ops.attention import fused_attention, ring_attention, ulysses_attention
-from predictionio_tpu_torch.parallel.collectives import all_gather_grad, all_reduce_sum
-from predictionio_tpu_torch.parallel.mesh import Mesh
+from predictionio_tpu_torch.parallel.collectives import all_gather, all_gather_grad, all_reduce_grad, all_reduce_sum
+from predictionio_tpu_torch.parallel.mesh import Mesh, ShardSpec
 from predictionio_tpu_torch.utils.device import resolve_device
 
 logger = logging.getLogger(__name__)
@@ -170,10 +178,48 @@ class SeqEncoder(nn.Module):
         return (out * w).sum(dim=1) / denom
 
 
-class Tower(nn.Module):
-    def __init__(self, vocab: int, embed_dim: int, hidden: tuple[int, ...], out_dim: int):
+class ShardedEmbedding(nn.Module):
+    """An id table of ``vocab`` rows sharded over ``mesh``'s ``axis`` along
+    the vocabulary (``P(axis, None)``): this rank's ``weight`` is rows
+    [start, start + vocab/M) of the whole table. A lookup gathers the ids
+    that fall in those rows, writes zeros for the rest and sums over the
+    axis (with gradients), so every rank gets the whole table's rows. A
+    vocabulary the axis does not divide is refused, as ``jax.device_put``
+    refuses that placement."""
+
+    def __init__(self, vocab: int, embed_dim: int, mesh: Mesh, axis: str = "model", name: str = "embed"):
         super().__init__()
-        self.embed = nn.Embedding(vocab, embed_dim)
+        n = mesh.axis_size(axis)
+        if vocab % n:
+            raise ValueError(
+                f"{name}: a vocabulary of {vocab} rows cannot be sharded over mesh axis {axis}={n}: "
+                f"the global size of its dimension 0 should be divisible by {n}"
+            )
+        rows = vocab // n
+        self.mesh, self.axis = mesh, axis
+        self.start = mesh.axis_index(axis) * rows
+        self.weight = nn.Parameter(torch.empty(rows, embed_dim))
+        # the placement, read by obs.xray.describe_shardings
+        self.weight.shard_spec = ShardSpec(axis=axis, dim=0, global_shape=(vocab, embed_dim), start=self.start)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        local = ids - self.start
+        mine = (local >= 0) & (local < self.weight.shape[0])
+        rows = F.embedding(torch.where(mine, local, 0), self.weight)
+        return all_reduce_grad(torch.where(mine[..., None], rows, 0.0), self.mesh, self.axis)
+
+
+def sharded_tables(model: nn.Module) -> dict[str, ShardedEmbedding]:
+    """Parameter name -> its ShardedEmbedding, for every sharded table."""
+    return {f"{name}.weight": m for name, m in model.named_modules() if isinstance(m, ShardedEmbedding)}
+
+
+class Tower(nn.Module):
+    def __init__(self, vocab: int, embed_dim: int, hidden: tuple[int, ...], out_dim: int,
+                 mesh: Mesh | None = None, name: str = "embed"):
+        super().__init__()
+        sharded = mesh is not None and mesh.axis_size("model") > 1
+        self.embed = ShardedEmbedding(vocab, embed_dim, mesh, name=name) if sharded else nn.Embedding(vocab, embed_dim)
         widths = [embed_dim, *hidden]
         self.dense = nn.ModuleList(nn.Linear(a, b) for a, b in zip(widths, widths[1:]))
         self.out = nn.Linear(widths[-1], out_dim)
@@ -190,16 +236,19 @@ class Tower(nn.Module):
 
 
 class TwoTower(nn.Module):
-    """``mesh``: the ranks the history encoder's sequence parallelism
-    spreads over (with ``config.context_parallel``); attention carries no
-    parameters, so a model trained so loads mesh-less for serving."""
+    """``mesh``: the ranks the model spreads over. With ``model`` > 1 the
+    towers' id tables are sharded over it; with ``config.context_parallel``
+    the history encoder's sequence parallelism rides it too. The whole
+    parameters (:func:`gather_state_dict`) load into a mesh-less model for
+    serving."""
 
     def __init__(self, config: TwoTowerConfig, mesh: Mesh | None = None):
         super().__init__()
         c = config
         self.config = c
-        self.user_tower = Tower(c.n_users, c.embed_dim, c.hidden, c.out_dim)
-        self.item_tower = Tower(c.n_items, c.embed_dim, c.hidden, c.out_dim)
+        self.mesh = mesh
+        self.user_tower = Tower(c.n_users, c.embed_dim, c.hidden, c.out_dim, mesh, "user_tower.embed")
+        self.item_tower = Tower(c.n_items, c.embed_dim, c.hidden, c.out_dim, mesh, "item_tower.embed")
         self.hist_encoder = (
             SeqEncoder(c.n_items, c.embed_dim, c.n_heads, c.history_len,
                        mesh=mesh if c.context_parallel else None, sp_impl=c.sp_impl)
@@ -228,12 +277,17 @@ def init_params(model: TwoTower, seed: int) -> None:
     normal(0, 1/√features) (``variance_scaling(1, fan_in, normal)``), Dense
     kernels lecun-normal (truncated at ±2σ) with zero bias, ``pos``
     normal(0.02), LayerNorm scale 1 and bias 0. Drawn on the CPU in module
-    order, so a seed gives the same weights on every device."""
+    order, so a seed gives the same weights on every device; a sharded
+    table takes its rows of the whole table's draw."""
     gen = torch.Generator().manual_seed(int(seed))
     for module in model.modules():
         if isinstance(module, nn.Embedding):
             w = torch.empty(module.weight.shape).normal_(0.0, 1.0 / math.sqrt(module.weight.shape[1]), generator=gen)
             module.weight.copy_(w)
+        elif isinstance(module, ShardedEmbedding):  # the whole table's draw, this rank's rows
+            shape = module.weight.shard_spec.global_shape
+            w = torch.empty(shape).normal_(0.0, 1.0 / math.sqrt(shape[1]), generator=gen)
+            module.weight.copy_(w[module.start : module.start + module.weight.shape[0]])
         elif isinstance(module, nn.Linear):
             std = 1.0 / math.sqrt(module.in_features) / 0.87962566103423978
             w = torch.empty(module.weight.shape)
@@ -332,11 +386,18 @@ def make_train_step(
     """One step on a global batch of (user, item) index tensors: the loss
     of :func:`global_batch_loss`, its gradient, the Adam update; returns
     the loss tensor. With history the history matrix is a third argument.
-    With a ``mesh`` each rank backpropagates loss / ranks and the
-    gradients are summed over every rank before Adam, so every rank takes
-    the one-rank step."""
+    With a ``mesh`` each rank backpropagates loss / ranks; a sharded
+    table's gradient is summed over ``data`` (the ranks holding the same
+    rows; nothing to sum on a mesh without that axis) and every other
+    gradient over every rank before Adam, so every rank takes the
+    one-rank step. The step carries ``model``,
+    ``optimizer`` and ``mesh`` as attributes (``obs.xray.inspect_train_step``
+    reads them)."""
     world = mesh.size if mesh is not None else 1
-    params = list(model.parameters())
+    shard_names = set(sharded_tables(model))
+    named = list(model.named_parameters())
+    whole = [p for n, p in named if n not in shard_names]
+    shards = [p for n, p in named if n in shard_names]
 
     def train_step(user_ids, item_ids, hist_matrix=None):
         optimizer.zero_grad(set_to_none=True)
@@ -344,14 +405,69 @@ def make_train_step(
                                  hist_matrix if with_history else None, item_log_q, mesh)
         (loss / world).backward()
         if world > 1:
-            for p in params:
+            for _, p in named:
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
-            all_reduce_sum([p.grad for p in params])
+            all_reduce_sum([p.grad for p in whole])
+            # a mesh without a data axis has one rank on it: the shards'
+            # gradients are already whole (a None group would sum the job)
+            if shards and mesh.group("data") is not None:
+                all_reduce_sum([p.grad for p in shards], group=mesh.group("data"))
         optimizer.step()
         return loss.detach()
 
+    train_step.model, train_step.optimizer, train_step.mesh = model, optimizer, mesh
     return train_step
+
+
+def gather_state_dict(model: TwoTower) -> dict[str, torch.Tensor]:
+    """The model's ``state_dict`` with every sharded table whole (gathered
+    over its axis: every rank of that axis must call this)."""
+    tables = sharded_tables(model)
+    return {k: all_gather(v.detach(), tables[k].mesh, tables[k].axis) if k in tables else v
+            for k, v in model.state_dict().items()}
+
+
+def _rows(model: TwoTower, name: str, t):
+    """This rank's rows of a whole tensor for parameter ``name`` (the
+    tensor itself when the parameter is not sharded)."""
+    m = sharded_tables(model).get(name)
+    if m is None:
+        return t
+    whole = m.weight.shard_spec.global_shape
+    if tuple(t.shape) != whole:
+        raise ValueError(f"{name}: a whole table of shape {tuple(t.shape)}, expected {whole}")
+    return t[m.start : m.start + m.weight.shape[0]]
+
+
+def load_whole_state_dict(model: TwoTower, state: dict[str, Any]) -> None:
+    """Load a whole ``state_dict`` (tensors or numpy) into the model; a
+    sharded table takes its rows."""
+    model.load_state_dict({k: _rows(model, k, torch.as_tensor(v)) for k, v in state.items()})
+
+
+def gather_optimizer_state(model: TwoTower, optimizer: torch.optim.Optimizer) -> dict:
+    """The optimizer's ``state_dict`` with a sharded table's moments whole
+    (a collective, as :func:`gather_state_dict`)."""
+    tables = sharded_tables(model)
+    names = [n for n, _ in model.named_parameters()]
+    sd = optimizer.state_dict()
+    state = {}
+    for idx, st in sd["state"].items():
+        m = tables.get(names[idx])
+        state[idx] = {k: all_gather(v, m.mesh, m.axis) if m is not None and torch.is_tensor(v) and v.dim() else v
+                      for k, v in st.items()}
+    return {"state": state, "param_groups": sd["param_groups"]}
+
+
+def load_whole_optimizer_state(model: TwoTower, optimizer: torch.optim.Optimizer, sd: dict) -> None:
+    """Load a whole optimizer ``state_dict``; a sharded table's moments
+    take their rows."""
+    names = [n for n, _ in model.named_parameters()]
+    state = {int(idx): {k: _rows(model, names[int(idx)], v) if torch.is_tensor(v) and v.dim() else v
+                        for k, v in st.items()}
+             for idx, st in sd["state"].items()}
+    optimizer.load_state_dict({"state": state, "param_groups": sd["param_groups"]})
 
 
 @dataclasses.dataclass
@@ -454,8 +570,8 @@ def train_two_tower(
             )
             state = None
         if state is not None:
-            model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in state["params"].items()})
-            optimizer.load_state_dict(_opt_state_from_host(state["opt_state"]))
+            load_whole_state_dict(model, state["params"])
+            load_whole_optimizer_state(model, optimizer, _opt_state_from_host(state["opt_state"]))
             start_epoch = int(state["epoch"])
             losses = list(state["losses"])
 
@@ -474,8 +590,8 @@ def train_two_tower(
                 sel = torch.cat([sel, perm_dev[: B - len(sel)]])
             loss = step(users_dev[sel], items_dev[sel], hist_dev)
         losses.append(float(loss))
-        if writes and config.checkpoint_dir and (epoch + 1) % max(1, config.checkpoint_every) == 0:
-            save_train_checkpoint(
+        if config.checkpoint_dir and (epoch + 1) % max(1, config.checkpoint_every) == 0:
+            save_train_checkpoint(  # every rank gathers; the coordinator writes
                 config.checkpoint_dir, model, optimizer, epoch + 1, losses,
                 signature=run_signature,
             )
@@ -485,12 +601,14 @@ def train_two_tower(
 
     model.eval()
     item_emb = embed_all_items(model, config.n_items)
-    params = {k: v.detach().cpu().numpy() for k, v in model.state_dict().items()}
+    params = {k: v.detach().cpu().numpy() for k, v in gather_state_dict(model).items()}
     return TrainResult(params, losses, item_emb)
 
 
 @torch.no_grad()
 def embed_all_items(model: TwoTower, n_items: int, chunk: int = 65536) -> np.ndarray:
+    """Every item's tower output, [n_items, out_dim] on the host; on a
+    sharded model every rank of its ``model`` axis must call it."""
     dev = next(model.parameters()).device
     out = [
         model.embed_items(torch.arange(a, min(a + chunk, n_items), device=dev)).cpu()
@@ -542,15 +660,22 @@ def _opt_state_from_host(x: Any) -> Any:
 
 def save_train_checkpoint(
     directory, model: TwoTower, optimizer, epoch: int, losses, signature: str = ""
-) -> str:
+) -> str | None:
     """Atomic epoch checkpoint: parameters, Adam moments and progress, all
-    host numpy, in the model store's framing (``workflow/model_io.py``)."""
+    host numpy, in the model store's framing (``workflow/model_io.py``),
+    with the sharded tables and their moments whole. Every rank of a
+    model's mesh calls it (the gather is a collective); rank 0 writes and
+    returns the path, the others None."""
     from predictionio_tpu_torch.controller.algorithm import model_to_host
     from predictionio_tpu_torch.workflow.model_io import serialize_models
 
+    params = model_to_host(gather_state_dict(model))
+    opt_state = model_to_host(gather_optimizer_state(model, optimizer))
+    if model.mesh is not None and model.mesh.rank != 0:
+        return None
     blob = serialize_models([{
-        "params": model_to_host(model.state_dict()),
-        "opt_state": model_to_host(optimizer.state_dict()),
+        "params": params,
+        "opt_state": opt_state,
         "epoch": epoch,
         "losses": list(losses),
         "signature": signature,

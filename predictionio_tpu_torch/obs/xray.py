@@ -1,7 +1,5 @@
-"""The step profiler, the card's memory readings and the capacity planner
-(port of ``TrainProfile`` and its context helpers, the device half and the
-capacity planner of ``predictionio_tpu/obs/xray.py``; the sharding
-inspector is not ported).
+"""The step profiler, the card's memory readings, the capacity planner and
+the sharding inspector (port of ``predictionio_tpu/obs/xray.py``).
 
 A :class:`TrainProfile` records a run's phases with exclusive-time nesting
 and monotonic wall time; the phases tile the measured wall clock, which the
@@ -18,13 +16,22 @@ keeps the JAX package's keys (``bytes_in_use``, ``peak_bytes_in_use``,
 ``mem_get_info``. Nothing here initialises CUDA: without a card, or before
 anything touched one, the readings are empty. :func:`estimate_factors` and
 :func:`estimate_ann` are the JAX package's arithmetic, unchanged.
+
+The sharding inspector is a redesign: there is no compiled HLO to read, so
+:func:`count_collectives` reads the counters every collective of
+``parallel.collectives`` bumps, :func:`describe_shardings` reads a
+tensor's placement from the ``shard_spec`` a sharded parameter carries
+(``parallel.mesh.ShardSpec``), and :func:`inspect_train_step` runs the
+step once and puts the model and the optimizer back as they were.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import copy
 import dataclasses
+import math
 import time
 from typing import Any, Callable, Iterator
 
@@ -333,24 +340,69 @@ class CapacityEstimate:
         return self.per_device_bytes <= hbm_bytes_per_device
 
 
+def _mesh_devices(mesh: Any) -> int:
+    """Device count from a mesh spec: an int, a ``"data=8,model=2"``
+    string, a ``{"data": 8}`` dict, a ``parallel.mesh.Mesh``, or None
+    (=1). An axis without an explicit positive size is refused: it must
+    not silently mean one device."""
+    if mesh is None:
+        return 1
+    if isinstance(mesh, int):
+        return max(1, mesh)
+    if isinstance(mesh, str):
+        s = mesh.strip()
+        if s.isdigit():  # bare device count: "--mesh 8"
+            return max(1, int(s))
+        n = 1
+        for part in mesh.split(","):
+            if not part.strip():
+                continue
+            _, sep, size = part.partition("=")
+            if not sep or not size.strip():
+                raise ValueError(
+                    f"mesh axis {part!r} needs an explicit size for the "
+                    f"capacity planner (e.g. 'data=8,model=2')"
+                )
+            v = int(size)
+            if v <= 0:
+                raise ValueError(
+                    f"mesh axis sizes must be explicit positives for the "
+                    f"capacity planner, got {part!r}"
+                )
+            n *= v
+        return max(1, n)
+    if isinstance(mesh, dict):
+        n = 1
+        for axis, v in mesh.items():
+            v = int(v)
+            if v <= 0:
+                raise ValueError(f"mesh axis {axis!r} size must be positive, got {v}")
+            n *= v
+        return max(1, n)
+    shape = getattr(mesh, "shape", None)  # a Mesh: {axis: size}
+    if shape is not None:
+        return max(1, math.prod(int(v) for v in dict(shape).values()))
+    raise TypeError(f"cannot derive a device count from mesh {mesh!r}")
+
+
 def estimate_factors(
     users: int,
     items: int,
     k: int,
     dtype: str = "f32",
-    n_devices: int = 1,
+    mesh: Any = None,
     *,
     nnz: int | None = None,
     gather_dtype: str = "f32",
 ) -> CapacityEstimate:
     """Predict the per-card footprint of an ALS train (see
-    :class:`CapacityEstimate`). Pure arithmetic: ``pio doctor`` calls it
-    without a card. ``n_devices`` stands where the JAX package takes a
-    mesh; the port trains on one card."""
+    :class:`CapacityEstimate`) over ``mesh``'s devices
+    (:func:`_mesh_devices`). Pure arithmetic: ``pio doctor`` calls it
+    without a card."""
     if users < 0 or items < 0 or k <= 0:
         raise ValueError(f"need users/items >= 0 and k > 0, got {users}/{items}/{k}")
     bpe = 2 if dtype == "bf16" else 4
-    n_dev = max(1, int(n_devices))
+    n_dev = _mesh_devices(mesh)
     user_table = (users + 1) * k * bpe
     item_table = (items + 1) * k * bpe
     factor = user_table + item_table
@@ -423,3 +475,148 @@ def estimate_ann(
         "candidatesPerQuery": nprobe * cap,
         "candidateFrac": round(min(1.0, nprobe * cap / max(1, items)), 4),
     }
+
+
+# ---------------------------------------------------------------------------
+# sharding inspector
+# ---------------------------------------------------------------------------
+
+
+def count_collectives(since: dict[str, int] | None = None) -> dict[str, int]:
+    """The collectives this process issued (``parallel.collectives``'
+    counters, under the JAX inspector's names), since the snapshot
+    ``since`` of :func:`~predictionio_tpu_torch.parallel.collectives.collective_counts`
+    when given; kinds with none are left out, as the JAX function leaves
+    out ops its HLO lacks."""
+    from predictionio_tpu_torch.parallel.collectives import collective_counts
+
+    now = collective_counts()
+    base = since or {}
+    return {k: n - base.get(k, 0) for k, n in now.items() if n - base.get(k, 0)}
+
+
+def _leaves(tree: Any, prefix: str) -> list[tuple[str, torch.Tensor, Any]]:
+    """(name, tensor, shard spec or None) for every tensor of ``tree``: a
+    module's parameters, an optimizer's state (named after the parameters
+    of the modules in the same tree, else by index), a tensor, or dicts,
+    lists and tuples of them."""
+    modules: list[torch.nn.Module] = []
+
+    def find(node):
+        if isinstance(node, torch.nn.Module):
+            modules.append(node)
+        elif isinstance(node, dict):
+            for v in node.values():
+                find(v)
+        elif isinstance(node, (list, tuple)):
+            for v in node:
+                find(v)
+
+    find(tree)
+    names = {id(p): n for m in modules for n, p in m.named_parameters()}
+    out: list[tuple[str, torch.Tensor, Any]] = []
+
+    def join(a: str, b: str) -> str:
+        return f"{a}.{b}" if a else b
+
+    def walk(node, name: str):
+        if isinstance(node, torch.nn.Module):
+            for n, p in node.named_parameters():
+                out.append((join(name, n), p, getattr(p, "shard_spec", None)))
+        elif isinstance(node, torch.optim.Optimizer):
+            params = [p for g in node.param_groups for p in g["params"]]
+            for i, p in enumerate(params):
+                spec = getattr(p, "shard_spec", None)
+                for key, v in node.state.get(p, {}).items():
+                    if torch.is_tensor(v):
+                        sharded = spec if v.shape == p.shape else None
+                        out.append((join(name, f"{names.get(id(p), i)}.{key}"), v, sharded))
+        elif torch.is_tensor(node):
+            out.append((name, node, None))
+        elif isinstance(node, dict):
+            for k, v in node.items():
+                walk(v, join(name, str(k)))
+        elif isinstance(node, (list, tuple)):
+            for i, v in enumerate(node):
+                walk(v, join(name, str(i)))
+
+    walk(tree, prefix)
+    return out
+
+
+def describe_shardings(tree: Any, mesh: Any = None, prefix: str = "") -> list[dict[str, Any]]:
+    """Placement records of every tensor of ``tree`` (see :func:`_leaves`)
+    on ``mesh``'s ranks: ``{"name", "shape", "dtype", "bytes", "sharding",
+    "devices", "replicated", "per_device_bytes"}``, the JAX function's
+    keys. ``shape`` and ``bytes`` are the whole tensor's; a sharded tensor
+    (a ``shard_spec``) is split over its axis, anything else is whole on
+    every rank. ``replicated`` is flagged only when the mesh has more than
+    one rank. ``per_device_bytes`` is what a rank holds, the shard's own
+    bytes (where the JAX function divides by the whole mesh, which
+    undercounts a tensor sharded on one axis and replicated on another)."""
+    devices = _mesh_devices(mesh)
+    out: list[dict[str, Any]] = []
+    for name, t, spec in _leaves(tree, prefix):
+        shape = list(spec.global_shape) if spec is not None else list(t.shape)
+        itemsize = t.element_size()
+        out.append({
+            "name": name or "<root>",
+            "shape": shape,
+            "dtype": str(t.dtype).removeprefix("torch."),
+            "bytes": math.prod(shape) * itemsize,
+            "sharding": spec.partition_spec() if spec is not None else "PartitionSpec()",
+            "devices": devices,
+            "replicated": bool(devices > 1 and spec is None),
+            "per_device_bytes": t.numel() * itemsize,
+        })
+    return out
+
+
+def find_replicated(entries: list[dict[str, Any]], min_bytes: int = 1 << 20) -> list[dict[str, Any]]:
+    """The flag list: the replicated tensors of at least ``min_bytes``: on
+    every rank, card memory spent on what could be sharded."""
+    return [e for e in entries if e.get("replicated") and e.get("bytes", 0) >= min_bytes]
+
+
+def inspect_train_step(
+    step: Any,
+    *args: Any,
+    replicated_min_bytes: int = 1 << 20,
+    arg_names: tuple[str, ...] | None = None,
+) -> dict[str, Any]:
+    """The JAX inspector's report of one train step: ``collectives`` (by
+    kind), ``arrays`` (the placements of the parameters, the optimizer's
+    state and each argument) and ``flags`` (the replicated ones of at
+    least ``replicated_min_bytes``). ``step`` is a ``make_train_step``
+    closure carrying ``model``, ``optimizer`` and ``mesh``.
+
+    The JAX function compiles the step without running it and reads the
+    partitioned HLO. Torch has no such program, so the collectives are
+    counted by running the step once: on every rank of the mesh (its
+    collectives need them all), after which the parameters, their
+    gradients and the optimizer's state are put back as they were, bit
+    for bit. So it costs one step."""
+    from predictionio_tpu_torch.parallel.collectives import collective_counts
+
+    model, optimizer, mesh = step.model, step.optimizer, step.mesh
+    saved = {n: (p.detach().clone(), None if p.grad is None else p.grad.detach().clone())
+             for n, p in model.named_parameters()}
+    saved_opt = copy.deepcopy(optimizer.state_dict())
+    before = collective_counts()
+    try:
+        step(*args)
+        collectives = count_collectives(before)
+    finally:
+        with torch.no_grad():
+            for n, p in model.named_parameters():
+                value, grad = saved[n]
+                p.copy_(value)
+                p.grad = grad
+        optimizer.load_state_dict(saved_opt)
+    arrays = describe_shardings({"params": model, "opt_state": optimizer}, mesh)
+    for i, a in enumerate(args):
+        name = arg_names[i] if arg_names and i < len(arg_names) else f"arg{i}"
+        arrays.extend(describe_shardings(a, mesh, prefix=name))
+    flags = [f"fully-replicated {e['bytes']} B array {e['name']} on {e['devices']} devices "
+             f"— shard it or accept the per-chip cost" for e in find_replicated(arrays, replicated_min_bytes)]
+    return {"collectives": collectives, "arrays": arrays, "flags": flags}

@@ -622,6 +622,26 @@ def _serve_by_index_batch(uidxs, user_factors, item_factors, mask, k: int):
     return torch.stack([s.view(torch.int32), i.to(torch.int32)], dim=1)
 
 
+def predict_scores(user_vec: torch.Tensor, item_factors: torch.Tensor) -> torch.Tensor:
+    """Every item's score for one user vector, on the tensors' device."""
+    return item_factors @ user_vec
+
+
+def top_k_items(
+    user_vec: torch.Tensor,
+    item_factors: torch.Tensor,
+    k: int,
+    mask: torch.Tensor | None = None,
+) -> tuple[np.ndarray, np.ndarray]:
+    """One-shot top-k for an explicit user vector; one packed fetch.
+    ``mask`` False = excluded item. Prefer ``ServingIndex`` on the serving
+    path: it also keeps the user table resident."""
+    if mask is None:
+        mask = torch.ones(item_factors.shape[0], dtype=torch.bool, device=item_factors.device)
+    scores = torch.where(mask, predict_scores(user_vec, item_factors), float("-inf"))
+    return _unpack(_pack(*torch.topk(scores, k)).cpu().numpy())
+
+
 def next_pow2(n: int) -> int:
     """Bucket-rounding rule of the batched predict path."""
     return 1 << max(0, n - 1).bit_length()

@@ -11,13 +11,37 @@ all-to-all, a permutation by the inverse permutation. Outside a joined job
 Under gloo every collective stages CUDA tensors through host memory and
 copies the result back: one rule, chosen from the backend, for every call
 (two ranks sharing one card run gloo).
+
+Every collective issued bumps one process-wide counter of its kind, under
+the names the JAX inspector counts in compiled HLO (``all_gather``,
+``all_reduce``, ``reduce_scatter``, ``collective_permute`` for
+:func:`ppermute`, ``all_to_all``); :func:`collective_counts` reads them
+and ``obs.xray.count_collectives`` takes their difference around a step.
+The identity outside a joined job issues nothing and counts nothing.
 """
 
 from __future__ import annotations
 
+import threading
+
 import torch
 
 from predictionio_tpu_torch.parallel.mesh import Mesh
+
+COLLECTIVE_KINDS = ("all_gather", "all_reduce", "reduce_scatter", "collective_permute", "all_to_all")
+_COUNTS = dict.fromkeys(COLLECTIVE_KINDS, 0)
+_COUNTS_LOCK = threading.Lock()
+
+
+def _count(kind: str) -> None:
+    with _COUNTS_LOCK:
+        _COUNTS[kind] += 1
+
+
+def collective_counts() -> dict[str, int]:
+    """The collectives this process has issued so far, by kind."""
+    with _COUNTS_LOCK:
+        return dict(_COUNTS)
 
 
 def _dist():
@@ -43,6 +67,7 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Te
         return x
     send = _wire(x)
     parts = [torch.empty_like(send) for _ in range(mesh.axis_size(axis))]
+    _count("all_gather")
     _dist().all_gather(parts, send, group=group)
     return torch.cat(parts, dim).to(x.device)
 
@@ -55,6 +80,7 @@ def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torc
         return x
     parts = [_wire(c) for c in x.chunk(mesh.axis_size(axis), dim)]
     out = torch.empty_like(parts[0])
+    _count("reduce_scatter")
     _dist().reduce_scatter(out, parts, group=group)
     return out.to(x.device)
 
@@ -86,6 +112,7 @@ def all_to_all(x: torch.Tensor, mesh: Mesh, axis: str, split_dim: int, concat_di
     parts = [_wire(c) for c in x.chunk(n, split_dim)]
     outs = [parts[j] if j == me else torch.empty_like(parts[j]) for j in range(n)]
     others = [j for j in range(n) if j != me]
+    _count("all_to_all")
     _exchange(mesh, axis, [(j, parts[j]) for j in others], [(j, outs[j]) for j in others])
     return torch.cat(outs, concat_dim).to(x.device)
 
@@ -99,6 +126,7 @@ def ppermute(x: torch.Tensor, mesh: Mesh, axis: str, perm: list[tuple[int, int]]
     me = mesh.axis_index(axis)
     send = _wire(x)
     out = torch.zeros_like(send)
+    _count("collective_permute")
     _exchange(mesh, axis, [(d, send) for s, d in perm if s == me], [(s, out) for s, d in perm if d == me])
     return out.to(x.device)
 
@@ -109,12 +137,35 @@ def all_reduce_sum(tensors: list[torch.Tensor], group=None) -> None:
     if not tensors:
         return
     flat = _wire(torch.cat([t.reshape(-1) for t in tensors]))
+    _count("all_reduce")
     _dist().all_reduce(flat, group=group)
     flat = flat.to(tensors[0].device)
     offset = 0
     for t in tensors:
         t.copy_(flat[offset : offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+def all_reduce(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """The sum over ``axis`` of every rank's ``x`` (``lax.psum``), as a new
+    tensor."""
+    group = mesh.group(axis)
+    if group is None:
+        return x
+    out = x.clone()
+    all_reduce_sum([out], group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return all_reduce(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return all_reduce(grad.contiguous(), ctx.mesh, ctx.axis), None, None
 
 
 class _AllGather(torch.autograd.Function):
@@ -150,6 +201,13 @@ class _PPermute(torch.autograd.Function):
     def backward(ctx, grad):
         mesh, axis, inverse = ctx.args
         return ppermute(grad.contiguous(), mesh, axis, inverse), None, None, None
+
+
+def all_reduce_grad(x: torch.Tensor, mesh: Mesh, axis: str) -> torch.Tensor:
+    """:func:`all_reduce` that autograd records: every rank's output is the
+    sum, so each rank's input gets the cotangents summed over ``axis``
+    (JAX's transpose of ``psum`` on a value every rank then uses)."""
+    return _AllReduce.apply(x, mesh, axis)
 
 
 def all_gather_grad(x: torch.Tensor, mesh: Mesh, axis: str, dim: int = 0) -> torch.Tensor:

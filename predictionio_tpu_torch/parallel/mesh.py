@@ -45,6 +45,23 @@ class MeshSpec:
         return MeshSpec(tuple(axes))
 
 
+@dataclasses.dataclass(frozen=True)
+class ShardSpec:
+    """Where a sharded tensor lies: split along ``dim`` over mesh axis
+    ``axis``, each rank of that axis holding an equal block that starts at
+    ``start`` of the whole ``global_shape``."""
+
+    axis: str
+    dim: int
+    global_shape: tuple[int, ...]
+    start: int
+
+    def partition_spec(self) -> str:
+        """The JAX spelling of the placement (``str(PartitionSpec(...))``)."""
+        names = ", ".join(repr(self.axis) if d == self.dim else "None" for d in range(len(self.global_shape)))
+        return f"PartitionSpec({names})"
+
+
 def _resolve_sizes(axis_sizes: Sequence[int], n_devices: int) -> list[int]:
     sizes = list(axis_sizes)
     fixed = 1

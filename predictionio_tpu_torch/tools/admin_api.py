@@ -154,3 +154,18 @@ class AdminServer(RouteServer):
         if allowed:
             return 405, "text/plain; charset=utf-8", b"405: Method Not Allowed"
         return 404, "text/plain; charset=utf-8", b"404: Not Found"
+
+
+def run_admin_server(ip: str = "127.0.0.1", port: int = 7071, registry_dir: str | None = None) -> None:
+    """Blocking entry point: the admin server on ``Storage.instance()`` and
+    ``registry_dir`` (default: ``$PIO_REGISTRY_DIR``, else ``registry/``
+    under the basedir) until SIGINT or SIGTERM. Call from the main thread."""
+    from predictionio_tpu_torch.registry.store import default_registry_dir
+    from predictionio_tpu_torch.utils.platform import wait_for_signal
+
+    server = AdminServer(registry_dir=registry_dir or default_registry_dir())
+    server.start(ip, port)
+    try:
+        wait_for_signal()
+    finally:
+        server.shutdown()

@@ -37,7 +37,8 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
             | list | show BUNDLE [--json] | export BUNDLE DEST
     incidents list | show BUNDLE [--json] | export BUNDLE DEST  [--obs-dir D]
     doctor [--capacity USERS ITEMS K [--ann C,P] [--hbm-bytes B] [--dtype f32|bf16]
-           [--nnz N]] [--registry-dir R] [--roofline [--families F]] [--device cuda|cpu]
+           [--gather-dtype f32|bf16] [--mesh data=N,model=M] [--nnz N]] [--registry-dir R]
+           [--roofline [--families F]] [--device cuda|cpu]
     models list | show [V] | promote [V] | rollback | stage V --url U | diff A B
     undeploy [--ip IP] [--port N] [--ssl]
     batchpredict --engine-dir DIR [--input FILE | --from-events] [--output FILE]
@@ -46,6 +47,9 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
          [--batch-size N] [--status-file F] [--out F] [--device cuda|cpu] ...
     version | upgrade | status | template list | template get NAME [DIR]
     run MAIN [ARGS ...]
+    build | unregister  --engine-dir DIR [--variant FILE]
+    shell [--device cuda|cpu]
+    start-all [--eventserver-port N] [--adminserver-port N] [--dashboard-port N] | stop-all
 
 Apps, access keys, channels, events, engine instances and models live in
 the storage the ``PIO_STORAGE_*`` environment names, as in the JAX package;
@@ -76,12 +80,12 @@ import os
 import shutil
 import signal
 import sys
-import threading
 
 import predictionio_tpu_torch
 
 from predictionio_tpu_torch.data.storage.base import AccessKey, App, Channel
-from predictionio_tpu_torch.data.storage.registry import Storage, StorageError
+from predictionio_tpu_torch.data.storage.registry import Storage, StorageError, default_basedir
+from predictionio_tpu_torch.utils.platform import wait_for_signal as _wait_for_signal
 
 
 # the locator of this invocation: ``--home`` builds one on that basedir,
@@ -96,22 +100,6 @@ def _storage() -> Storage:
 def _die(msg: str, code: int = 1) -> int:
     print(f"[ERROR] {msg}", file=sys.stderr)
     return code
-
-
-def _wait_for_signal(stop: threading.Event | None = None) -> int | None:
-    """Block until SIGINT, SIGTERM or ``stop`` is set; returns the signal
-    that ended the wait, None for ``stop``."""
-    stop = stop or threading.Event()
-    got: list[int] = []
-
-    def handler(signum, frame):
-        got.append(signum)
-        stop.set()
-
-    for sig in (signal.SIGINT, signal.SIGTERM):
-        signal.signal(sig, handler)
-    stop.wait()
-    return got[0] if got else None
 
 
 # ---------------------------------------------------------------------------
@@ -366,6 +354,29 @@ def _strip_launcher_flags(argv: list[str]) -> list[str]:
             continue
         out.append(a)
     return out
+
+
+def cmd_build(args) -> int:
+    """No compilation step exists (Python); build = validate that the engine
+    directory loads and its variant parses (ref `pio build` sbt packaging).
+    The kernels build on first use, on the card."""
+    from predictionio_tpu_torch.workflow.engine_loader import load_engine
+
+    manifest, engine = load_engine(args.engine_dir, args.variant)
+    engine.engine_params_from_variant(manifest.variant_json)
+    print(f"Engine {manifest.engine_id} is ready (factory {manifest.engine_factory}).")
+    return 0
+
+
+def cmd_unregister(args) -> int:
+    """Compatibility verb (ref ``Console.scala:172-177``): engines are plain
+    directories, never registered anywhere, so there is nothing to undo."""
+    print(
+        "Nothing to unregister: engines are not registered. An engine is "
+        f"just its directory ({args.engine_dir}); remove the directory (or "
+        "its trained instances via the metadata store) instead."
+    )
+    return 0
 
 
 def cmd_train(args) -> int:
@@ -1259,6 +1270,71 @@ def cmd_upgrade(args) -> int:
     return 0
 
 
+def cmd_shell(args) -> int:
+    from predictionio_tpu_torch.tools.shell import run_shell
+
+    run_shell(args.device, storage=_storage())
+    return 0
+
+
+_PIDFILE = "pio-services.pid"
+
+
+def _pidfile(args) -> str:
+    base = _basedir(args) or default_basedir()
+    os.makedirs(base, exist_ok=True)
+    return os.path.join(base, _PIDFILE)
+
+
+def cmd_start_all(args) -> int:
+    """Start the event server, the admin server and the dashboard as
+    background processes of this CLI on this storage (ref
+    bin/pio-start-all); their pids go to ``pio-services.pid`` under the
+    basedir, which stop-all reads."""
+    import subprocess
+
+    pidfile = _pidfile(args)
+    if os.path.exists(pidfile):
+        return _die(f"{pidfile} exists; run stop-all first")
+    home = ["--home", args.home] if args.home else []
+    specs = [
+        ("eventserver", ["eventserver", "--port", str(args.eventserver_port)]),
+        ("adminserver", ["adminserver", "--port", str(args.adminserver_port)]),
+        ("dashboard", ["dashboard", "--port", str(args.dashboard_port)]),
+    ]
+    pids = []
+    for name, argv in specs:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", *home, *argv],
+            stdout=subprocess.DEVNULL,
+            stderr=subprocess.DEVNULL,
+            start_new_session=True,
+        )
+        pids.append(f"{name}:{proc.pid}")
+        print(f"started {name} (pid {proc.pid})")
+    with open(pidfile, "w") as f:
+        f.write("\n".join(pids))
+    return 0
+
+
+def cmd_stop_all(args) -> int:
+    """Stop the services start-all started (ref bin/pio-stop-all)."""
+    pidfile = _pidfile(args)
+    if not os.path.exists(pidfile):
+        return _die(f"no {_PIDFILE}; nothing to stop")
+    with open(pidfile) as f:
+        entries = [line.strip() for line in f if line.strip()]
+    for entry in entries:
+        name, _, pid = entry.partition(":")
+        try:
+            os.kill(int(pid), signal.SIGTERM)
+            print(f"stopped {name} (pid {pid})")
+        except ProcessLookupError:
+            print(f"{name} (pid {pid}) already gone")
+    os.remove(pidfile)
+    return 0
+
+
 def cmd_version(args) -> int:
     print(predictionio_tpu_torch.__version__)
     return 0
@@ -1547,7 +1623,8 @@ def cmd_doctor(args) -> int:
         return _die("--ann needs --capacity USERS ITEMS K (ITEMS and K size the index)")
     if args.capacity:
         users, items, k = (int(v) for v in args.capacity)
-        est = xray.estimate_factors(users, items, k, dtype=args.dtype, nnz=args.nnz)
+        est = xray.estimate_factors(users, items, k, dtype=args.dtype, mesh=args.mesh or None, nnz=args.nnz,
+                                    gather_dtype=args.gather_dtype)
         budget = _parse_bytes(args.hbm_bytes) if args.hbm_bytes else None
         need = est.per_device_bytes
         ann_est = None
@@ -1569,7 +1646,8 @@ def cmd_doctor(args) -> int:
         if budget is not None:
             if need > budget:
                 print(f"EXCEEDS BUDGET: {need / 1e9:.2f} GB/device needed vs {budget / 1e9:.2f} GB "
-                      f"budget: lower k, bf16 the tables", file=sys.stderr)
+                      f"budget — shard wider (--mesh), lower k, bf16 the tables"
+                      + (", or --ann-int8 / fewer clusters for the index" if ann_est else ""), file=sys.stderr)
                 return 1
             print(f"fits: {need / 1e9:.2f} GB/device of {budget / 1e9:.2f} GB budget "
                   f"({100.0 * need / budget:.1f}%)")
@@ -1638,6 +1716,9 @@ def _add_obs_verbs(sub) -> None:
     x.add_argument("--capacity", nargs=3, metavar=("USERS", "ITEMS", "K"),
                    help="predict the card memory of an ALS train of this shape")
     x.add_argument("--dtype", choices=["f32", "bf16"], default="f32")
+    x.add_argument("--gather-dtype", choices=["f32", "bf16"], default="f32",
+                   help="solver gather dtype (bf16 adds half-size table copies)")
+    x.add_argument("--mesh", help="mesh axis sizes, e.g. data=8,model=2 (explicit sizes only)")
     x.add_argument("--nnz", type=int, help="rating count (adds the rating tables)")
     x.add_argument("--ann", metavar="CLUSTERS,NPROBE",
                    help="price an ANN index (ITEMS items, dim K) beside the factor tables")
@@ -1668,6 +1749,17 @@ def build_parser() -> argparse.ArgumentParser:
     sub.add_parser("version").set_defaults(fn=cmd_version)
     sub.add_parser("upgrade", help="verify storage formats").set_defaults(fn=cmd_upgrade)
     sub.add_parser("status").set_defaults(fn=cmd_status)
+    x = sub.add_parser("shell", help="a REPL with the event stores bound")
+    x.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
+                   help="the shell's device (cpu: the card stays hidden from it)")
+    x.set_defaults(fn=cmd_shell)
+
+    x = sub.add_parser("start-all")
+    x.add_argument("--eventserver-port", type=int, default=7070)
+    x.add_argument("--adminserver-port", type=int, default=7071)
+    x.add_argument("--dashboard-port", type=int, default=9000)
+    x.set_defaults(fn=cmd_start_all)
+    sub.add_parser("stop-all").set_defaults(fn=cmd_stop_all)
 
     app = sub.add_parser("app").add_subparsers(dest="subcommand", required=True)
     x = app.add_parser("new")
@@ -1774,6 +1866,14 @@ def build_parser() -> argparse.ArgumentParser:
         x.add_argument("--obs-dir", help="observability dir: drift-guard breaches land on its "
                                          "telemetry ring (kind=drift) and snapshot rate-limited "
                                          "incident bundles")
+
+    x = sub.add_parser("build")
+    engine_args(x)
+    x.set_defaults(fn=cmd_build)
+
+    x = sub.add_parser("unregister")
+    engine_args(x)
+    x.set_defaults(fn=cmd_unregister)
 
     x = sub.add_parser("train")
     engine_args(x)

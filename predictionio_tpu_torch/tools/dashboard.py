@@ -187,3 +187,16 @@ class Dashboard(RouteServer):
         if instance is None:
             return 404, "application/json; charset=utf-8", json.dumps({"message": "Not Found"}).encode()
         return 200, "application/json; charset=utf-8", (instance.evaluator_results_json or "{}").encode()
+
+
+def run_dashboard(ip: str = "127.0.0.1", port: int = 9000, metrics_urls: Sequence[str] = ()) -> None:
+    """Blocking entry point: the dashboard until SIGINT or SIGTERM. Call
+    from the main thread."""
+    from predictionio_tpu_torch.utils.platform import wait_for_signal
+
+    server = Dashboard(metrics_urls=metrics_urls)
+    server.start(ip, port)
+    try:
+        wait_for_signal()
+    finally:
+        server.shutdown()

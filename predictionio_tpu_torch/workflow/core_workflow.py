@@ -41,6 +41,7 @@ from predictionio_tpu_torch.obs.profiler import maybe_profile_train
 from predictionio_tpu_torch.obs.torchprof import kernel_launch_counts
 from predictionio_tpu_torch.parallel import distributed
 from predictionio_tpu_torch.workflow import model_io
+from predictionio_tpu_torch.workflow.cleanup import CleanupFunctions
 from predictionio_tpu_torch.workflow.context import WorkflowContext
 from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
 
@@ -70,7 +71,18 @@ def run_train(
     first publish becomes stable, and a model with an item-vector table
     large enough gets its ANN index pinned (``ann.lifecycle``). A failed
     publish never fails the train: the metadata and model repositories,
-    written first, stay authoritative."""
+    written first, stay authoritative. ``CleanupFunctions`` run when it
+    ends, on every rank, completed or failed."""
+    try:
+        return _run_train(engine, manifest, engine_params, ctx, batch, env, registry_dir, keep_versions,
+                          options)
+    finally:
+        # on every rank, whether the train completed or failed
+        CleanupFunctions.run()
+
+
+def _run_train(engine, manifest, engine_params, ctx, batch, env, registry_dir, keep_versions,
+               options) -> str:
     rt = distributed.runtime()
     if rt is not None and not distributed.is_coordinator():
         before = kernel_launch_counts()
@@ -260,7 +272,8 @@ def run_grid_evaluation(
     (:func:`predictionio_tpu_torch.tuning.run_grid`) with an
     EvaluationInstance in the metadata store: inserted once the grid's
     arguments and ledger validated, EVALCOMPLETED with the one-liner, JSON
-    and HTML results when it finishes. Returns (instance_id, GridReport)."""
+    and HTML results when it finishes. Returns (instance_id, GridReport).
+    ``CleanupFunctions`` run when it ends, failed or not."""
     from predictionio_tpu_torch.tuning import run_grid
     from predictionio_tpu_torch.tuning.cells import resolve_evaluation
 
@@ -293,6 +306,7 @@ def run_grid_evaluation(
         if instance_id:
             instance.end_time = _dt.datetime.now(tz=UTC)
             instances.update(instance)
+        CleanupFunctions.run()
         raise
     result = report.evaluator_result
     instance.status = EvaluationInstanceStatus.EVALCOMPLETED
@@ -302,6 +316,7 @@ def run_grid_evaluation(
         instance.evaluator_results_json = json.dumps(result.to_json_dict())
         instance.evaluator_results_html = result.to_html()
     instances.update(instance)
+    CleanupFunctions.run()
     return instance_id, report
 
 
@@ -309,21 +324,24 @@ def run_evaluation(evaluation: Any, ctx: WorkflowContext) -> tuple[str, Any]:
     """Run an Evaluation (engine + metric + params list, or a FakeRun)
     sequentially; records an EvaluationInstance with the one-liner, JSON and
     HTML results unless the result says ``no_save``. Returns (instance_id,
-    result)."""
+    result). ``CleanupFunctions`` run when it ends, failed or not."""
     instances = ctx.storage.get_meta_data_evaluation_instances()
     instance = _evaluation_instance(evaluation, ctx.batch)
     instance_id = instances.insert(instance)
     instance.status = EvaluationInstanceStatus.EVALUATING
     instances.update(instance)
-    result = evaluation.run(ctx)
-    if getattr(result, "no_save", False):
-        # FakeRun results are not persisted (ref CoreWorkflow.scala:140-142)
-        logger.info("evaluation result not inserted into database (no_save)")
-    else:
-        instance.status = EvaluationInstanceStatus.EVALCOMPLETED
-        instance.end_time = _dt.datetime.now(tz=UTC)
-        instance.evaluator_results = result.one_liner()
-        instance.evaluator_results_json = json.dumps(result.to_json_dict())
-        instance.evaluator_results_html = result.to_html()
-        instances.update(instance)
+    try:
+        result = evaluation.run(ctx)
+        if getattr(result, "no_save", False):
+            # FakeRun results are not persisted (ref CoreWorkflow.scala:140-142)
+            logger.info("evaluation result not inserted into database (no_save)")
+        else:
+            instance.status = EvaluationInstanceStatus.EVALCOMPLETED
+            instance.end_time = _dt.datetime.now(tz=UTC)
+            instance.evaluator_results = result.one_liner()
+            instance.evaluator_results_json = json.dumps(result.to_json_dict())
+            instance.evaluator_results_html = result.to_html()
+            instances.update(instance)
+    finally:
+        CleanupFunctions.run()
     return instance_id, result

@@ -2330,3 +2330,30 @@ def _query_server_from_registry(
         registry_store=store,
         model_version=version,
     )
+
+
+def run_query_server(
+    engine_dir: str,
+    variant_path: str | None = None,
+    config: ServerConfig | None = None,
+    device: str | torch.device = "cuda",
+) -> None:
+    """Blocking entry point: deploy the engine in ``engine_dir`` on
+    ``device`` from ``Storage.instance()`` and serve until a signal.
+    SIGTERM drains (in-flight queries answer, then the listener closes), as
+    a supervisor's rolling restart relies on; SIGINT and POST /stop stop at
+    once. Call from the main thread."""
+    import signal
+
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.utils.device import resolve_device
+    from predictionio_tpu_torch.utils.platform import wait_for_signal
+
+    ctx = WorkflowContext(mode="serving", device=resolve_device(device), _storage=Storage.instance())
+    server = create_query_server(engine_dir, ctx, config, variant_path)
+    server.start()
+    try:
+        if wait_for_signal(server.stop_requested) == signal.SIGTERM:
+            server.drain()
+    finally:
+        server.shutdown()

@@ -20,7 +20,7 @@ import os
 import sys
 from typing import Any
 
-from predictionio_tpu_torch.controller.engine import Engine
+from predictionio_tpu_torch.controller.engine import Engine, EngineFactory
 
 
 class EngineLoadError(RuntimeError):
@@ -57,7 +57,8 @@ class EngineManifest:
 
 
 def load_engine_factory(dotted: str) -> Engine:
-    """Resolve "pkg.module.attr" to an Engine instance."""
+    """Resolve "pkg.module.attr" to an Engine instance: an Engine, an
+    ``EngineFactory`` subclass, or a callable returning an Engine."""
     dotted = JAX_FACTORIES.get(dotted, dotted)
     if dotted == "predictionio_tpu" or dotted.startswith("predictionio_tpu."):
         raise EngineLoadError(
@@ -74,7 +75,13 @@ def load_engine_factory(dotted: str) -> Engine:
     factory = getattr(module, attr, None)
     if factory is None:
         raise EngineLoadError(f"{module_name} has no attribute {attr}")
-    engine = factory if isinstance(factory, Engine) else factory()
+    if isinstance(factory, Engine):
+        return factory
+    if isinstance(factory, type) and issubclass(factory, EngineFactory):
+        factory = factory()
+    if not callable(factory):
+        raise EngineLoadError(f"{dotted} is not an Engine factory")
+    engine = factory()
     if not isinstance(engine, Engine):
         raise EngineLoadError(f"{dotted} returned {type(engine).__name__}, not an Engine")
     return engine

@@ -642,7 +642,7 @@ class TestCapacityPlanner:
 
     def test_sharding_divides_and_the_gather_transient_adds(self):
         one = xray.estimate_factors(10_000, 5_000, 32)
-        eight = xray.estimate_factors(10_000, 5_000, 32, n_devices=8)
+        eight = xray.estimate_factors(10_000, 5_000, 32, mesh=8)
         assert eight.per_device_bytes < one.per_device_bytes and eight.n_devices == 8
         with pytest.raises(ValueError):
             xray.estimate_factors(-1, 10, 4)

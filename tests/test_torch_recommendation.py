@@ -567,6 +567,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package(tmp_path):
     assert len(modules) >= 29
     assert {"predictionio_tpu_torch.models.twotower.model",
             "predictionio_tpu_torch.models.twotower.engine"} <= set(modules)
+    # the small tools, the cleanup hooks and the collectives are covered
+    assert {f"predictionio_tpu_torch.{m}" for m in (
+        "workflow.cleanup", "utils.histogram", "utils.platform", "tools.shell", "parallel.collectives",
+    )} <= set(modules)
     # the offline verbs' modules (batchpredict, eval, the grid) are covered
     assert {f"predictionio_tpu_torch.{m}" for m in (
         "workflow.batch_predict", "workflow.fake_workflow", "obs.metrics", "obs.xray",

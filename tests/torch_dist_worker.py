@@ -15,6 +15,7 @@ file imports torch and the port, never JAX.
 
 from __future__ import annotations
 
+import json
 import os
 import socket
 import subprocess
@@ -35,7 +36,7 @@ ALS_SHAPE = dict(n_users=50, n_items=37, nnz=1200, d=16, block_chunk=8, reg=0.05
 ATTN_SHAPE = (2, 4, 16, 8)  # B, H, L, D
 TWO_TOWER_MESHES = {
     2: [("data=2,model=1", False, "ring"), ("data=1,model=2", True, "ring"),
-        ("data=1,model=2", True, "ulysses")],
+        ("data=1,model=2", True, "ulysses"), ("model=2", False, "ring")],
     4: [("data=2,model=2", True, "ring")],
 }
 
@@ -283,15 +284,33 @@ def case_attention(torch, n_world, _out_dir):
 TWO_TOWER_INIT = "two_tower_init.npz"
 
 
+def _state_arrays(model, opt) -> dict:
+    """Every parameter and every tensor of the optimizer's state, as numpy."""
+    out = {f"param.{n}": p.detach().numpy().copy() for n, p in model.named_parameters()}
+    for idx, st in opt.state_dict()["state"].items():
+        out.update({f"opt.{idx}.{k}": v.numpy().copy() for k, v in st.items()})
+    return out
+
+
 def case_two_tower(torch, n_world, out_dir):
     """One two-tower step per mesh of TWO_TOWER_MESHES[n_world] from the
     port state in ``out_dir/TWO_TOWER_INIT`` (the test's JAX init, carried
-    over), twice: as the port runs it ("port"), and with every local
-    attention block the f32 ``attention_reference`` ("f32"), the function
-    the JAX package's attention computes off the TPU. Each gives the loss,
-    the summed gradients and the updated parameters."""
+    over; a sharded table takes its rows), twice: as the port runs it
+    ("port"), and with every local attention block the f32
+    ``attention_reference`` ("f32"), the function the JAX package's
+    attention computes off the TPU. Each gives the loss, the summed
+    gradients and the updated parameters, the sharded tables' gathered
+    whole, and each parameter's shape on this rank; on the "port" pass
+    also the model as the JAX package's whole tree
+    (``convert.twotower_params_to_numpy``), ``describe_shardings`` of the
+    model and ``inspect_train_step``'s
+    report of one more step, with the parameters and Adam's state before
+    and after it."""
+    from predictionio_tpu_torch import convert
     from predictionio_tpu_torch.models.twotower import model as M
+    from predictionio_tpu_torch.obs import xray
     from predictionio_tpu_torch.ops import attention as A
+    from predictionio_tpu_torch.parallel.collectives import all_gather
     from predictionio_tpu_torch.parallel.mesh import make_mesh
 
     cfg_kw, users, items, hist = two_tower_case()
@@ -307,19 +326,105 @@ def case_two_tower(torch, n_world, out_dir):
                 mesh = make_mesh(spec, "cpu")
                 config = M.TwoTowerConfig(**cfg_kw, context_parallel=cp, sp_impl=impl)
                 model = M.TwoTower(config, mesh)
-                model.load_state_dict(init)
+                convert.load_twotower_params(model, init)
                 opt = M.make_optimizer(model, config.learning_rate)
                 log_q = torch.from_numpy(M.item_log_q(items, config.n_items))
                 step = M.make_train_step(model, opt, config.temperature, True, log_q, mesh)
-                loss = step(torch.from_numpy(users), torch.from_numpy(items), torch.from_numpy(hist))
+                batch = (torch.from_numpy(users), torch.from_numpy(items), torch.from_numpy(hist))
+                loss = step(*batch)
                 tag = f"{variant}|{spec}_{impl if cp else 'dp'}"
                 out[f"loss|{tag}"] = loss.numpy()
+                tables = M.sharded_tables(model)
+                whole = M.gather_state_dict(model)
                 for name, p in model.named_parameters():
-                    out[f"param|{tag}|{name}"] = p.detach().numpy()
-                    out[f"grad|{tag}|{name}"] = p.grad.numpy()
+                    g = p.grad
+                    if name in tables:
+                        g = all_gather(g, tables[name].mesh, tables[name].axis)
+                    out[f"param|{tag}|{name}"] = whole[name].numpy()
+                    out[f"grad|{tag}|{name}"] = g.numpy()
+                    out[f"shape|{tag}|{name}"] = np.asarray(p.shape)
+                if variant == "port":
+                    for path, leaf in convert._flax_leaves(convert.twotower_params_to_numpy(model)):
+                        out[f"flax|{tag}|{'/'.join(path)}"] = leaf
+                    out[f"describe|{tag}"] = np.asarray(json.dumps(xray.describe_shardings(model, mesh)))
+                    before = _state_arrays(model, opt)
+                    report = xray.inspect_train_step(step, *batch, arg_names=("user_ids", "item_ids", "hist"))
+                    after = _state_arrays(model, opt)
+                    out[f"inspect|{tag}"] = np.asarray(json.dumps(report))
+                    out[f"unchanged|{tag}"] = np.asarray(
+                        sorted(before) == sorted(after)
+                        and all(np.array_equal(before[k], after[k]) for k in before))
         finally:
             M.fused_attention, A.fused_attention = real
     return out
+
+
+def case_two_tower_resume(torch, spec, out_dir):
+    """A sharded train (two_tower_case's data, two epochs, no encoder) on
+    ``spec`` three ways: uninterrupted; cut after epoch 1 (its checkpoint
+    kept); resumed from that checkpoint. Each run's losses and whole
+    parameters, whether the cut run left a checkpoint and whether the
+    resumed run cleared it."""
+    from predictionio_tpu_torch.models.twotower import model as M
+    from predictionio_tpu_torch.parallel.mesh import make_mesh
+
+    cfg_kw, users, items, _ = two_tower_case()
+    cfg_kw = {**cfg_kw, "history_len": 0, "batch_size": 8}
+    users, items = np.tile(users, 3), np.tile(items[::-1], 3)
+    mesh = make_mesh(spec, "cpu")
+    out = {"table_rows": np.asarray(M.build_model(M.TwoTowerConfig(**cfg_kw), "cpu", mesh)
+                                    .user_tower.embed.weight.shape[0])}
+    ckpt = os.path.join(out_dir, "resume_ckpt")
+    runs = {"uncut": (2, os.path.join(out_dir, "uncut_ckpt")), "cut": (1, ckpt), "resumed": (2, ckpt)}
+    real_clear = M.clear_train_checkpoint
+    for name, (epochs, directory) in runs.items():
+        if name == "cut":
+            M.clear_train_checkpoint = lambda d: None
+        try:
+            result = M.train_two_tower(users, items, M.TwoTowerConfig(**cfg_kw, epochs=epochs,
+                                                                     checkpoint_dir=directory),
+                                       device="cpu", mesh=mesh)
+        finally:
+            M.clear_train_checkpoint = real_clear
+        # the next run stands for a new job: rank 0 has written or cleared
+        # the checkpoint before any rank reads it
+        torch.distributed.barrier()
+        out[f"losses|{name}"] = np.asarray(result.losses)
+        out[f"items|{name}"] = result.item_embeddings
+        for k, v in result.params.items():
+            out[f"param|{name}|{k}"] = v
+        out[f"checkpoint_after|{name}"] = np.asarray(M.load_train_checkpoint(directory) is not None)
+    return out
+
+
+CLEANUP_HOOK_OUT = "cleanup_hook"
+
+
+def case_cleanup(torch, _, out_dir):
+    """run_train of the sample engine on this rank of the job with a
+    CleanupFunctions hook that appends a line to
+    ``out_dir/cleanup_hook.rank<r>``; the id run_train returned."""
+    from predictionio_tpu_torch.controller import Engine
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.parallel.distributed import runtime
+    from predictionio_tpu_torch.workflow.cleanup import CleanupFunctions
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.core_workflow import run_train
+    from predictionio_tpu_torch.workflow.engine_loader import EngineManifest
+    from tests import torch_sample_engine as se
+
+    rank = runtime().rank
+    path = os.path.join(out_dir, f"{CLEANUP_HOOK_OUT}.rank{rank}")
+    CleanupFunctions.add(lambda: open(path, "a").write("ran\n"))
+    engine = Engine(se.DataSource0, se.Preparator0, {"a": se.Algo0}, se.Serving0)
+    params = engine.engine_params_from_variant({"algorithms": [{"name": "a", "params": {"id": 3}}]})
+    storage = Storage(env={"PIO_FS_BASEDIR": out_dir, "PIO_STORAGE_SOURCES_S_TYPE": "memory",
+                           **{f"PIO_STORAGE_REPOSITORIES_{r}_SOURCE": "S" for r in ("METADATA", "EVENTDATA",
+                                                                                     "MODELDATA")}})
+    ctx = WorkflowContext(device="cpu", _storage=storage)
+    iid = run_train(engine, EngineManifest(engine_id="e", version="1", variant="v", engine_factory="f"),
+                    params, ctx)
+    return {"instance_id": np.asarray(iid)}
 
 
 CASES = {"collectives2": (case_collectives, "data=2"), "collectives4": (case_collectives, "data=2,model=2"),
@@ -327,6 +432,9 @@ CASES = {"collectives2": (case_collectives, "data=2"), "collectives4": (case_col
          "als_train2": (case_als_train, 2), "attention2": (case_attention, 2),
          "attention4": (case_attention, 4), "two_tower2": (case_two_tower, 2),
          "two_tower4": (case_two_tower, 4),
+         "two_tower_resume2": (case_two_tower_resume, "data=1,model=2"),
+         "two_tower_resume4": (case_two_tower_resume, "data=2,model=2"),
+         "cleanup2": (case_cleanup, 2),
          # on the card (tests/test_torch_gpu.py)
          "als_train2_cuda": (lambda torch, n, out_dir: case_als_train(torch, n, out_dir, "cuda"), 2),
          "nccl1_cuda": (case_nccl, 1)}
