@@ -175,7 +175,12 @@ The recommendation template (ALS, kernel B1):
    ML-100K-shape view file (944 users), pio deploy, 200 queries held to
    the persisted model (B2 on both ranks and the server); tools_cli,
    build, unregister, start-all / stop-all and pio shell (on the card and
-   with --device cpu);
+   with --device cpu); lint_cli, pio lint of the port from the checkout
+   (no git): 0 findings over every .py file of the package and examples/,
+   the same report from python -m predictionio_tpu_torch.analysis.cli with
+   no torch, numpy, jax or JAX package module imported, SARIF 2.1.0, no
+   stale suppression, and a .cpu() appended to a copy of a serving module
+   found at its line;
 4. rank 160: ALSAlgorithm.train at the ML-1M shape through B1's
    block-per-system plan, B1 against the plain version on its user-side
    systems and on 2,048 rank-256 systems, each timed.
@@ -268,7 +273,10 @@ top-k over its probed candidates in float64:
    against the exact path.
 
 Every phase that fails raises, so the script exits non-zero and prints no
-result. The last line is ``{"ok": true, "device": {...}}``; the line before
+result. Before the temp home goes, stderr gets the failing phase's name and
+exception and the last lines of each .err file written since that phase
+began (kept also from work directories a phase removed on its way out).
+The last line is ``{"ok": true, "device": {...}}``; the line before
 it is nvidia-smi's name and power limit; before that one JSON line lists
 every kernel with its launches on the main paths, errors and times.
 """
@@ -302,6 +310,7 @@ KERNELS = ["spd_cg", "attention_block", "flash_attention"]
 
 
 _T0 = time.perf_counter()
+_T0_WALL = time.time()
 # nvidia-smi's name and power limit of the card, beside every number printed
 GPU = ""
 # card-memory peaks of the main path, read by pio doctor's check
@@ -329,6 +338,75 @@ TABLE_BOUNDS = {
 def emit(**fields) -> None:
     """One JSON line of a phase's results, with the script's elapsed seconds."""
     print(json.dumps({**fields, "elapsed_s": time.perf_counter() - _T0}), flush=True)
+
+
+# the .err files phases' processes wrote: path -> (mtime, last lines), kept
+# when a work directory is removed, so a failure can still show them
+ERR_TAILS: dict[str, tuple[float, str]] = {}
+# every work directory a phase made, so a failure can read what is left
+WORK_DIRS: list[str] = []
+ERR_TAIL_LINES = 30
+
+
+def work_dir(prefix: str, dir: str | None = None) -> str:
+    """A phase's work directory (``tempfile.mkdtemp``), registered so a
+    failing run reads the .err files left in it."""
+    path = tempfile.mkdtemp(prefix=prefix, dir=dir)
+    WORK_DIRS.append(path)
+    return path
+
+
+def harvest_err_files(top: str) -> None:
+    """Keep the last lines of every .err file under ``top``."""
+    for dirpath, _, names in os.walk(top):
+        for name in names:
+            if name.endswith(".err"):
+                path = os.path.join(dirpath, name)
+                try:
+                    with open(path, errors="replace") as fh:
+                        tail = "".join(fh.readlines()[-ERR_TAIL_LINES:])
+                    ERR_TAILS[path] = (os.path.getmtime(path), tail)
+                except OSError:
+                    pass
+
+
+def remove_work(path: str) -> None:
+    """Remove a work directory, keeping its .err files' last lines."""
+    harvest_err_files(path)
+    shutil.rmtree(path, ignore_errors=True)
+
+
+def phase(fn):
+    """Mark an exception leaving a phase with the phase's name and start
+    time (the innermost phase's mark stands), for :func:`report_failure`."""
+    name = fn.__name__.removesuffix("_phase")
+
+    def wrapper(*args, **kwargs):
+        t0 = time.time()
+        try:
+            return fn(*args, **kwargs)
+        except BaseException as exc:
+            if not hasattr(exc, "smoke_phase"):
+                exc.smoke_phase = (name, t0)
+            raise
+
+    wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
+    return wrapper
+
+
+def report_failure(exc: BaseException, home: str) -> None:
+    """Before the temp home goes: the failing phase's name and exception,
+    then the last lines of each .err file written since that phase began
+    (by its processes, or by a process beside it)."""
+    name, t0 = getattr(exc, "smoke_phase", ("main", _T0_WALL))
+    print(f"chip_smoke: phase {name} failed: {type(exc).__name__}: {exc}", file=sys.stderr, flush=True)
+    harvest_err_files(home)
+    for work in WORK_DIRS:
+        if os.path.isdir(work):
+            harvest_err_files(work)
+    for path, (mtime, tail) in sorted(ERR_TAILS.items(), key=lambda kv: kv[1][0]):
+        if mtime >= t0 and tail.strip():
+            print(f"chip_smoke: last lines of {path}:\n{tail.rstrip()}", file=sys.stderr, flush=True)
 
 
 def smoke_storage(home: str):
@@ -376,6 +454,7 @@ def cg_bound_ms(n: int, f: int) -> tuple[float, str]:
     return ms, bound_by
 
 
+@phase
 def profiler_warm_up(torch, home: str) -> None:
     """CUPTI's one-time set-up for this process, on its main thread while
     the card is idle (a first trace started on a serving thread under load
@@ -394,6 +473,7 @@ def profiler_warm_up(torch, home: str) -> None:
     emit_numbers("profiler_warm_up", seconds=time.perf_counter() - t0)
 
 
+@phase
 def doctor_start(home: str) -> dict:
     """Start ``pio doctor`` in four processes (they run beside the next
     phase; :func:`doctor_phase` reads them)."""
@@ -407,6 +487,7 @@ def doctor_start(home: str) -> dict:
             for k, a in argvs.items()}
 
 
+@phase
 def doctor_phase(torch, procs: dict) -> dict:
     """``pio doctor``'s four processes: the inventory names the card;
     ``--capacity 138000 27000 32 --ann 2048,16`` prices the ML-20M train
@@ -454,6 +535,7 @@ def doctor_phase(torch, procs: dict) -> dict:
     return steps
 
 
+@phase
 def doctor_mesh_check(doctor: dict, ranks: dict) -> None:
     """pio doctor --capacity 138000 27000 32 --mesh data=2 --gather-dtype
     bf16 beside each rank's max_memory_allocated in sharded_als's 2-rank
@@ -465,6 +547,7 @@ def doctor_mesh_check(doctor: dict, ranks: dict) -> None:
          measured_rank_peaks=peaks, estimate_over_measured=[est["per_device_bytes"] / p for p in peaks])
 
 
+@phase
 def kernel_phase(torch) -> None:
     """B1 against its plain version: ranks 10..100 (atol 1e-4), and past
     rank 128, one block per system with A in shared memory (160) and read
@@ -489,6 +572,7 @@ def kernel_phase(torch) -> None:
              limit={"atol": 1e-4} if f <= 128 else {"row_rel": 1e-4})
 
 
+@phase
 def kernel_grid_phase(torch) -> dict:
     """B1 past f = 11,619 (the grid plan, vectors in a device scratch
     buffer): one system at f = 11,700 (A 548 MB, M Mᵀ/f + 0.5 I from a seeded
@@ -539,6 +623,7 @@ def kernel_grid_phase(torch) -> dict:
     return row
 
 
+@phase
 def train_phase(torch, home: str):
     from predictionio_tpu_torch.models.recommendation.engine import (
         ALSAlgorithm,
@@ -750,6 +835,7 @@ def b1_held(torch, A, b, row_rel_limit: float, what: str, x=None) -> dict:
     return record
 
 
+@phase
 def real_system_check(torch, td, model, params, launches: int, row_rel_limit: float = 1e-3,
                       label: str = "ML-20M", synthetic: bool = True,
                       timed: bool = True) -> tuple[list, dict | None]:
@@ -805,6 +891,7 @@ def real_system_check(torch, td, model, params, launches: int, row_rel_limit: fl
     }
 
 
+@phase
 def als_rank160_phase(torch, home: str) -> tuple[dict, int]:
     """ALSAlgorithm.train at rank 160 (B1 past rank 128: one block per
     system, A in shared memory) on the ML-1M shape, B1's launches read
@@ -945,13 +1032,14 @@ def _stop(server) -> None:
         server.wait()
 
 
+@phase
 def cli_serve_phase(home: str, device: str = "cuda") -> dict:
     """app new -> import -> train -> deploy through the port's CLI, then
     POST /queries.json: a concurrent burst, an unknown user, a blacklist.
     The ML-100K shape's users and items with half its ratings (50,000)."""
     n_users, n_items, n_ratings = 943, 1682, 50_000
     users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=1)
-    work = tempfile.mkdtemp(prefix="pio_smoke_cli_")
+    work = work_dir(prefix="pio_smoke_cli_")
     events = os.path.join(work, "events.jsonl")
     with open(events, "w") as fh:
         for k, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(), vals.tolist())):
@@ -1016,7 +1104,7 @@ def cli_serve_phase(home: str, device: str = "cuda") -> dict:
         _, st, _ = _http(base + "/")
     finally:
         _stop(server)
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     lat_ms = np.asarray(latencies) * 1e3
     result = {
         **steps,
@@ -1061,6 +1149,7 @@ runpy.run_module("predictionio_tpu_torch.tools.cli", run_name="__main__")
 """
 
 
+@phase
 def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
     """The ingest path as a user drives it, every verb a process of the
     port's CLI on one sqlite store: app new, accesskey new, eventserver;
@@ -1085,7 +1174,7 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
 
     n_users, n_items, n_batch, n_single = 943, 1682, 100_000, 1_000
     users, items, vals = synthesize_ratings(n_users, n_items, n_batch + n_single, seed=9)
-    work = tempfile.mkdtemp(prefix="pio_smoke_rest_")
+    work = work_dir(prefix="pio_smoke_rest_")
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     reports = []
 
@@ -1235,7 +1324,7 @@ def eventserver_phase(torch, home: str, device: str = "cuda") -> dict:
     (model,) = model_io.deserialize_models(storage.get_model_data_models().get(instance.id).models)
     ctx = WorkflowContext(device=device, _storage=storage)
     td = rec.DataSource(rec.DataSourceParams(app_name="restapp")).read_training(ctx)
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     kernel_rows, _ = real_system_check(
         torch, td, model, params_from_dict(rec.ALSAlgorithmParams, algo_params), train_launches,
         row_rel_limit=1e-4, label="ML-100K through the event server", synthetic=False)
@@ -1294,6 +1383,7 @@ def _chunked_request(path: str, payload, chunk: int = 16) -> bytes:
         for i in range(0, len(body), chunk)) + b"0\r\n\r\n"
 
 
+@phase
 def sql_es_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 100_000,
                      n_queries: int = 200) -> dict:
     """A deployment with its events in a SQL database and its metadata in
@@ -1322,7 +1412,7 @@ def sql_es_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 10
     t_phase = time.perf_counter()
     n_users, n_items = 943, 1682
     users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=9)
-    work = tempfile.mkdtemp(prefix="pio_smoke_sqles_")
+    work = work_dir(prefix="pio_smoke_sqles_")
     root = os.path.dirname(os.path.abspath(__file__))
     procs: list = []
     reports: list = []
@@ -1455,7 +1545,7 @@ def sql_es_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 10
             foreign = json.load(fh)["foreign_modules"]
         if foreign:
             raise AssertionError(f"sql_es_cli {os.path.basename(path)}: imported {foreign[:5]}")
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     # both reads against the imported arrays in canonical order (distinct
     # event times: the file's order; sorted vocabularies)
     user_vocab = sorted({f"u{u}" for u in users.tolist()})
@@ -1492,6 +1582,7 @@ def sql_es_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 10
     return {"launches": {"sql_es_cli": train_launches}, "rows": rows}
 
 
+@phase
 def inprocess_serve_phase(torch, model) -> None:
     """The ML-20M model through ServingIndex.serve_batch against a plain
     torch.topk over U[u] @ V^T."""
@@ -1598,6 +1689,7 @@ def attention_kernels(A) -> dict:
 ATTENTION_ATOL = 1e-5
 
 
+@phase
 def attention_kernel_phase(torch) -> None:
     """B2 and B3 against their plain versions and the f32 reference, causal
     and not. Limits: ATTENTION_ATOL against the plain version, 2e-2 against
@@ -1657,6 +1749,7 @@ def attention_kernel_phase(torch) -> None:
              Lk=16, causal=causal, max_abs_err=err, reference_gap=gap, atol=ATTENTION_ATOL)
 
 
+@phase
 def wide_head_times(torch) -> list[dict]:
     """B2 and B3 past head dim 128 (the sliced variants) at the sequential
     scorer's serving shapes for ranks 160 and 256, causal: against the
@@ -1693,6 +1786,7 @@ def wide_head_times(torch) -> list[dict]:
     return rows
 
 
+@phase
 def sequential_train_phase(torch, home: str):
     """AttentionAlgorithm.train on ML-1M-shaped sessions, held-out last item
     per user; hit-rate@10 of both scorers on the same held-out items."""
@@ -1759,6 +1853,7 @@ def sequential_train_phase(torch, home: str):
     return model, sessions, launches
 
 
+@phase
 def sequential_serve_phase(torch, model, sessions) -> list[dict]:
     """The trained model served in batches of 64 at context 8, 200 and 1024
     through predict_batch_dispatch; then each kernel timed at its serving
@@ -1887,11 +1982,12 @@ def _write_sequential_events(path: str, n_users: int, n_items: int, n_events: in
     return sessions
 
 
+@phase
 def sequential_cli_phase(home: str, device: str = "cuda") -> dict:
     """app new -> import -> train -> deploy of the attention algorithm
     through the port's CLI, then POST /queries.json."""
     n_users, n_items, n_events = 943, 1682, 100_000
-    work = tempfile.mkdtemp(prefix="pio_smoke_seq_")
+    work = work_dir(prefix="pio_smoke_seq_")
     events = os.path.join(work, "views.jsonl")
     sessions = _write_sequential_events(events, n_users, n_items, n_events, seed=14)
     engine_dir = os.path.join(work, "engine")
@@ -1954,7 +2050,7 @@ def sequential_cli_phase(home: str, device: str = "cuda") -> dict:
     finally:
         if server is not None:
             _stop(server)
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     lat_ms = np.asarray(latencies) * 1e3
     result = {**steps, "requests": len(latencies), "all_200": True, "captures": captures,
               "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
@@ -2030,6 +2126,7 @@ def b2_times(torch, q, k, v, label: str) -> dict:
     return row
 
 
+@phase
 def twotower_train_phase(torch, home: str, n_users: int = 138_000, n_items: int = 27_000,
                          n_slice: int = 1_000_000, batch: int = 4096):
     """TwoTowerAlgorithm.train at full width (ML-20M vocabulary, 138,000
@@ -2094,6 +2191,7 @@ def twotower_train_phase(torch, home: str, n_users: int = 138_000, n_items: int 
     return model, algo, td, launches
 
 
+@phase
 def twotower_step_split(torch, td, batch: int = 4096) -> dict:
     """One full-width training step and its parts by CUDA events: B2's
     forward alone, the attention backward alone (the f32 reference's
@@ -2128,6 +2226,7 @@ def twotower_step_split(torch, td, batch: int = 4096) -> dict:
     return split
 
 
+@phase
 def twotower_serve_phase(torch, model, algo) -> int:
     """The trained model through predict_batch_dispatch in batches of 64
     users with their 256-item histories: one B2 launch per dispatch. The
@@ -2215,6 +2314,7 @@ def clustered_recall_data(n_users=2000, n_items=1000, n_clusters=20, pos_per_use
             np.asarray(test_u, np.int64), np.asarray(test_i, np.int64))
 
 
+@phase
 def twotower_quality_phase(torch, epochs: int = 16) -> dict:
     """recall@10 on the bench's clustered data (embed 32, hidden [64], out
     16, batch 1024, 16 epochs) with a 32-item history encoder, gated at the
@@ -2261,6 +2361,7 @@ def twotower_quality_phase(torch, epochs: int = 16) -> dict:
     return out
 
 
+@phase
 def twotower_cli_phase(home: str, device: str = "cuda") -> dict:
     """app new -> import of an ML-100K-shape file (its users and items, half
     its ratings: 50,000) -> train with historyLen 50 (1 epoch) -> deploy,
@@ -2268,7 +2369,7 @@ def twotower_cli_phase(home: str, device: str = "cuda") -> dict:
     /queries.json answered 200."""
     n_users, n_items, n_ratings = 943, 1682, 50_000
     users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=2)
-    work = tempfile.mkdtemp(prefix="pio_smoke_tt_")
+    work = work_dir(prefix="pio_smoke_tt_")
     events = os.path.join(work, "events.jsonl")
     with open(events, "w") as fh:
         for k, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(), vals.tolist())):
@@ -2320,7 +2421,7 @@ def twotower_cli_phase(home: str, device: str = "cuda") -> dict:
         _, st, _ = _http(base + "/")
     finally:
         _stop(server)
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     lat_ms = np.asarray(latencies) * 1e3
     result = {**steps, "requests": len(latencies), "all_200": True,
               "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
@@ -2458,6 +2559,7 @@ def _item_categories(n_items: int, n_categories: int) -> list[frozenset[str]]:
             for i in range(n_items)]
 
 
+@phase
 def similarproduct_phase(torch) -> dict:
     """The multi-events-multi-algos variant at the ML-1M shape (6,040 users x
     3,706 items x 1,000,209 views, a 10 % like subset, 200 categories):
@@ -2559,6 +2661,7 @@ def similarproduct_phase(torch) -> dict:
                          "similarproduct_likes_train": launches["likealgo"]}, "rows": rows}
 
 
+@phase
 def similarproduct_quality_phase(torch) -> dict:
     """The views ALS on the bench's clustered data (2,000 users x 1,000
     items, 20 clusters, 90 % in-cluster): the share of each item's top-10
@@ -2586,6 +2689,7 @@ ECOMMERCE_RATES = 125_000
 ECOMMERCE_BUYS = ECOMMERCE_VIEWS = 50_000
 
 
+@phase
 def ecommerce_phase(torch, home: str) -> dict:
     """bench.py:660's e-commerce shape: 20,000 users x 10,000 items; 125,000
     rate events (the template trains on rates; an eighth of the bench's
@@ -2774,6 +2878,7 @@ def ecommerce_phase(torch, home: str) -> dict:
                          "ecommerce_adjust_score_train": launches["adjust-score"]}}
 
 
+@phase
 def recommendeduser_phase(torch) -> dict:
     """A follow graph of 50,000 users in 50 communities with 1,000,000
     follows (90 % inside the community): implicit ALS at rank 10, 10
@@ -2823,6 +2928,7 @@ def _nb_host_labels(model, X: np.ndarray):
     return model.labels[np.argmax(scores, axis=1)], near
 
 
+@phase
 def classification_phase(torch, home: str) -> dict:
     """Naive Bayes at bench.py:2461's shape (200,000 points x 64 features x
     8 classes): scores and argmax of the 200,000 points on the card against
@@ -2992,7 +3098,7 @@ def gallery_cli_setup(home: str, template: str, device: str = "cuda") -> dict:
     package's engine.json for the template (its engineFactory string)."""
     rng = np.random.default_rng(17)
     events, queries = _gallery_event_lines(template, rng)
-    work = tempfile.mkdtemp(prefix=f"pio_smoke_{template}_")
+    work = work_dir(prefix=f"pio_smoke_{template}_")
     path = os.path.join(work, "events.jsonl")
     with open(path, "w") as fh:
         fh.writelines(json.dumps(e) + "\n" for e in events)
@@ -3033,7 +3139,7 @@ def gallery_cli_serve(setup: dict, server, base: str, ready_s: float) -> dict:
         _, st, _ = _http(base + "/")
     finally:
         _stop(server)
-        shutil.rmtree(setup["work"], ignore_errors=True)
+        remove_work(setup["work"])
     lat_ms = np.asarray([dt for _, _, dt in outs]) * 1e3
     result = {**setup["steps"], "deploy_ready_s": ready_s, "requests": len(outs), "all_200": True,
               "p50_ms": float(np.percentile(lat_ms, 50)), "p99_ms": float(np.percentile(lat_ms, 99)),
@@ -3043,6 +3149,7 @@ def gallery_cli_serve(setup: dict, server, base: str, ready_s: float) -> dict:
     return result
 
 
+@phase
 def gallery_cli_phase(home: str, device: str = "cuda") -> dict:
     """The four templates through the CLI: their imports, trains and
     deploys run side by side (independent processes and stores), then each
@@ -3081,6 +3188,7 @@ def _same_topk(got_ids, got_scores, ref_ids, ref_scores, rtol: float, what: str)
                                rtol=rtol, atol=0, err_msg=what)
 
 
+@phase
 def batchpredict_als_phase(torch, model) -> dict:
     """The ML-20M model through the offline pipeline: a 69,000-line query
     file (one query for every other user, num 10) in mega-batches of 512 into a
@@ -3093,7 +3201,7 @@ def batchpredict_als_phase(torch, model) -> dict:
 
     users = model.user_vocab[::2]  # every other user: half the ML-20M users, to fit the script's time
     n_users, k = len(users), 10
-    work = tempfile.mkdtemp(prefix="pio_smoke_bp_")
+    work = work_dir(prefix="pio_smoke_bp_")
     try:
         qpath, out = os.path.join(work, "queries.jsonl"), os.path.join(work, "out.jsonl")
         with open(qpath, "w") as fh:
@@ -3105,7 +3213,7 @@ def batchpredict_als_phase(torch, model) -> dict:
         with open(out) as fh:
             lines = fh.read().splitlines()
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     if report.queries != n_users or report.ok != n_users or report.errors:
         raise AssertionError(f"batchpredict: {report.queries} queries, {report.ok} ok")
     if [r.lineno for r in sink.rows] != list(range(1, n_users + 1)) or len(lines) != n_users:
@@ -3158,6 +3266,7 @@ def attention_row(torch, name: str, x, label: str) -> dict:
     return row
 
 
+@phase
 def batchpredict_sequential_phase(torch, model, sessions) -> dict:
     """The ML-1M attention model through the offline pipeline: all 6,040
     users (their last ``context`` items as recentItems) at context 200
@@ -3246,6 +3355,7 @@ def make_evaluation():
 """
 
 
+@phase
 def offline_cli_phase(torch, home: str, rest: dict, device: str = "cuda") -> dict:
     """The offline verbs as a user runs them, each a process of the port's
     CLI on the event server's sqlite store: batchpredict --from-events
@@ -3260,7 +3370,7 @@ def offline_cli_phase(torch, home: str, rest: dict, device: str = "cuda") -> dic
     JAX, the JAX package or aiohttp."""
     from predictionio_tpu_torch.data.store.event_store import LEventStore
 
-    work = tempfile.mkdtemp(prefix="pio_smoke_offline_")
+    work = work_dir(prefix="pio_smoke_offline_")
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__))}
     reports, steps = [], {}
 
@@ -3394,7 +3504,7 @@ def offline_cli_phase(torch, home: str, rest: dict, device: str = "cuda") -> dic
             if foreign:
                 raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
     finally:
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     result = {
         "host_numbers": True, **steps,
         "batchpredict_lines": len(lines), "writeback_events": len(written),
@@ -3414,6 +3524,7 @@ def offline_cli_phase(torch, home: str, rest: dict, device: str = "cuda") -> dic
 EVAL_FOLDS = 2
 
 
+@phase
 def eval_b1_rows(torch, home: str) -> list[dict]:
     """B1 on the systems of an eval cell at rank 20 (fold 0 of the grid's
     read_eval, lambda 0.1), trained in-process, each row held to the plain
@@ -3481,6 +3592,7 @@ def _rating_events(model, rng, existing: np.ndarray, new_ids: list, new_taste: n
     return out
 
 
+@phase
 def stream_foldin_phase(torch, home: str, model, n_active: int = 3_750, n_existing: int = 75_000,
                         n_new_users: int = 2_500, n_new: int = 25_000, batch_limit: int = 500,
                         publish_min_events: int = 25_000, sampled_users: int = 1_000) -> dict:
@@ -3675,6 +3787,7 @@ def _lane_answers_held(server, lane, outs, users, what: str) -> None:
     _same_topk(got_ids, got_scores, ref_ids, ref_scores, 1e-5, what)
 
 
+@phase
 def rollout_lanes_phase(torch, home: str, foldin: dict, n_queries: int = 1_000) -> dict:
     """A QueryServer on the card deployed from the fold-in's registry with
     registry sync every 0.5 s. Canary: it adopts the staged candidate, and
@@ -3928,6 +4041,7 @@ def _wait(pred, timeout: float, what: str) -> float:
     return time.perf_counter() - t0
 
 
+@phase
 def serving_contract_cli_phase(work: str, argv, reports: list, run, es_port: int, engine_dir: str,
                                users: list, n_items: int, train_launches: int, device: str = "cuda") -> int:
     """The serving contract through the CLI, on the event server's store
@@ -4148,6 +4262,7 @@ def _blocked_answer(scores, ids, vocab, banned: frozenset, keep: int):
     return [(vocab[int(i)], float(s)) for s, i in zip(scores, ids) if vocab[int(i)] not in banned][:keep]
 
 
+@phase
 def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 1_000, burst: int = 512) -> dict:
     """The serving contract at full width: the ML-20M model the fold-in
     published as stable (138,000 users x 27,000 items, rank 32) in a
@@ -4176,7 +4291,7 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 1_000
 
     spd_solve.batched_spd_solve_fused.launches = 0
     storage = foldin["storage"]
-    work = tempfile.mkdtemp(prefix="pio_smoke_contract_")
+    work = work_dir(prefix="pio_smoke_contract_")
     cert, key = _make_cert(work)
     tls = _tls_context(cert)
     engine = rec.engine_factory()
@@ -4386,7 +4501,7 @@ def serving_contract_inprocess_phase(torch, foldin: dict, n_queries: int = 1_000
         off.shutdown()
         es.shutdown()
         collector.close()
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     result = {"host_numbers": True, **steps, "queries": n_queries, "watchdog_trips": 2,
               "chaos_503_s": [round(c[3], 4) for c in chaos], "memory_allocated": [mem_before, mem_after],
               "predict_events": answered_on, "spd_cg_launches": spd_solve.batched_spd_solve_fused.launches}
@@ -4513,6 +4628,7 @@ def _get(base: str, path: str, headers=None):
         return resp.status, resp.headers.get("Content-Type", ""), resp.read().decode()
 
 
+@phase
 def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_000, clients: int = 16) -> dict:
     """Observability at full width: the ML-20M model the fold-in published
     as stable (138,000 x 27,000, rank 32) in a QueryServer on the card with
@@ -4540,7 +4656,7 @@ def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_00
     ep = engine.engine_params_from_variant({"algorithms": [{"name": "als", "params": {"rank": 32}}]})
     ctx = WorkflowContext(mode="serving", device="cuda", _storage=foldin["storage"])
     (model,) = engine.prepare_deploy(ctx, ep, model_io.deserialize_models(foldin["stable_blob"]))
-    work = tempfile.mkdtemp(prefix="pio_smoke_obs_")
+    work = work_dir(prefix="pio_smoke_obs_")
     server = QueryServer(engine, ep, [model], ctx, ServerConfig(
         ip="127.0.0.1", port=0, result_cache_size=1024, result_cache_ttl_s=10.0,
         profile_dir=os.path.join(work, "profiles")), "obs",
@@ -4687,7 +4803,7 @@ def obs_inprocess_phase(torch, foldin: dict, contract: dict, n_users: int = 1_00
         }
     finally:
         server.shutdown()
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     emit_numbers("obs_inprocess", **steps)
     return steps
 
@@ -4715,6 +4831,7 @@ def _bandit_registry(foldin: dict, work: str, engine_id: str = BANDIT_ENGINE) ->
     return store.base_dir, versions
 
 
+@phase
 def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 128, seed: int = 43,
                            max_queries: int = 40_000, n_users: int = 138_000) -> dict:
     """The bandit lanes at full width: a QueryServer on the card deployed
@@ -4747,7 +4864,7 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
     from predictionio_tpu_torch.workflow.create_server import ServerConfig, create_query_server
 
     storage = foldin["storage"]
-    work = tempfile.mkdtemp(prefix="pio_smoke_bandit_")
+    work = work_dir(prefix="pio_smoke_bandit_")
     registry, (v1, v2) = _bandit_registry(foldin, work)
     engine_dir = _engine_dir(os.path.join(work, "engine"), BANDIT_ENGINE, "streamapp", {"rank": 32})
     app_id = storage.get_meta_data_apps().insert(App(0, "banditrewards"))
@@ -4896,7 +5013,7 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
         server.shutdown()
         for conn in opened:
             conn.close()
-        shutil.rmtree(work, ignore_errors=True)
+        remove_work(work)
     steps.update({"rounds": rounds, "clients": clients, "wave": wave, "bandit_p50_ms": _p50_ms(lat),
                   "bandit_qps": len(lat) / wall, "memory_allocated": memory,
                   "promotions": ins.promoted.value(), "retirements": ins.retired.value()})
@@ -5043,6 +5160,7 @@ def _ring_summary(obs: str, n: int = 40) -> list:
     return out
 
 
+@phase
 def fleet_cli_phase(torch, foldin: dict, clients: int = 16, n_queries: int = 2_000,
                     flood_clients: int = 48, seed: int = 53, device: str = "cuda") -> dict:
     """The serving fleet through the port's CLI at full width: a registry
@@ -5070,7 +5188,7 @@ def fleet_cli_phase(torch, foldin: dict, clients: int = 16, n_queries: int = 2_0
     from predictionio_tpu_torch.obs.incidents import list_bundles, load_bundle
     from predictionio_tpu_torch.workflow import model_io
 
-    work = tempfile.mkdtemp(prefix="pio_smoke_fleet_")
+    work = work_dir(prefix="pio_smoke_fleet_")
     registry, (v1, v2) = _bandit_registry(foldin, work, FLEET_ENGINE)
     engine_dir = _engine_dir(os.path.join(work, "engine"), FLEET_ENGINE, "streamapp", {"rank": 32})
     store = foldin["store"]
@@ -5284,13 +5402,14 @@ def fleet_cli_phase(torch, foldin: dict, clients: int = 16, n_queries: int = 2_0
     session.foreign()
     with open(parent.report) as fh:
         parent_launches = json.load(fh)["launches"]
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     steps.update(host_numbers=True, queries=n_queries, clients=clients, flood_clients=flood_clients,
                  parent_launches=parent_launches)
     emit_numbers("fleet_cli", **steps)
     return steps
 
 
+@phase
 def fleet_lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "cuda") -> dict:
     """The lifecycle controller in the fleet parent, on the ML-100K store
     lifecycle_cli used, in its directory after it: ``pio deploy --fleet 2
@@ -5409,7 +5528,7 @@ def fleet_lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: s
     if launches.get("spd_cg"):
         raise AssertionError(f"the retune's cells launched B1 on the card: {launches}")
     cells = len(_lines(train_log))
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     result = {"host_numbers": True, **steps, "stable_before": stable0, "winner": winner,
               "cells": cells, "cell_devices": devices, "warm_queries": warmed,
               "warm_cache_hits": hits, "parent_spd_cg_launches": launches.get("spd_cg", 0)}
@@ -5625,6 +5744,7 @@ class _CliSession:
                 raise AssertionError(f"{os.path.basename(path)}: imported {foreign[:5]}")
 
 
+@phase
 def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new_users: int = 500,
                        n_new: int = 5_000) -> dict:
     """The registry path as a user drives it, each verb a process of the
@@ -5643,7 +5763,7 @@ def registry_cli_phase(torch, home: str, rest: dict, device: str = "cuda", n_new
 
     from predictionio_tpu_torch.workflow import model_io
 
-    work = tempfile.mkdtemp(prefix="pio_smoke_registry_")
+    work = work_dir(prefix="pio_smoke_registry_")
     # the reference's variable: every version this path trains pins an index
     env = {**os.environ, "PYTHONPATH": os.path.dirname(os.path.abspath(__file__)), "PIO_ANN_MIN_ITEMS": "0"}
     session = _CliSession(work, home, env)
@@ -5860,6 +5980,7 @@ def _queries_total(base: str, family: str) -> float:
     return sum(v for lab, v, _ in parsed.get(family, []) if lab.get("endpoint", "/queries.json") == "/queries.json")
 
 
+@phase
 def lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "cuda", seed: int = 47,
                         rates: dict | None = None, clients: int = 8, wave: int = 64,
                         max_queries: int = 20_000) -> dict:
@@ -6086,6 +6207,7 @@ def lifecycle_cli_phase(torch, home: str, rest: dict, reg: dict, device: str = "
     return result
 
 
+@phase
 def stream_b1_rows(torch, home: str, n_events: int = 5_000) -> list[dict]:
     """B1 at a fold-in's rank-10 shape: the event server's rank-10 model
     folding 5,000 rate events (as registry_cli streams them) in-process;
@@ -6261,6 +6383,7 @@ def ann_bench_corpus(n: int = 100_000, f: int = 32, batches: int = 40, batch: in
 ANN_RECALL_GATE = 0.976  # the JAX package's 0.996 on this corpus (docs/ann.md) less 0.02
 
 
+@phase
 def ann_searcher_phase(torch) -> dict:
     """(a) The searcher at the JAX package's own ANN size: bench.py's
     100,000-vector corpus at f = 32, indexes built on the card at
@@ -6344,6 +6467,7 @@ SIMILAR_FACTORY = "predictionio_tpu_torch.models.similarproduct.engine.engine_fa
 SIMILAR_ANN_ENGINE = "smoke-similar-ann"
 
 
+@phase
 def similarproduct_ann_phase(torch, home: str, n_queries: int = 1_000, n_users: int = 138_000,
                              n_items: int = 100_000, n_views: int = 10_000_000) -> dict:
     """(b) Similar-product at a 100,000-item catalog, deployed from the
@@ -6551,7 +6675,7 @@ def similarproduct_ann_phase(torch, home: str, n_queries: int = 1_000, n_users: 
            "int8": {"build_s": build8_s, "hbm_bytes": index8.hbm_bytes(), "q8_rows_held": held8,
                     "q8_queries": ins8.queries.value(), "filtered_fallbacks": ins8.fallbacks.value()}}
     emit(phase="similarproduct_ann", **out)
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     return {"launches": {"similarproduct_ann_train": launches}, "rows": rows}
 
 
@@ -6582,6 +6706,7 @@ def _answers_of(model, results, k: int):
     return scores, ids
 
 
+@phase
 def twotower_ann_phase(torch, model, algo, n_dispatch: int = 12, batch: int = 64) -> dict:
     """(c) The two-tower model of the train phase (27,000 items) through an
     index at AnnConfig(min_items=0): predict_batch_dispatch in batches of 64
@@ -6625,6 +6750,7 @@ def twotower_ann_phase(torch, model, algo, n_dispatch: int = 12, batch: int = 64
     return out
 
 
+@phase
 def sequential_ann_phase(torch, model, sessions, n_dispatch: int = 12, batch: int = 64) -> dict:
     """(c) The sequential model (3,706 items) through an index at
     AnnConfig(min_items=0): predict_batch_dispatch in batches of 64 at
@@ -6775,6 +6901,7 @@ def sharded_als_rank(torch, work: str, n_users: int = 138_000, n_items: int = 27
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
 
+@phase
 def sharded_als_phase(torch, home: str) -> dict:
     """ALS at the ML-20M shape across ranks: 2 ranks sharing the card over
     gloo (tensors on the card, collectives staged through the host), then
@@ -6788,7 +6915,7 @@ def sharded_als_phase(torch, home: str) -> dict:
     iterations of CG stopped at f + 4 steps; 4e-4 to 6e-4 in a CPU
     rehearsal at 3,000 x 2,000)."""
     one_rank = ONE_RANK_ALS
-    work = tempfile.mkdtemp(prefix="pio_smoke_sharded_", dir=home)
+    work = work_dir(prefix="pio_smoke_sharded_", dir=home)
     t0 = time.perf_counter()
     users, items, vals, test = one_rank["ratings"]
     np.savez(os.path.join(work, "ratings.npz"), users=users, items=items, vals=vals, test=test)
@@ -6975,6 +7102,7 @@ def twotower_parallel_rank(torch, work: str, n_users: int = 138_000, n_items: in
     return out
 
 
+@phase
 def twotower_parallel_phase(torch, home: str) -> dict:
     """Two-tower training on 2 ranks sharing the card (gloo): data=2
     (batch halves, one global in-batch softmax), and model=2 with
@@ -6983,7 +7111,7 @@ def twotower_parallel_phase(torch, home: str) -> dict:
     history of one head). Each rank's checks are twotower_parallel_rank's;
     here each rank's B2 launches: one a step where its encoder attends
     locally, none under ring."""
-    work = tempfile.mkdtemp(prefix="pio_smoke_ttpar_", dir=home)
+    work = work_dir(prefix="pio_smoke_ttpar_", dir=home)
     t0 = time.perf_counter()
     ranks, wall = _rank_job("twotower_parallel", 2, work)
     launches = {}
@@ -7015,6 +7143,7 @@ def twotower_parallel_phase(torch, home: str) -> dict:
                      for r in ranks for m in r["meshes"] for h in m["held"]]}
 
 
+@phase
 def sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 200) -> dict:
     """pio train --num-hosts 2 of the recommendation template with
     distributed: true (ML-100K shape: 943 x 1,682 x 100,000 ratings, rank
@@ -7031,7 +7160,7 @@ def sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 2
     t_phase = time.perf_counter()
     n_users, n_items, n_ratings = 943, 1682, 100_000
     users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=5)
-    work = tempfile.mkdtemp(prefix="pio_smoke_sharded_cli_", dir=home)
+    work = work_dir(prefix="pio_smoke_sharded_cli_", dir=home)
     events = os.path.join(work, "events.jsonl")
     with open(events, "w") as fh:
         for k, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(), vals.tolist())):
@@ -7089,7 +7218,7 @@ def sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 2
                  launches_by_rank=launches, train_wall_clock_s=float(instances[0].spark_conf["train_wall_clock_sec"]),
                  phase_s=time.perf_counter() - t_phase)
     emit(phase="sharded_cli", gpu=GPU, shape=[n_users, n_items, n_ratings], **steps)
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     return {"launches": {f"sharded_cli_rank{r}": c["spd_cg"] for r, c in enumerate(launches)}}
 
 
@@ -7120,6 +7249,7 @@ def _tt_answers_held(got: list, ref: list, what: str) -> int:
     return len(got)
 
 
+@phase
 def twotower_sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries: int = 200,
                                epochs: int = 2) -> dict:
     """pio train --num-hosts 2 of the two-tower template with mesh
@@ -7141,7 +7271,7 @@ def twotower_sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries
     n_users, n_items, n_views, batch = 944, 1682, 100_000, 4096
     users, items, _ = synthesize_ratings(n_users, n_items, n_views, seed=8)
     users[:n_items], items[:n_items] = np.arange(n_items) % n_users, np.arange(n_items)
-    work = tempfile.mkdtemp(prefix="pio_smoke_tt_sharded_", dir=home)
+    work = work_dir(prefix="pio_smoke_tt_sharded_", dir=home)
     events = os.path.join(work, "events.jsonl")
     with open(events, "w") as fh:
         for k, (u, i) in enumerate(zip(users.tolist(), items.tolist())):
@@ -7232,7 +7362,7 @@ def twotower_sharded_cli_phase(torch, home: str, device: str = "cuda", n_queries
                  train_wall_clock_s=float(instances[0].spark_conf["train_wall_clock_sec"]),
                  phase_s=time.perf_counter() - t_phase)
     emit(phase="twotower_sharded_cli", gpu=GPU, shape=[n_users, n_items, n_views], **steps)
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
     return {"launches": {**{f"twotower_sharded_cli_rank{r}": c["attention_block"] for r, c in enumerate(launches)},
                          "twotower_sharded_cli_serve": server_launches["attention_block"]}}
 
@@ -7258,6 +7388,7 @@ def _gone(pid: int) -> bool:
         return True
 
 
+@phase
 def tools_cli_phase(home: str) -> dict:
     """The small verbs through the CLI: build and unregister of an engine
     directory (the JAX package's texts), start-all (the event server, the
@@ -7265,7 +7396,7 @@ def tools_cli_phase(home: str) -> dict:
     of theirs left), and pio shell fed a script on the card and with
     --device cpu (the card hidden: CUDA not initialised)."""
     t_phase = time.perf_counter()
-    work = tempfile.mkdtemp(prefix="pio_smoke_tools_", dir=home)
+    work = work_dir(prefix="pio_smoke_tools_", dir=home)
     cli, env, _ = _cli(os.path.join(work, "home"))
     engine_dir = os.path.join(work, "engine")
     os.makedirs(engine_dir)
@@ -7330,23 +7461,118 @@ def tools_cli_phase(home: str) -> dict:
     steps = {"services_ready_s": ready, "services_stopped_s": stopped_s, "pids": pids,
              "shell": shells, "phase_s": time.perf_counter() - t_phase}
     emit(phase="tools_cli", gpu=GPU, **steps)
-    shutil.rmtree(work, ignore_errors=True)
+    remove_work(work)
+    return steps
+
+
+# the rule registry of `pio lint`, the JAX analyzer's ids
+LINT_RULES = 23
+# a function appended to a copy of a serving module: its .cpu() must fire
+LINT_SEED = "\n\ndef _seeded_fetch(scores):\n    return scores.cpu()\n"
+# modules a `python -m predictionio_tpu_torch.analysis.cli` run must not load
+LINT_FOREIGN = ("torch", "numpy", "jax", "predictionio_tpu")
+
+
+def _py_files(top: str) -> int:
+    """The .py files under ``top`` that `pio lint` walks (no __pycache__,
+    no hidden, build or dist directories)."""
+    n = 0
+    for dirpath, dirnames, names in os.walk(top):
+        dirnames[:] = [d for d in dirnames if not d.startswith(".")
+                       and d not in ("__pycache__", "node_modules", "build", "dist")]
+        n += sum(name.endswith(".py") for name in names)
+    return n
+
+
+@phase
+def lint_cli_phase(home: str) -> dict:
+    """`pio lint` of the port from the checkout, five processes started
+    together (no git: the checkout may have none): ``pio lint --format
+    json`` exits 0 with no finding over every .py file of the package and
+    examples/; ``python -m predictionio_tpu_torch.analysis.cli --format
+    json`` gives the same report and loads no torch, numpy, jax or JAX
+    package module (its ``-X importtime`` record); ``--format sarif`` is
+    SARIF 2.1.0 with the 23 rules; ``--report-suppressions`` lists no stale
+    site; and on a copy of ``controller/serving.py`` with a ``.cpu()``
+    appended, ``hostsync-serving-path`` fires at that line."""
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = work_dir(prefix="pio_smoke_lint_", dir=home)
+    seeded = os.path.join(work, "pkg", "controller", "serving.py")
+    os.makedirs(os.path.dirname(seeded))
+    with open(os.path.join(root, "predictionio_tpu_torch", "controller", "serving.py")) as fh:
+        source = fh.read().rstrip("\n") + "\n"
+    with open(seeded, "w") as fh:
+        fh.write(source + LINT_SEED)
+    seed_line = source.count("\n") + LINT_SEED.count("\n")
+    env = {**os.environ, "PYTHONPATH": root}
+    pio = [sys.executable, "-m", "predictionio_tpu_torch.tools.cli", "lint"]
+    runs = {
+        "pio_json": pio + ["--format", "json"],
+        "module_json": [sys.executable, "-X", "importtime", "-m", "predictionio_tpu_torch.analysis.cli",
+                        "--format", "json"],
+        "sarif": pio + ["--format", "sarif"],
+        "suppressions": pio + ["--report-suppressions"],
+        "seeded": pio + ["--format", "json", os.path.join(work, "pkg")],
+    }
+    procs = {name: subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                    text=True) for name, cmd in runs.items()}
+    out, done_s = {}, {}
+    for name, proc in procs.items():
+        stdout, stderr = proc.communicate(timeout=300)
+        done_s[name] = time.perf_counter() - t_phase
+        out[name] = (proc.returncode, stdout, stderr)
+    for name in ("pio_json", "module_json", "sarif", "suppressions"):
+        if out[name][0] != 0:
+            raise AssertionError(f"lint {name} exited {out[name][0]}: {out[name][1][-2000:]}{out[name][2][-2000:]}")
+    report = json.loads(out["pio_json"][1])
+    n_files = _py_files(os.path.join(root, "predictionio_tpu_torch")) + _py_files(os.path.join(root, "examples"))
+    if report["findings"] or report["files_scanned"] != n_files:
+        raise AssertionError(f"pio lint: {len(report['findings'])} findings {report['findings'][:3]}, "
+                             f"{report['files_scanned']} files of {n_files}")
+    module = json.loads(out["module_json"][1])
+    if {k: v for k, v in module.items() if k != "duration_s"} != {k: v for k, v in report.items()
+                                                                   if k != "duration_s"}:
+        raise AssertionError("python -m predictionio_tpu_torch.analysis.cli reported otherwise than pio lint")
+    imported = {ln.split("|")[-1].strip() for ln in out["module_json"][2].splitlines()
+                if ln.startswith("import time:") and "|" in ln}
+    foreign = sorted(m for m in imported if m.split(".")[0] in LINT_FOREIGN)
+    if "predictionio_tpu_torch.analysis.core" not in imported or foreign:
+        raise AssertionError(f"the analyzer's process imported {foreign[:8]}")
+    sarif = json.loads(out["sarif"][1])
+    driver = sarif["runs"][0]["tool"]["driver"]
+    if sarif["version"] != "2.1.0" or len(driver["rules"]) != LINT_RULES or sarif["runs"][0]["results"]:
+        raise AssertionError(f"sarif: version {sarif['version']}, {len(driver['rules'])} rules, "
+                             f"{len(sarif['runs'][0]['results'])} results")
+    inventory = out["suppressions"][1].splitlines()
+    sites, stale = (int(w) for w in re.match(r"(\d+) suppression site\(s\), (\d+) stale", inventory[-1]).groups())
+    if stale or any(" STALE " in ln for ln in inventory):
+        raise AssertionError(f"stale suppressions: {[ln for ln in inventory if ' STALE ' in ln]}")
+    hits = [f for f in json.loads(out["seeded"][1])["findings"] if f["rule"] == "hostsync-serving-path"]
+    if out["seeded"][0] != 1 or [f["line"] for f in hits] != [seed_line]:
+        raise AssertionError(f"the seeded .cpu() at line {seed_line}: exit {out['seeded'][0]}, {hits}")
+    steps = {"files_scanned": n_files, "suppression_sites": sites, "lint_s": report["duration_s"],
+             "done_s": done_s, "seeded_line": seed_line, "phase_s": time.perf_counter() - t_phase}
+    emit(phase="lint_cli", **steps)
+    remove_work(work)
     return steps
 
 
 RANK_PHASES = {"sharded_als": sharded_als_rank, "twotower_parallel": twotower_parallel_rank}
 
 
+@phase
 def rank_phases(torch, home: str) -> dict:
-    """The four phases of more than one rank and the small verbs, one after
-    another (run beside the main thread's phases: their ranks and verbs
-    are processes of their own)."""
+    """The four phases of more than one rank, the small verbs and `pio
+    lint`, one after another (run beside the main thread's phases: their
+    ranks, verbs and lint runs are processes of their own)."""
     return {"sharded_cli": sharded_cli_phase(torch, home), "sharded_als": sharded_als_phase(torch, home),
             "twotower_parallel": twotower_parallel_phase(torch, home),
             "twotower_sharded_cli": twotower_sharded_cli_phase(torch, home),
-            "tools_cli": tools_cli_phase(home)}
+            "tools_cli": tools_cli_phase(home), "lint_cli": lint_cli_phase(home)}
 
 
+@phase
 def rank_kernel_times(torch, ranks: dict) -> None:
     """B1 on rank 0's first user-side systems of the 2-rank sharded train
     and B2 on rank 0's ulysses and data=2 blocks, timed here while no other phase
@@ -7362,8 +7588,8 @@ def rank_kernel_times(torch, ranks: dict) -> None:
         q, k, v = (torch.from_numpy(np.load(os.path.join(tt_work, f"b2_h{heads}_{n}.npy"))).cuda() for n in "qkv")
         ranks["twotower_parallel"]["rows"].append(b2_times(torch, q, k, v, label))
         del q, k, v
-    shutil.rmtree(als_work, ignore_errors=True)
-    shutil.rmtree(tt_work, ignore_errors=True)
+    remove_work(als_work)
+    remove_work(tt_work)
 
 
 def rank_phase_main(argv: list[str]) -> int:
@@ -7408,7 +7634,7 @@ def main() -> int:
          python=sys.version.split()[0], kernel_build_s=build_s,
          ptxas={name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
                        if "registers" in ln or "spill" in ln] for name in KERNELS})
-    home = tempfile.mkdtemp(prefix="pio_smoke_home_")
+    home = work_dir(prefix="pio_smoke_home_")
     try:
         profiler_warm_up(torch, home)
         kernel_phase(torch)
@@ -7475,8 +7701,11 @@ def main() -> int:
         recuser = recommendeduser_phase(torch)
         classification_phase(torch, home)
         gallery_cli_phase(os.path.join(home, "gallery_cli"))
+    except BaseException as exc:
+        report_failure(exc, home)
+        raise
     finally:
-        shutil.rmtree(home, ignore_errors=True)
+        remove_work(home)
     kernel["launches_by_path"] = {"als_train": launches, "sequential_train": seq_launches,
                                   "als_train_rank_160": rank160_launches,
                                   **rest["launches"], **sql_es["launches"], **similar["launches"],

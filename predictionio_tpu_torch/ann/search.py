@@ -197,8 +197,9 @@ class AnnSearcher:
         """The one fetch of an ANN search: the packed [B, 2, k] top-k and
         the [B] candidate counts. Returns (scores, item indices, counts)."""
         packed, counts = handle
+        # pio-lint: disable=serving-host-roundtrip -- k-only packed fetch + [B] counts, the ANN wire contract
         scores, idx = ServingIndex.unpack_batch(packed.cpu().numpy())
-        return scores, idx, counts.cpu().numpy()
+        return scores, idx, counts.cpu().numpy()  # pio-lint: disable=serving-host-roundtrip -- the [B] counts of the same wire contract
 
     def warmup(self, max_batch: int, k: int) -> None:
         """One search per power-of-two batch bucket, so the first burst

@@ -178,6 +178,7 @@ class TwoTowerModelState(SanityCheck):
         """The network with the host parameters, on ``self.device`` once."""
         if self._module is None:
             model = TwoTower(self.config)
+            # pio-lint: disable=serving-host-roundtrip -- host parameters of the model blob, copied to the card once per deploy
             model.load_state_dict({k: torch.from_numpy(np.asarray(v)) for k, v in self.params.items()})
             self._module = model.to(self.device).eval()
         return self._module

@@ -158,6 +158,7 @@ class _DeviceTrace:
 
         t0 = time.perf_counter()
         if self.device != "cpu":
+            # pio-lint: disable=hostsync-serving-path,train-unaccounted-sync -- the capture's own barrier: its trace must hold every kernel queued before stop; runs on the capture thread, not a handler
             torch.cuda.synchronize(self.device)
         self._prof.stop()
         t1 = time.perf_counter()

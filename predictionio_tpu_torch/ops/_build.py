@@ -26,7 +26,7 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
-_lock = threading.Lock()
+_lock = threading.RLock()
 _libs: dict[str, ctypes.CDLL] = {}
 # ptxas report (registers, shared memory, spills) of each build this process ran
 build_logs: dict[str, str] = {}
@@ -63,36 +63,40 @@ def _lib_path(name: str) -> Path:
 
 def build(names: list[str]) -> float:
     """Compile every named source whose library is missing, one nvcc per
-    source, all started together. Returns the wall seconds spent."""
-    t0 = time.perf_counter()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    jobs = []
-    for name in names:
-        out = _lib_path(name)
-        if out.exists():
-            continue
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        proc = subprocess.Popen(
-            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
-        )
-        jobs.append((name, proc, tmp, out))
-    failed = []
-    for name, proc, tmp, out in jobs:
-        log, _ = proc.communicate()
-        build_logs[name] = log
-        if proc.returncode != 0:
-            failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
-            tmp.unlink(missing_ok=True)
-        else:
-            os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
-    elapsed = time.perf_counter() - t0
-    for name, *_ in jobs:
-        n, seconds = build_counts.get(name, (0, 0.0))
-        build_counts[name] = (n + 1, seconds + elapsed)
-    if failed:
-        raise KernelBuildError("kernel build failed: " + "\n".join(failed))
-    return elapsed
+    source, all started together. Returns the wall seconds spent. Holds
+    the module lock (re-entrant: ``load`` holds it around this call), so
+    two threads never build into one temporary file or update the build
+    records at once."""
+    with _lock:
+        t0 = time.perf_counter()
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        jobs = []
+        for name in names:
+            out = _lib_path(name)
+            if out.exists():
+                continue
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+            proc = subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
+            )
+            jobs.append((name, proc, tmp, out))
+        failed = []
+        for name, proc, tmp, out in jobs:
+            log, _ = proc.communicate()
+            build_logs[name] = log
+            if proc.returncode != 0:
+                failed.append(f"{name}.cu (nvcc exit {proc.returncode}):\n{log}")
+                tmp.unlink(missing_ok=True)
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+        elapsed = time.perf_counter() - t0
+        for name, *_ in jobs:
+            n, seconds = build_counts.get(name, (0, 0.0))
+            build_counts[name] = (n + 1, seconds + elapsed)
+        if failed:
+            raise KernelBuildError("kernel build failed: " + "\n".join(failed))
+        return elapsed
 
 
 def load(name: str) -> ctypes.CDLL:

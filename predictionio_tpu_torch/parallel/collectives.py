@@ -56,6 +56,7 @@ def _host_staged() -> bool:
 
 def _wire(x: torch.Tensor) -> torch.Tensor:
     x = x.contiguous()
+    # pio-lint: disable=train-unaccounted-sync -- gloo's transport: a host-staged collective moves through host memory by design
     return x.cpu() if x.is_cuda and _host_staged() else x
 
 

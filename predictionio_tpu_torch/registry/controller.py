@@ -165,6 +165,7 @@ def matched_work_p95(
             out.append(0.0)
             continue
         kappa = next(kappas)
+        # pio-lint: disable=hostsync-serving-path -- a host numpy array of latency samples, no tensor
         out.append(p95((secs * (1.0 + kappa * common) / (1.0 + kappa * rows)).tolist()))
     return out
 

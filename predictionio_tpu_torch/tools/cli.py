@@ -47,6 +47,8 @@ Verbs, modelled on ``predictionio_tpu/tools/cli.py``::
          [--batch-size N] [--status-file F] [--out F] [--device cuda|cpu] ...
     version | upgrade | status | template list | template get NAME [DIR]
     run MAIN [ARGS ...]
+    lint [PATHS ...] [--format text|json|sarif] [--strict] [--rule ID ...] [--list-rules]
+         [--show-suppressed] [--changed] [--report-suppressions]
     build | unregister  --engine-dir DIR [--variant FILE]
     shell [--device cuda|cpu]
     start-all [--eventserver-port N] [--adminserver-port N] [--dashboard-port N] | stop-all
@@ -83,6 +85,8 @@ import sys
 
 import predictionio_tpu_torch
 
+# stdlib AST walking only (no torch, no numpy): safe to pull in for every verb
+from predictionio_tpu_torch.analysis.cli import add_lint_arguments, run_lint
 from predictionio_tpu_torch.data.storage.base import AccessKey, App, Channel
 from predictionio_tpu_torch.data.storage.registry import Storage, StorageError, default_basedir
 from predictionio_tpu_torch.utils.platform import wait_for_signal as _wait_for_signal
@@ -1340,6 +1344,10 @@ def cmd_version(args) -> int:
     return 0
 
 
+def cmd_lint(args) -> int:
+    return run_lint(args)
+
+
 def _templates_dir() -> str:
     return os.path.join(os.path.dirname(os.path.abspath(predictionio_tpu_torch.__file__)), "models")
 
@@ -2253,6 +2261,14 @@ def build_parser() -> argparse.ArgumentParser:
     x.add_argument("name")
     x.add_argument("directory", nargs="?")
     x.set_defaults(fn=cmd_template_get)
+
+    x = sub.add_parser(
+        "lint",
+        help="static analysis: staging safety, recompile hazards, host-sync "
+        "stalls, concurrency, storage contracts",
+    )
+    add_lint_arguments(x)
+    x.set_defaults(fn=cmd_lint)
 
     x = sub.add_parser("run")
     x.add_argument("main")

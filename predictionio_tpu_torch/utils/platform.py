@@ -32,9 +32,19 @@ def ensure_cpu_if_requested(device) -> bool:
     return True
 
 
+# how often the waiting main thread returns to the interpreter loop
+SIGNAL_POLL_S = 0.05
+
+
 def wait_for_signal(stop: threading.Event | None = None) -> int | None:
     """Block until SIGINT, SIGTERM or ``stop`` is set; returns the signal
-    that ended the wait, None for ``stop``. Call from the main thread."""
+    that ended the wait, None for ``stop``. Call from the main thread.
+
+    The wait polls: Python runs a signal's handler only in the main thread,
+    between bytecodes, and when the kernel delivers the signal to another
+    of the process's threads, nothing interrupts a main thread blocked in
+    an untimed lock wait — the handler then never runs (a served process
+    ignored SIGTERM that way)."""
     stop = stop or threading.Event()
     got: list[int] = []
 
@@ -44,5 +54,6 @@ def wait_for_signal(stop: threading.Event | None = None) -> int | None:
 
     for sig in (signal.SIGINT, signal.SIGTERM):
         signal.signal(sig, handler)
-    stop.wait()
+    while not stop.wait(SIGNAL_POLL_S):
+        pass
     return got[0] if got else None

@@ -180,6 +180,9 @@ logger = logging.getLogger(__name__)
 
 MAX_INFLIGHT = 4  # batches dispatched but not yet fetched
 BACKGROUND_HTTP_THREADS = 4  # feedback and remote-log POSTs in flight at once
+# of a drain's grace, what stays for shutdown and the interpreter's exit (about
+# 0.6 s of a CPU process with torch loaded) after the background POSTs
+EXIT_RESERVE_S = 1.5
 VERSION_HEADER = "X-Pio-Model-Version"  # the lane version that answered
 
 
@@ -640,6 +643,66 @@ class _MicroBatcher:
             pool.shutdown(wait=True)
 
 
+class _PostQueue:
+    """Fire-and-forget background work (feedback and remote-log POSTs) on
+    daemon threads. Unlike an executor's, its threads never hold the
+    process's exit: :meth:`close` waits for what is queued and in flight
+    only until a deadline, then abandons the rest."""
+
+    def __init__(self, n_threads: int, name: str):
+        self._queue: queue.Queue = queue.Queue()
+        self._cv = threading.Condition()
+        self._pending = 0  # queued plus running
+        self._threads = [
+            threading.Thread(target=self._run, name=f"{name}_{i}", daemon=True)
+            for i in range(n_threads)
+        ]
+        for t in self._threads:
+            t.start()
+
+    def submit(self, fn, *args) -> None:
+        with self._cv:
+            self._pending += 1
+        self._queue.put((fn, args))
+
+    def _run(self) -> None:
+        while True:
+            item = self._queue.get()
+            if item is None:
+                return
+            fn, args = item
+            try:
+                fn(*args)
+            except Exception:
+                logger.exception("background %s failed", getattr(fn, "__name__", fn))
+            finally:
+                with self._cv:
+                    self._pending -= 1
+                    self._cv.notify_all()
+
+    def close(self, deadline: float) -> int:
+        """Wait until everything submitted has run or ``deadline``
+        (``time.monotonic()``) has passed, then stop the threads; returns
+        how many items were abandoned (dropped from the queue or still
+        running)."""
+        with self._cv:
+            while self._pending and deadline - time.monotonic() > 0:
+                self._cv.wait(deadline - time.monotonic())
+            left = self._pending
+        while True:  # what never started is dropped
+            try:
+                if self._queue.get_nowait() is not None:
+                    with self._cv:
+                        self._pending -= 1
+            except queue.Empty:
+                break
+        for _ in self._threads:
+            self._queue.put(None)
+        for t in self._threads:
+            t.join(timeout=max(0.0, deadline - time.monotonic()))
+        return left
+
+
 class _HTTPServer(HandshakeOnHandlerThread, ThreadingHTTPServer):
     """Counts the connections accepted whose first request has not yet
     been answered, so a drain does not close the process on a connection
@@ -929,9 +992,7 @@ class QueryServer:
         self._sniffer_pool = concurrent.futures.ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="pio-sniffer", initializer=self.bind_device
         )
-        self._http_pool = concurrent.futures.ThreadPoolExecutor(
-            max_workers=BACKGROUND_HTTP_THREADS, thread_name_prefix="pio-bg-http"
-        )
+        self._http_pool = _PostQueue(BACKGROUND_HTTP_THREADS, "pio-bg-http")
         self._http = urllib.request.build_opener(urllib.request.ProxyHandler({}))
         self._background_lock = threading.Lock()
         self._background_closed = False
@@ -944,6 +1005,7 @@ class QueryServer:
         # every open connection, so shutdown can hang up idle keep-alives
         self._open_connections: set = set()
         self._draining = False
+        self._exit_by: float | None = None  # a drain's deadline (time.monotonic())
         self.batcher = _MicroBatcher(
             self, self.config.max_batch, MAX_INFLIGHT,
             high_water=self.config.queue_high_water, shed_retry_after_s=self.config.shed_retry_after_s,
@@ -1753,7 +1815,7 @@ class QueryServer:
         return (200 if ready else 503), {"ready": ready, "draining": self._draining, **snap}
 
     # -- background work -------------------------------------------------------
-    def _background(self, pool: concurrent.futures.ThreadPoolExecutor, fn, *args) -> None:
+    def _background(self, pool: concurrent.futures.ThreadPoolExecutor | _PostQueue, fn, *args) -> None:
         """Fire and forget on ``pool``; dropped (logged) once shut down."""
         with self._background_lock:
             if self._background_closed:
@@ -2216,9 +2278,10 @@ class QueryServer:
         if self._draining:
             return
         self._draining = True
+        # the grace counts from the signal: closing the listener spends it
+        until = self._exit_by = time.monotonic() + max(0.0, self.config.drain_grace_s)
         logger.info("drain: closing the listener, answering what was accepted")
         self._close_listener()
-        until = time.monotonic() + max(0.0, self.config.drain_grace_s)
         b = self.batcher
         while time.monotonic() < until:
             with self._drain_lock:
@@ -2240,7 +2303,17 @@ class QueryServer:
     def shutdown(self) -> None:
         """Stop the loops and the listener, answer the batches in flight,
         fail what is queued, hang up the keep-alive connections, and close
-        every pool."""
+        every pool. The feedback and remote-log POSTs still queued get what
+        is left of a drain's grace (less ``EXIT_RESERVE_S``), else
+        ``http_timeout_s``; what they do not finish by then is abandoned
+        and logged, so a slow or silent event server cannot hold the
+        process past its grace."""
+        t0 = time.monotonic()
+        posts_by = (
+            self._exit_by - EXIT_RESERVE_S
+            if self._exit_by is not None
+            else t0 + self.config.http_timeout_s
+        )
         self._closing.set()
         self.sampler.stop()
         for t in self._loops:
@@ -2252,8 +2325,21 @@ class QueryServer:
         with self._background_lock:
             self._background_closed = True
         self._sniffer_pool.shutdown(wait=True)
-        self._http_pool.shutdown(wait=True, cancel_futures=True)
+        t_posts = time.monotonic()
+        left = self._http_pool.close(posts_by)
+        if left:
+            logger.warning("shutdown: %d feedback / remote-log POST(s) unsent at the deadline", left)
+        t_after = time.monotonic()
         self._shadow_pool.shutdown(wait=True)
+        t_end = time.monotonic()
+        if self._exit_by is not None and t_end > self._exit_by:
+            # the evidence a supervisor's slow-exit report needs
+            logger.warning(
+                "shutdown ended %.2f s past the drain grace (%.1f s): %.2f s before the "
+                "background POSTs, %.2f s for them, %.2f s after",
+                t_end - self._exit_by, self.config.drain_grace_s, t_posts - t0,
+                t_after - t_posts, t_end - t_after,
+            )
 
 
 def create_query_server(

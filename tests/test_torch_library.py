@@ -354,9 +354,11 @@ def test_self_cleaning_equals_the_reference(window):
     ``clean_persisted_events`` on each package's memory store leave the
     same events."""
     out = {}
+    # one clock reading for both packages: read per package, a second's
+    # tick between them shifted every event time of the second one
+    now = pkg_modules("port").self_cleaning.now_utc().replace(microsecond=0)
     for name in PACKAGES:
         m = pkg_modules(name)
-        now = m.self_cleaning.now_utc().replace(microsecond=0)
         events = _seeded_events(m, 3, t0=now - dt.timedelta(days=60))
         w = m.self_cleaning.EventWindow(**window)
         cleaned = sorted(json_key(_wire(e)) for e in m.self_cleaning.clean_events(events, w))

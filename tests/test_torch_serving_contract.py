@@ -488,3 +488,65 @@ def test_deploy_process_with_tls_key_feedback_remote_log_and_sigterm_drain(tmp_p
             proc.wait(timeout=10)
         collector.close()
         es.shutdown()
+
+
+# ---------------------------------------------------------------------------
+# SIGTERM with feedback still in flight
+# ---------------------------------------------------------------------------
+
+_SIGTERM_CHILD = """
+import sys
+from predictionio_tpu_torch.utils.platform import wait_for_signal
+from tests.torch_serving_helpers import query_server
+
+with query_server("port", feedback=True, event_server_url=sys.argv[1], feedback_access_key="k",
+                  drain_grace_s=float(sys.argv[2]), request_timeout_s=5.0) as (port, server, _):
+    print(port, flush=True)
+    if wait_for_signal(server.stop_requested) is not None:  # run_query_server's exit path
+        server.drain()
+"""
+
+
+@pytest.mark.parametrize("target_delay_s", [0.15, 60.0], ids=["slow_event_server", "silent_event_server"])
+def test_sigterm_exit_stays_within_the_grace_with_feedback_in_flight(target_delay_s):
+    """A server process with feedback into an event server that answers
+    each POST 0.15 s late, or never: SIGTERM amid a burst of 32 queries
+    must end the process with 0 within its 4 s drain grace, and against
+    the slow event server every answered query's predict event lands
+    (the 4 POST threads need 1.2 s for 32). Executor threads used to hold
+    the exit for each running POST's 10 s timeout and drop the queued
+    ones."""
+    grace = 4.0
+    target = Collector(delay_s=target_delay_s)
+    env = {**os.environ, "PYTHONPATH": str(REPO), "OMP_NUM_THREADS": "1"}
+    proc = subprocess.Popen([sys.executable, "-c", _SIGTERM_CHILD, target.url, str(grace)], cwd=str(REPO),
+                            env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        port = int(proc.stdout.readline())
+
+        def one(qid):
+            try:
+                return qid, call(port, "POST", "/queries.json", {"qid": qid}, timeout=10)[0]
+            except OSError:
+                return qid, "refused"
+
+        with concurrent.futures.ThreadPoolExecutor(8) as pool:
+            burst = [pool.submit(one, qid) for qid in range(32)]
+            wait_until(lambda: sum(f.done() for f in burst) >= 16, 30, "half the burst answered")
+            t_term = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            outcomes = dict(f.result(timeout=30) for f in burst)
+        code = proc.wait(timeout=30)
+        exit_s = time.monotonic() - t_term
+        assert code == 0, proc.stderr.read()
+        assert set(outcomes.values()) <= {200, "refused"}, outcomes
+        assert exit_s <= grace, f"exited {exit_s:.2f} s after SIGTERM (grace {grace} s)"
+        if target_delay_s < grace:
+            answered = {q for q, status in outcomes.items() if status == 200}
+            landed = {json.loads(body)["properties"]["query"]["qid"] for _, _, body in target.received}
+            assert landed == answered
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=10)
+        target.close()

@@ -239,11 +239,14 @@ def tls_cert(tmp_path_factory):
 class Collector:
     """A plain HTTP server that records every POST (path with query,
     content type, body) and answers 201 ``{}``: a stand-in event server
-    or remote-log collector."""
+    or remote-log collector. With ``delay_s`` each POST is recorded and
+    answered that long after it arrived (until :meth:`close`): a slow or,
+    with a delay past the test, a silent event server."""
 
-    def __init__(self):
+    def __init__(self, delay_s: float = 0.0):
         self.received: list[tuple[str, str, bytes]] = []
         received = self.received
+        release = self._release = threading.Event()
 
         class Handler(BaseHTTPRequestHandler):
             protocol_version = "HTTP/1.1"
@@ -253,6 +256,8 @@ class Collector:
 
             def do_POST(self):
                 body = self.rfile.read(int(self.headers.get("Content-Length") or 0))
+                if delay_s and release.wait(delay_s):
+                    return  # closed: the silent server never answered
                 received.append((self.path, self.headers.get("Content-Type", ""), body))
                 self.send_response(201)
                 self.send_header("Content-Type", "application/json")
@@ -268,6 +273,7 @@ class Collector:
         self.thread.start()
 
     def close(self) -> None:
+        self._release.set()
         self.httpd.shutdown()
         self.httpd.server_close()
         self.thread.join(10)
