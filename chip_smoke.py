@@ -4,7 +4,10 @@
 Run from the root of a checkout on a machine with an NVIDIA H100:
 ``python3 chip_smoke.py``. It builds the CUDA kernels from the checkout's
 sources (nvcc, one process per source, all started together, into
-build/kernels/), then drives the main path of every template.
+build/kernels/) and, beside them, the host library
+(ops/csrc/pio_scan.cpp: JSONL scan, COO group-by, cooccurrence top-N;
+g++ into build/native/), then drives the main path of every template.
+Each phase that returns prints its thread, start and seconds.
 
 The recommendation template (ALS, kernel B1):
 
@@ -15,7 +18,9 @@ The recommendation template (ALS, kernel B1):
 2. train phase: the recommendation template's ALSAlgorithm.train at the
    ML-20M shape (138,000 users x 27,000 items x 20 M synthetic ratings,
    rank 32, 10 iterations), held-out RMSE gated at 0.45, with B1's launch
-   count read around the run; then B1 against the plain version on the
+   count read around the run and its ratings grouped by the host library
+   (the user side's group-by held bit for bit to numpy's stable argsort,
+   both timed); then B1 against the plain version on the
    real user-side and item-side systems of that model and on 138,001
    rank-10 systems, each timed beside the plain version and a library
    Cholesky solve, eager (``ms``) and as a replayed CUDA graph
@@ -51,7 +56,10 @@ The recommendation template (ALS, kernel B1):
    69,000-line query file (every other user) in mega-batches of 512 into a FileSink and a
    MemorySink, every row line-aligned and equal to serve_batch for its
    user, users/s and the five phases' p50;
-3b. the offline CLI on the event server's store: batchpredict
+3b. the offline CLI on the event server's store (it and 3e run on one of
+   three threads, after 3j, beside 8, 12, 17 and 3n, while this thread runs
+   the recommendation variants, 11 and 15; none of them times a kernel or
+   reads a latency against a limit): batchpredict
    --from-events --to-events (a line and a write-back event per user),
    undeploy of a deployed server (it exits 0 within 10 s), status, version,
    template list; eval of the recommendation template, rank {10, 20} x
@@ -115,7 +123,9 @@ The recommendation template (ALS, kernel B1):
 3h. the bandit lanes in-process at full width: a QueryServer on the card
    from a registry holding the ML-20M stable and the fold-in's candidate,
    bandit_policy thompson and the gate's default latency veto (1.5x at
-   equal batch sizes; the ratios it read are kept), rewards in the fold-in's store: waves of 128
+   equal batch sizes, and more slow candidate batches than an equal lane's
+   tail gives; the ratios and slow-batch counts it read are kept), rewards
+   in the fold-in's store: waves of 128
    queries from 16 clients, each answered user converting with its arm's
    probability (a reward event carrying the answer's trace id), a bake tick
    between waves; round one (candidate 0.30, stable 0.15) promotes, round
@@ -123,6 +133,20 @@ The recommendation template (ALS, kernel B1):
    its lane's serve_batch, pulls, rewards and matched rewards exact,
    pio_bandit_active 1 then 0, no 5xx, card memory flat; p50 and qps beside
    the plain bake gate's;
+3n. the recommendation template on a jsonl event store through the CLI:
+   app new, import of 100,000 ML-100K-shape rate events, one more line
+   appended without its newline, train (20 B1 launches; its columnar read
+   through the host library's scan and its group-by through the host
+   library), deploy, 200 queries equal to serve_batch of the model read
+   back; the train's read through the host library equal to the python
+   encoder's, and neither nor the model holding the partial line;
+3o. the recommendation template's five variants in-process on the card
+   (ML-100K shape, rank 10, one jsonl store): each trains with 20 B1
+   launches and answers 64 queries, each the top of its user's float64
+   scores over what the variant may serve (blacklist-items,
+   customize-data-prep, customize-serving with its file edited live,
+   reading-custom-events at ratings 4 and 1, train-with-view-event
+   implicit);
 3i. the lifecycle loop through the CLI, after 3e in its directory: deploy
    --bandit thompson, eventserver, lifecycle run started by 3e's drift
    line, SIGKILLed after the grid's first ledger line and restarted (the
@@ -237,7 +261,8 @@ The rest of the template gallery (similar-product, e-commerce and
 recommended-user train implicit ALS through kernel B1 at rank 10):
 
 13. similar-product: the multi-events-multi-algos variant at the ML-1M
-   shape (views-ALS, like-ALS, cooccurrence n = 20), B1 on the views
+   shape (views-ALS, like-ALS, cooccurrence n = 20 through the host
+   library, its map equal to the scipy formulation's), B1 on the views
    train's own systems, batches of 64 filtered queries checked against
    their filters and the plain product; the same-cluster share of the
    top-10 on the bench's clustered data;
@@ -284,6 +309,7 @@ every kernel with its launches on the main paths, errors and times.
 from __future__ import annotations
 
 import concurrent.futures
+import datetime
 import faulthandler
 import http.client
 import itertools
@@ -336,8 +362,10 @@ TABLE_BOUNDS = {
 
 
 def emit(**fields) -> None:
-    """One JSON line of a phase's results, with the script's elapsed seconds."""
-    print(json.dumps({**fields, "elapsed_s": time.perf_counter() - _T0}), flush=True)
+    """One JSON line of a phase's results, with the script's elapsed seconds
+    (one write, so that lines of phases on other threads never interleave)."""
+    sys.stdout.write(json.dumps({**fields, "elapsed_s": time.perf_counter() - _T0}) + "\n")
+    sys.stdout.flush()
 
 
 # the .err files phases' processes wrote: path -> (mtime, last lines), kept
@@ -378,17 +406,22 @@ def remove_work(path: str) -> None:
 
 def phase(fn):
     """Mark an exception leaving a phase with the phase's name and start
-    time (the innermost phase's mark stands), for :func:`report_failure`."""
+    time (the innermost phase's mark stands), for :func:`report_failure`;
+    a phase that returns emits its thread, start and seconds."""
     name = fn.__name__.removesuffix("_phase")
 
     def wrapper(*args, **kwargs):
         t0 = time.time()
+        start_s = time.perf_counter() - _T0
         try:
-            return fn(*args, **kwargs)
+            result = fn(*args, **kwargs)
         except BaseException as exc:
             if not hasattr(exc, "smoke_phase"):
                 exc.smoke_phase = (name, t0)
             raise
+        emit(phase="phase_s", name=name, thread=threading.current_thread().name, start_s=start_s,
+             seconds=time.perf_counter() - _T0 - start_s)
+        return result
 
     wrapper.__name__, wrapper.__doc__ = fn.__name__, fn.__doc__
     return wrapper
@@ -630,7 +663,9 @@ def train_phase(torch, home: str):
         ALSAlgorithmParams,
         TrainingData,
     )
+    from predictionio_tpu_torch.ops import als as als_ops
     from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.utils import native
     from predictionio_tpu_torch.workflow.context import WorkflowContext
 
     n_users, n_items, n_ratings, rank, iterations = 138_000, 27_000, 20_000_000, 32, 10
@@ -648,17 +683,34 @@ def train_phase(torch, home: str):
     algo.timings = {}
     ctx = WorkflowContext(device="cuda", _storage=smoke_storage(home))
     batched_spd_solve_fused.launches = 0
+    grouped_before = native.calls["coo_group"]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     model = algo.train(ctx, td)
     train_wall_s = time.perf_counter() - t0
     PEAKS["als_train_ml20m"] = torch.cuda.max_memory_allocated()
     launches = batched_spd_solve_fused.launches
+    if native.calls["coo_group"] == grouped_before:
+        raise AssertionError("the ML-20M train did not group its ratings through the host library")
     pred = np.sum(model.user_factors[users[test_mask]] * model.item_factors[items[test_mask]], 1)
     rmse = float(np.sqrt(np.mean((pred - vals[test_mask]) ** 2)))
+    # the train's user-side group-by (the host library's counting sort)
+    # against its plain version, numpy's stable argsort, on the same ratings
+    t0 = time.perf_counter()
+    grouped = als_ops._host_group_by(td.user_idx, td.item_idx, td.ratings, n_users)
+    group_by_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plain = als_ops._host_group_by_plain(td.user_idx, td.item_idx, td.ratings, n_users)
+    group_by_plain_s = time.perf_counter() - t0
+    for name, got, want in zip(("cols", "vals", "deg"), grouped, plain):
+        if got.dtype != want.dtype or not np.array_equal(got, want):
+            raise AssertionError(f"the host library's group-by differs from numpy's stable argsort in {name}")
+    del grouped, plain
     emit(
         phase="train", shape=[n_users, n_items, n_ratings], rank=rank,
         iterations=iterations, data_s=data_s, train_wall_s=train_wall_s,
+        **{k: algo.timings.get(k) for k in ("pack_s", "upload_s", "build_s", "device_s")},
+        group_by_s=group_by_s, group_by_numpy_s=group_by_plain_s, group_by_bit_equal=True,
         timings=algo.timings, heldout_rmse=rmse, rmse_gate=0.45, spd_cg_launches=launches,
         peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
     )
@@ -1123,7 +1175,7 @@ def cli_serve_phase(home: str, device: str = "cuda") -> dict:
 # Runs the port's CLI in this process and, at its exit, writes to the path
 # given as the first argument the kernel launches of the run (each count
 # zeroed before the verb runs; train, deploy, batchpredict, eval, stream and
-# lifecycle run) and
+# lifecycle run), the calls into the host library (utils/native.py) and
 # every module of JAX, the JAX package or aiohttp that the process imported.
 _CLI_LAUNCHER = """
 import atexit, json, runpy, sys
@@ -1141,8 +1193,10 @@ def report():
     foreign = sorted(m for m in sys.modules if m.split(".")[0] in
                      ("jax", "jaxlib", "aiohttp", "predictionio_tpu"))
     launches = {k: fn.launches for k, fn in kernels.items()} if counted else {}
+    calls = dict(sys.modules["predictionio_tpu_torch.utils.native"].calls) \
+        if "predictionio_tpu_torch.utils.native" in sys.modules else {}
     with open(out, "w") as fh:
-        json.dump({"launches": launches, "foreign_modules": foreign}, fh)
+        json.dump({"launches": launches, "native_calls": calls, "foreign_modules": foreign}, fh)
 atexit.register(report)
 sys.argv[0] = "pio-torch"
 runpy.run_module("predictionio_tpu_torch.tools.cli", run_name="__main__")
@@ -1580,6 +1634,302 @@ def sql_es_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 10
     }
     emit(phase="sql_es_cli", shape=[n_users, n_items, n_ratings], **result)
     return {"launches": {"sql_es_cli": train_launches}, "rows": rows}
+
+
+@phase
+def jsonl_cli_phase(torch, home: str, device: str = "cuda", n_ratings: int = 100_000,
+                    n_queries: int = 200) -> dict:
+    """The recommendation template on a ``jsonl`` event store, every verb a
+    process of the port's CLI (EVENTDATA jsonl, METADATA and MODELDATA one
+    sqlite file): app new, import of 100,000 ML-100K-shape rate events (943
+    users x 1,682 items, seed 13), one more rate event of a new user
+    appended without its newline (a writer still appending), train (rank
+    10, 10 iterations: 20 B1 launches; its columnar read through the host
+    library's scan and its group-by through the host library, each counted
+    in the train process), deploy, 200 queries. In this process the
+    train's read (the DataSource's filters) through the host library
+    equals the python encoder's on the same file, and neither holds the
+    partial line; the trained model knows no user of it; every answer is
+    200 and serve_batch's of the model read back from MODELDATA."""
+    from predictionio_tpu_torch.data.storage import base
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.utils import native
+    from predictionio_tpu_torch.workflow import model_io
+    from predictionio_tpu_torch.workflow.engine_loader import load_engine
+
+    t_phase = time.perf_counter()
+    n_users, n_items = 943, 1682
+    users, items, vals = synthesize_ratings(n_users, n_items, n_ratings, seed=13)
+    work = work_dir(prefix="pio_smoke_jsonl_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = {
+        **os.environ, "PYTHONPATH": root,
+        "PIO_STORAGE_SOURCES_S_TYPE": "sqlite", "PIO_STORAGE_SOURCES_S_PATH": os.path.join(work, "pio.db"),
+        "PIO_STORAGE_SOURCES_J_TYPE": "jsonl", "PIO_STORAGE_SOURCES_J_PATH": os.path.join(work, "events"),
+        "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "S", "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "S",
+        "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "J",
+    }
+    reports: list = []
+
+    def run(*args) -> tuple[float, dict]:
+        reports.append(os.path.join(work, f"report_{len(reports)}.json"))
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", _CLI_LAUNCHER, reports[-1], "--home", home, *args],
+                              env=env, capture_output=True, text=True, timeout=600)
+        if proc.returncode != 0:
+            raise AssertionError(f"cli {args[0]} on jsonl failed ({proc.returncode}):\n{proc.stderr}")
+        with open(reports[-1]) as fh:
+            return time.perf_counter() - t0, json.load(fh)
+
+    steps: dict = {}
+    events = os.path.join(work, "events.jsonl")
+    with open(events, "w") as fh:
+        for k in range(n_ratings):
+            fh.write(json.dumps({
+                "event": "rate", "entityType": "user", "entityId": f"u{users[k]}",
+                "targetEntityType": "item", "targetEntityId": f"i{items[k]}",
+                "properties": {"rating": float(vals[k])},
+                "eventTime": f"2024-05-{1 + k // 86_400:02d}T{k // 3600 % 24:02d}:{k // 60 % 60:02d}:"
+                             f"{k % 60:02d}.000Z",
+            }) + "\n")
+    steps["app_new_s"], _ = run("app", "new", "jsonlapp")
+    steps["import_s"], _ = run("import", "--appname", "jsonlapp", "--input", events)
+    storage = Storage(env={**env, "PIO_FS_BASEDIR": home})
+    app_id = storage.get_meta_data_apps().get_by_name("jsonlapp").id
+    p_events = storage.get_p_events()
+    with open(p_events._files.path(app_id, None), "a") as fh:  # a writer still appending
+        fh.write(json.dumps({"event": "rate", "entityType": "user", "entityId": "u-partial",
+                             "targetEntityType": "item", "targetEntityId": "i1",
+                             "properties": {"rating": 5.0}, "eventId": "partial",
+                             "eventTime": "2024-06-01T00:00:00.000Z"}))
+    engine_dir = os.path.join(work, "engine")
+    os.makedirs(engine_dir)
+    with open(os.path.join(root, "predictionio_tpu_torch/models/recommendation/engine.json")) as fh:
+        variant = json.load(fh)
+    variant["id"] = "smoke-jsonl"
+    variant["datasource"]["params"]["appName"] = "jsonlapp"
+    with open(os.path.join(engine_dir, "engine.json"), "w") as fh:
+        json.dump(variant, fh)
+    steps["train_s"], train = run("train", "--engine-dir", engine_dir, "--device", device)
+    train_launches = train["launches"].get("spd_cg", 0)
+    if device == "cuda" and train_launches != 2 * variant["algorithms"][0]["params"]["numIterations"]:
+        raise AssertionError(f"pio train on jsonl launched B1 {train_launches} times")
+    if train["native_calls"].get("scan_jsonl_columnar", 0) < 1 or train["native_calls"].get("coo_group", 0) < 1:
+        raise AssertionError(f"pio train on jsonl did not read or group through the host library: "
+                             f"{train['native_calls']}")
+    # the train's read, through the host library and through the python encoder
+    read = dict(event_names=["rate", "buy"], entity_type="user", target_entity_type="item",
+                rating_key="rating")
+    t0 = time.perf_counter()
+    cols = p_events.to_columnar(app_id, **read)
+    steps["native_read_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    python = base.PEvents.to_columnar(p_events, app_id, **read)
+    steps["python_read_s"] = time.perf_counter() - t0
+    for name in ("event_ids", "event_names", "entity_vocab", "target_vocab", "event_vocab"):
+        if list(getattr(cols, name)) != list(getattr(python, name)):
+            raise AssertionError(f"jsonl_cli: the host library's {name} differs from the python encoder's")
+    for name in ("entity_ids", "target_ids", "event_codes", "timestamps", "ratings"):
+        a, b = getattr(cols, name), getattr(python, name)
+        if a.dtype != b.dtype or not np.array_equal(a, b, equal_nan=name == "ratings"):
+            raise AssertionError(f"jsonl_cli: the host library's {name} differs from the python encoder's")
+    if len(cols) != n_ratings or "u-partial" in cols.entity_vocab:
+        raise AssertionError(f"jsonl_cli: {len(cols)} rows read, partial user read: "
+                             f"{'u-partial' in cols.entity_vocab}")
+    manifest, _ = load_engine(engine_dir)
+    instance = storage.get_meta_data_engine_instances().get_latest_completed(
+        manifest.engine_id, manifest.version, manifest.variant)
+    (model,) = model_io.deserialize_models(storage.get_model_data_models().get(instance.id).models)
+    model.device = device
+    if model.user_index("u-partial") is not None or len(model.user_vocab) != len(np.unique(users)):
+        raise AssertionError("jsonl_cli: the trained model holds the partial line's user")
+    cli, _, _ = _cli(home)
+    server, base_url, steps["deploy_ready_s"] = _start_deploy(cli, env, engine_dir, work, device)
+    try:
+        port = int(base_url.rsplit(":", 1)[1])
+        queried = [f"u{u}" for u in np.unique(users)[:n_queries].tolist()]
+        outs, query_wall = _fleet_query_run(port, queried, clients=8)
+    finally:
+        _stop(server)
+    if server.returncode != 0:
+        raise AssertionError(f"deploy on jsonl exited {server.returncode} on SIGTERM")
+    for path in reports:
+        with open(path) as fh:
+            foreign = json.load(fh)["foreign_modules"]
+        if foreign:
+            raise AssertionError(f"jsonl_cli {os.path.basename(path)}: imported {foreign[:5]}")
+    remove_work(work)
+    _fleet_answers_held(model, outs, "jsonl_cli")
+    q_ms = np.asarray([dt_s for *_, dt_s in outs]) * 1e3
+    result = {"host_numbers": True, **steps, "train_spd_cg_launches": train_launches,
+              "train_native_calls": train["native_calls"], "rows_read": len(cols),
+              "partial_line_read": False, "query_p50_ms": float(np.percentile(q_ms, 50)),
+              "qps": len(outs) / query_wall, "queries": len(outs), "queries_all_200": True,
+              "phase_s": time.perf_counter() - t_phase}
+    emit(phase="jsonl_cli", shape=[n_users, n_items, n_ratings], **result)
+    return {"launches": {"jsonl_cli": train_launches}}
+
+
+REC_VARIANTS = ("blacklist-items", "customize-data-prep", "customize-serving", "reading-custom-events",
+                "train-with-view-event")
+
+
+def _variant_events(n_users: int, n_items: int, n_events: int, seed: int) -> list:
+    """The recommendation variants' events (ML-100K shape): rate and buy,
+    like where the synthetic rating is 3.5 or more and dislike below, and
+    view; one second apart."""
+    from predictionio_tpu_torch.data.event import Event
+
+    users, items, vals = synthesize_ratings(n_users, n_items, n_events, seed=seed)
+    t0 = 1_700_000_000
+    out = []
+    for k, (u, i, r) in enumerate(zip(users.tolist(), items.tolist(), vals.tolist())):
+        kind = k % 8
+        if kind < 3:
+            name, props = "rate", {"rating": r}
+        elif kind == 3:
+            name, props = "buy", {}
+        elif kind < 6:
+            name, props = ("like" if r >= 3.5 else "dislike"), {}
+        else:
+            name, props = "view", {}
+        out.append(Event(event=name, entity_type="user", entity_id=f"u{u}", target_entity_type="item",
+                         target_entity_id=f"i{i}", properties=props, event_id=f"e{k}",
+                         event_time=datetime.datetime.fromtimestamp(t0 + k, datetime.timezone.utc)))
+    return out
+
+
+def _variant_answers_held(model, queries, results, excluded, what: str, filtered=frozenset()) -> None:
+    """Each answer the top of the user's float64 scores over the items it
+    may serve: no excluded item (a blacklist, before the top-k) and no
+    filtered one (disabled items, taken out of the top-k by the serving),
+    every score within 1e-4 of the product's largest magnitude, and no
+    item left out that scores higher (ties to that tolerance may trade)."""
+    uf = np.asarray(model.user_factors, np.float64)
+    vf = np.asarray(model.item_factors, np.float64)
+    for q, res, banned in zip(queries, results, excluded):
+        scores = uf[model.user_index(q.user)] @ vf.T
+        tol = 1e-4 * float(np.abs(scores).max())
+        ids = [model.item_index(s.item) for s in res.item_scores]
+        got = np.asarray([s.score for s in res.item_scores])
+        allowed = np.ones(len(vf), bool)
+        allowed[[model.item_index(b) for b in banned | filtered if model.item_index(b) is not None]] = False
+        want = min(q.num, int(allowed.sum()))
+        if not want - len(filtered) <= len(ids) <= want or not allowed[ids].all():
+            raise AssertionError(f"{what}: {q.user} served {ids}, excluded {sorted(banned)[:8]}")
+        if not np.all(np.abs(got - scores[ids]) <= tol) or np.any(np.diff(got) > tol):
+            raise AssertionError(f"{what}: {q.user}'s scores {got} against the float64 product {scores[ids]}")
+        allowed[ids] = False
+        if allowed.any() and scores[allowed].max() > got[-1] + tol:
+            raise AssertionError(f"{what}: {q.user} left out a higher score {scores[allowed].max()} > {got[-1]}")
+
+
+@phase
+def rec_variants_phase(torch, home: str, n_users: int = 943, n_items: int = 1682, n_events: int = 100_000,
+                       n_queries: int = 64) -> dict:
+    """The recommendation template's five variants
+    (predictionio_tpu_torch/models/recommendation/variants/), in-process on
+    the card from one jsonl event store of the ML-100K shape (100,000
+    events: rate, buy, like, dislike, view; seed 17) at rank 10, 10
+    iterations: each trains with 20 B1 launches and answers 64 queries
+    through its algorithm and serving, each answer the top of its user's
+    float64 scores over what the variant may serve. blacklist-items: no
+    blacklisted item served; customize-data-prep: the listed items absent
+    from the factors' vocabulary; customize-serving: the disabled-items
+    file edited live to list items just served, which the next answers
+    leave out; reading-custom-events:
+    like and dislike trained as ratings 4 and 1; train-with-view-event:
+    implicit."""
+    from predictionio_tpu_torch.data.storage.base import App
+    from predictionio_tpu_torch.data.storage.registry import Storage
+    from predictionio_tpu_torch.models.recommendation import engine as rec
+    from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_fused
+    from predictionio_tpu_torch.workflow.context import WorkflowContext
+    from predictionio_tpu_torch.workflow.engine_loader import load_engine_factory
+
+    t_phase = time.perf_counter()
+    work = work_dir(prefix="pio_smoke_variants_")
+    root = os.path.dirname(os.path.abspath(__file__))
+    storage = Storage(env={"PIO_FS_BASEDIR": home,
+                           "PIO_STORAGE_SOURCES_M_TYPE": "memory",
+                           "PIO_STORAGE_SOURCES_J_TYPE": "jsonl",
+                           "PIO_STORAGE_SOURCES_J_PATH": os.path.join(work, "events"),
+                           "PIO_STORAGE_REPOSITORIES_METADATA_SOURCE": "M",
+                           "PIO_STORAGE_REPOSITORIES_MODELDATA_SOURCE": "M",
+                           "PIO_STORAGE_REPOSITORIES_EVENTDATA_SOURCE": "J"})
+    app_id = storage.get_meta_data_apps().insert(App(0, "variantsapp"))
+    storage.get_l_events().insert_batch(_variant_events(n_users, n_items, n_events, seed=17), app_id)
+    files = {"preparator": os.path.join(work, "no_train_items.txt"),
+             "serving": os.path.join(work, "disabled_items.txt")}
+    with open(files["preparator"], "w") as fh:
+        fh.write("i0\ni1\ni2\n")
+    with open(files["serving"], "w") as fh:
+        fh.write("i3\ni4\ni5\n")
+    ctx = WorkflowContext(device="cuda", _storage=storage, app_name="variantsapp")
+    rng = np.random.default_rng(19)
+    out, launches = {}, {}
+    try:
+        for name in REC_VARIANTS:
+            with open(os.path.join(root, "predictionio_tpu_torch/models/recommendation/variants",
+                                   f"{name}.json")) as fh:
+                variant = json.load(fh)
+            variant["datasource"]["params"]["appName"] = "variantsapp"
+            for part in ("preparator", "serving"):
+                if part in variant:
+                    variant[part]["params"]["filepath"] = files[part]
+            engine = load_engine_factory(variant["engineFactory"])
+            ep = engine.engine_params_from_variant(variant)
+            data_source, _, (algo,), serving = engine.make_components(ep)
+            batched_spd_solve_fused.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            (model,) = engine.prepare_deploy(ctx, ep, engine.train(ctx, ep))
+            torch.cuda.synchronize()
+            train_s = time.perf_counter() - t0
+            launches[name] = batched_spd_solve_fused.launches
+            if launches[name] != 2 * variant["algorithms"][0]["params"]["numIterations"]:
+                raise AssertionError(f"variant {name}: B1 launched {launches[name]} times")
+            users = [model.user_vocab[u] for u in rng.choice(len(model.user_vocab), n_queries, replace=False)]
+            banned = [frozenset(f"i{j}" for j in rng.choice(n_items, 40, replace=False))
+                      if name == "blacklist-items" else frozenset() for _ in users]
+            queries = [rec.Query(user=u, num=10, black_list=b or None) for u, b in zip(users, banned)]
+
+            def answer(disabled=frozenset()):
+                t0 = time.perf_counter()
+                results = [serving.serve(q, [r]) for q, r in zip(queries, algo.predict_batch(model, queries))]
+                _variant_answers_held(model, queries, results, banned, f"variant {name}", disabled)
+                return results, (time.perf_counter() - t0) * 1e3
+
+            checks: dict = {}
+            if name == "customize-serving":
+                results, answer_ms = answer(frozenset({"i3", "i4", "i5"}))
+                # edited live to disable items just served: the next answers
+                # leave them out, and may serve i3-i5 again
+                edit = sorted({r.item_scores[0].item for r in results})[:5]
+                with open(files["serving"], "w") as fh:
+                    fh.write("".join(f"{item}\n" for item in edit))
+                results, _ = answer(frozenset(edit))
+                checks["disabled_by_the_edit"] = edit
+            else:
+                results, answer_ms = answer()
+            if name == "customize-data-prep":
+                if {"i0", "i1", "i2"} & set(model.item_vocab):
+                    raise AssertionError("customize-data-prep: a listed item has factors")
+                checks["items"] = len(model.item_vocab)
+            elif name == "reading-custom-events":
+                td = data_source.read_training(ctx)
+                checks["ratings"] = sorted(set(np.unique(td.ratings).tolist()))
+                if checks["ratings"] != [1.0, 4.0]:
+                    raise AssertionError(f"reading-custom-events trained ratings {checks['ratings']}")
+            elif name == "train-with-view-event" and not algo.params.implicit_prefs:
+                raise AssertionError("train-with-view-event did not train implicitly")
+            out[name] = {"train_s": train_s, "spd_cg_launches": launches[name], "queries": len(queries),
+                         "answer_batch_ms": answer_ms, **checks}
+    finally:
+        remove_work(work)
+    emit(phase="rec_variants", shape=[n_users, n_items, n_events], rank=10,
+         phase_s=time.perf_counter() - t_phase, **out)
+    return {"launches": {f"variant_{name}": n for name, n in launches.items()}}
 
 
 @phase
@@ -2569,7 +2919,8 @@ def similarproduct_phase(torch) -> dict:
     white/black-list filters, every answer checked against its filters and
     its scores against the plain product."""
     from predictionio_tpu_torch.models.similarproduct import engine as sp
-    from predictionio_tpu_torch.ops import topk
+    from predictionio_tpu_torch.ops import cooccurrence, topk
+    from predictionio_tpu_torch.utils import native
     from predictionio_tpu_torch.utils.cuda_timing import event_ms
     from predictionio_tpu_torch.workflow.context import WorkflowContext
 
@@ -2583,6 +2934,7 @@ def similarproduct_phase(torch) -> dict:
     ctx = WorkflowContext(device="cuda")
     out, launches = {}, {}
     models = {}
+    cooccur_before = native.calls["cooccur_topn"]
     for name, algo in (("als", sp.ALSAlgorithm(sp.ALSAlgorithmParams(**GALLERY_ALS))),
                        ("likealgo", sp.LikeAlgorithm(sp.ALSAlgorithmParams(**GALLERY_ALS))),
                        ("cooccurrence", sp.CooccurrenceAlgorithm(sp.CooccurrenceParams(n=20)))):
@@ -2595,6 +2947,17 @@ def similarproduct_phase(torch) -> dict:
         models[name] = (algo, model)
         out[name] = {"train_wall_s": wall, "spd_cg_launches": n_b1,
                      **{k: v for k, v in (algo.timings or {}).items() if k.endswith("_s")}}
+    # the cooccurrence train went through the host library; its map equals
+    # the scipy formulation's on the same views
+    if native.calls["cooccur_topn"] != cooccur_before + 1:
+        raise AssertionError("similar-product cooccurrence did not count through the host library")
+    codes = np.unique(users.astype(np.int64) * n_items + items)
+    t0 = time.perf_counter()
+    scipy_map = cooccurrence._cooccurrence_top_n_scipy(codes // n_items, codes % n_items, n_items, 20)
+    out["cooccurrence"]["scipy_s"] = time.perf_counter() - t0
+    if models["cooccurrence"][1].top_map != scipy_map:
+        raise AssertionError("similar-product cooccurrence differs from the scipy formulation's")
+    out["cooccurrence"]["equal_to_scipy"] = True
     pair, counts = np.unique(np.stack([users, items], 1), axis=0, return_counts=True)
     rows = _implicit_b1_rows(torch, pair[:, 0], pair[:, 1], counts.astype(np.float32),
                              n_users, n_items, "ML-1M similar-product views")
@@ -4852,8 +5215,10 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
     the round and 0 after, the registry's state and bandit.json ended as
     the verdict; card memory held by tensors flat across both swaps. The
     bandit's server keeps the gate's default latency veto (1.5x, the two
-    lanes compared at one batch size: ROADMAP C16); each round keeps the
-    largest and the last latency ratio the veto read. The same waves
+    lanes compared at one batch size: ROADMAP C16; a veto needs more slow
+    candidate batches than an equal lane's tail gives: C20); each round
+    keeps the largest and the last latency ratio the veto read, and its
+    (slow batches, batches, slow batches a veto needs). The same waves
     through a server with the plain bake gate (no bandit, a canary at 0.5)
     give the p50 and qps beside it."""
     import uuid
@@ -4954,7 +5319,7 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
             matched0, answers, conversions = ins.matched.value(), {"stable": [], "candidate": []}, \
                 {"stable": 0, "candidate": 0}
             seen_active = False
-            n, p95_ratios = 0, []
+            n, p95_ratios, slow_reads = 0, [], []
             while server._candidate is not None:
                 if n >= max_queries:
                     raise AssertionError(f"round {r + 1}: no verdict after {n} queries: {server.bandit.snapshot()}")
@@ -4970,10 +5335,13 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
                         levents.insert(Event(event="reward", entity_type="user", entity_id=user,
                                              properties={"traceId": tid}), app_id)
                 seen_active = seen_active or active_gauge(port) == 1.0
-                # what the gate's latency veto (1.5x, the default) reads
-                p95s = server.rollout_controller.latency_p95s()
-                if min(p95s) > 0:
-                    p95_ratios.append(p95s[0] / p95s[1])
+                # what the gate's latency veto (1.5x, the default) reads:
+                # the p95 ratio, and the candidate's slow batches against
+                # the count a veto needs
+                read = server.rollout_controller.latency_read()
+                if read["candidate_p95"] > 0 and read["stable_p95"] > 0:
+                    p95_ratios.append(read["candidate_p95"] / read["stable_p95"])
+                    slow_reads.append((read["slow"], read["samples"], read["slow_needed"]))
                 server._rollout_tick()
             verdict = decisions[-1]
             saved = store.load_bandit_state(BANDIT_ENGINE)
@@ -4994,7 +5362,8 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
                     or state.stable != want_stable or state.candidate or server.model_version != want_stable):
                 raise AssertionError(f"round {r + 1}: verdict {verdict}, saved {saved}, matched {matched} of "
                                      f"{conversions}, active seen {seen_active}, latency veto's p95 ratios "
-                                     f"{p95_ratios[-4:]}, state {state.to_json_dict()}")
+                                     f"{p95_ratios[-4:]} and (slow, batches, needed) {slow_reads[-4:]}, "
+                                     f"state {state.to_json_dict()}")
             del stable_lane, cand_lane
             memory.append(_tensor_bytes(torch))
             rounds.append({"verdict": verdict.verdict, "queries_to_verdict": n, "p_better": verdict.p_better,
@@ -5002,6 +5371,9 @@ def bandit_inprocess_phase(torch, foldin: dict, clients: int = 16, wave: int = 1
                            "pulls": {a: len(v) for a, v in answers.items()}, "rewards": conversions,
                            "matched_rewards": matched, "max_p95_ratio_read": max(p95_ratios, default=None),
                            "p95_ratio_at_verdict": p95_ratios[-1] if p95_ratios else None,
+                           "max_slow_batches_read": max(slow_reads, default=None,
+                                                        key=lambda r: r[0] / r[2] if r[2] else 0.0),
+                           "slow_batches_at_verdict": slow_reads[-1] if slow_reads else None,
                            "rates": {k: v for k, v in rates.items() if k != "verdict"}})
         if max(memory) > 1.1 * min(memory):
             raise AssertionError(f"card memory held by tensors moved across the swaps: {memory}")
@@ -7562,6 +7934,13 @@ RANK_PHASES = {"sharded_als": sharded_als_rank, "twotower_parallel": twotower_pa
 
 
 @phase
+def rest_cli_phases(torch, home: str, rest: dict) -> tuple[dict, dict]:
+    """The offline verbs, then the registry verbs, on the event server's
+    store (one after the other: the registry's stream adds events to it)."""
+    return offline_cli_phase(torch, home, rest), registry_cli_phase(torch, home, rest)
+
+
+@phase
 def rank_phases(torch, home: str) -> dict:
     """The four phases of more than one rank, the small verbs and `pio
     lint`, one after another (run beside the main thread's phases: their
@@ -7629,9 +8008,14 @@ def main() -> int:
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True,
     ).stdout.strip().splitlines()[0]
-    build_s = _build.build(KERNELS)
+    # the host library (g++) builds beside the kernels (nvcc)
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        host_build = pool.submit(_build.build_host, "pio_scan")
+        build_s = _build.build(KERNELS)
+        host_build_s = host_build.result()
     emit(phase="env", gpu=smi, torch=torch.__version__, cuda=torch.version.cuda,
-         python=sys.version.split()[0], kernel_build_s=build_s,
+         python=sys.version.split()[0], kernel_build_s=build_s, host_library_build_s=host_build_s,
+         host_compiler=_build.host_compiler(),
          ptxas={name: [ln.strip() for ln in _build.build_logs.get(name, "").splitlines()
                        if "registers" in ln or "spill" in ln] for name in KERNELS})
     home = work_dir(prefix="pio_smoke_home_")
@@ -7668,9 +8052,23 @@ def main() -> int:
         fleet_cli_phase(torch, foldin)
         foldin_rows, foldin_launches = foldin["rows"], foldin["launches"]
         del foldin
-        offline = offline_cli_phase(torch, os.path.join(home, "rest"), rest)
+        # before registry_cli adds events to the event server's store
         eval_rows = eval_b1_rows(torch, os.path.join(home, "rest"))
-        registry = registry_cli_phase(torch, os.path.join(home, "rest"), rest)
+        # the CLI-only phases side by side on three threads (each verb a
+        # process of its own; none times a kernel or reads a latency
+        # against a limit), beside in-process phases that do neither
+        with concurrent.futures.ThreadPoolExecutor(3) as cli_pool:
+            rest_cli = cli_pool.submit(rest_cli_phases, torch, os.path.join(home, "rest"), rest)
+            seq_gallery = cli_pool.submit(lambda: (sequential_cli_phase(os.path.join(home, "seq_cli")),
+                                                   gallery_cli_phase(os.path.join(home, "gallery_cli"))))
+            tt_jsonl = cli_pool.submit(lambda: (twotower_cli_phase(os.path.join(home, "tt_cli")),
+                                                jsonl_cli_phase(torch, os.path.join(home, "jsonl_cli"))))
+            variants = rec_variants_phase(torch, home)
+            twotower_quality_phase(torch)
+            recuser = recommendeduser_phase(torch)
+            offline, registry = rest_cli.result()
+            seq_gallery.result()
+            _, jsonl = tt_jsonl.result()
         lifecycle_cli_phase(torch, os.path.join(home, "rest"), rest, registry)
         fleet_lifecycle_cli_phase(torch, os.path.join(home, "rest"), rest, registry)
         foldin_rows += stream_b1_rows(torch, os.path.join(home, "rest"))
@@ -7681,7 +8079,6 @@ def main() -> int:
         attention = sequential_serve_phase(torch, seq_model, sessions)
         seq_bp = batchpredict_sequential_phase(torch, seq_model, sessions)
         seq_ann = sequential_ann_phase(torch, seq_model, sessions)
-        sequential_cli_phase(os.path.join(home, "seq_cli"))
         del seq_model, sessions
         tt_model, tt_algo, tt_td, tt_train_launches = twotower_train_phase(torch, home)
         tt_serve_launches = twotower_serve_phase(torch, tt_model, tt_algo)
@@ -7692,15 +8089,11 @@ def main() -> int:
         del tt_model
         twotower_step_split(torch, tt_td)
         del tt_td
-        twotower_quality_phase(torch)
-        twotower_cli_phase(os.path.join(home, "tt_cli"))
         similar = similarproduct_phase(torch)
         similarproduct_quality_phase(torch)
         similar_ann = similarproduct_ann_phase(torch, home)
         ecommerce = ecommerce_phase(torch, home)
-        recuser = recommendeduser_phase(torch)
         classification_phase(torch, home)
-        gallery_cli_phase(os.path.join(home, "gallery_cli"))
     except BaseException as exc:
         report_failure(exc, home)
         raise
@@ -7712,6 +8105,7 @@ def main() -> int:
                                   **ecommerce["launches"], **recuser["launches"],
                                   **offline["launches"], **foldin_launches,
                                   **registry["launches"], **similar_ann["launches"],
+                                  **jsonl["launches"], **variants["launches"],
                                   **ranks["sharded_als"]["launches"], **ranks["sharded_cli"]["launches"]}
     kernel["launches"] = sum(kernel["launches_by_path"].values())
     kernel["other_shapes"] += (rest["rows"] + sql_es["rows"] + eval_rows + foldin_rows + rank160["rows"]

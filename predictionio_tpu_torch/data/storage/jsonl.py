@@ -7,10 +7,12 @@ for bulk training scans (ref ``storage/hbase/.../HBPEvents.scala`` via
 to columnar arrays (``PEvents.to_columnar``) and never touch a SQL store.
 Row wire format = the event JSON contract plus ``creationTime`` and ``tags``.
 
-The port's own copy of ``predictionio_tpu/data/storage/jsonl.py``; the JAX
-package's native C++ columnar scan is not ported, so ``to_columnar`` is the
-shared python encoder of ``base.PEvents``. Every read scans the whole file:
-serving-time reads by entity belong on sqlite.
+The port's own copy of ``predictionio_tpu/data/storage/jsonl.py``.
+``to_columnar`` scans the file with the host library
+(``utils/native.scan_jsonl_columnar``) where its filters allow, as the JAX
+package does, else with the shared python encoder of ``base.PEvents``. Both
+stop at a last line another writer is still appending. Every read scans the
+whole file: serving-time reads by entity belong on sqlite.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ from predictionio_tpu_torch.data.event import Event, parse_event_time
 from predictionio_tpu_torch.data.storage import base
 from predictionio_tpu_torch.data.storage.memory import event_matches
 from predictionio_tpu_torch.data.storage.registry import default_basedir
+from predictionio_tpu_torch.utils import native
 
 
 def _event_to_row(e: Event) -> dict:
@@ -252,6 +255,63 @@ class JSONLPEvents(base.PEvents):
         # abs path of this app/store root: two jsonl stores sharing one
         # snapshot root must not alias or GC each other's snapshots
         return os.path.abspath(self._files.basedir)
+
+    def to_columnar(
+        self,
+        app_id: int,
+        channel_id: int | None = None,
+        event_names: Sequence[str] | None = None,
+        rating_key: str = "rating",
+        entity_vocab: Sequence[str] | None = None,
+        target_vocab: Sequence[str] | None = None,
+        events: Iterable[Event] | None = None,
+        **find_kwargs,
+    ) -> base.ColumnarEvents:
+        """The host library's scan of the file when its filters can say what
+        is asked (event names, entity and target types; no time window, no
+        frozen vocabulary, no events passed in), else the python encoder."""
+        if event_names is not None:
+            event_names = list(event_names)
+        # ``...`` is the find() "don't care" sentinel: the same as no filter
+        native_kwargs = {k: v for k, v in find_kwargs.items() if v is not ...}
+        path = self._files.path(app_id, channel_id)
+        native_ok = (
+            events is None
+            and entity_vocab is None
+            and target_vocab is None
+            and set(native_kwargs) <= {"entity_type", "target_entity_type"}
+            # an explicit None filter means "must be absent", which the scan
+            # does not express; event_names=[] means "match nothing"
+            and native_kwargs.get("entity_type", "") is not None
+            and native_kwargs.get("target_entity_type", "") is not None
+            and event_names != []
+            and os.path.exists(path)  # no file: no events, the encoder's empty block
+        )
+        if not native_ok:
+            return super().to_columnar(
+                app_id, channel_id, event_names=event_names, rating_key=rating_key,
+                entity_vocab=entity_vocab, target_vocab=target_vocab, events=events,
+                **find_kwargs,
+            )
+        raw = native.scan_jsonl_columnar(
+            path,
+            event_names=event_names or None,
+            rating_key=rating_key,
+            entity_type=native_kwargs.get("entity_type"),
+            target_entity_type=native_kwargs.get("target_entity_type"),
+        )
+        return base.ColumnarEvents(
+            event_ids=raw["event_ids"],
+            event_names=[raw["event_vocab"][c] for c in raw["event_codes"]],
+            entity_ids=raw["entity_ids"],
+            target_ids=raw["target_ids"],
+            event_codes=raw["event_codes"],
+            timestamps=raw["timestamps"],
+            ratings=raw["ratings"],
+            entity_vocab=raw["entity_vocab"],
+            target_vocab=raw["target_vocab"],
+            event_vocab=raw["event_vocab"],
+        )
 
 
 class JSONLStorageClient:

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from predictionio_tpu_torch.ops.spd_solve import batched_spd_solve_auto
+from predictionio_tpu_torch.utils import native
 from predictionio_tpu_torch.utils.device import resolve_device
 
 
@@ -154,12 +155,18 @@ def _compress_ratings_wire(vals: np.ndarray) -> tuple[np.ndarray, np.ndarray | N
 def _host_group_by(
     rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_entities: int
 ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
-    """Stable group-by-entity (numpy stable argsort). Ids must lie in
-    [0, n_entities): an oversized id would corrupt every block table."""
-    if rows.shape[0] and int(rows.max()) >= n_entities:
-        raise ValueError(
-            f"entity index {int(rows.max())} out of range for {n_entities} entities"
-        )
+    """Stable group-by-entity: the host library's counting sort
+    (``utils/native.coo_group``, one pass each for histogram and scatter),
+    as the JAX package does. Ids must lie in [0, n_entities), or it raises:
+    an oversized id would corrupt every block table."""
+    return native.coo_group(rows, cols, vals, n_entities)
+
+
+def _host_group_by_plain(
+    rows: np.ndarray, cols: np.ndarray, vals: np.ndarray, n_entities: int
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``_host_group_by``'s plain version (numpy stable argsort), which
+    tests and chip_smoke.py hold it to bit for bit."""
     order = np.argsort(rows, kind="stable")
     deg = np.bincount(rows, minlength=n_entities).astype(np.int32)
     return cols[order], vals[order], deg

@@ -4,9 +4,11 @@
 Reference parity: ``examples/scala-parallel-similarproduct/
 multi-events-multi-algos/src/main/scala/CooccurrenceAlgorithm.scala:30-90``
 — distinct (user, item) interactions, per-user ordered item pairs, pair
-counts, top-N cooccurring items kept per item. Host code: the port does not
-build the JAX package's native library, so it takes that module's scipy
-formulation, ``A.T @ A`` over the distinct binary user x item matrix.
+counts, top-N cooccurring items kept per item. Host code, as in the JAX
+package: the host library's dense-row count and top-N select
+(``utils/native.cooccur_topn``), and past 2^28 cells of that dense matrix
+the scipy formulation, ``A.T @ A`` over the distinct binary user x item
+matrix.
 """
 
 from __future__ import annotations
@@ -14,6 +16,8 @@ from __future__ import annotations
 from typing import Sequence
 
 import numpy as np
+
+from predictionio_tpu_torch.utils import native
 
 
 def cooccurrence_top_n(
@@ -23,19 +27,37 @@ def cooccurrence_top_n(
     top_n: int,
 ) -> dict[int, list[tuple[int, int]]]:
     """Returns item -> [(other_item, count)] sorted by count descending,
-    then item ascending, at most ``top_n`` long. With A the distinct binary
-    user x item interaction matrix, ``A.T @ A`` is the full cooccurrence
-    count matrix (diagonal = item popularity, zeroed out)."""
-    from scipy import sparse
-
+    then item ascending, at most ``top_n`` long: the host library's count
+    and select, or, for a vocabulary too large for its dense matrix, the
+    scipy formulation (``_cooccurrence_top_n_scipy``)."""
     u = np.asarray(user_idx, np.int64)
     it = np.asarray(item_idx, np.int64)
     if len(u) == 0:
         return {}
     # distinct (user, item) via 1-D codes (np.unique(axis=0) sorts
-    # structured voids, about 50x slower at ML-1M scale)
+    # structured voids, about 50x slower at ML-1M scale). The sorted codes
+    # come back grouped by user with items ascending within a user: the
+    # host library's input contract.
     codes = np.unique(u * n_items + it)
     users, items = codes // n_items, codes % n_items
+    dense = native.cooccur_topn(users, items, n_items, top_n)
+    if dense is None:
+        return _cooccurrence_top_n_scipy(users, items, n_items, top_n)
+    out_items, out_counts = dense
+    n_valid = (out_items >= 0).sum(axis=1)  # -1 padding is a tail
+    items_l, counts_l = out_items.tolist(), out_counts.tolist()
+    return {item: list(zip(items_l[item][:nv], counts_l[item][:nv]))
+            for item, nv in enumerate(n_valid.tolist()) if nv}
+
+
+def _cooccurrence_top_n_scipy(
+    users: np.ndarray, items: np.ndarray, n_items: int, top_n: int
+) -> dict[int, list[tuple[int, int]]]:
+    """With A the distinct binary user x item interaction matrix, ``A.T @
+    A`` is the full cooccurrence count matrix (diagonal = item popularity,
+    zeroed out). ``users``/``items`` are the distinct pairs."""
+    from scipy import sparse
+
     n_users = int(users.max()) + 1
     A = sparse.csr_matrix(
         (np.ones(len(users), np.int64), (users, items)),

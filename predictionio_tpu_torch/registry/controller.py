@@ -30,6 +30,14 @@ shapes (:func:`matched_work_p95`), and compares the p95s there. Dividing
 by the row count instead would make the small lane read slow, since a
 batch has a fixed launch cost.
 
+A p95 over a bake's few candidate batches is its largest sample or close
+to it, so one slow batch would move it. The veto therefore also counts
+the candidate's samples above ``max_p95_ratio`` times the stable's p95
+(both at the common size) and needs a count that an equal candidate, 5 %
+of whose samples lie above the stable's p95, reaches with probability
+below 1 % (:func:`slow_batches_needed`). A candidate with too few samples
+for any such count waits.
+
 (Own copy of ``predictionio_tpu/registry/controller.py``: the same
 verdicts on the same metric sequences, except the latency gate's. The
 reference compares raw per-batch p95s and so vetoes an equal candidate
@@ -99,6 +107,26 @@ _KAPPAS = np.concatenate([[0.0], np.geomspace(1e-3, 10.0, 200)])
 _SHAPES_DIFFER_F = 10.83
 # distinct row counts a lane needs before it may have a shape of its own
 _MIN_ROW_COUNTS = 3
+# the latency veto's count: each sample of an equal candidate lies above the
+# stable's p95 with probability TAIL_SHARE, and the count a veto needs is one
+# such a lane reaches with probability below VETO_ALPHA
+TAIL_SHARE = 0.05
+VETO_ALPHA = 0.01
+
+
+def slow_batches_needed(n: int) -> int | None:
+    """The smallest k with P(Binomial(n, TAIL_SHARE) >= k) < VETO_ALPHA:
+    how many of a candidate's n samples must be slow for the latency veto.
+    None when no k <= n qualifies (n < 2): too few samples to judge."""
+    p = TAIL_SHARE
+    pmf = (1.0 - p) ** n  # P(X = 0)
+    below = 0.0  # P(X < k)
+    for k in range(1, n + 1):
+        below += pmf
+        if 1.0 - below < VETO_ALPHA:
+            return k
+        pmf *= (n - k + 1) / k * p / (1.0 - p)  # P(X = k)
+    return None
 
 
 def _shape_errors(rows: np.ndarray, secs: np.ndarray) -> np.ndarray:
@@ -136,38 +164,43 @@ def _relative_row_costs(data: list[tuple[np.ndarray, np.ndarray]]) -> list[float
     return [float(_KAPPAS[shared])] * len(data)
 
 
-def matched_work_p95(
-    lanes: list[list[tuple[int, float]]], p95: Callable[[list[float]], float]
-) -> list[float]:
-    """Each lane's predict p95 at one common batch size.
+def matched_work_samples(lanes: list[list[tuple[int, float]]]) -> list[np.ndarray]:
+    """Each lane's predict seconds scaled to one common batch size.
 
     ``lanes`` holds each lane's (rows, seconds) samples. Every sample is
     scaled along its lane's cost shape (:func:`_relative_row_costs`) to the
-    common size, the mean of the lanes' mean row counts, and ``p95`` is
-    taken over the scaled samples, so the tail stays in. The lanes share
+    common size, the mean of the lanes' mean row counts. The lanes share
     one shape, fitted from all their samples, unless their samples show
     two: a lane that saw few row counts (the small arm of a 0.05 split)
     cannot bend the shared one, as a slope of its own would. Samples of
     equal rows are not moved, so lanes served at one batch size are
-    compared as they were measured. 0.0 for a lane without samples."""
+    compared as they were measured. An empty array for a lane without
+    samples."""
     data = [
         (np.asarray([r for r, _ in pairs], np.float64), np.asarray([t for _, t in pairs], np.float64))
         for pairs in lanes
     ]
     seen = [(rows, secs) for rows, secs in data if rows.size]
     if not seen:
-        return [0.0] * len(lanes)
+        return [secs for _, secs in data]
     kappas = iter(_relative_row_costs(seen))
     common = float(np.mean([rows.mean() for rows, _ in seen]))
     out = []
     for rows, secs in data:
-        if not rows.size:
-            out.append(0.0)
-            continue
-        kappa = next(kappas)
-        # pio-lint: disable=hostsync-serving-path -- a host numpy array of latency samples, no tensor
-        out.append(p95((secs * (1.0 + kappa * common) / (1.0 + kappa * rows)).tolist()))
+        if rows.size:
+            kappa = next(kappas)
+            secs = secs * (1.0 + kappa * common) / (1.0 + kappa * rows)
+        out.append(secs)
     return out
+
+
+def matched_work_p95(
+    lanes: list[list[tuple[int, float]]], p95: Callable[[list[float]], float]
+) -> list[float]:
+    """Each lane's predict p95 at one common batch size: ``p95`` over the
+    lane's :func:`matched_work_samples`, so the tail stays in. 0.0 for a
+    lane without samples."""
+    return [p95(secs.tolist()) if secs.size else 0.0 for secs in matched_work_samples(lanes)]
 
 
 class RolloutController:
@@ -248,14 +281,22 @@ class RolloutController:
             )
         # -- latency gate (windowed: this bake's samples only — a re-staged
         # candidate must not be judged on a previous bake's latency; both
-        # lanes at one batch size — the split must not read as latency) ---
-        cand_p95, stable_p95 = self.latency_p95s()
-        if cand_p95 > 0 and stable_p95 > 0 and cand_p95 > stable_p95 * c.max_p95_ratio:
-            return (
-                VERDICT_ROLLBACK,
-                f"latency gate: candidate p95 {cand_p95 * 1e3:.1f}ms > "
-                f"{c.max_p95_ratio:.2f}x stable {stable_p95 * 1e3:.1f}ms",
-            )
+        # lanes at one batch size — the split must not read as latency;
+        # more slow batches than an equal lane's tail gives) ---------------
+        read = self.latency_read()
+        cand_p95, stable_p95 = read["candidate_p95"], read["stable_p95"]
+        if cand_p95 > 0 and stable_p95 > 0:
+            if read["slow_needed"] is None:
+                return (
+                    VERDICT_WAIT,
+                    f"latency gate: {read['samples']} candidate batch(es), too few to judge",
+                )
+            if cand_p95 > stable_p95 * c.max_p95_ratio and read["slow"] >= read["slow_needed"]:
+                return (
+                    VERDICT_ROLLBACK,
+                    f"latency gate: candidate p95 {cand_p95 * 1e3:.1f}ms > "
+                    f"{c.max_p95_ratio:.2f}x stable {stable_p95 * 1e3:.1f}ms",
+                )
         # -- divergence gate (shadow only) ----------------------------------
         if b.mode == "shadow" and scored > 0:
             div_rate = diverged / scored
@@ -273,19 +314,32 @@ class RolloutController:
             return VERDICT_READY, reason
         return VERDICT_PROMOTE, reason
 
-    def latency_p95s(self) -> tuple[float, float]:
-        """(candidate, stable) predict p95 over this bake's samples, each
-        lane at the common batch size of :func:`matched_work_p95`; 0.0 for
-        a lane without samples."""
+    def latency_read(self) -> dict:
+        """What the latency gate reads over this bake's samples, both lanes
+        at the common batch size of :func:`matched_work_samples`: each
+        lane's predict p95 (the histogram's, 0.0 for a lane without
+        samples), the candidate's sample count, how many of them lie above
+        ``max_p95_ratio`` times the stable's exact p95 (``slow``), and the
+        count a veto needs (:func:`slow_batches_needed`)."""
         b = self._baseline
         if b is None:
-            return 0.0, 0.0
-        lanes = [
+            return {"candidate_p95": 0.0, "stable_p95": 0.0, "samples": 0, "slow": 0, "slow_needed": None}
+        cand, stable = matched_work_samples([
             self.instruments.predict_samples_since(b.candidate_version, b.cand_predict_mark),
             self.instruments.predict_samples_since(b.stable_version, b.stable_predict_mark),
-        ]
-        cand, stable = matched_work_p95(lanes, self.instruments.p95_of)
-        return cand, stable
+        ])
+        slow = 0
+        if cand.size and stable.size:
+            slow = int((cand > self.criteria.max_p95_ratio * float(np.percentile(stable, 95))).sum())
+        # pio-lint: disable=hostsync-serving-path -- host numpy arrays of latency samples, no tensor
+        cand_p95, stable_p95 = (self.instruments.p95_of(x.tolist()) if x.size else 0.0 for x in (cand, stable))
+        return {
+            "candidate_p95": cand_p95,
+            "stable_p95": stable_p95,
+            "samples": int(cand.size),
+            "slow": slow,
+            "slow_needed": slow_batches_needed(int(cand.size)),
+        }
 
     def snapshot(self) -> dict:
         """JSON-ready controller state for /models and `pio models show`."""

@@ -11,12 +11,19 @@ or per row only (at the common size of 8 rows a 3x per-row cost is 2.09x
 the stable's time, 2.5x is 1.82x).
 """
 
+import math
+
 import numpy as np
 import pytest
 
 from predictionio_tpu_torch.obs.metrics import MetricsRegistry
 from predictionio_tpu_torch.registry import PromotionCriteria, RolloutController, RolloutInstruments
-from predictionio_tpu_torch.registry.controller import VERDICT_PROMOTE, VERDICT_ROLLBACK, matched_work_p95
+from predictionio_tpu_torch.registry.controller import (
+    VERDICT_PROMOTE,
+    VERDICT_ROLLBACK,
+    VERDICT_WAIT,
+    matched_work_p95,
+)
 from predictionio_tpu_torch.registry.router import LANE_CANDIDATE, LANE_STABLE
 
 FIXED_S, PER_ROW_S = 0.0008, 0.00012  # a batch's launch cost and each row's
@@ -166,3 +173,81 @@ def test_a_new_bake_reads_only_its_own_samples():
     inst.observe_predict(0.01, 4, version="v2")
     assert inst.predict_samples_since("v2", mark) == [(4, 0.01)]
     assert inst.predict_samples_since("v9", 0) == []
+
+
+# ---------------------------------------------------------------------------
+# thin candidates (ROADMAP C20): a p95 over a bake's few candidate batches is
+# its largest sample or close to it, so the veto also needs a count of slow
+# batches that an equal lane reaches with probability below 1 %
+# ---------------------------------------------------------------------------
+
+
+def _bake(stable: list, cand: list):
+    """One bake of given (rows, seconds) batches per lane through the
+    port's controller: its (verdict, reason) and what the gate read."""
+    inst = RolloutInstruments(MetricsRegistry())
+    clock = FakeClock()
+    ctrl = RolloutController(inst, PromotionCriteria(bake_window_s=10.0, min_requests=10), clock=clock)
+    ctrl.begin("v1", "v2", "canary")
+    for version, lane, batches in (("v1", LANE_STABLE, stable), ("v2", LANE_CANDIDATE, cand)):
+        for rows, seconds in batches:
+            inst.requests.inc(rows, version=version, lane=lane)
+            inst.observe_predict(seconds, rows, version=version)
+    clock.t += 11
+    return ctrl.evaluate(), ctrl.latency_read()
+
+
+def _equal_lane(n: int, rng, rows: int = 8, slow: int = 0, factor: float = 2.5) -> list:
+    """n batches of ``rows`` rows at the shared cost with 5 % jitter, the
+    last ``slow`` of them ``factor`` times slower."""
+    return [(rows, (FIXED_S + PER_ROW_S * rows) * float(np.exp(0.05 * rng.normal()))
+             * (factor if k >= n - slow else 1.0)) for k in range(n)]
+
+
+def test_slow_batches_needed_is_the_binomial_tail_of_an_equal_lane():
+    from predictionio_tpu_torch.registry.controller import slow_batches_needed
+
+    assert [slow_batches_needed(n) for n in (0, 1, 2, 3, 4, 6, 20, 100)] == [None, None, 2, 2, 3, 3, 5, 12]
+    for n in (2, 6, 20, 100, 400):
+        k = slow_batches_needed(n)
+        tail = lambda k: sum(math.comb(n, j) * 0.05**j * 0.95 ** (n - j) for j in range(k, n + 1))  # noqa: E731
+        assert tail(k) < 0.01 <= tail(k - 1)
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_one_slow_batch_of_a_bakes_handful_rolls_back_no_equal_candidate(seed):
+    """Equal lanes; the candidate saw 6 batches, one of them 2.5x slow (PR
+    20's run B1). Its p95 over six samples reads past 1.5x the stable's,
+    which alone vetoed before; one slow batch of six is below the three an
+    equal lane reaches with probability 1 %, so the bake promotes."""
+    rng = np.random.default_rng(seed)
+    (verdict, reason), read = _bake(_equal_lane(300, rng), _equal_lane(6, rng, slow=1))
+    assert read["candidate_p95"] > 1.5 * read["stable_p95"]
+    assert (read["samples"], read["slow"], read["slow_needed"]) == (6, 1, 3)
+    assert verdict == VERDICT_PROMOTE, reason
+
+
+@pytest.mark.parametrize("seed", range(5))
+def test_two_slow_batches_of_many_roll_back_no_equal_candidate_but_most_slow_do(seed):
+    rng = np.random.default_rng(seed)
+    stable = _equal_lane(300, rng)
+    (verdict, reason), read = _bake(stable, _equal_lane(60, rng, slow=2))
+    assert read["slow"] == 2 and read["slow_needed"] == 8
+    assert verdict == VERDICT_PROMOTE, reason
+    (verdict, reason), read = _bake(stable, _equal_lane(60, rng, slow=40, factor=2.0))
+    assert read["slow"] == 40
+    assert verdict == VERDICT_ROLLBACK and reason.startswith("latency gate:"), reason
+
+
+@pytest.mark.parametrize("factor", [1.0, 3.0])
+def test_a_candidate_too_thin_to_judge_waits(factor):
+    """One candidate batch of 16 queries passes the window and the
+    request minimum, but no count of one batch can tell a slow lane from
+    an equal one: the gate waits, equal or slow, and never promotes."""
+    rng = np.random.default_rng(0)
+    (verdict, reason), read = _bake(_equal_lane(300, rng), _equal_lane(1, rng, rows=16, slow=1, factor=factor))
+    assert read["samples"] == 1 and read["slow_needed"] is None
+    assert verdict == VERDICT_WAIT and reason.startswith("latency gate:"), reason
+    (verdict, _), _ = _bake(_equal_lane(300, rng),
+                            _equal_lane(2, rng, rows=16, slow=2 if factor > 1 else 0, factor=factor))
+    assert verdict == (VERDICT_ROLLBACK if factor > 1 else VERDICT_PROMOTE)
